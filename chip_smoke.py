@@ -18,6 +18,12 @@ JSON line per phase; any failure is a non-zero exit:
            attention, and prefill -> decode against the full forward
   offload  the same requests with the KV pool on the device, split by an
            OffloadPlan, and fully in pinned host memory: identical tokens
+  runtime  SliceRuntime with two tenants: llama3-8b at full width and depth
+           on 2s.32c with an HBM budget that spills the embedding table, the
+           KV pool and one stacked MLP matrix to pinned host memory (the
+           matrix streamed through stream_matmul in every prefill and tick),
+           next to gpt2-124m on 1s.16c; the counts are set to 0 just before
+           SliceRuntime.run and read just after
   gpt2     gpt2-124m at full size (layernorm, learned positions, tanh-GELU,
            biases, tied embeddings)
 
@@ -29,7 +35,12 @@ inputs stay in the L2 cache between launches, as they do for the real caller
 whose previous kernels just wrote them. bound_ms is the larger of bytes moved
 (each input read once, the output written once) over 3.35 TB/s and operations
 over the peak rate of the input type (989 TFLOP/s bf16 on the tensor cores,
-67 TFLOP/s fp32), the published H100 SXM figures.
+67 TFLOP/s fp32), the published H100 SXM figures. For a weight in pinned host
+memory the bytes of the weight cross the host link; its bound is the larger
+of those bytes over the link's peak rate and the device bound. The peak is
+that of the card's published host interface, PCIe Gen5 x16 (lanes x transfer
+rate x line-code efficiency, one direction: 63.0 GB/s); the rate one 1 GiB
+pinned -> device copy reaches between CUDA events is printed beside it.
 """
 from __future__ import annotations
 
@@ -44,9 +55,28 @@ SEED = 0
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 TOL = {"bfloat16": 2e-2, "float32": 2e-5}     # max |diff| / max |plain|
+# stream_matmul: the reference's fp32 tolerance (tests/test_kernels.py), and
+# one bf16 rounding of the output in bf16
+STREAM_TOL = {"bfloat16": 2e-2, "float32": 1e-5}
 # whole-model logits in bf16 through up to 32 layers, two routes whose bf16
 # roundings fall at different places: max |diff| / max |logit|
 MODEL_TOL = 5e-2
+# PCIe transfer rate per lane in GT/s, by generation
+PCIE_GT_PER_S = {1: 2.5, 2: 5.0, 3: 8.0, 4: 16.0, 5: 32.0}
+
+
+def pcie_peak_bytes_per_s(gen: int, width: int) -> float:
+    """Peak data rate of one direction of a PCIe link: lanes x transfer
+    rate x line-code efficiency (8b/10b up to Gen2, 128b/130b from Gen3)."""
+    if gen not in PCIE_GT_PER_S or width < 1:
+        raise ValueError(f"no peak rate for a PCIe Gen{gen} x{width} link")
+    code = 8 / 10 if gen <= 2 else 128 / 130
+    return PCIE_GT_PER_S[gen] * 1e9 * width * code / 8
+
+
+# the H100's host interface, PCIe Gen5 x16: a host link that trains lower
+# only makes the bound looser, never too tight
+HOST_LINK_BYTES_PER_S = pcie_peak_bytes_per_s(5, 16)
 
 
 def emit(phase: str, **fields) -> None:
@@ -72,16 +102,23 @@ def main() -> None:
     from repro_torch.core.offload import memory_kind_of, place_tree, plan_offload
     from repro_torch.kernels import _build
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import stream_matmul as sm
+    from repro_torch.models import layers as mlayers
     from repro_torch.models.model_zoo import build_model
-    from repro_torch.serving import Request, ServingEngine, TenantEngine
+    from repro_torch.serving import (Request, ServingEngine, SliceRuntime,
+                                     TenantEngine, TenantSpec)
 
     torch.backends.cuda.matmul.allow_tf32 = False   # fp32 references in fp32
     dev = torch.device("cuda")
-    kernel_wrappers = {"flash_attention_fwd": fa.flash_attention_fwd}
+    kernel_wrappers = {"flash_attention_fwd": fa.flash_attention_fwd,
+                       "stream_matmul": sm.stream_matmul}
 
     def reset_counts():
         for w in kernel_wrappers.values():
             w.launches = 0
+        sm.stream_matmul.h2d_bytes = 0
+        mlayers.gather_rows.h2d_bytes = 0
 
     # ------------------------------------------------------------------ env
     smi = subprocess.run(
@@ -169,7 +206,84 @@ def main() -> None:
              flash_case(32, 300, 128, "float32", True),
              flash_case(32, 256, 128, "float32", False),
              flash_case(12, 300, 64, "bfloat16", True)]     # gpt2's head dim
-    emit("kernels", flash_attention_fwd=cases)
+
+    # the host link's rate: one 1 GiB pinned -> device copy between events
+    host_buf = torch.empty(1 << 30, dtype=torch.uint8, pin_memory=True)
+    dev_buf = torch.empty(1 << 30, dtype=torch.uint8, device=dev)
+    link_ms = time_ms(lambda: dev_buf.copy_(host_buf, non_blocking=True),
+                      warmup=1, iters=5)
+    link_bytes_per_s = (1 << 30) / (link_ms * 1e-3)
+    del host_buf, dev_buf
+    # a bound is never above what was reached
+    link_bound_rate = max(HOST_LINK_BYTES_PER_S, link_bytes_per_s)
+
+    def stream_case(M, K, N, xdt, wdt, where, transposed=False):
+        """x (M, K) on the card; w (K, N) on the card or in pinned host
+        memory, or the transposed view of an (N, K) table."""
+        g = torch.Generator(device=dev).manual_seed(SEED + M + K + N)
+        x = torch.randn(M, K, device=dev, generator=g).to(getattr(torch, xdt))
+        shape = (N, K) if transposed else (K, N)
+        w_dev = (torch.randn(*shape, device=dev, generator=g)
+                 * K ** -0.5).to(getattr(torch, wdt))
+        w = w_dev if where == "device" else w_dev.cpu().pin_memory()
+        if transposed:
+            w_dev, w = w_dev.T, w.T
+        before = sm.stream_matmul.h2d_bytes
+        got = sm.stream_matmul(x, w)
+        h2d = sm.stream_matmul.h2d_bytes - before
+        want = sm.stream_matmul_plain(x, w_dev)
+        torch.cuda.synchronize()
+        if not torch.isfinite(got.float()).all():
+            fail(f"stream_matmul gave non-finite values at {(M, K, N)}")
+        abs_err = float((got.float() - want.float()).abs().max())
+        rel = abs_err / (float(want.float().abs().max()) + 1e-9)
+        tol = STREAM_TOL[xdt]
+        if rel >= tol:
+            fail(f"stream_matmul disagrees with its plain version at "
+                 f"{(M, K, N)} x {xdt} w {wdt} {where}: rel {rel:.3e} >= {tol}")
+        w_bytes = K * N * w.element_size()
+        if h2d != (w_bytes if where == "pinned" else 0):
+            fail(f"stream_matmul streamed {h2d} bytes for a {where} w of "
+                 f"{w_bytes} bytes")
+        nbytes = (M * K + M * N) * x.element_size() + w_bytes
+        flops = 2.0 * M * K * N
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = flops / PEAK_FLOPS[xdt] * 1e3
+        t_link = w_bytes / link_bound_rate * 1e3 if where == "pinned" else 0.0
+        ms = time_ms(lambda: sm.stream_matmul(x, w))
+        lib_dev = time_ms(lambda: x @ w_dev.to(x.dtype))
+        lib_host = (time_ms(lambda: x @ w.to(dev, non_blocking=True).to(x.dtype))
+                    if where == "pinned" else None)
+        return {
+            "shape": [M, K, N], "x": xdt, "w": wdt, "where": where,
+            "transposed": transposed, "max_abs_err": abs_err, "rel_err": rel,
+            "tol": tol, "kernel_ms": ms,
+            "plain_ms": time_ms(lambda: sm.stream_matmul_plain(x, w_dev), iters=5),
+            "library_ms": lib_host if lib_host is not None else lib_dev,
+            "library_device_w_ms": lib_dev, "library_host_w_ms": lib_host,
+            "bound_ms": max(t_bytes, t_ops, t_link),
+            "bound_by": "bytes" if max(t_bytes, t_link) >= t_ops else "operations",
+            "h2d_bytes": h2d,
+            "h2d_gb_per_s": h2d / (ms * 1e-3) / 1e9 if h2d else None,
+        }
+
+    stream_cases = [
+        stream_case(4, 4096, 14336, "bfloat16", "bfloat16", "pinned"),  # decode
+        stream_case(1024, 4096, 14336, "bfloat16", "bfloat16", "pinned"),
+        stream_case(4, 14336, 4096, "bfloat16", "bfloat16", "pinned"),
+        stream_case(5, 4096, 1000, "bfloat16", "bfloat16", "pinned"),   # ragged
+        stream_case(4, 768, 50257, "bfloat16", "float32", "pinned",
+                    transposed=True),                    # gpt2's tied unembed
+        stream_case(4, 4096, 4096, "bfloat16", "float32", "pinned"),
+        stream_case(128, 512, 128, "float32", "float32", "device"),  # reference
+        stream_case(256, 1024, 384, "float32", "float32", "device"),
+        stream_case(4, 4096, 14336, "bfloat16", "bfloat16", "device"),
+    ]
+    emit("kernels", flash_attention_fwd=cases, stream_matmul=stream_cases,
+         host_link={"peak_gb_per_s": HOST_LINK_BYTES_PER_S / 1e9,
+                    "bound_gb_per_s": link_bound_rate / 1e9,
+                    "measured_ms_per_gib": link_ms,
+                    "measured_gb_per_s": link_bytes_per_s / 1e9})
 
     # ---------------------------------------------------------------- serve
     def timed_engine(engine):
@@ -367,8 +481,178 @@ def main() -> None:
     del params, model, eager
     torch.cuda.empty_cache()
 
-    # ----------------------------------------------------------------- gpt2
+    # -------------------------------------------------------------- runtime
     gcfg = get_config("gpt2-124m").with_(attn_impl="pallas", remat="none")
+    meta = build_model(cfg, dev)
+    meta_inv = meta.serving_inventory(meta.init(abstract=True)[0],
+                                      meta.cache_shapes(SLOTS, MAX_SEQ))
+    footprint = sum(t.bytes for t in meta_inv)
+    embed = sum(t.bytes for t in meta_inv if t.group == "embed")
+    kv = sum(t.bytes for t in meta_inv if t.group == "kv_cache")
+    # one byte over what spilling the table and the KV pool frees: by the
+    # planner's order the next spill is one whole stacked MLP matrix
+    llm_budget = footprint - embed - kv - 1
+    rt = SliceRuntime(device=dev)
+    t0 = time.time()
+    llm = rt.add_tenant(TenantSpec("llm", cfg, profile="2s.32c", slots=SLOTS,
+                                   max_seq=MAX_SEQ, hbm_budget=llm_budget,
+                                   seed=SEED))
+    gpt = rt.add_tenant(TenantSpec("gpt2", gcfg, profile="1s.16c", slots=SLOTS,
+                                   max_seq=256, seed=SEED))
+    torch.cuda.synchronize()
+    add_s = time.time() - t0
+    plan = llm.plan
+    streamed = [n for n in plan.offloaded if n.startswith("params/layers/")]
+    if not streamed:
+        fail(f"the plan spills no layer matrix: {plan}")
+    host_leaves = {}
+    for name in streamed:
+        leaf = llm.params["layers"][name.split("/")[-1]]
+        if memory_kind_of(leaf) != "pinned_host" or not leaf.is_pinned():
+            fail(f"{name} is not in pinned host memory after placement")
+        host_leaves[name] = leaf
+    want_kinds = {"pinned_host" if plan.is_offloaded(f"kv/{n}") else "device"
+                  for n in ("k", "v")}
+    if llm.engine.pool.memory_kinds() != want_kinds:
+        fail(f"llm pool kinds {llm.engine.pool.memory_kinds()} != {want_kinds}")
+    for t in rt.tenants.values():
+        timed_engine(t.engine)
+    llm_reqs = make_requests(cfg, LENS, MAX_NEW)
+    g_reqs = make_requests(gcfg, [5, 33, 64, 100], 8)
+    rt.submit("llm", llm_reqs)
+    rt.submit("gpt2", g_reqs)
+    reset_counts()                                   # main path starts here
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    report = rt.run()
+    torch.cuda.synchronize()
+    rt_wall = time.perf_counter() - t0
+    rt_launches = {n: w.launches for n, w in kernel_wrappers.items()}
+    weight_h2d = sm.stream_matmul.h2d_bytes
+    embed_h2d = mlayers.gather_rows.h2d_bytes
+    check_outputs(llm.engine.outputs, llm_reqs, cfg, MAX_NEW)
+    check_outputs(gpt.engine.outputs, g_reqs, gcfg, 8)
+    lst = llm.engine.stats
+    calls = (lst.admitted + lst.ticks) * cfg.num_layers * len(streamed)
+    if rt_launches["stream_matmul"] != calls:
+        fail(f"stream_matmul launched {rt_launches['stream_matmul']} times, "
+             f"expected (prefills + ticks) x layers x matrices = {calls}")
+    slice_bytes = sum(leaf[0].numel() * leaf.element_size()
+                      for leaf in host_leaves.values()) // len(streamed)
+    if weight_h2d != calls * slice_bytes:
+        fail(f"stream_matmul streamed {weight_h2d} bytes, expected "
+             f"{calls} calls x {slice_bytes} bytes")
+    want_flash = (lst.admitted * cfg.num_layers
+                  + gpt.engine.stats.admitted * gcfg.num_layers)
+    if rt_launches["flash_attention_fwd"] != want_flash:
+        fail(f"flash_attention_fwd launched {rt_launches['flash_attention_fwd']}"
+             f" times in the runtime, expected {want_flash}")
+    row_bytes = cfg.d_model * llm.params["tok_embed"].element_size()
+    want_embed = (lst.prefill_tokens + lst.ticks * SLOTS) * row_bytes
+    if plan.is_offloaded("params/tok_embed") and embed_h2d != want_embed:
+        fail(f"embedding rows moved {embed_h2d} bytes, expected {want_embed}")
+    if report["pod_utilization"] != 48 / 256:
+        fail(f"pod utilization {report['pod_utilization']} != 48/256")
+    if not 0 < report["modeled"]["throttle"] <= 1:
+        fail(f"modeled throttle {report['modeled']['throttle']}")
+
+    # the co-run must not change the tenant's tokens: a lone engine over the
+    # same placed parameters and plan, with stream_matmul timed per call
+    sm_events = []
+    ops_stream_matmul = kops.stream_matmul
+
+    def timed_stream_matmul(*a, **k):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = ops_stream_matmul(*a, **k)
+        end.record()
+        sm_events.append((start, end))
+        return out
+
+    lone = timed_engine(TenantEngine(llm.model, llm.params, slots=SLOTS,
+                                     max_seq=MAX_SEQ, plan=plan))
+    kops.stream_matmul = timed_stream_matmul
+    lone_ticks_sm = []
+    tick = lone.tick
+
+    def tick_with_share():
+        n_before = len(sm_events)
+        n_pre = len(lone.prefill_s)
+        emitted = tick()        # timed_engine's wrapper: synchronised
+        per_prefill = cfg.num_layers * len(streamed) * (len(lone.prefill_s) - n_pre)
+        lone_ticks_sm.append(sum(s.elapsed_time(e) for s, e in
+                                 sm_events[n_before + per_prefill:]))
+        return emitted
+
+    lone.tick = tick_with_share
+    try:
+        lone_out, lone_wall = run_engine(lone, make_requests(cfg, LENS, MAX_NEW))
+    finally:
+        kops.stream_matmul = ops_stream_matmul
+    if lone_out != llm.engine.outputs:
+        fail("llm tokens of the co-run differ from a lone engine's")
+
+    # full-width logits: host-placed parameters vs all on the device
+    rng = np.random.default_rng(SEED + 1)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, size=(1, 301)), device=dev)
+    on_device = dict(llm.params)
+    on_device["layers"] = {k: v.to(dev) for k, v in llm.params["layers"].items()}
+    on_device["tok_embed"] = llm.params["tok_embed"].to(dev)
+    logits_h, _, _ = llm.model.forward(llm.params, {"tokens": toks})
+    logits_d, _, _ = llm.model.forward(on_device, {"tokens": toks})
+    torch.cuda.synchronize()
+    placed_vs_device = rel_err(logits_h, logits_d)
+    if not torch.isfinite(logits_h.float()).all() or placed_vs_device >= MODEL_TOL:
+        fail(f"host-placed vs device logits: rel {placed_vs_device:.3e} "
+             f"(limit {MODEL_TOL})")
+    argmax_agree = float((logits_h.argmax(-1) == logits_d.argmax(-1)).float().mean())
+    del on_device, logits_h, logits_d
+
+    def tier_bytes(t):
+        kinds = {}
+        for leaf in list(t.params["layers"].values()) + [
+                v for k, v in t.params.items() if k != "layers"]:
+            kind = memory_kind_of(leaf)
+            kinds[kind] = kinds.get(kind, 0) + leaf.numel() * leaf.element_size()
+        return {"params_by_kind": kinds,
+                "kv_device_bytes": t.engine.pool.device_bytes,
+                "kv_host_bytes": t.engine.pool.host_bytes}
+
+    tenants_out = {}
+    for t in rt.tenants.values():
+        row = report["tenants"][t.name]
+        tenants_out[t.name] = {
+            "arch": t.spec.cfg.name, "profile": row["profile"],
+            "rect": row["rect"], "tokens": row["tokens_out"],
+            "tok_per_s": row["tok_per_s"], "ticks": row["ticks"],
+            "tick_ms_median": statistics.median(t.engine.tick_s) * 1e3,
+            "prefill_ms_median": statistics.median(
+                s for _, s in t.engine.prefill_s) * 1e3,
+            **tier_bytes(t)}
+    sm_tick_ms = statistics.median(lone_ticks_sm)
+    lone_tick_ms = statistics.median(lone.tick_s) * 1e3
+    emit("runtime", footprint=footprint, hbm_budget=llm_budget,
+         plan={"offloaded": list(plan.offloaded), "partial": list(plan.partial),
+               "resident_bytes": plan.resident_bytes, "host_bytes": plan.host_bytes},
+         add_tenants_seconds=add_s, wall_seconds=rt_wall, tenants=tenants_out,
+         llm_prefills=lst.admitted, llm_ticks=lst.ticks,
+         launches=rt_launches, stream_matmul_h2d_bytes=weight_h2d,
+         weight_h2d_bytes_per_call=slice_bytes,
+         weight_h2d_bytes_per_tick=slice_bytes * cfg.num_layers * len(streamed),
+         embed_h2d_bytes=embed_h2d,
+         lone_tokens_equal=True, lone_tick_ms_median=lone_tick_ms,
+         stream_matmul_ms_per_tick_median=sm_tick_ms,
+         stream_matmul_share_of_tick=sm_tick_ms / lone_tick_ms,
+         placed_vs_device_rel=placed_vs_device, tol=MODEL_TOL,
+         argmax_agree=argmax_agree, pod_utilization=report["pod_utilization"],
+         modeled_not_this_card=report["modeled"])
+    for name in list(rt.tenants):
+        rt.remove_tenant(name)
+    del rt, llm, gpt, lone, host_leaves, report
+    torch.cuda.empty_cache()
+
+    # ----------------------------------------------------------------- gpt2
     gmodel = build_model(gcfg, dev)
     gparams, _ = gmodel.init(torch.Generator(device=dev).manual_seed(SEED))
     geng = timed_engine(ServingEngine(gmodel, gparams, slots=2, max_seq=256))
@@ -390,7 +674,7 @@ def main() -> None:
          kernel_vs_eager_rel=g_rel)
 
     # ------------------------------------------------------------- summary
-    head = cases[0]
+    head, shead = cases[0], stream_cases[0]
     print(json.dumps({"kernels": [{
         "name": "flash_attention_fwd", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention_fwd.cu",
@@ -401,6 +685,19 @@ def main() -> None:
         "ms": head["ms"], "plain_ms": head["plain_ms"],
         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
         "library_ms": head["library_ms"],
+    }, {
+        "name": "stream_matmul", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/stream_matmul.cu",
+        "replaces": "src/repro/kernels/stream_matmul.py:55",
+        "launches": rt_launches["stream_matmul"],
+        "shape": shead["shape"], "dtype": shead["x"], "w": shead["where"],
+        "max_abs_err": max(c["max_abs_err"] for c in stream_cases),
+        "ms": shead["kernel_ms"], "plain_ms": shead["plain_ms"],
+        "bound_ms": shead["bound_ms"], "bound_by": shead["bound_by"],
+        "library_ms": shead["library_ms"],
+        "library_device_w_ms": shead["library_device_w_ms"],
+        "host_link_peak_gb_per_s": HOST_LINK_BYTES_PER_S / 1e9,
+        "host_link_measured_gb_per_s": link_bytes_per_s / 1e9,
     }]}), flush=True)
     print(card_line, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,15 +1,21 @@
 """Where a decode tick's time goes on the GPU.
 
     PYTHONPATH=src python -m repro_torch.launch.profile_serve --arch llama3-8b \
-        --full-size [--offload-kv] [--ticks 8]
+        --full-size [--offload-kv | --hbm-budget BYTES] [--ticks 8]
 
-Fills every slot of a ``ServingEngine`` with one request, warms up, then
+Fills every slot of a ``TenantEngine`` with one request, warms up, then
 profiles ``--ticks`` decode ticks with ``torch.profiler`` (host and device
 activity). Prints one JSON object: wall time per tick, device-busy time per
 tick (the sum of kernel and copy durations on the device), the idle share of
 the device, the number of kernels per tick and the kernels that take the most
 device time. A tick whose device-busy time is far below its wall time is bound
 by the host issuing small kernels, not by the card.
+
+``--hbm-budget`` profiles a ``SliceRuntime`` tenant instead, added with that
+HBM budget: the runtime cuts its ``OffloadPlan`` and places parameters and KV
+pool by it, so spilled parameters live in pinned host memory and are streamed
+through ``stream_matmul``. Copies on the side stream overlap kernels, so the
+device-busy sum can then exceed the time the device was busy.
 """
 from __future__ import annotations
 
@@ -23,7 +29,7 @@ import torch
 
 from repro_torch.configs import get_config
 from repro_torch.models.model_zoo import build_model
-from repro_torch.serving import Request, ServingEngine
+from repro_torch.serving import Request, SliceRuntime, TenantEngine, TenantSpec
 
 
 def _device_us(evt) -> float:
@@ -38,10 +44,17 @@ def profile(args) -> dict:
     cfg = (cfg.with_(remat="none", param_dtype="bfloat16") if args.full_size
            else cfg.reduced())
     cfg = cfg.with_(attn_impl=args.attn_impl)
-    model = build_model(cfg, "cuda")
-    params, _ = model.init(torch.Generator(device="cuda").manual_seed(0))
-    engine = ServingEngine(model, params, slots=args.slots,
-                           max_seq=args.max_seq, offload_kv=args.offload_kv)
+    plan = None
+    if args.hbm_budget is not None:
+        tenant = SliceRuntime(device="cuda").add_tenant(TenantSpec(
+            "profiled", cfg, slots=args.slots, max_seq=args.max_seq,
+            hbm_budget=args.hbm_budget, seed=0))
+        engine, plan = tenant.engine, tenant.plan
+    else:
+        model = build_model(cfg, "cuda")
+        params, _ = model.init(torch.Generator(device="cuda").manual_seed(0))
+        engine = TenantEngine(model, params, slots=args.slots,
+                              max_seq=args.max_seq, offload_kv=args.offload_kv)
     rng = np.random.default_rng(0)
     budget = args.warmup + args.ticks + 1
     for i in range(args.slots):
@@ -75,6 +88,7 @@ def profile(args) -> dict:
         "arch": cfg.name, "full_size": args.full_size, "slots": args.slots,
         "max_seq": args.max_seq, "prompt_len": args.prompt_len,
         "offload_kv": args.offload_kv, "ticks": args.ticks, "card": card,
+        "plan_offloaded": list(plan.offloaded) if plan else [],
         "wall_ms_per_tick": wall * 1e3 / args.ticks,
         "device_busy_ms_per_tick": busy_us / 1e3 / args.ticks,
         "device_idle_share": 1.0 - (busy_us / 1e6) / wall,
@@ -93,7 +107,11 @@ def main() -> None:
     ap.add_argument("--slots", type=int, default=4)
     ap.add_argument("--max-seq", type=int, default=2048)
     ap.add_argument("--prompt-len", type=int, default=512)
-    ap.add_argument("--offload-kv", action="store_true")
+    placement = ap.add_mutually_exclusive_group()
+    placement.add_argument("--offload-kv", action="store_true")
+    placement.add_argument("--hbm-budget", type=int, default=None,
+                           help="profile a SliceRuntime tenant whose plan is "
+                                "cut against this many device bytes")
     ap.add_argument("--warmup", type=int, default=3)
     ap.add_argument("--ticks", type=int, default=8)
     ap.add_argument("--top", type=int, default=12)

@@ -1,20 +1,30 @@
-"""Serving entry point: single-tenant continuous batching.
+"""Serving entry point: single-tenant continuous batching, or the multi-tenant
+SliceRuntime.
+
+Single tenant:
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b --requests 16
+
+Multi-tenant — pack several archs onto one modelled pod's slices, each with
+its own offload plan, and drive them round-robin:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --tenants llama3-8b:2s.32c,gpt2-124m:1s.16c --hbm-budget 380000
+
+``--hbm-budget BYTES`` pins the *first* tenant's plan budget below its
+footprint so the offload path engages (with a 4096-byte spill granule, as
+the reference does); on the card, parameters the plan spills live in pinned
+host memory and are streamed through the ``stream_matmul`` kernel.
 
 Runs on the CUDA device unless ``--device cpu`` is given. ``--full-size``
 serves the published widths and depth in bf16 weights; the default is the
 reduced same-family config. ``--attn-impl pallas`` routes causal prefill
 through the hand-written flash-attention kernel (the config value keeps the
 reference's name), ``xla`` through the eager chunked version.
-
-The multi-tenant mode (``--tenants``) belongs to the slice runtime, which is
-not ported yet.
 """
 from __future__ import annotations
 
 import argparse
-import sys
 import time
 
 import numpy as np
@@ -22,17 +32,22 @@ import torch
 
 from repro_torch.configs import get_config
 from repro_torch.models.model_zoo import build_model
-from repro_torch.serving import Request, ServingEngine
+from repro_torch.serving import Request, ServingEngine, SliceRuntime, TenantSpec
 
 
-def run_single(args) -> None:
-    cfg = get_config(args.arch)
+def _config(arch: str, args):
+    cfg = get_config(arch)
     if args.full_size:
         cfg = cfg.with_(remat="none", param_dtype="bfloat16")
     else:
-        cfg = cfg.reduced()
+        cfg = cfg.reduced().with_(remat="none")
     if args.attn_impl:
         cfg = cfg.with_(attn_impl=args.attn_impl)
+    return cfg
+
+
+def run_single(args) -> None:
+    cfg = _config(args.arch, args)
     model = build_model(cfg, args.device)
     gen = torch.Generator(device=model.device).manual_seed(0)
     params, _ = model.init(gen)
@@ -57,17 +72,56 @@ def run_single(args) -> None:
           f"offload_kv={args.offload_kv}")
 
 
+def run_multi(args) -> None:
+    rt = SliceRuntime(device=args.device)
+
+    specs = []
+    names = set()
+    for i, entry in enumerate(args.tenants.split(",")):
+        arch, _, prof = entry.partition(":")
+        cfg = _config(arch, args)
+        budget = args.hbm_budget if i == 0 and args.hbm_budget else None
+        name = arch if arch not in names else f"{arch}-{i}"
+        names.add(name)
+        specs.append(TenantSpec(
+            name=name, cfg=cfg, profile=prof or None,
+            slots=args.slots, max_seq=args.max_seq,
+            hbm_budget=budget,
+            spill_granule=4096 if budget else None))
+    for spec in specs:
+        t = rt.add_tenant(spec)
+        print(f"tenant {t.name}: slice={t.alloc.profile.name} "
+              f"rect={t.alloc.rect} offloaded={list(t.plan.offloaded)} "
+              f"partial={[n for n, _ in t.plan.partial]}")
+
+    rng = np.random.default_rng(0)
+    for spec in specs:
+        rt.submit(spec.name, [
+            Request(i, rng.integers(0, spec.cfg.vocab_size,
+                                    size=rng.integers(4, 13)).astype(np.int32),
+                    args.max_new)
+            for i in range(args.requests)])
+    report = rt.run()
+    for name, row in report["tenants"].items():
+        print(f"{name}: profile={row['profile']} tokens={row['tokens_out']} "
+              f"tok/s={row['tok_per_s']:.1f} completed={row['completed']} "
+              f"truncated={row['truncated']}")
+    print(f"pod_utilization={report['pod_utilization']:.2f} "
+          f"throttle={report['modeled']['throttle']:.2f}")
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="llama3-8b")
     ap.add_argument("--tenants", default=None,
-                    help="comma list of arch[:profile] — multi-tenant mode "
-                         "(not ported yet)")
+                    help="comma list of arch[:profile] — multi-tenant mode")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--slots", type=int, default=4)
     ap.add_argument("--max-seq", type=int, default=128)
     ap.add_argument("--max-new", type=int, default=16)
     ap.add_argument("--offload-kv", action="store_true")
+    ap.add_argument("--hbm-budget", type=int, default=None,
+                    help="pin tenant 0's plan budget (bytes) to force offload")
     ap.add_argument("--full-size", action="store_true")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")
@@ -75,9 +129,9 @@ def main() -> None:
                     help="override the config's attention implementation")
     args = ap.parse_args()
     if args.tenants:
-        sys.exit("--tenants needs the multi-tenant SliceRuntime, which the "
-                 "port does not have yet (ROADMAP queue A item 7)")
-    run_single(args)
+        run_multi(args)
+    else:
+        run_single(args)
 
 
 if __name__ == "__main__":

@@ -17,7 +17,7 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.common import ParamBuilder
+from repro_torch.models.common import ParamBuilder, weight_matmul
 from repro_torch.models.layers import apply_rope, rms_norm_vec
 
 
@@ -60,9 +60,9 @@ def q_proj(cfg: ModelConfig, p, x, positions, *, prefix: str = "",
            use_rope: bool = True):
     B, S, _ = x.shape
     H, hd = cfg.num_heads, cfg.head_dim
-    q = x @ p[prefix + "wq"].to(x.dtype)
+    q = weight_matmul(x, p[prefix + "wq"])
     if cfg.use_bias:
-        q = q + p[prefix + "bq"].to(x.dtype)
+        q = q + p[prefix + "bq"].to(x.device, x.dtype)
     q = q.reshape(B, S, H, hd)
     if cfg.use_qk_norm:
         q = rms_norm_vec(q, p[prefix + "q_norm"], cfg.norm_eps)
@@ -73,11 +73,11 @@ def kv_proj(cfg: ModelConfig, p, x, positions, *, prefix: str = "",
             use_rope: bool = True):
     B, S, _ = x.shape
     KV, hd = cfg.num_kv_heads, cfg.head_dim
-    k = x @ p[prefix + "wk"].to(x.dtype)
-    v = x @ p[prefix + "wv"].to(x.dtype)
+    k = weight_matmul(x, p[prefix + "wk"])
+    v = weight_matmul(x, p[prefix + "wv"])
     if cfg.use_bias:
-        k = k + p[prefix + "bk"].to(x.dtype)
-        v = v + p[prefix + "bv"].to(x.dtype)
+        k = k + p[prefix + "bk"].to(x.device, x.dtype)
+        v = v + p[prefix + "bv"].to(x.device, x.dtype)
     k = k.reshape(B, S, KV, hd)
     v = v.reshape(B, S, KV, hd)
     if cfg.use_qk_norm:
@@ -88,9 +88,9 @@ def kv_proj(cfg: ModelConfig, p, x, positions, *, prefix: str = "",
 
 def out_proj(cfg: ModelConfig, p, attn, *, prefix: str = ""):
     B, S = attn.shape[:2]
-    out = attn.reshape(B, S, -1) @ p[prefix + "wo"].to(attn.dtype)
+    out = weight_matmul(attn.reshape(B, S, -1), p[prefix + "wo"])
     if cfg.use_bias:
-        out = out + p[prefix + "bo"].to(attn.dtype)
+        out = out + p[prefix + "bo"].to(attn.device, attn.dtype)
     return out
 
 

@@ -15,6 +15,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import ops as kops
 
 PyTree = Any
 
@@ -81,6 +82,23 @@ class ParamBuilder:
         self.params[name] = sub.params
         self.specs[name] = sub.specs
         return sub
+
+
+# ---------------------------------------------------------------------------
+# using a parameter wherever the offload plan placed it
+# ---------------------------------------------------------------------------
+def weight_matmul(x, w):
+    """``x @ w`` for a weight in either tier. On x's device it is the
+    reference's ``x @ w.astype(x.dtype)``. A weight left in (pinned) host
+    memory beside CUDA activations is streamed through the ``stream_matmul``
+    kernel with x flattened to 2-D: it is neither cast on the host nor copied
+    whole, and its bytes cross the host link once per call. The route
+    follows where the tensor lives; the wrapper raises on what it cannot
+    stream (e.g. pageable host memory)."""
+    if w.device == x.device:
+        return x @ w.to(x.dtype)
+    out = kops.stream_matmul(x.reshape(-1, x.shape[-1]), w)
+    return out.reshape(*x.shape[:-1], w.shape[-1])
 
 
 # ---------------------------------------------------------------------------

@@ -2,7 +2,10 @@
 
 Counterparts of ``repro/models/layers.py``; ``apply_mrope`` arrives with the
 VLM family. Weights are cast to the activation dtype at each use, as the
-reference does.
+reference does, and may live in either tier of an offload plan: products go
+through ``weight_matmul``, small leaves (norm scales, biases) are moved to
+the activations' device at use, and embedding rows of a host-tier table are
+gathered on the host.
 """
 from __future__ import annotations
 
@@ -12,7 +15,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.common import ParamBuilder, cdtype
+from repro_torch.models.common import ParamBuilder, cdtype, weight_matmul
 
 
 # ---------------------------------------------------------------------------
@@ -30,13 +33,13 @@ def init_norm(b: ParamBuilder, name: str, dim_role: str = "none",
 
 def apply_norm(cfg: ModelConfig, p, name: str, x):
     """RMSNorm or LayerNorm over the last dim, fp32 inside."""
-    scale = p[f"{name}_scale"].float()
+    scale = p[f"{name}_scale"].to(x.device, torch.float32)
     xf = x.float()
     if cfg.norm == "layernorm":
         mu = xf.mean(dim=-1, keepdim=True)
         var = (xf - mu).square().mean(dim=-1, keepdim=True)
         y = (xf - mu) * torch.rsqrt(var + cfg.norm_eps)
-        y = y * scale + p[f"{name}_bias"].float()
+        y = y * scale + p[f"{name}_bias"].to(x.device, torch.float32)
     else:  # rmsnorm
         ms = xf.square().mean(dim=-1, keepdim=True)
         y = xf * torch.rsqrt(ms + cfg.norm_eps) * scale
@@ -47,7 +50,8 @@ def rms_norm_vec(x, scale, eps: float = 1e-5):
     """RMSNorm over the last dim with an explicit scale vector."""
     xf = x.float()
     ms = xf.square().mean(dim=-1, keepdim=True)
-    return (xf * torch.rsqrt(ms + eps) * scale.float()).to(x.dtype)
+    scale = scale.to(x.device, torch.float32)
+    return (xf * torch.rsqrt(ms + eps) * scale).to(x.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -94,19 +98,19 @@ def _act(cfg: ModelConfig, x):
 
 
 def apply_mlp(cfg: ModelConfig, p, x):
-    h = x @ p["w_in"].to(x.dtype)
+    h = weight_matmul(x, p["w_in"])
     if cfg.use_bias:
-        h = h + p["b_in"].to(x.dtype)
+        h = h + p["b_in"].to(x.device, x.dtype)
     if cfg.glu:
-        g = x @ p["w_gate"].to(x.dtype)
+        g = weight_matmul(x, p["w_gate"])
         if cfg.use_bias:
-            g = g + p["b_gate"].to(x.dtype)
+            g = g + p["b_gate"].to(x.device, x.dtype)
         h = _act(cfg, g) * h
     else:
         h = _act(cfg, h)
-    out = h @ p["w_out"].to(x.dtype)
+    out = weight_matmul(h, p["w_out"])
     if cfg.use_bias:
-        out = out + p["b_out"].to(x.dtype)
+        out = out + p["b_out"].to(x.device, x.dtype)
     return out
 
 
@@ -124,19 +128,34 @@ def init_embeddings(b: ParamBuilder):
         b.add("lm_head", (cfg.d_model, cfg.vocab_size), ("d_fsdp", "vocab"))
 
 
+def gather_rows(table, idx):
+    """``table[idx]`` on idx's device, in the table's dtype. A host-tier
+    table beside CUDA indices is gathered on the host and only the rows
+    cross the link (the row traffic the planner prices an embedding spill
+    at); ``gather_rows.h2d_bytes`` counts them."""
+    if table.device == idx.device:
+        return table[idx]
+    rows = table[idx.cpu()]
+    gather_rows.h2d_bytes += rows.numel() * rows.element_size()
+    return rows.to(idx.device)
+
+
+gather_rows.h2d_bytes = 0
+
+
 def embed_tokens(cfg: ModelConfig, p, tokens,
                  positions: Optional[torch.Tensor] = None):
     """Rows are gathered in the parameter dtype, then cast."""
-    x = p["tok_embed"][tokens].to(cdtype(cfg))
+    x = gather_rows(p["tok_embed"], tokens).to(cdtype(cfg))
     if cfg.learned_pos:
         if positions is None:
             positions = torch.arange(tokens.shape[-1],
                                      device=tokens.device)[None, :]
-        x = x + p["pos_embed"][positions].to(x.dtype)
+        x = x + gather_rows(p["pos_embed"], positions).to(x.dtype)
     return x
 
 
 def unembed(cfg: ModelConfig, p, x):
     x = apply_norm(cfg, p, "final_norm", x)
     w = p["tok_embed"].T if cfg.tie_embeddings else p["lm_head"]
-    return x @ w.to(x.dtype)
+    return weight_matmul(x, w)

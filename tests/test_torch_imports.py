@@ -19,7 +19,9 @@ def _port_sources():
 def test_port_sources_exist():
     names = {p.name for p in _port_sources()}
     assert {"flash_attention.py", "kv_pool.py", "tenant.py", "serve.py",
-            "chip_smoke.py"} <= names
+            "chip_smoke.py", "stream_matmul.py", "runtime.py",
+            "partitioner.py", "perfmodel.py", "power.py", "roofline.py",
+            "workload.py", "slice_runtime_demo.py"} <= names
     assert all(p.exists() for p in _port_sources())
 
 

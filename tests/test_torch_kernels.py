@@ -122,33 +122,3 @@ def test_kernel_sources_and_build_key():
     assert "sm_90a" in " ".join(_build.NVCC_FLAGS)
     assert not _build._libs
 
-
-@pytest.mark.gpu
-def test_kernel_matches_plain_on_card():
-    """On the card: the CUDA kernel against its plain version. Run with
-    ``pytest -m gpu`` on a machine with an H100; skipped without one."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
-    for dtype, tol in ((torch.float32, 2e-5), (torch.bfloat16, 2e-2)):
-        for hd in port_fa.HEAD_DIMS:
-            for Sq, Sk, causal in ((128, 128, True), (300, 300, True),
-                                   (77, 77, False), (1, 1, True),
-                                   (40, 200, False), (130, 257, True)):
-                g = torch.Generator(device="cuda").manual_seed(Sq + Sk + hd)
-                q = torch.randn(4, Sq, hd, device="cuda", generator=g).to(dtype)
-                k, v = (torch.randn(4, Sk, hd, device="cuda", generator=g)
-                        .to(dtype) for _ in range(2))
-                before = port_fa.flash_attention_fwd.launches
-                got = port_fa.flash_attention_fwd(q, k, v, causal=causal)
-                want = port_fa.flash_attention_fwd_plain(q, k, v, causal=causal)
-                torch.cuda.synchronize()
-                assert port_fa.flash_attention_fwd.launches == before + 1
-                assert rel_err(to_np(got), to_np(want)) < tol, (dtype, hd, Sq, Sk)
-    wide = torch.zeros(4, 8, 32, device="cuda")
-    with pytest.raises(ValueError, match="contiguous"):
-        port_fa.flash_attention_fwd(wide[..., :16], wide[..., :16], wide[..., :16])
-    with pytest.raises(TypeError):
-        port_fa.flash_attention_fwd(wide.half(), wide.half(), wide.half())
-    odd = torch.zeros(4 * 8 * 16 + 1, device="cuda")[1:].view(4, 8, 16)
-    with pytest.raises(ValueError, match="aligned"):
-        port_fa.flash_attention_fwd(odd, odd, odd)
