@@ -9,8 +9,10 @@ JSON line per phase; any failure is a non-zero exit:
   env      torch / CUDA versions, the card's name and power limit
   build    builds every kernel under src/repro_torch/kernels/csrc with nvcc
   kernels  each kernel's wrapper against its plain PyTorch version on the
-           card at the main path's shapes, with its time, the plain
-           version's, one library call's, and the card's bound for the work
+           card at the main paths' shapes, with its time, the plain
+           version's, one library call's, and the card's bound for the work:
+           the flash forward (serving), the forward with its lse output and
+           the two backward kernels (training), stream_matmul
   serve    llama3-8b at full width and depth (random bf16 weights from a
            seed) through ServingEngine.run; the kernel launch counts are set
            to 0 just before and read just after
@@ -26,6 +28,14 @@ JSON line per phase; any failure is a non-zero exit:
            SliceRuntime.run and read just after
   gpt2     gpt2-124m at full size (layernorm, learned positions, tanh-GELU,
            biases, tied embeddings)
+  train    gpt2-124m at full size trained through launch/train.py's path
+           (FaultTolerantRunner, StaticPartitioner, checkpoints): 30 AdamW
+           steps of 8 x 1024 tokens, attention through the flash forward and
+           backward kernels, one injected chip failure (restore + repartition);
+           the counts are set to 0 just before and read just after
+  grads    one step's loss and gradients of full gpt2-124m through the kernels
+           against the eager attention, and the remat routes none / offload
+           against layer (equal), with the offload route's host bytes
 
 Then a line {"kernels": [...]} with every kernel's figures, the card's name
 and power limit, and last {"ok": true, "device": {...}}.
@@ -44,17 +54,23 @@ pinned -> device copy reaches between CUDA events is printed beside it.
 """
 from __future__ import annotations
 
+import gc
 import json
 import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 SEED = 0
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 TOL = {"bfloat16": 2e-2, "float32": 2e-5}     # max |diff| / max |plain|
+# the training kernels: out as the forward; lse fp32 sums in both types; the
+# gradients at the reference's backward tolerance in fp32
+TRAIN_TOL = {"bfloat16": {"out": 2e-2, "lse": 2e-5, "grad": 2e-2},
+             "float32": {"out": 2e-5, "lse": 2e-5, "grad": 1e-4}}
 # stream_matmul: the reference's fp32 tolerance (tests/test_kernels.py), and
 # one bf16 rounding of the output in bf16
 STREAM_TOL = {"bfloat16": 2e-2, "float32": 1e-5}
@@ -104,14 +120,21 @@ def main() -> None:
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops as kops
     from repro_torch.kernels import stream_matmul as sm
+    from repro_torch.data.pipeline import DataPipeline, SyntheticSource, to_device
+    from repro_torch.launch.train import build_config, train as run_training
     from repro_torch.models import layers as mlayers
+    from repro_torch.models import transformer as mtfm
     from repro_torch.models.model_zoo import build_model
     from repro_torch.serving import (Request, ServingEngine, SliceRuntime,
                                      TenantEngine, TenantSpec)
+    from repro_torch.train.train_step import _accumulate_grads
 
     torch.backends.cuda.matmul.allow_tf32 = False   # fp32 references in fp32
     dev = torch.device("cuda")
     kernel_wrappers = {"flash_attention_fwd": fa.flash_attention_fwd,
+                       "flash_attention_fwd_stats": fa.flash_attention_fwd_stats,
+                       "flash_attention_bwd_dkdv": fa.flash_attention_bwd_dkdv,
+                       "flash_attention_bwd_dq": fa.flash_attention_bwd_dq,
                        "stream_matmul": sm.stream_matmul}
 
     def reset_counts():
@@ -119,6 +142,7 @@ def main() -> None:
             w.launches = 0
         sm.stream_matmul.h2d_bytes = 0
         mlayers.gather_rows.h2d_bytes = 0
+        mtfm.offload_activation.d2h_bytes = 0
 
     # ------------------------------------------------------------------ env
     smi = subprocess.run(
@@ -145,6 +169,8 @@ def main() -> None:
                    for lines in ptxas.values() for ln in lines if "Used " in ln})
     emit("build", seconds=round(time.time() - t0, 2), libraries=sorted(libs),
          nvcc=_build.find_nvcc(), registers=regs, spilling=spills[:8])
+    if spills:
+        fail(f"ptxas reports register spills: {spills[:4]}")
 
     # -------------------------------------------------------------- kernels
     def time_ms(fn, warmup=3, iters=20):
@@ -161,6 +187,11 @@ def main() -> None:
             end.synchronize()
             times.append(start.elapsed_time(end))
         return statistics.median(times)
+
+    def bound(nbytes, flops, dtype_name):
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
+        return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
     def flash_case(BH, S, hd, dtype_name, causal):
         dtype = getattr(torch, dtype_name)
@@ -182,9 +213,8 @@ def main() -> None:
         sdpa = torch.nn.functional.scaled_dot_product_attention
         pairs = S * (S + 1) // 2 if causal else S * S
         flops = 4.0 * BH * pairs * hd
-        nbytes = 4.0 * BH * S * hd * q.element_size()
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
+        bound_ms, bound_by = bound(4.0 * BH * S * hd * q.element_size(), flops,
+                                   dtype_name)
         ms = time_ms(lambda: fa.flash_attention_fwd(q, k, v, causal=causal))
         return {
             "shape": [BH, S, hd], "dtype": dtype_name, "causal": causal,
@@ -193,8 +223,7 @@ def main() -> None:
             "plain_ms": time_ms(lambda: fa.flash_attention_fwd_plain(
                 q, k, v, causal=causal), iters=5),
             "library_ms": time_ms(lambda: sdpa(q4, k4, v4, is_causal=causal)),
-            "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bound_ms": bound_ms, "bound_by": bound_by,
             "tflops": flops / (ms * 1e-3) / 1e12,
         }
 
@@ -206,6 +235,107 @@ def main() -> None:
              flash_case(32, 300, 128, "float32", True),
              flash_case(32, 256, 128, "float32", False),
              flash_case(12, 300, 64, "bfloat16", True)]     # gpt2's head dim
+
+    def flash_train_case(BH, S, hd, dtype_name, causal):
+        """The forward with lse and the two backward kernels against their
+        plain versions; the backward kernels and their plain versions get the
+        same (plain) lse and delta, so each is held alone."""
+        dtype = getattr(torch, dtype_name)
+        g = torch.Generator(device=dev).manual_seed(SEED + 7 * S + hd)
+        q, k, v, do = (torch.randn(BH, S, hd, device=dev, generator=g).to(dtype)
+                       for _ in range(4))
+        scale = hd ** -0.5
+        out, lse = fa.flash_attention_fwd_stats(q, k, v, causal=causal)
+        p_out, p_lse = fa.flash_attention_fwd_stats_plain(q, k, v, causal=causal)
+        delta = fa.bwd_delta(p_out, do)
+        bwd_args = (q, k, v, do, p_lse, delta)
+        dk, dv = fa.flash_attention_bwd_dkdv(*bwd_args, causal=causal)
+        dq = fa.flash_attention_bwd_dq(*bwd_args, causal=causal)
+        p_dk, p_dv = fa.flash_attention_bwd_dkdv_plain(*bwd_args, causal=causal)
+        p_dq = fa.flash_attention_bwd_dq_plain(*bwd_args, causal=causal)
+        torch.cuda.synchronize()
+        tol = TRAIN_TOL[dtype_name]
+        errors = {}
+        for name, got, want, t in (
+                ("out", out, p_out, tol["out"]), ("lse", lse, p_lse, tol["lse"]),
+                ("dq", dq, p_dq, tol["grad"]), ("dk", dk, p_dk, tol["grad"]),
+                ("dv", dv, p_dv, tol["grad"])):
+            if not torch.isfinite(got.float()).all():
+                fail(f"{name} of the flash training kernels is not finite at "
+                     f"{(BH, S, hd)} {dtype_name}")
+            abs_err = float((got.float() - want.float()).abs().max())
+            rel = abs_err / (float(want.float().abs().max()) + 1e-9)
+            if rel >= t:
+                fail(f"flash training kernels: {name} disagrees with its plain "
+                     f"version at {(BH, S, hd)} {dtype_name} causal={causal}: "
+                     f"rel {rel:.3e} >= {t}")
+            errors[name] = {"max_abs_err": abs_err, "rel_err": rel, "tol": t}
+        # bounds: each input read once, each output written once; one
+        # product is 2*BH*pairs*hd operations
+        pairs = S * (S + 1) // 2 if causal else S * S
+        prod = 2.0 * BH * pairs * hd
+        tile = BH * S * hd * q.element_size()
+        stats = BH * S * 4
+        fwd_b = bound(4 * tile + stats, 2 * prod, dtype_name)       # q k v -> o, lse
+        dkdv_b = bound(6 * tile + 2 * stats, 4 * prod, dtype_name)  # S, dV, dP, dK
+        dq_b = bound(5 * tile + 2 * stats, 3 * prod, dtype_name)    # S, dP, dQ
+        bwd_b = bound(8 * tile + stats, 5 * prod, dtype_name)       # the function
+        # the library: PyTorch's flash kernels for bf16, its memory-efficient
+        # ones for fp32 (flash takes no fp32); the backward as its one aten op
+        q4, k4, v4, do4 = (t[None] for t in (q, k, v, do))
+        aten = torch.ops.aten
+        if dtype == torch.bfloat16:
+            lib_fwd = lambda: aten._scaled_dot_product_flash_attention(
+                q4, k4, v4, 0.0, causal, False, scale=scale)
+            o, l, cq, ck, mq, mk, seed, offset = lib_fwd()[:8]
+            lib_bwd = lambda: aten._scaled_dot_product_flash_attention_backward(
+                do4, q4, k4, v4, o, l, cq, ck, mq, mk, 0.0, causal, seed, offset,
+                scale=scale)
+        else:
+            lib_fwd = lambda: aten._scaled_dot_product_efficient_attention(
+                q4, k4, v4, None, True, 0.0, causal, scale=scale)
+            o, l, seed, offset = lib_fwd()
+            lib_bwd = lambda: aten._scaled_dot_product_efficient_attention_backward(
+                do4, q4, k4, v4, None, o, l, seed, offset, 0.0,
+                [True, True, True, False], causal, scale=scale)
+        ql, kl, vl = (t.detach().clone().requires_grad_() for t in (q4, k4, v4))
+        lib_out = torch.nn.functional.scaled_dot_product_attention(
+            ql, kl, vl, is_causal=causal, scale=scale)
+        row = {
+            "shape": [BH, S, hd], "dtype": dtype_name, "causal": causal,
+            "errors": errors,
+            "fwd_stats_ms": time_ms(lambda: fa.flash_attention_fwd_stats(
+                q, k, v, causal=causal)),
+            "fwd_stats_plain_ms": time_ms(lambda: fa.flash_attention_fwd_stats_plain(
+                q, k, v, causal=causal), iters=5),
+            "fwd_stats_library_ms": time_ms(lib_fwd),
+            "fwd_stats_bound_ms": fwd_b[0], "fwd_stats_bound_by": fwd_b[1],
+            "dkdv_ms": time_ms(lambda: fa.flash_attention_bwd_dkdv(
+                *bwd_args, causal=causal)),
+            "dkdv_plain_ms": time_ms(lambda: fa.flash_attention_bwd_dkdv_plain(
+                *bwd_args, causal=causal), iters=5),
+            "dkdv_bound_ms": dkdv_b[0], "dkdv_bound_by": dkdv_b[1],
+            "dq_ms": time_ms(lambda: fa.flash_attention_bwd_dq(
+                *bwd_args, causal=causal)),
+            "dq_plain_ms": time_ms(lambda: fa.flash_attention_bwd_dq_plain(
+                *bwd_args, causal=causal), iters=5),
+            "dq_bound_ms": dq_b[0], "dq_bound_by": dq_b[1],
+            # the library's whole backward (dq, dk, dv in one call), and the
+            # same through autograd, whose host work adds to the timed span
+            "bwd_library_ms": time_ms(lib_bwd),
+            "bwd_library_autograd_ms": time_ms(lambda: torch.autograd.grad(
+                lib_out, (ql, kl, vl), do4, retain_graph=True)),
+            "bwd_bound_ms": bwd_b[0], "bwd_bound_by": bwd_b[1],
+        }
+        row["bwd_ms"] = row["dkdv_ms"] + row["dq_ms"]
+        return row
+
+    train_cases = [flash_train_case(96, 1024, 64, "bfloat16", True),   # gpt2 training
+                   flash_train_case(32, 2048, 128, "bfloat16", True),  # llama3-8b heads
+                   flash_train_case(32, 1024, 128, "bfloat16", True),  # serving's shape
+                   flash_train_case(4, 256, 64, "float32", True),      # the reference's
+                   flash_train_case(4, 256, 64, "float32", False),
+                   flash_train_case(12, 1000, 64, "bfloat16", True)]   # ragged S
 
     # the host link's rate: one 1 GiB pinned -> device copy between events
     host_buf = torch.empty(1 << 30, dtype=torch.uint8, pin_memory=True)
@@ -279,7 +409,8 @@ def main() -> None:
         stream_case(256, 1024, 384, "float32", "float32", "device"),
         stream_case(4, 4096, 14336, "bfloat16", "bfloat16", "device"),
     ]
-    emit("kernels", flash_attention_fwd=cases, stream_matmul=stream_cases,
+    emit("kernels", flash_attention_fwd=cases, flash_attention_train=train_cases,
+         stream_matmul=stream_cases,
          host_link={"peak_gb_per_s": HOST_LINK_BYTES_PER_S / 1e9,
                     "bound_gb_per_s": link_bound_rate / 1e9,
                     "measured_ms_per_gib": link_ms,
@@ -649,7 +780,7 @@ def main() -> None:
          modeled_not_this_card=report["modeled"])
     for name in list(rt.tenants):
         rt.remove_tenant(name)
-    del rt, llm, gpt, lone, host_leaves, report
+    del rt, llm, gpt, lone, tick, tick_with_share, host_leaves, report
     torch.cuda.empty_cache()
 
     # ----------------------------------------------------------------- gpt2
@@ -672,6 +803,128 @@ def main() -> None:
          ticks=geng.ticks, wall_seconds=gwall,
          tick_ms_median=statistics.median(geng.tick_s) * 1e3,
          kernel_vs_eager_rel=g_rel)
+    del gmodel, gparams, geng, geager
+    torch.cuda.empty_cache()
+
+    # ---------------------------------------------------------------- train
+    tcfg = build_config("gpt2-124m", full_size=True, attn_impl="xla_cv",
+                        remat="layer")
+    T_STEPS, T_BATCH, T_SEQ, FAIL_AT, CKPT_EVERY = 30, 8, 1024, 12, 10
+    L = tcfg.num_layers
+    gc.collect()              # the engines' timing wrappers form cycles
+    torch.cuda.empty_cache()
+    train_base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as ckpt_dir:
+        reset_counts()                               # main path starts here
+        t0 = time.perf_counter()
+        tstats = run_training(tcfg, steps=T_STEPS, batch=T_BATCH, seq=T_SEQ,
+                              lr=3e-3, device=dev, ckpt_dir=ckpt_dir,
+                              ckpt_every=CKPT_EVERY, inject_failure_at=FAIL_AT,
+                              seed=SEED)
+        torch.cuda.synchronize()
+        train_wall = time.perf_counter() - t0
+        train_launches = {n: w.launches for n, w in kernel_wrappers.items()}
+    train_peak = torch.cuda.max_memory_allocated()
+    # the failure at step FAIL_AT restores the checkpoint of the last
+    # multiple of CKPT_EVERY, so the steps between run twice
+    rerun = FAIL_AT % CKPT_EVERY
+    steps_done = tstats.steps_done
+    if (steps_done != T_STEPS + rerun or tstats.restarts != 1
+            or len(tstats.repartitions) != 1):
+        fail(f"train: steps {steps_done} (expected {T_STEPS + rerun}), "
+             f"restarts {tstats.restarts}, repartitions {tstats.repartitions}")
+    if not all(np.isfinite(tstats.losses)):
+        fail(f"train: non-finite loss {tstats.losses}")
+    loss_first, loss_last5 = tstats.losses[0], statistics.mean(tstats.losses[-5:])
+    if loss_first - loss_last5 < 0.5:
+        fail(f"train: loss {loss_first:.4f} -> {loss_last5:.4f} fell less than "
+             f"0.5 nat")
+    # remat="layer": per layer and step one forward, one recomputed forward
+    # in the backward, and one backward (both of its kernels)
+    launch_formula = {
+        "flash_attention_fwd_stats": ("2 x layers x steps", 2 * L * steps_done),
+        "flash_attention_bwd_dkdv": ("layers x steps", L * steps_done),
+        "flash_attention_bwd_dq": ("layers x steps", L * steps_done),
+        "flash_attention_fwd": ("0 (serving only)", 0),
+        "stream_matmul": ("0 (weights on the device)", 0)}
+    if train_launches != {n: want for n, (_, want) in launch_formula.items()}:
+        fail(f"train: launches {train_launches} != {launch_formula}")
+    step_ms = statistics.median(tstats.step_seconds) * 1e3
+    emit("train", arch=tcfg.name, layers=L, d_model=tcfg.d_model,
+         vocab=tcfg.vocab_size, params=tcfg.param_count(),
+         param_dtype=tcfg.param_dtype, dtype=tcfg.dtype,
+         attn_impl=tcfg.attn_impl, remat=tcfg.remat, batch=T_BATCH, seq=T_SEQ,
+         tokens_per_step=T_BATCH * T_SEQ, steps=T_STEPS, steps_done=steps_done,
+         failure_at=FAIL_AT, ckpt_every=CKPT_EVERY, restarts=tstats.restarts,
+         repartitions=tstats.repartitions,
+         straggler_events=tstats.straggler_events,
+         loss_first=loss_first, loss_last5_mean=loss_last5,
+         losses=tstats.losses, step_ms_median=step_ms,
+         step_ms_min=min(tstats.step_seconds) * 1e3,
+         step_ms_max=max(tstats.step_seconds) * 1e3,
+         tokens_per_s=T_BATCH * T_SEQ / (step_ms * 1e-3),
+         wall_seconds=train_wall, memory_allocated_before=train_base,
+         max_memory_allocated=train_peak,
+         peak_memory_of_training=train_peak - train_base,
+         launches={n: {"count": train_launches[n], "formula": f,
+                       "expected": want}
+                   for n, (f, want) in launch_formula.items()})
+
+    # ---------------------------------------------------------------- grads
+    gbatch = to_device(DataPipeline(SyntheticSource(tcfg.vocab_size, seed=SEED),
+                                    T_BATCH, T_SEQ).batch_at(0), dev)
+    gparams, _ = build_model(tcfg, dev).init(
+        torch.Generator(device=dev).manual_seed(SEED))
+
+    def loss_and_grads(**changes):
+        model = build_model(tcfg.with_(**changes), dev)
+        loss, grads = _accumulate_grads(model, gparams, gbatch, 1)
+        flat = {f"layers/{k}": v for k, v in grads["layers"].items()}
+        flat.update((k, v) for k, v in grads.items() if k != "layers")
+        return float(loss), flat
+
+    loss_k, grads_k = loss_and_grads()               # kernels, remat="layer"
+    loss_e, grads_e = loss_and_grads(attn_impl="xla")
+    loss_rel = abs(loss_k - loss_e) / abs(loss_e)
+    leaf_rel = {n: rel_err(grads_k[n], grads_e[n]) for n in grads_e}
+    # softmax is unchanged by adding one score to every key of a query, so
+    # the key bias's gradient vanishes and both routes hold rounding noise
+    # there: it is held to be small beside the query bias's instead
+    bq_max = float(grads_e["layers/bq"].abs().max())
+    bk_ratio = {route: float(g["layers/bk"].abs().max()) / bq_max
+                for route, g in (("xla_cv", grads_k), ("xla", grads_e))}
+    bad = {n: r for n, r in leaf_rel.items() if n != "layers/bk" and r >= MODEL_TOL}
+    if (not np.isfinite(loss_k) or loss_rel >= 1e-2 or bad
+            or max(bk_ratio.values()) >= MODEL_TOL):
+        fail(f"grads: kernel vs eager loss rel {loss_rel:.3e}, leaves over "
+             f"{MODEL_TOL}: {bad}, key-bias ratio {bk_ratio}")
+    del grads_e
+    remat_rows = {}
+    for remat in ("none", "offload"):
+        before = mtfm.offload_activation.d2h_bytes
+        loss_r, grads_r = loss_and_grads(remat=remat)
+        sent = mtfm.offload_activation.d2h_bytes - before
+        worst = max(rel_err(grads_r[n], grads_k[n]) for n in grads_k)
+        remat_rows[remat] = {"loss": loss_r,
+                             "loss_rel": abs(loss_r - loss_k) / abs(loss_k),
+                             "max_leaf_rel": worst, "host_bytes_per_step": sent}
+        if remat_rows[remat]["loss_rel"] > 1e-6 or worst > 1e-6:
+            fail(f"grads: remat={remat} differs from remat=layer: "
+                 f"{remat_rows[remat]}")
+        del grads_r
+    want_host = L * T_BATCH * T_SEQ * tcfg.d_model * 2      # bf16 layer inputs
+    if remat_rows["offload"]["host_bytes_per_step"] != want_host:
+        fail(f"grads: the offload route sent "
+             f"{remat_rows['offload']['host_bytes_per_step']} bytes to the host, "
+             f"expected layers x batch x seq x d_model x 2 = {want_host}")
+    emit("grads", arch=tcfg.name, batch=T_BATCH, seq=T_SEQ, loss_kernel=loss_k,
+         loss_eager=loss_e, loss_rel=loss_rel, loss_tol=1e-2,
+         leaf_rel=leaf_rel, leaf_tol=MODEL_TOL, key_bias_vs_query_bias=bk_ratio,
+         remat_vs_layer=remat_rows, remat_tol=1e-6,
+         offload_host_bytes_expected=want_host)
+    del grads_k, gparams
+    torch.cuda.empty_cache()
 
     # ------------------------------------------------------------- summary
     head, shead = cases[0], stream_cases[0]
@@ -698,7 +951,30 @@ def main() -> None:
         "library_device_w_ms": shead["library_device_w_ms"],
         "host_link_peak_gb_per_s": HOST_LINK_BYTES_PER_S / 1e9,
         "host_link_measured_gb_per_s": link_bytes_per_s / 1e9,
-    }]}), flush=True)
+    }] + [{
+        "name": name, "route": "cuda", "source": source, "replaces": replaces,
+        "launches": train_launches[name],
+        "shape": train_cases[0]["shape"], "dtype": train_cases[0]["dtype"],
+        "max_abs_err": max(c["errors"][e]["max_abs_err"]
+                           for c in train_cases for e in errs),
+        "ms": train_cases[0][f"{key}_ms"],
+        "plain_ms": train_cases[0][f"{key}_plain_ms"],
+        "bound_ms": train_cases[0][f"{key}_bound_ms"],
+        "bound_by": train_cases[0][f"{key}_bound_by"],
+        "library_ms": train_cases[0][lib],
+    } for name, source, replaces, key, errs, lib in (
+        ("flash_attention_fwd_stats",
+         "src/repro_torch/kernels/csrc/flash_attention_fwd.cu",
+         "src/repro/kernels/flash_attention.py:93", "fwd_stats", ("out", "lse"),
+         "fwd_stats_library_ms"),
+        ("flash_attention_bwd_dkdv",
+         "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+         "src/repro/kernels/flash_attention.py:242", "dkdv", ("dk", "dv"),
+         "bwd_library_ms"),
+        ("flash_attention_bwd_dq",
+         "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+         "src/repro/kernels/flash_attention.py:267", "dq", ("dq",),
+         "bwd_library_ms"))]}), flush=True)
     print(card_line, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,10 +2,10 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and becomes one shared
 library, ``<build dir>/<name>-<hash>.so``, compiled by ``nvcc`` for
-``sm_90a`` and loaded with ``ctypes``. The hash covers the source text and
-the compiler flags, so an edited source is rebuilt and an unchanged one is
-reused. All sources that still need building are compiled in parallel, one
-``nvcc`` process each.
+``sm_90a`` and loaded with ``ctypes``. The hash covers the source text, the
+shared headers ``csrc/*.cuh`` and the compiler flags, so an edited source or
+header is rebuilt and an unchanged one is reused. All sources that still
+need building are compiled in parallel, one ``nvcc`` process each.
 
 The build directory is ``build/repro_torch_kernels/`` under the root of the
 checkout (override with ``REPRO_TORCH_BUILD_DIR``). Nothing is built when the
@@ -55,6 +55,8 @@ def find_nvcc() -> Optional[str]:
 def _target(src: Path) -> Path:
     h = hashlib.sha256()
     h.update(src.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):   # shared by the sources
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return build_dir() / f"{src.stem}-{h.hexdigest()[:16]}.so"
 

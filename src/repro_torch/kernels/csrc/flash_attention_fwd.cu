@@ -1,11 +1,15 @@
 // Flash-attention forward for Hopper (sm_90a), plain C interface.
 //
-// Replaces the Pallas TPU kernel
-//   repro/kernels/flash_attention.py::flash_attention_fwd (body _flash_kernel).
+// Replaces the Pallas TPU kernels
+//   repro/kernels/flash_attention.py::flash_attention_fwd (body _flash_kernel)
+//   and ::flash_attention_fwd_stats (body _flash_stats_kernel).
 //
 // Computes O = softmax(Q K^T * scale + mask) V over (BH, S, hd) by online
 // softmax: running row max m, row sum l and an fp32 accumulator, the mask
-// value NEG_INF = -1e30 kept finite, the result acc / max(l, 1e-30).
+// value NEG_INF = -1e30 kept finite, the result acc / max(l, 1e-30). When the
+// caller passes an lse pointer (training), the epilogue also writes the row
+// statistics the backward needs, lse = m + log(max(l, 1e-30)) in fp32, as
+// _flash_stats_kernel adds to _flash_kernel; serving passes nullptr.
 //
 // What differs from the TPU kernel. There the grid's innermost KV axis runs in
 // order on one core and m / l / acc live in VMEM scratch between grid steps.
@@ -36,11 +40,14 @@
 // neither uses wgmma; that is the next step and keeps this interface.
 //
 // Inputs fp32 or bf16, head dim 16, 32, 64 or 128, output in the input type.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "flash_common.cuh"
 
 namespace {
+
+using flash::NEG_INF;
+using flash::ld32;
+using flash::mma_bf16_m16n8k16;
+using flash::pack_bf16;
 
 constexpr int BM = 64;           // query rows per block
 constexpr int BN = 64;           // kv rows per tile
@@ -50,76 +57,13 @@ constexpr int NT = TX * TY;      // 256 threads
 constexpr int RPT = BM / TY;     // query rows per thread
 constexpr int CPT = BN / TX;     // score columns per thread
 constexpr int PP = BN + 4;       // pitch of the probability tile
-constexpr float NEG_INF = -1e30f;
-
-template <typename T> struct Elem;
-
-template <> struct Elem<float> {
-  static constexpr int PER_VEC = 4;
-  static __device__ __forceinline__ void unpack(const uint4& r, float* f) {
-    f[0] = __uint_as_float(r.x); f[1] = __uint_as_float(r.y);
-    f[2] = __uint_as_float(r.z); f[3] = __uint_as_float(r.w);
-  }
-  static __device__ __forceinline__ uint4 pack(const float* f) {
-    return make_uint4(__float_as_uint(f[0]), __float_as_uint(f[1]),
-                      __float_as_uint(f[2]), __float_as_uint(f[3]));
-  }
-};
-
-// Copy up to 64 rows of hd elements from device memory into an fp32 tile in
-// shared memory (pitch hd + 4), 16 bytes a thread; rows past rows_valid are
-// zero.
-template <typename T, int HD>
-__device__ __forceinline__ void load_tile(float* dst, const T* src,
-                                          int rows_valid, float mul) {
-  constexpr int EPV = Elem<T>::PER_VEC;
-  constexpr int VPR = HD / EPV;
-  constexpr int PITCH = HD + 4;
-  for (int idx = threadIdx.x; idx < 64 * VPR; idx += NT) {
-    const int r = idx / VPR;
-    const int cv = idx - r * VPR;
-    float f[EPV];
-    if (r < rows_valid) {
-      const uint4 raw = *reinterpret_cast<const uint4*>(
-          src + static_cast<size_t>(r) * HD + cv * EPV);
-      Elem<T>::unpack(raw, f);
-    } else {
-#pragma unroll
-      for (int e = 0; e < EPV; ++e) f[e] = 0.f;
-    }
-    float* d = dst + r * PITCH + cv * EPV;
-#pragma unroll
-    for (int e = 0; e < EPV; e += 4) {
-      *reinterpret_cast<float4*>(d + e) = make_float4(
-          f[e] * mul, f[e + 1] * mul, f[e + 2] * mul, f[e + 3] * mul);
-    }
-  }
-}
-
-template <typename T, int HD>
-__device__ __forceinline__ void store_tile(T* dst, const float* src,
-                                           int rows_valid) {
-  constexpr int EPV = Elem<T>::PER_VEC;
-  constexpr int VPR = HD / EPV;
-  constexpr int PITCH = HD + 4;
-  for (int idx = threadIdx.x; idx < 64 * VPR; idx += NT) {
-    const int r = idx / VPR;
-    const int cv = idx - r * VPR;
-    if (r >= rows_valid) continue;
-    float f[EPV];
-    const float* s = src + r * PITCH + cv * EPV;
-#pragma unroll
-    for (int e = 0; e < EPV; ++e) f[e] = s[e];
-    *reinterpret_cast<uint4*>(dst + static_cast<size_t>(r) * HD + cv * EPV) =
-        Elem<T>::pack(f);
-  }
-}
 
 template <typename T, int HD>
 __global__ void __launch_bounds__(NT, 2)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o, int BH, int Sq,
-                 int Sk, int causal, float scale) {
+                 const T* __restrict__ v, T* __restrict__ o,
+                 float* __restrict__ lse, int BH, int Sq, int Sk, int causal,
+                 float scale) {
   constexpr int PITCH = HD + 4;
   constexpr int VEC = (HD % 64 == 0) ? 4 : 1;  // output columns per load
   constexpr int NV = HD / (TX * VEC);          // such loads per thread
@@ -144,7 +88,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const T* vb = v + static_cast<size_t>(bh) * Sk * HD;
   T* ob = o + (static_cast<size_t>(bh) * Sq + q0) * HD;
 
-  load_tile<T, HD>(Qs, qb, q_valid, scale);
+  flash::load_tile<T, HD, BM, NT>(Qs, qb, q_valid, scale);
 
   float m[RPT], l[RPT], acc[RPT][OC];
 #pragma unroll
@@ -163,7 +107,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int k_valid = min(BN, Sk - k0);
 
     __syncthreads();  // the previous tile's V is no longer read
-    load_tile<T, HD>(KVs, kb + static_cast<size_t>(k0) * HD, k_valid, 1.f);
+    flash::load_tile<T, HD, BN, NT>(KVs, kb + static_cast<size_t>(k0) * HD, k_valid, 1.f);
     __syncthreads();
 
     // scores: s[i][j] = sum_d Q[ty*RPT+i][d] * K[tx+TX*j][d]
@@ -228,7 +172,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
 
     __syncthreads();  // K is no longer read
-    load_tile<T, HD>(KVs, vb + static_cast<size_t>(k0) * HD, k_valid, 1.f);
+    flash::load_tile<T, HD, BN, NT>(KVs, vb + static_cast<size_t>(k0) * HD, k_valid, 1.f);
     __syncthreads();  // V and the probabilities are visible
 
     // acc[i][c] += sum_kk P[ty*RPT+i][kk] * V[kk][col(c)]
@@ -277,12 +221,20 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
             acc[i][jv * VEC + e] / denom;
   }
   __syncthreads();
-  store_tile<T, HD>(ob, Qs, q_valid);
+  flash::store_tile<T, HD, BM, NT>(ob, Qs, q_valid);
+  if (lse != nullptr && tx == 0) {
+#pragma unroll
+    for (int i = 0; i < RPT; ++i) {
+      const int row = q0 + ty * RPT + i;
+      if (row < Sq)
+        lse[static_cast<size_t>(bh) * Sq + row] = m[i] + logf(fmaxf(l[i], 1e-30f));
+    }
+  }
 }
 
 template <typename T, int HD>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o, int BH,
-                   int Sq, int Sk, int causal, float scale,
+cudaError_t launch(const void* q, const void* k, const void* v, void* o,
+                   float* lse, int BH, int Sq, int Sk, int causal, float scale,
                    cudaStream_t stream) {
   constexpr size_t smem_bytes =
       (BM * (HD + 4) + BN * (HD + 4) + BM * PP) * sizeof(float);
@@ -296,7 +248,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int BH,
   if (blocks > 2147483647LL) return cudaErrorInvalidConfiguration;
   kern<<<dim3(static_cast<unsigned>(blocks)), dim3(NT), smem_bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), BH, Sq, Sk, causal, scale);
+      static_cast<const T*>(v), static_cast<T*>(o), lse, BH, Sq, Sk, causal,
+      scale);
   return cudaGetLastError();
 }
 
@@ -311,69 +264,13 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int BH,
 // ---------------------------------------------------------------------------
 constexpr int MT = 128;  // threads of the tensor-core kernel
 
-__device__ __forceinline__ void mma_bf16_m16n8k16(float (&c)[4],
-                                                  const uint32_t (&a)[4],
-                                                  uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&h);
-}
-
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// 64 rows of HD bf16 from device memory into a tile of pitch HD + 8, 16 bytes
-// a thread; rows past rows_valid are zero.
-template <int HD>
-__device__ __forceinline__ void load_tile_bf16(__nv_bfloat16* dst,
-                                               const __nv_bfloat16* src,
-                                               int rows_valid) {
-  constexpr int VPR = HD / 8;
-  constexpr int PITCH = HD + 8;
-  for (int idx = threadIdx.x; idx < 64 * VPR; idx += MT) {
-    const int r = idx / VPR;
-    const int cv = idx - r * VPR;
-    uint4 raw = make_uint4(0u, 0u, 0u, 0u);
-    if (r < rows_valid)
-      raw = *reinterpret_cast<const uint4*>(src + static_cast<size_t>(r) * HD + cv * 8);
-    *reinterpret_cast<uint4*>(dst + r * PITCH + cv * 8) = raw;
-  }
-}
-
-// The same rows, stored transposed: dst[col][row], pitch 64 + 8. Neighbouring
-// threads take neighbouring rows so that the 16-bit stores do not collide.
-template <int HD>
-__device__ __forceinline__ void load_tile_bf16_transposed(
-    __nv_bfloat16* dst, const __nv_bfloat16* src, int rows_valid) {
-  constexpr int VPR = HD / 8;
-  constexpr int PITCH = 64 + 8;
-  for (int idx = threadIdx.x; idx < 64 * VPR; idx += MT) {
-    const int r = idx % 64;
-    const int cv = idx / 64;
-    uint4 raw = make_uint4(0u, 0u, 0u, 0u);
-    if (r < rows_valid)
-      raw = *reinterpret_cast<const uint4*>(src + static_cast<size_t>(r) * HD + cv * 8);
-    const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&raw);
-#pragma unroll
-    for (int i = 0; i < 8; ++i) dst[(cv * 8 + i) * PITCH + r] = e[i];
-  }
-}
-
 template <int HD>
 __global__ void __launch_bounds__(MT)
 flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
                      const __nv_bfloat16* __restrict__ k,
                      const __nv_bfloat16* __restrict__ v,
-                     __nv_bfloat16* __restrict__ o, int BH, int Sq, int Sk,
-                     int causal, float scale) {
+                     __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+                     int BH, int Sq, int Sk, int causal, float scale) {
   constexpr int QP = HD + 8;   // pitch of the Q and K tiles
   constexpr int VP = BN + 8;   // pitch of the transposed V tile
   constexpr int KS = HD / 16;  // k-steps of Q K^T
@@ -401,7 +298,7 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
   const __nv_bfloat16* vb = v + static_cast<size_t>(bh) * Sk * HD;
   __nv_bfloat16* ob = o + (static_cast<size_t>(bh) * Sq + q0) * HD;
 
-  load_tile_bf16<HD>(Qs, qb, q_valid);
+  flash::load_tile_bf16<HD, BM, MT>(Qs, qb, q_valid);
 
   // each thread owns rows r0+g (half 0) and r0+g+8 (half 1) of its warp
   float m[2] = {NEG_INF, NEG_INF};
@@ -420,8 +317,8 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
     const int k_valid = min(BN, Sk - k0);
 
     __syncthreads();  // the previous tile's K and V are no longer read
-    load_tile_bf16<HD>(Ks, kb + static_cast<size_t>(k0) * HD, k_valid);
-    load_tile_bf16_transposed<HD>(Vt, vb + static_cast<size_t>(k0) * HD, k_valid);
+    flash::load_tile_bf16<HD, BN, MT>(Ks, kb + static_cast<size_t>(k0) * HD, k_valid);
+    flash::load_tile_bf16_transposed<HD, BN, MT>(Vt, vb + static_cast<size_t>(k0) * HD, k_valid);
     __syncthreads();
 
     // scores of this warp's 16 rows against the tile's 64 keys
@@ -510,20 +407,21 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
         pack_bf16(oacc[n][2] * inv[1], oacc[n][3] * inv[1]);
   }
   __syncthreads();
-  constexpr int VPR = HD / 8;
-  for (int idx = threadIdx.x; idx < BM * VPR; idx += MT) {
-    const int r = idx / VPR;
-    const int cv = idx - r * VPR;
-    if (r < q_valid)
-      *reinterpret_cast<uint4*>(ob + static_cast<size_t>(r) * HD + cv * 8) =
-          *reinterpret_cast<const uint4*>(Qs + r * QP + cv * 8);
+  flash::store_tile_bf16<HD, BM, MT>(ob, Qs, q_valid);
+  if (lse != nullptr && tig == 0) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = q0 + r0 + g + h * 8;
+      if (row < Sq)
+        lse[static_cast<size_t>(bh) * Sq + row] = m[h] + logf(fmaxf(l[h], 1e-30f));
+    }
   }
 }
 
 template <int HD>
 cudaError_t launch_mma(const void* q, const void* k, const void* v, void* o,
-                       int BH, int Sq, int Sk, int causal, float scale,
-                       cudaStream_t stream) {
+                       float* lse, int BH, int Sq, int Sk, int causal,
+                       float scale, cudaStream_t stream) {
   constexpr size_t smem_bytes =
       (BM * (HD + 8) + BN * (HD + 8) + HD * (BN + 8)) * sizeof(__nv_bfloat16);
   auto kern = flash_fwd_mma_kernel<HD>;
@@ -537,8 +435,8 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v, void* o,
   using bf16 = __nv_bfloat16;
   kern<<<dim3(static_cast<unsigned>(blocks)), dim3(MT), smem_bytes, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(o), BH, Sq, Sk, causal,
-      scale);
+      static_cast<const bf16*>(v), static_cast<bf16*>(o), lse, BH, Sq, Sk,
+      causal, scale);
   return cudaGetLastError();
 }
 
@@ -546,14 +444,15 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v, void* o,
 // tensor-core kernel.
 template <typename T>
 cudaError_t dispatch_hd(int hd, const void* q, const void* k, const void* v,
-                        void* o, int BH, int Sq, int Sk, int causal,
+                        void* o, float* lse, int BH, int Sq, int Sk, int causal,
                         float scale, cudaStream_t stream) {
 #define FLASH_CASE(HD_)                                                        \
   case HD_:                                                                    \
     if constexpr (sizeof(T) == 2)                                              \
-      return launch_mma<HD_>(q, k, v, o, BH, Sq, Sk, causal, scale, stream);   \
+      return launch_mma<HD_>(q, k, v, o, lse, BH, Sq, Sk, causal, scale,     \
+                             stream);                                          \
     else                                                                       \
-      return launch<T, HD_>(q, k, v, o, BH, Sq, Sk, causal, scale, stream);
+      return launch<T, HD_>(q, k, v, o, lse, BH, Sq, Sk, causal, scale, stream);
   switch (hd) {
     FLASH_CASE(16)
     FLASH_CASE(32)
@@ -566,18 +465,19 @@ cudaError_t dispatch_hd(int hd, const void* q, const void* k, const void* v,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. Tensors are contiguous (BH, S, hd).
+// dtype: 0 = float32, 1 = bfloat16. Tensors are contiguous (BH, S, hd); lse
+// is a contiguous fp32 (BH, Sq) output, or nullptr when not wanted.
 // Returns the CUDA error code of the launch (0 = launched).
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
-                                   void* o, int BH, int Sq, int Sk, int hd,
-                                   int dtype, int causal, float scale,
+                                   void* o, float* lse, int BH, int Sq, int Sk,
+                                   int hd, int dtype, int causal, float scale,
                                    void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (dtype == 0) {
-    err = dispatch_hd<float>(hd, q, k, v, o, BH, Sq, Sk, causal, scale, s);
+    err = dispatch_hd<float>(hd, q, k, v, o, lse, BH, Sq, Sk, causal, scale, s);
   } else if (dtype == 1) {
-    err = dispatch_hd<__nv_bfloat16>(hd, q, k, v, o, BH, Sq, Sk, causal, scale, s);
+    err = dispatch_hd<__nv_bfloat16>(hd, q, k, v, o, lse, BH, Sq, Sk, causal, scale, s);
   } else {
     err = cudaErrorInvalidValue;
   }

@@ -1,23 +1,35 @@
-"""Flash-attention forward: wrapper of the hand-written Hopper kernel.
+"""Flash attention, forward and backward: wrappers of the hand-written Hopper
+kernels.
 
-Replaces ``repro/kernels/flash_attention.py::flash_attention_fwd`` (the Pallas
-TPU kernel). The kernel is ``csrc/flash_attention_fwd.cu``; its header says
-what it keeps from the TPU kernel (online softmax, fp32 running max / sum /
-accumulator, finite mask value, skipped tiles above the diagonal) and what it
-changes (the sequential KV grid axis becomes a loop inside one thread block,
-the ragged edge is masked by the kernel).
+Replaces the Pallas TPU kernels of ``repro/kernels/flash_attention.py``:
 
-Bound on an H100: the function moves ``4*BH*S*hd*itemsize`` bytes and does
-about ``2*BH*S^2*hd`` operations when causal; in bf16 the two bound it about
-equally at the serving shapes, in fp32 the operations do. bf16 inputs run both
-products on the tensor cores (``mma.sync``, fp32 accumulate, probabilities
-rounded to bf16 for the second product); fp32 inputs are multiplied on the
-CUDA cores in true fp32 (no TF32), register-tiled so that shared-memory
-traffic stays below the FMA rate. ``wgmma``, TMA and overlapping loads with
-products are a later step behind the same interface.
+* ``flash_attention_fwd`` (``_flash_kernel``) and ``flash_attention_fwd_stats``
+  (``_flash_stats_kernel``, the same plus ``lse = m + log(max(l, 1e-30))``)
+  -> ``csrc/flash_attention_fwd.cu``, one kernel with an optional ``lse``
+  output;
+* ``flash_attention_bwd``'s two kernels, dk/dv (``_flash_bwd_kernel``) and dq
+  (``_flash_dq_kernel``) -> ``csrc/flash_attention_bwd.cu``.
 
-A tensor on the CPU takes the plain version below. A CUDA tensor launches the
-kernel or raises; nothing falls back.
+The sources' headers say what each kernel keeps from the TPU kernel (online
+softmax, fp32 statistics, the finite mask value, skipped tiles across the
+diagonal) and what changes (each sequential grid axis becomes a loop inside
+one thread block; the ragged edge is masked by the kernel; every output is
+written by one block, so the gradients are deterministic).
+
+Bound on an H100: the forward moves ``4*BH*S*hd*itemsize`` bytes and does
+``4*BH*pairs*hd`` operations (``pairs`` = S(S+1)/2 when causal), which bound
+it about equally in bf16; the backward's five products make it
+operation-bound. bf16 inputs run the products on the tensor cores
+(``mma.sync``, fp32 accumulate; probabilities and dS rounded to bf16 for
+their products); fp32 inputs are multiplied on the CUDA cores in true fp32
+(no TF32), as the reference holds fp32 gradients to 1e-4.
+
+``delta = sum_d dO * O`` stays plain torch ops (``bwd_delta``): the reference
+computes it outside any Pallas call.
+
+A tensor on the CPU takes the plain version beside each wrapper. A CUDA
+tensor launches the kernel or raises; nothing falls back. Each wrapper counts
+its launches in ``<wrapper>.launches``.
 """
 from __future__ import annotations
 
@@ -33,23 +45,40 @@ NEG_INF = -1e30
 HEAD_DIMS = (16, 32, 64, 128)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
-_fn = None
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+_fns = {}
 
 
-def _kernel():
-    global _fn
-    if _fn is None:
-        lib = _build.load("flash_attention_fwd")
-        fn = lib.flash_attention_fwd
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_float, ctypes.c_void_p]
+def _kernel(name: str):
+    """(C function, error-string function) of one entry point."""
+    if name not in _fns:
+        lib_name, argtypes = {
+            "flash_attention_fwd": ("flash_attention_fwd",
+                                    [_P] * 5 + [_I] * 6 + [_F, _P]),
+            "flash_attention_bwd_dkdv": ("flash_attention_bwd",
+                                         [_P] * 8 + [_I] * 6 + [_F, _P]),
+            "flash_attention_bwd_dq": ("flash_attention_bwd",
+                                       [_P] * 7 + [_I] * 6 + [_F, _P]),
+        }[name]
+        lib = _build.load(lib_name)
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-        lib.flash_attention_fwd_error.argtypes = [ctypes.c_int]
-        lib.flash_attention_fwd_error.restype = ctypes.c_char_p
-        _fn = (fn, lib.flash_attention_fwd_error)
-    return _fn
+        err = getattr(lib, f"{lib_name}_error")
+        err.argtypes = [ctypes.c_int]
+        err.restype = ctypes.c_char_p
+        _fns[name] = (fn, err)
+    return _fns[name]
+
+
+def _launch(name: str, *args, what: str) -> None:
+    fn, err_str = _kernel(name)
+    code = fn(*args, torch.cuda.current_stream().cuda_stream)
+    if code != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {code} "
+                           f"({err_str(code).decode()}) for {what}")
 
 
 def _check(q, k, v):
@@ -67,17 +96,59 @@ def _check(q, k, v):
         raise ValueError("sequence lengths must be at least 1")
 
 
-def flash_attention_fwd_plain(q, k, v, *, causal: bool = True,
-                              scale: Optional[float] = None,
-                              block_k: int = 128):
-    """The same function in plain PyTorch: online softmax over KV blocks,
-    fp32 inside, the kernel's mask value and final ``acc / max(l, 1e-30)``.
-    q: (BH, Sq, hd); k, v: (BH, Sk, hd); returns (BH, Sq, hd) in q's dtype."""
+def _check_bwd(q, k, v, dout, lse, delta):
+    _check(q, k, v)
+    if dout.shape != q.shape or dout.dtype != q.dtype or dout.device != q.device:
+        raise ValueError(f"dout must match q: {tuple(dout.shape)} {dout.dtype} "
+                         f"vs {tuple(q.shape)} {q.dtype}")
+    for name, t in (("lse", lse), ("delta", delta)):
+        if t.shape != q.shape[:2] or t.dtype != torch.float32 or t.device != q.device:
+            raise ValueError(f"{name} must be float32 {tuple(q.shape[:2])} on "
+                             f"{q.device}; got {t.dtype} {tuple(t.shape)} on {t.device}")
+
+
+def _on_cpu(q) -> bool:
+    """CPU tensors take the plain version; CUDA tensors the kernel."""
+    if q.device.type == "cpu":
+        return True
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+    return False
+
+
+def _check_launch(tensors, hd: int, dtype: torch.dtype) -> None:
+    """What the kernels take: fp32 or bf16, head dim in HEAD_DIMS, contiguous
+    and 16-byte aligned (they load 16 bytes a thread)."""
+    if dtype not in _DTYPE_CODE:
+        raise TypeError(f"kernel takes float32 or bfloat16, got {dtype}")
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"kernel takes head dim in {HEAD_DIMS}, got {hd}")
+    for name, t in tensors:
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned (the kernel "
+                             f"loads 16 bytes a thread)")
+
+
+def _scale(scale, hd) -> float:
+    return float(scale) if scale is not None else 1.0 / math.sqrt(hd)
+
+
+# ---------------------------------------------------------------------------
+# forward
+# ---------------------------------------------------------------------------
+def flash_attention_fwd_stats_plain(q, k, v, *, causal: bool = True,
+                                    scale: Optional[float] = None,
+                                    block_k: int = 128):
+    """The forward in plain PyTorch: online softmax over KV blocks, fp32
+    inside, the kernel's mask value, ``acc / max(l, 1e-30)`` and
+    ``lse = m + log(max(l, 1e-30))``. q: (BH, Sq, hd); k, v: (BH, Sk, hd);
+    returns (out (BH, Sq, hd) in q's dtype, lse (BH, Sq) fp32)."""
     _check(q, k, v)
     BH, Sq, hd = q.shape
     Sk = k.shape[1]
-    scale = scale if scale is not None else 1.0 / math.sqrt(hd)
-    qf = q.float() * scale
+    qf = q.float() * _scale(scale, hd)
     rows = torch.arange(Sq, device=q.device)[:, None]
     m = torch.full((BH, Sq), NEG_INF, dtype=torch.float32, device=q.device)
     l = torch.zeros((BH, Sq), dtype=torch.float32, device=q.device)
@@ -98,7 +169,34 @@ def flash_attention_fwd_plain(q, k, v, *, causal: bool = True,
         l = l * corr + p.sum(dim=-1)
         acc = acc * corr[..., None] + torch.bmm(p, vj)
         m = m_new
-    return (acc / l.clamp_min(1e-30)[..., None]).to(q.dtype)
+    denom = l.clamp_min(1e-30)
+    return (acc / denom[..., None]).to(q.dtype), m + torch.log(denom)
+
+
+def flash_attention_fwd_plain(q, k, v, *, causal: bool = True,
+                              scale: Optional[float] = None,
+                              block_k: int = 128):
+    """``flash_attention_fwd_stats_plain`` without the statistics."""
+    return flash_attention_fwd_stats_plain(q, k, v, causal=causal, scale=scale,
+                                           block_k=block_k)[0]
+
+
+def _fwd_kernel(q, k, v, causal, scale, with_lse: bool, wrapper):
+    BH, Sq, hd = q.shape
+    _check_launch((("q", q), ("k", k), ("v", v)), hd, q.dtype)
+    out = torch.empty_like(q)
+    lse = (torch.empty((BH, Sq), dtype=torch.float32, device=q.device)
+           if with_lse else None)
+    if BH:
+        with torch.cuda.device(q.device):
+            _launch("flash_attention_fwd", q.data_ptr(), k.data_ptr(),
+                    v.data_ptr(), out.data_ptr(),
+                    lse.data_ptr() if with_lse else None,
+                    BH, Sq, k.shape[1], hd, _DTYPE_CODE[q.dtype],
+                    int(bool(causal)), _scale(scale, hd),
+                    what=f"q {tuple(q.shape)} {q.dtype}")
+        wrapper.launches += 1
+    return out, lse
 
 
 def flash_attention_fwd(q, k, v, *, causal: bool = True,
@@ -110,38 +208,155 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True,
     bf16, contiguous, head dim in ``HEAD_DIMS``; anything else raises.
     """
     _check(q, k, v)
-    if q.device.type == "cpu":
+    if _on_cpu(q):
         return flash_attention_fwd_plain(q, k, v, causal=causal, scale=scale)
-    if q.device.type != "cuda":
-        raise ValueError(f"unsupported device {q.device}")
-    BH, Sq, hd = q.shape
-    Sk = k.shape[1]
-    if q.dtype not in _DTYPE_CODE:
-        raise TypeError(f"kernel takes float32 or bfloat16, got {q.dtype}")
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"kernel takes head dim in {HEAD_DIMS}, got {hd}")
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-        if t.data_ptr() % 16:
-            raise ValueError(f"{name} must be 16-byte aligned (the kernel "
-                             f"loads 16 bytes a thread)")
-    scale = scale if scale is not None else 1.0 / math.sqrt(hd)
-    out = torch.empty_like(q)
-    if BH == 0:
-        return out
-    fn, err_str = _kernel()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                  BH, Sq, Sk, hd, _DTYPE_CODE[q.dtype], int(bool(causal)),
-                  float(scale), stream)
-    if code != 0:
-        raise RuntimeError(
-            f"flash_attention_fwd launch failed: CUDA error {code} "
-            f"({err_str(code).decode()}) for q {tuple(q.shape)} {q.dtype}")
-    flash_attention_fwd.launches += 1
-    return out
+    return _fwd_kernel(q, k, v, causal, scale, False, flash_attention_fwd)[0]
+
+
+def flash_attention_fwd_stats(q, k, v, *, causal: bool = True,
+                              scale: Optional[float] = None):
+    """The forward plus the row statistics the backward needs: returns
+    (out (BH, Sq, hd), lse (BH, Sq) fp32). The same kernel as
+    ``flash_attention_fwd`` with its ``lse`` output on; counted apart."""
+    _check(q, k, v)
+    if _on_cpu(q):
+        return flash_attention_fwd_stats_plain(q, k, v, causal=causal,
+                                               scale=scale)
+    return _fwd_kernel(q, k, v, causal, scale, True, flash_attention_fwd_stats)
 
 
 flash_attention_fwd.launches = 0
+flash_attention_fwd_stats.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# backward
+# ---------------------------------------------------------------------------
+def bwd_delta(out, dout):
+    """delta = sum_d dO * O per row, fp32 (BH, Sq): plain torch ops, outside
+    any kernel, as in the reference."""
+    return (dout.float() * out.float()).sum(dim=-1)
+
+
+def _bwd_block(qs, k, v, do, lse, delta, k0, block_k, causal):
+    """p and dS of kv block [k0, k0 + block_k) against q rows r0.., where r0
+    skips the rows wholly above the diagonal. Returns (r0, kj, p, ds)."""
+    Sq = qs.shape[1]
+    kj = k[:, k0:k0 + block_k].float()
+    vj = v[:, k0:k0 + block_k].float()
+    r0 = min(k0, Sq) if causal else 0
+    s = torch.bmm(qs[:, r0:], kj.transpose(1, 2))
+    if causal:
+        rows = r0 + torch.arange(Sq - r0, device=qs.device)[:, None]
+        cols = k0 + torch.arange(kj.shape[1], device=qs.device)[None, :]
+        s = torch.where((rows >= cols)[None], s, torch.full_like(s, NEG_INF))
+    p = torch.exp(s - lse[:, r0:, None])
+    dp = torch.bmm(do[:, r0:], vj.transpose(1, 2))
+    ds = p * (dp - delta[:, r0:, None])
+    return r0, kj, p, ds
+
+
+def flash_attention_bwd_dkdv_plain(q, k, v, dout, lse, delta, *,
+                                   causal: bool = True,
+                                   scale: Optional[float] = None,
+                                   block_k: int = 128):
+    """dk, dv in plain PyTorch, by kv blocks as ``_flash_bwd_kernel``:
+    ``p = exp(q k^T * scale - lse)``, ``dV = p^T dO``,
+    ``dK = (p * (dO v^T - delta))^T (q * scale)``; fp32 inside, outputs in
+    k's and v's dtype."""
+    _check_bwd(q, k, v, dout, lse, delta)
+    qs = q.float() * _scale(scale, q.shape[2])
+    do = dout.float()
+    dk = torch.zeros(k.shape, dtype=torch.float32, device=k.device)
+    dv = torch.zeros(v.shape, dtype=torch.float32, device=v.device)
+    for k0 in range(0, k.shape[1], block_k):
+        r0, _, p, ds = _bwd_block(qs, k, v, do, lse, delta, k0, block_k, causal)
+        dv[:, k0:k0 + block_k] = torch.bmm(p.transpose(1, 2), do[:, r0:])
+        dk[:, k0:k0 + block_k] = torch.bmm(ds.transpose(1, 2), qs[:, r0:])
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_attention_bwd_dq_plain(q, k, v, dout, lse, delta, *,
+                                 causal: bool = True,
+                                 scale: Optional[float] = None,
+                                 block_k: int = 128):
+    """dq in plain PyTorch, as ``_flash_dq_kernel``: ``dQ = (sum over kv
+    blocks of dS k) * scale``; fp32 inside, output in q's dtype."""
+    _check_bwd(q, k, v, dout, lse, delta)
+    sc = _scale(scale, q.shape[2])
+    qs = q.float() * sc
+    do = dout.float()
+    dq = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+    for k0 in range(0, k.shape[1], block_k):
+        if causal and k0 > q.shape[1] - 1:
+            break                      # every later block is above the diagonal
+        r0, kj, _, ds = _bwd_block(qs, k, v, do, lse, delta, k0, block_k, causal)
+        dq[:, r0:] += torch.bmm(ds, kj)
+    return (dq * sc).to(q.dtype)
+
+
+def _bwd_launch_args(q, k, v, dout, lse, delta, scale):
+    BH, Sq, hd = q.shape
+    _check_launch((("q", q), ("k", k), ("v", v), ("dout", dout),
+                   ("lse", lse), ("delta", delta)), hd, q.dtype)
+    return BH, Sq, k.shape[1], hd, _DTYPE_CODE[q.dtype], _scale(scale, hd)
+
+
+def flash_attention_bwd_dkdv(q, k, v, dout, lse, delta, *,
+                             causal: bool = True,
+                             scale: Optional[float] = None):
+    """(dk, dv), each (BH, Sk, hd) in k's dtype, from the dk/dv kernel.
+    ``lse`` from ``flash_attention_fwd_stats``, ``delta`` from ``bwd_delta``.
+    CPU tensors take ``flash_attention_bwd_dkdv_plain``."""
+    _check_bwd(q, k, v, dout, lse, delta)
+    if _on_cpu(q):
+        return flash_attention_bwd_dkdv_plain(q, k, v, dout, lse, delta,
+                                              causal=causal, scale=scale)
+    BH, Sq, Sk, hd, code, sc = _bwd_launch_args(q, k, v, dout, lse, delta, scale)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    if BH:
+        with torch.cuda.device(q.device):
+            _launch("flash_attention_bwd_dkdv", q.data_ptr(), k.data_ptr(),
+                    v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+                    delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), BH, Sq, Sk,
+                    hd, code, int(bool(causal)), sc,
+                    what=f"q {tuple(q.shape)} {q.dtype}")
+        flash_attention_bwd_dkdv.launches += 1
+    return dk, dv
+
+
+def flash_attention_bwd_dq(q, k, v, dout, lse, delta, *, causal: bool = True,
+                           scale: Optional[float] = None):
+    """dq, (BH, Sq, hd) in q's dtype, from the dq kernel. CPU tensors take
+    ``flash_attention_bwd_dq_plain``."""
+    _check_bwd(q, k, v, dout, lse, delta)
+    if _on_cpu(q):
+        return flash_attention_bwd_dq_plain(q, k, v, dout, lse, delta,
+                                            causal=causal, scale=scale)
+    BH, Sq, Sk, hd, code, sc = _bwd_launch_args(q, k, v, dout, lse, delta, scale)
+    dq = torch.empty_like(q)
+    if BH:
+        with torch.cuda.device(q.device):
+            _launch("flash_attention_bwd_dq", q.data_ptr(), k.data_ptr(),
+                    v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+                    delta.data_ptr(), dq.data_ptr(), BH, Sq, Sk, hd, code,
+                    int(bool(causal)), sc,
+                    what=f"q {tuple(q.shape)} {q.dtype}")
+        flash_attention_bwd_dq.launches += 1
+    return dq
+
+
+flash_attention_bwd_dkdv.launches = 0
+flash_attention_bwd_dq.launches = 0
+
+
+def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool = True,
+                        scale: Optional[float] = None):
+    """Flash backward: (dq, dk, dv), as the reference's two pallas_calls.
+    ``out`` and ``lse`` from ``flash_attention_fwd_stats``."""
+    delta = bwd_delta(out, dout)
+    dk, dv = flash_attention_bwd_dkdv(q, k, v, dout, lse, delta, causal=causal,
+                                      scale=scale)
+    dq = flash_attention_bwd_dq(q, k, v, dout, lse, delta, causal=causal,
+                                scale=scale)
+    return dq, dk, dv

@@ -14,6 +14,15 @@ def flash_attention(q, k, v, *, causal: bool = True):
     return out.reshape(B, H, S, hd).permute(0, 2, 1, 3)
 
 
+def flash_attention_grads(q, k, v, dout, *, causal: bool = True):
+    """Full flash backward through the kernels, the reference's
+    ``ops.flash_attention_grads``. q, k, v, dout: (BH, S, hd).
+    Returns (out, dq, dk, dv)."""
+    out, lse = _fa.flash_attention_fwd_stats(q, k, v, causal=causal)
+    dq, dk, dv = _fa.flash_attention_bwd(q, k, v, out, lse, dout, causal=causal)
+    return out, dq, dk, dv
+
+
 def stream_matmul(x, w, *, block_k: int = _sm.BLOCK_K):
     """x: (M, K) resident; w: (K, N) on x's device or in pinned host memory,
     streamed in ``block_k`` panels."""

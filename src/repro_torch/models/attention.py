@@ -1,14 +1,20 @@
 """Attention: eager chunked flash (online softmax), GQA, RoPE, decode.
 
-Two implementations share one signature, selected by ``cfg.attn_impl`` with
+Three implementations share one signature, selected by ``cfg.attn_impl`` with
 the reference's values:
   * ``"xla"`` — the port's eager flash: a Python loop over KV chunks with
-    online softmax (the counterpart of the reference's ``lax.scan`` version);
-  * ``"pallas"`` — the hand-written Hopper kernel behind
-    ``repro_torch.kernels.ops.flash_attention`` (causal prefill).
+    online softmax (the counterpart of the reference's ``lax.scan`` version),
+    differentiated by autograd;
+  * ``"xla_cv"`` — ``flash_attention_cv``, the reference's custom-VJP flash:
+    a ``torch.autograd.Function`` whose forward is the hand-written forward
+    kernel with its ``lse`` output and whose backward is the two hand-written
+    backward kernels (the training path);
+  * ``"pallas"`` — the hand-written forward kernel behind
+    ``repro_torch.kernels.ops.flash_attention`` (causal prefill). It has no
+    backward, as in the reference, and raises under autograd.
 
-GQA is handled by gather-expanding K/V head-wise. ``flash_attention_cv`` and
-``cross_attention`` arrive with the training and encoder-decoder paths.
+GQA is handled by gather-expanding K/V head-wise. ``cross_attention`` arrives
+with the encoder-decoder path.
 """
 from __future__ import annotations
 
@@ -17,6 +23,8 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import flash_attention as fa_kernels
+from repro_torch.kernels import ops as kops
 from repro_torch.models.common import ParamBuilder, weight_matmul
 from repro_torch.models.layers import apply_rope, rms_norm_vec
 
@@ -190,6 +198,57 @@ def decode_attention(q, k, v, *, kv_len=None, scale: Optional[float] = None):
     return out.reshape(B, Sq, H, hd).to(q.dtype)
 
 
+# ---------------------------------------------------------------------------
+# flash attention with a custom backward (the reference's custom VJP)
+#
+# The reference's ``flash_attention_cv`` saves only the (B, H, Sq) logsumexp
+# stats and recomputes p per chunk in the backward. Here the forward is the
+# hand-written kernel with its ``lse`` output and the backward the two
+# hand-written backward kernels; on CPU tensors both take their plain
+# versions, the same arithmetic in PyTorch.
+# ---------------------------------------------------------------------------
+def _fold(t):
+    """(B, S, H, hd) -> contiguous (B*H, S, hd), heads into the batch dim."""
+    B, S, H, hd = t.shape
+    return t.permute(0, 2, 1, 3).reshape(B * H, S, hd).contiguous()
+
+
+def _unfold(t, B: int, H: int):
+    """(B*H, S, hd) -> (B, S, H, hd)."""
+    return t.reshape(B, H, t.shape[1], t.shape[2]).permute(0, 2, 1, 3)
+
+
+class _FlashCV(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, scale: float):
+        B, H = q.shape[0], q.shape[2]
+        qf, kf, vf = _fold(q), _fold(k), _fold(v)
+        out, lse = fa_kernels.flash_attention_fwd_stats(qf, kf, vf,
+                                                        causal=causal,
+                                                        scale=scale)
+        ctx.save_for_backward(qf, kf, vf, out, lse)
+        ctx.causal, ctx.scale, ctx.heads = causal, scale, (B, H)
+        return _unfold(out, B, H).contiguous()
+
+    @staticmethod
+    def backward(ctx, dout):
+        qf, kf, vf, out, lse = ctx.saved_tensors
+        B, H = ctx.heads
+        dq, dk, dv = fa_kernels.flash_attention_bwd(
+            qf, kf, vf, out, lse, _fold(dout), causal=ctx.causal,
+            scale=ctx.scale)
+        return _unfold(dq, B, H), _unfold(dk, B, H), _unfold(dv, B, H), None, None
+
+
+def flash_attention_cv(q, k, v, causal: bool, chunk: int, scale: float):
+    """q: (B,Sq,H,hd); k, v: (B,Sk,H,hd) (head-expanded). Differentiable
+    flash attention through the kernels. ``chunk`` is kept for the
+    reference's signature: it sizes the reference's scan and selects this
+    route in ``attention_core``; the kernels choose their own tiles."""
+    del chunk
+    return _FlashCV.apply(q, k, v, causal, scale)
+
+
 def attention_core(cfg: ModelConfig, q, k, v, *, causal: bool, q_offset=0,
                    kv_len=None):
     """Dispatch on ``cfg.attn_impl``; GQA heads are expanded for the flash
@@ -199,8 +258,17 @@ def attention_core(cfg: ModelConfig, q, k, v, *, causal: bool, q_offset=0,
     k = expand_kv(k, cfg.num_heads)
     v = expand_kv(v, cfg.num_heads)
     if cfg.attn_impl == "pallas" and causal and q.shape[1] == k.shape[1]:
-        from repro_torch.kernels import ops as kops
+        if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                        or v.requires_grad):
+            raise RuntimeError(
+                "attn_impl='pallas' is the forward kernel alone and has no "
+                "backward (the reference cannot differentiate it either); "
+                "train with attn_impl='xla_cv'")
         return kops.flash_attention(q, k, v, causal=True)
+    if (cfg.attn_impl == "xla_cv" and causal and kv_len is None
+            and k.shape[1] % min(cfg.attn_chunk, k.shape[1]) == 0):
+        return flash_attention_cv(q, k, v, True, cfg.attn_chunk,
+                                  cfg.head_dim ** -0.5)
     return flash_attention(q, k, v, causal=causal, q_offset=q_offset,
                            kv_len=kv_len, chunk=cfg.attn_chunk)
 

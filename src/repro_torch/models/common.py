@@ -94,9 +94,17 @@ def weight_matmul(x, w):
     kernel with x flattened to 2-D: it is neither cast on the host nor copied
     whole, and its bytes cross the host link once per call. The route
     follows where the tensor lives; the wrapper raises on what it cannot
-    stream (e.g. pageable host memory)."""
+    stream (e.g. pageable host memory). The kernel has no backward, so a
+    streamed product that autograd would differentiate raises instead of
+    losing the gradient."""
     if w.device == x.device:
         return x @ w.to(x.dtype)
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        raise RuntimeError(
+            "a weight placed apart from the activations is streamed through "
+            "stream_matmul, which has no backward; training keeps every "
+            f"weight on the activations' device (weight on {w.device}, "
+            f"activations on {x.device})")
     out = kops.stream_matmul(x.reshape(-1, x.shape[-1]), w)
     return out.reshape(*x.shape[:-1], w.shape[-1])
 
@@ -118,6 +126,31 @@ def tree_leaves(tree: PyTree):
             yield from tree_leaves(item)
     elif tree is not None:
         yield tree
+
+
+def tree_unflatten(like: PyTree, leaves) -> PyTree:
+    """The inverse of ``tree_leaves``: ``like``'s structure (dicts, lists,
+    tuples, NamedTuples; None stays None) with ``leaves`` taken in
+    ``tree_leaves`` order. Dicts keep ``like``'s key order."""
+    it = iter(leaves)
+
+    def build(t):
+        if isinstance(t, dict):
+            built = {k: build(t[k]) for k in sorted(t)}
+            return {k: built[k] for k in t}
+        if isinstance(t, (list, tuple)):
+            items = [build(x) for x in t]
+            return type(t)(*items) if hasattr(t, "_fields") else type(t)(items)
+        return None if t is None else next(it)
+    return build(like)
+
+
+def cast_tree(tree: PyTree, dtype) -> PyTree:
+    """Floating leaves cast to ``dtype``; other leaves and the structure kept."""
+    dtype = to_dtype(dtype)
+    return tree_unflatten(tree, [
+        x.to(dtype) if isinstance(x, torch.Tensor) and x.is_floating_point()
+        else x for x in tree_leaves(tree)])
 
 
 def tree_bytes(tree: PyTree) -> int:

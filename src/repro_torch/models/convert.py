@@ -40,3 +40,13 @@ def params_from_numpy(tree: PyTree, *, device, dtype=None) -> PyTree:
 def cache_from_numpy(tree: PyTree, *, device, dtype=None) -> PyTree:
     """Reference cache tree (numpy leaves) -> the port's cache dict."""
     return params_from_numpy(tree, device=device, dtype=dtype)
+
+
+def adamw_state_from_numpy(state, *, device):
+    """Reference ``AdamWState`` with numpy leaves (``step`` int32, fp32
+    moments) -> the port's ``AdamWState``, paths unchanged."""
+    from repro_torch.optim.adamw import AdamWState
+    step, mu, nu = state
+    return AdamWState(step=torch.from_numpy(np.array(step, dtype=np.int32)).to(device),
+                      mu=params_from_numpy(mu, device=device),
+                      nu=params_from_numpy(nu, device=device))

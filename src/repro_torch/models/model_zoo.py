@@ -1,17 +1,18 @@
 """Unified model API of the port (dense decoder-only family so far).
 
-``Model`` wires a ModelConfig to (init, forward, decode, caches) on one
+``Model`` wires a ModelConfig to (init, forward, loss, decode, caches) on one
 device. Where the reference took a mesh or an axis environment, ``Model``
 takes ``device`` (default CUDA; the tests pass ``"cpu"``).
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, replace
-from typing import Any, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
-from repro_torch.configs.base import ENCDEC, ModelConfig
+from repro_torch.configs.base import ENCDEC, VLM, ModelConfig
+from repro_torch.configs.shapes import DECODE, TRAIN, ShapeSuite
 from repro_torch.models import transformer as tfm
 from repro_torch.models.common import resolve_device, tree_leaves
 
@@ -46,6 +47,13 @@ class Model:
         return tfm.forward_decoder_only(
             self.cfg, params, batch, return_cache=return_cache,
             last_token_only=last_token_only)
+
+    def loss_fn(self, params, batch) -> torch.Tensor:
+        """Mean next-token cross-entropy plus 0.01 x the auxiliary loss, with
+        autograd on (the serving ``forward`` runs without it)."""
+        self._check_family()
+        logits, aux, _ = tfm.forward_decoder_only(self.cfg, params, batch)
+        return softmax_xent(logits, batch["labels"]) + 0.01 * aux
 
     @torch.no_grad()
     def decode(self, params, cache, batch):
@@ -90,6 +98,62 @@ class Model:
                 t = replace(t, divisible=True)
             out.append(t)
         return out
+
+    # ------------------------------------------------------------------
+    def batch_specs(self, shape: ShapeSuite) -> Dict[str, Tuple]:
+        """(shape, dtype) per input of a step of ``shape`` (one device, so
+        no partition specs)."""
+        cfg = self.cfg
+        B = shape.global_batch
+        S = 1 if shape.kind == DECODE else shape.seq_len
+        out: Dict[str, Tuple] = {}
+        if cfg.family == VLM:
+            out["embeds"] = ((B, S, cfg.d_model), torch.bfloat16)
+            out["positions"] = ((3, B, S), torch.int32)
+        elif cfg.family == ENCDEC:
+            if shape.kind != DECODE:
+                out["frames"] = ((B, cfg.encoder_seq, cfg.d_model), torch.bfloat16)
+            out["tokens"] = ((B, S), torch.int32)
+        else:
+            out["tokens"] = ((B, S), torch.int32)
+        if shape.kind == TRAIN:
+            out["labels"] = ((B, S), torch.int32)
+        if shape.kind == DECODE:
+            out["pos"] = ((), torch.int32)
+        return out
+
+    def synthetic_batch(self, shape: ShapeSuite,
+                        generator: Optional[torch.Generator] = None
+                        ) -> Dict[str, torch.Tensor]:
+        """Random inputs of ``batch_specs(shape)`` on the model's device:
+        token ids uniform over the vocabulary, floats 0.02 x normal, ``pos``
+        zero. ``generator`` (on the model's device) makes them repeatable."""
+        out = {}
+        for name, (shp, dt) in self.batch_specs(shape).items():
+            if dt == torch.int32:
+                hi = self.cfg.vocab_size if name in ("tokens", "labels") else max(
+                    1, min(shp[-1] if shp else 1, 4096))
+                out[name] = (torch.zeros(shp, dtype=dt, device=self.device)
+                             if not shp else
+                             torch.randint(0, hi, shp, generator=generator,
+                                           dtype=dt, device=self.device))
+            else:
+                out[name] = 0.02 * torch.randn(shp, generator=generator,
+                                               device=self.device).to(dt)
+        if "pos" in out:
+            out["pos"] = torch.zeros((), dtype=torch.int32, device=self.device)
+        return out
+
+
+def softmax_xent(logits, labels) -> torch.Tensor:
+    """Mean token cross-entropy, fp32 inside. The reference contracts the
+    logits with a one-hot of the labels, a form that stays local when the
+    vocabulary is sharded; on one device a gather of the label's logit is the
+    same value without materialising the (B, S, V) one-hot."""
+    lf = logits.float()
+    lse = torch.logsumexp(lf, dim=-1)
+    ll = lf.gather(-1, labels.long()[..., None])[..., 0]
+    return (lse - ll).mean()
 
 
 def build_model(cfg: ModelConfig, device="cuda") -> Model:

@@ -1,15 +1,18 @@
 """Decoder-only LM assembly — dense family.
 
 The reference scans over stacked layer parameters; here a Python loop indexes
-the same stacked tensors (``layers/wq`` with a leading ``L`` dim). MoE, VLM,
-SSM and hybrid branches are not ported yet and raise ``NotImplementedError``
-naming the ROADMAP item that brings them.
+the same stacked tensors (``layers/wq`` with a leading ``L`` dim). Under
+autograd each layer is wrapped by ``remat_wrap`` (``cfg.remat``), as the
+reference wraps its scan body. MoE, VLM, SSM and hybrid branches are not
+ported yet and raise ``NotImplementedError`` naming the ROADMAP item that
+brings them.
 """
 from __future__ import annotations
 
 from typing import Any, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import DENSE, HYBRID, MOE, SSM, VLM, ModelConfig
 from repro_torch.models import attention as attn
@@ -31,6 +34,51 @@ def _require_dense(cfg: ModelConfig) -> None:
         raise NotImplementedError(
             f"{cfg.name}: {_PENDING.get(cfg.family, cfg.family)} "
             f"is not ported yet")
+
+
+# ---------------------------------------------------------------------------
+# remat policy
+# ---------------------------------------------------------------------------
+def offload_activation(t):
+    """Pack hook of ``remat="offload"``: a tensor autograd saves (the layer's
+    input) goes to pinned host memory, as the reference's
+    ``save_and_offload_only_these_names(["layer_act"],
+    offload_dst="pinned_host")``. ``offload_activation.d2h_bytes`` counts the
+    bytes sent to the host."""
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=t.is_cuda)
+    host.copy_(t, non_blocking=t.is_cuda)
+    offload_activation.d2h_bytes += t.numel() * t.element_size()
+    return t.device, host
+
+
+offload_activation.d2h_bytes = 0
+
+
+def _restore_activation(packed):
+    device, host = packed
+    return host.to(device, non_blocking=True)
+
+
+def remat_wrap(cfg: ModelConfig, fn):
+    """``fn(x)`` with the reference's remat policy, under autograd only:
+    ``"none"`` saves everything; ``"layer"`` / ``"full"`` save only the
+    layer's input and recompute the rest in the backward
+    (``torch.utils.checkpoint``); ``"offload"`` does the same with that
+    input kept in pinned host memory until the backward needs it. The
+    parameters and positions are taken by ``fn``'s closure, so the input is
+    the one tensor the checkpoint saves."""
+    if cfg.remat == "none":
+        return fn
+
+    def wrapped(x):
+        if not torch.is_grad_enabled():
+            return fn(x)
+        if cfg.remat == "offload":
+            with torch.autograd.graph.saved_tensors_hooks(offload_activation,
+                                                          _restore_activation):
+                return checkpoint(fn, x, use_reentrant=False)
+        return checkpoint(fn, x, use_reentrant=False)
+    return wrapped
 
 
 # ---------------------------------------------------------------------------
@@ -99,13 +147,19 @@ def forward_decoder_only(cfg: ModelConfig, params, batch, *,
                          return_cache: bool = False,
                          last_token_only: bool = False):
     """Full-sequence forward. Returns (logits, aux_loss, cache_or_None);
-    the cache is ``{"k", "v"}`` of shape (L, B, S, KV, hd)."""
+    the cache is ``{"k", "v"}`` of shape (L, B, S, KV, hd). Differentiable:
+    serving calls it under ``torch.no_grad()`` (``Model.forward``), training
+    with autograd on (``Model.loss_fn``)."""
     _require_dense(cfg)
     x, positions = _embed_input(cfg, params, batch)
     lp_all = params["layers"]
     ks, vs = [], []
     for i in range(cfg.num_layers):
-        x, (k, v) = _attn_mlp_layer(cfg, _layer_params(lp_all, i), x, positions)
+        lp = _layer_params(lp_all, i)
+
+        def body(x, lp=lp):
+            return _attn_mlp_layer(cfg, lp, x, positions)
+        x, (k, v) = remat_wrap(cfg, body)(x)
         if return_cache:
             ks.append(k)
             vs.append(v)

@@ -200,3 +200,154 @@ def test_kernel_matches_plain_on_card(dtype):
     odd = torch.zeros(4 * 8 * 16 + 1, device=dev, dtype=dtype)[1:].view(4, 8, 16)
     with pytest.raises(ValueError, match="aligned"):
         fa.flash_attention_fwd(odd, odd, odd)
+
+
+FLASH_SHAPES = [  # (Sq, Sk, causal): square, ragged, non-causal, cross-length
+    (128, 128, True), (300, 300, True), (77, 77, False), (1, 1, True),
+    (40, 200, False), (130, 257, True)]
+
+
+def _flash_inputs(dev, dtype, BH, Sq, Sk, hd, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q, do = (torch.randn(BH, Sq, hd, device=dev, generator=g).to(dtype)
+             for _ in range(2))
+    k, v = (torch.randn(BH, Sk, hd, device=dev, generator=g).to(dtype)
+            for _ in range(2))
+    return q, k, v, do
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_fwd_stats_matches_plain_on_card(dtype):
+    """The forward kernel with its lse output: out and lse against the plain
+    version (out: fp32 2e-5, bf16 2e-2; lse fp32 2e-5 of its largest value,
+    in both input types since the statistics are fp32 sums)."""
+    from repro_torch.kernels import flash_attention as fa
+    dev = _cuda()
+    tol = {torch.float32: 2e-5, torch.bfloat16: 2e-2}[dtype]
+    for hd in fa.HEAD_DIMS:
+        for Sq, Sk, causal in FLASH_SHAPES:
+            q, k, v, _ = _flash_inputs(dev, dtype, 4, Sq, Sk, hd, Sq + Sk + hd)
+            before = (fa.flash_attention_fwd_stats.launches,
+                      fa.flash_attention_fwd.launches)
+            out, lse = fa.flash_attention_fwd_stats(q, k, v, causal=causal)
+            want_out, want_lse = fa.flash_attention_fwd_stats_plain(
+                q, k, v, causal=causal)
+            torch.cuda.synchronize()
+            assert (fa.flash_attention_fwd_stats.launches,
+                    fa.flash_attention_fwd.launches) == (before[0] + 1, before[1])
+            assert lse.dtype == torch.float32 and lse.shape == (4, Sq)
+            assert _rel(out, want_out) < tol, (dtype, hd, Sq, Sk, causal)
+            assert _rel(lse, want_lse) < 2e-5, (dtype, hd, Sq, Sk, causal)
+
+
+def _close(got, want, tol, atol=1e-5) -> bool:
+    """max |diff| <= tol * max |want| + atol: the absolute term covers a
+    gradient that vanishes (one key: dS = p (dO.v - dO.o) = 0 exactly), where
+    both sides hold rounding noise."""
+    diff = float((got.float() - want.float()).abs().max())
+    return diff <= tol * float(want.float().abs().max()) + atol
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_bwd_kernels_match_plain_on_card(dtype):
+    """dk/dv and dq kernels against their plain versions on the same lse and
+    delta (fp32 1e-4, the reference's backward tolerance; bf16 2e-2), at
+    every head dim, square, ragged and cross lengths, causal and not."""
+    from repro_torch.kernels import flash_attention as fa
+    dev = _cuda()
+    tol = {torch.float32: 1e-4, torch.bfloat16: 2e-2}[dtype]
+    for hd in fa.HEAD_DIMS:
+        for Sq, Sk, causal in FLASH_SHAPES:
+            q, k, v, do = _flash_inputs(dev, dtype, 4, Sq, Sk, hd, Sq * Sk + hd)
+            out, lse = fa.flash_attention_fwd_stats_plain(q, k, v, causal=causal)
+            delta = fa.bwd_delta(out, do)
+            before = (fa.flash_attention_bwd_dkdv.launches,
+                      fa.flash_attention_bwd_dq.launches)
+            dk, dv = fa.flash_attention_bwd_dkdv(q, k, v, do, lse, delta,
+                                                 causal=causal)
+            dq = fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, causal=causal)
+            want_dk, want_dv = fa.flash_attention_bwd_dkdv_plain(
+                q, k, v, do, lse, delta, causal=causal)
+            want_dq = fa.flash_attention_bwd_dq_plain(q, k, v, do, lse, delta,
+                                                      causal=causal)
+            torch.cuda.synchronize()
+            assert (fa.flash_attention_bwd_dkdv.launches,
+                    fa.flash_attention_bwd_dq.launches) == (before[0] + 1,
+                                                            before[1] + 1)
+            case = (dtype, hd, Sq, Sk, causal)
+            assert dq.dtype == dk.dtype == dv.dtype == dtype
+            assert _close(dq, want_dq, tol), ("dq",) + case
+            assert _close(dk, want_dk, tol), ("dk",) + case
+            assert _close(dv, want_dv, tol), ("dv",) + case
+    # deterministic: no atomics, so a second launch is bitwise the same
+    q, k, v, do = _flash_inputs(dev, dtype, 8, 512, 512, 64, 1)
+    out, lse = fa.flash_attention_fwd_stats(q, k, v)
+    first = fa.flash_attention_bwd(q, k, v, out, lse, do)
+    second = fa.flash_attention_bwd(q, k, v, out, lse, do)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_cv_autograd_on_card(dtype):
+    """flash_attention_cv (kernel forward and backward under autograd, heads
+    folded from (B, S, H, hd), a non-contiguous dout) against autograd of
+    the eager chunked attention."""
+    from repro_torch.models.attention import flash_attention, flash_attention_cv
+    dev = _cuda()
+    tol = {torch.float32: 1e-4, torch.bfloat16: 2e-2}[dtype]
+    g = torch.Generator(device=dev).manual_seed(5)
+    B, S, H, hd = 2, 256, 4, 64
+    q, k, v = (torch.randn(B, S, H, hd, device=dev, generator=g).to(dtype)
+               .requires_grad_() for _ in range(3))
+    w = torch.randn(B, H, S, hd, device=dev, generator=g).permute(0, 2, 1, 3)
+    loss_k = (flash_attention_cv(q, k, v, True, 64, hd ** -0.5).float() * w).sum()
+    loss_e = (flash_attention(q, k, v, causal=True, chunk=64).float() * w).sum()
+    gk = torch.autograd.grad(loss_k, (q, k, v))
+    ge = torch.autograd.grad(loss_e, (q, k, v))
+    for a, b in zip(gk, ge):
+        assert _rel(a, b) < tol
+
+
+@pytest.mark.gpu
+def test_train_step_on_card():
+    """One make_train_step step of a reduced gpt2 on the card through the
+    kernels (attn_impl="xla_cv", remat="layer"): the launches follow the
+    step's structure, the loss and gradients equal the CPU step's (fp32,
+    plain versions there), and the step changes the parameters."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import ShapeSuite, TRAIN
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.optim import adamw
+    from repro_torch.train.train_step import (TrainStepConfig, _accumulate_grads,
+                                              make_train_step)
+    dev = _cuda()
+    cfg = get_config("gpt2-124m").reduced().with_(
+        attn_impl="xla_cv", remat="layer", dtype="float32")
+    model = build_model(cfg, dev)
+    params, _ = model.init(torch.Generator(device=dev).manual_seed(0))
+    batch = model.synthetic_batch(ShapeSuite("t", TRAIN, 64, 4),
+                                  torch.Generator(device=dev).manual_seed(1))
+    cpu = build_model(cfg, "cpu")
+    to_cpu = lambda t: {k: to_cpu(v) for k, v in t.items()} if isinstance(t, dict) else t.cpu()
+    loss_c, grads_c = _accumulate_grads(cpu, to_cpu(params), to_cpu(batch), 1)
+    counts = lambda: (fa.flash_attention_fwd_stats.launches,
+                      fa.flash_attention_bwd_dkdv.launches,
+                      fa.flash_attention_bwd_dq.launches)
+    before = counts()
+    loss_g, grads_g = _accumulate_grads(model, params, batch, 1)
+    torch.cuda.synchronize()
+    L = cfg.num_layers
+    assert tuple(a - b for a, b in zip(counts(), before)) == (2 * L, L, L)
+    assert abs(float(loss_g) - float(loss_c)) < 1e-5 * abs(float(loss_c))
+    for (name, a), (_, b) in zip(to_cpu(grads_g)["layers"].items(),
+                                 grads_c["layers"].items()):
+        assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max()) + 1e-6, name
+    step = make_train_step(model, TrainStepConfig(opt=adamw.AdamWConfig()))
+    old = params["layers"]["wq"].clone()
+    params, opt, met = step(params, adamw.init(params), batch)
+    assert torch.isfinite(met["loss"]) and int(opt.step) == 1
+    assert not torch.equal(old, params["layers"]["wq"])

@@ -21,7 +21,9 @@ def test_port_sources_exist():
     assert {"flash_attention.py", "kv_pool.py", "tenant.py", "serve.py",
             "chip_smoke.py", "stream_matmul.py", "runtime.py",
             "partitioner.py", "perfmodel.py", "power.py", "roofline.py",
-            "workload.py", "slice_runtime_demo.py"} <= names
+            "workload.py", "slice_runtime_demo.py", "adamw.py",
+            "train_step.py", "checkpoint.py", "fault.py", "pipeline.py",
+            "train.py", "train_gpt2.py"} <= names
     assert all(p.exists() for p in _port_sources())
 
 
