@@ -12,7 +12,8 @@ JSON line per phase; any failure is a non-zero exit:
            card at the main paths' shapes, with its time, the plain
            version's, one library call's, and the card's bound for the work:
            the flash forward (serving), the forward with its lse output and
-           the two backward kernels (training), stream_matmul
+           the two backward kernels (training), stream_matmul, ssd_scan (no
+           single PyTorch call computes the SSD: no library time)
   serve    llama3-8b at full width and depth (random bf16 weights from a
            seed) through ServingEngine.run; the kernel launch counts are set
            to 0 just before and read just after
@@ -36,6 +37,18 @@ JSON line per phase; any failure is a non-zero exit:
   grads    one step's loss and gradients of full gpt2-124m through the kernels
            against the eager attention, and the remat routes none / offload
            against layer (equal), with the offload route's host bytes
+  ssm      mamba2-130m at full size (random bf16 weights from a seed) through
+           ServingEngine.run, every prefill's SSD through the ssd_scan kernel
+           (counts set to 0 just before, read just after); prefill -> decode
+           against the full forward, one layer through the kernel against
+           the same layer with the plain ssd_chunked, and the pool fully in
+           pinned host memory giving identical tokens, the state kept fp32
+  hybrid   zamba2-1.2b at full size through SliceRuntime.add_tenant with an
+           HBM budget that spills the KV and state pools and one stacked SSM
+           projection (streamed through stream_matmul); the shared attention
+           block's prefill through the flash kernel; tokens against a lone
+           engine on the same placement, and, in fp32 activations, against
+           one with every weight on the device
 
 Then a line {"kernels": [...]} with every kernel's figures, the card's name
 and power limit, and last {"ok": true, "device": {...}}.
@@ -74,9 +87,17 @@ TRAIN_TOL = {"bfloat16": {"out": 2e-2, "lse": 2e-5, "grad": 2e-2},
 # stream_matmul: the reference's fp32 tolerance (tests/test_kernels.py), and
 # one bf16 rounding of the output in bf16
 STREAM_TOL = {"bfloat16": 2e-2, "float32": 1e-5}
+# ssd_scan: y at the reference's fp32 SSD tolerance, one bf16 rounding in
+# bf16; the final state is summed in fp32 in both
+SSD_TOL = {"bfloat16": 2e-2, "float32": 1e-4}
+SSD_STATE_TOL = 1e-4
 # whole-model logits in bf16 through up to 32 layers, two routes whose bf16
 # roundings fall at different places: max |diff| / max |logit|
 MODEL_TOL = 5e-2
+# whole-model logits with fp32 activations through up to 38 layers, two
+# routes whose products sum in different orders (bf16's roundings move a
+# random-init SSM model's logits ~100x their own size: PERF.md)
+FP32_MODEL_TOL = 1e-3
 # PCIe transfer rate per lane in GT/s, by generation
 PCIE_GT_PER_S = {1: 2.5, 2: 5.0, 3: 8.0, 4: 16.0, 5: 32.0}
 
@@ -119,14 +140,18 @@ def main() -> None:
     from repro_torch.kernels import _build
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import ssd_scan as ssd
     from repro_torch.kernels import stream_matmul as sm
     from repro_torch.data.pipeline import DataPipeline, SyntheticSource, to_device
     from repro_torch.launch.train import build_config, train as run_training
+    from repro_torch.core.offload import _flatten_with_paths
     from repro_torch.models import layers as mlayers
+    from repro_torch.models import ssm as mssm
     from repro_torch.models import transformer as mtfm
+    from repro_torch.models.common import tree_leaves
     from repro_torch.models.model_zoo import build_model
-    from repro_torch.serving import (Request, ServingEngine, SliceRuntime,
-                                     TenantEngine, TenantSpec)
+    from repro_torch.serving import (KVPool, Request, ServingEngine,
+                                     SliceRuntime, TenantEngine, TenantSpec)
     from repro_torch.train.train_step import _accumulate_grads
 
     torch.backends.cuda.matmul.allow_tf32 = False   # fp32 references in fp32
@@ -135,7 +160,8 @@ def main() -> None:
                        "flash_attention_fwd_stats": fa.flash_attention_fwd_stats,
                        "flash_attention_bwd_dkdv": fa.flash_attention_bwd_dkdv,
                        "flash_attention_bwd_dq": fa.flash_attention_bwd_dq,
-                       "stream_matmul": sm.stream_matmul}
+                       "stream_matmul": sm.stream_matmul,
+                       "ssd_scan": ssd.ssd_scan}
 
     def reset_counts():
         for w in kernel_wrappers.values():
@@ -409,8 +435,80 @@ def main() -> None:
         stream_case(256, 1024, 384, "float32", "float32", "device"),
         stream_case(4, 4096, 14336, "bfloat16", "bfloat16", "device"),
     ]
+    def rel_err(a, b):
+        return float((a.float() - b.float()).abs().max()
+                     / (b.float().abs().max() + 1e-9))
+
+    def ssd_case(B, S, nh, hp, N, dtype_name, with_state=False):
+        """y and the final state of the SSD kernel against its plain version.
+        Bound: x, dt, A, B_, C_ (and an initial state) read once, y and the
+        final state written once; the chunked algorithm's operations at the
+        kernel's chunk, counted for the rows this S has: C B^T once per
+        (batch, chunk) on the tensor cores in bf16, the decay-weighted
+        intra-chunk product and the carried-state and state-update products
+        per head in fp32; the larger of the two units' times."""
+        dtype = getattr(torch, dtype_name)
+        g = torch.Generator(device=dev).manual_seed(SEED + S + nh + N)
+        x = (0.5 * torch.randn(B, S, nh, hp, device=dev, generator=g)).to(dtype)
+        dt = torch.nn.functional.softplus(
+            torch.randn(B, S, nh, device=dev, generator=g))
+        A = -torch.exp(0.3 * torch.randn(nh, device=dev, generator=g))
+        Bm, Cm = ((0.3 * torch.randn(B, S, N, device=dev, generator=g)).to(dtype)
+                  for _ in range(2))
+        s0 = (0.5 * torch.randn(B, nh, hp, N, device=dev, generator=g)
+              if with_state else None)
+        run = lambda: ssd.ssd_scan(x, dt, A, Bm, Cm, init_state=s0,
+                                   return_state=True)
+        plain = lambda: ssd.ssd_scan_plain(x, dt, A, Bm, Cm, init_state=s0,
+                                           return_state=True)
+        y, st = run()
+        py, pst = plain()
+        torch.cuda.synchronize()
+        if not (torch.isfinite(y.float()).all() and torch.isfinite(st).all()):
+            fail(f"ssd_scan gave non-finite values at {(B, S, nh, hp, N)}")
+        abs_err = float((y.float() - py.float()).abs().max())
+        rel = abs_err / (float(py.float().abs().max()) + 1e-9)
+        state_rel = rel_err(st, pst)
+        if rel >= SSD_TOL[dtype_name] or state_rel >= SSD_STATE_TOL:
+            fail(f"ssd_scan disagrees with its plain version at "
+                 f"{(B, S, nh, hp, N)} {dtype_name} init_state={with_state}: "
+                 f"y rel {rel:.3e} (limit {SSD_TOL[dtype_name]}), state rel "
+                 f"{state_rel:.3e} (limit {SSD_STATE_TOL})")
+        Q = ssd.CHUNK
+        pairs = sum(v * (v + 1) // 2
+                    for v in (min(Q, S - c) for c in range(0, S, Q)))
+        g_flops = 2.0 * B * pairs * N
+        rest_flops = 2.0 * B * nh * (pairs * hp + 2 * S * hp * N)
+        if dtype == torch.bfloat16:
+            t_ops = max(g_flops / PEAK_FLOPS["bfloat16"],
+                        rest_flops / PEAK_FLOPS["float32"]) * 1e3
+        else:
+            t_ops = (g_flops + rest_flops) / PEAK_FLOPS["float32"] * 1e3
+        nbytes = (2 * x.numel() * x.element_size() + 4 * dt.numel() + 4 * nh
+                  + 2 * Bm.numel() * Bm.element_size()
+                  + (2 if with_state else 1) * 4 * st.numel())
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        return {
+            "shape": [B, S, nh, hp], "N": N, "dtype": dtype_name,
+            "init_state": with_state, "max_abs_err": abs_err, "rel_err": rel,
+            "tol": SSD_TOL[dtype_name], "state_rel_err": state_rel,
+            "state_tol": SSD_STATE_TOL, "ms": time_ms(run),
+            "plain_ms": time_ms(plain, iters=5), "library_ms": None,
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "flops": g_flops + rest_flops, "bytes": nbytes,
+        }
+
+    ssd_cases = [ssd_case(1, 1024, 24, 64, 128, "bfloat16"),   # mamba2-130m
+                 ssd_case(1, 1024, 64, 64, 64, "bfloat16"),    # zamba2-1.2b
+                 ssd_case(1, 1000, 24, 64, 128, "bfloat16"),   # ragged S
+                 ssd_case(1, 1024, 64, 64, 64, "bfloat16", with_state=True),
+                 ssd_case(1, 128, 4, 32, 64, "float32"),       # the reference's
+                 ssd_case(2, 256, 8, 32, 64, "float32"),
+                 ssd_case(1, 128, 2, 64, 128, "float32")]
     emit("kernels", flash_attention_fwd=cases, flash_attention_train=train_cases,
-         stream_matmul=stream_cases,
+         stream_matmul=stream_cases, ssd_scan=ssd_cases,
+         ssd_scan_library="none: no single PyTorch call computes the SSD scan",
          host_link={"peak_gb_per_s": HOST_LINK_BYTES_PER_S / 1e9,
                     "bound_gb_per_s": link_bound_rate / 1e9,
                     "measured_ms_per_gib": link_ms,
@@ -510,10 +608,6 @@ def main() -> None:
     del engine
 
     # ---------------------------------------------------------------- check
-    def rel_err(a, b):
-        return float((a.float() - b.float()).abs().max()
-                     / (b.float().abs().max() + 1e-9))
-
     rng = np.random.default_rng(SEED + 1)
     toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, size=(1, 301)), device=dev)
     logits_k, _, _ = model.forward(params, {"tokens": toks})
@@ -610,6 +704,7 @@ def main() -> None:
          place_tree_kinds=placed_kinds,
          tokens_equal=True, **rows)
     del params, model, eager
+    gc.collect()              # the engines' timing wrappers form cycles
     torch.cuda.empty_cache()
 
     # -------------------------------------------------------------- runtime
@@ -781,6 +876,7 @@ def main() -> None:
     for name in list(rt.tenants):
         rt.remove_tenant(name)
     del rt, llm, gpt, lone, tick, tick_with_share, host_leaves, report
+    gc.collect()
     torch.cuda.empty_cache()
 
     # ----------------------------------------------------------------- gpt2
@@ -847,7 +943,8 @@ def main() -> None:
         "flash_attention_bwd_dkdv": ("layers x steps", L * steps_done),
         "flash_attention_bwd_dq": ("layers x steps", L * steps_done),
         "flash_attention_fwd": ("0 (serving only)", 0),
-        "stream_matmul": ("0 (weights on the device)", 0)}
+        "stream_matmul": ("0 (weights on the device)", 0),
+        "ssd_scan": ("0 (no SSM layer)", 0)}
     if train_launches != {n: want for n, (_, want) in launch_formula.items()}:
         fail(f"train: launches {train_launches} != {launch_formula}")
     step_ms = statistics.median(tstats.step_seconds) * 1e3
@@ -926,8 +1023,295 @@ def main() -> None:
     del grads_k, gparams
     torch.cuda.empty_cache()
 
+    # ------------------------------------------------------------------ ssm
+    def param_count(params):
+        return sum(t.numel() for t in tree_leaves(params))
+
+    def ssm_param_count(cfg):
+        """The config's analytic count (the reference's formula) leaves out
+        the per-head ``D_skip`` of every Mamba2 layer, which both packages'
+        init create."""
+        return cfg.param_count() + cfg.num_layers * cfg.ssm_heads
+
+    def check_launches(phase, got, want):
+        if got != want:
+            fail(f"{phase}: launches {got} != expected {want}")
+
+    scfg = get_config("mamba2-130m").with_(remat="none", param_dtype="bfloat16")
+    smodel = build_model(scfg, dev)
+    t0 = time.time()
+    sparams, _ = smodel.init(torch.Generator(device=dev).manual_seed(SEED))
+    torch.cuda.synchronize()
+    s_init = time.time() - t0
+    if param_count(sparams) != ssm_param_count(scfg):
+        fail(f"mamba2: parameter count {param_count(sparams)} != "
+             f"{ssm_param_count(scfg)}")
+    run_engine(ServingEngine(smodel, sparams, slots=SLOTS, max_seq=MAX_SEQ),
+               make_requests(scfg, LENS, 2))                   # warm-up
+    seng = timed_engine(ServingEngine(smodel, sparams, slots=SLOTS,
+                                      max_seq=MAX_SEQ))
+    sreqs = make_requests(scfg, LENS, MAX_NEW)
+    reset_counts()                                   # main path starts here
+    sout, swall = run_engine(seng, sreqs)
+    ssm_launches = {n: w.launches for n, w in kernel_wrappers.items()}
+    check_outputs(sout, sreqs, scfg, MAX_NEW)
+    if seng.stats.admitted != len(LENS):
+        fail(f"mamba2: admitted {seng.stats.admitted} of {len(LENS)}")
+    check_launches("ssm", ssm_launches, {
+        **{n: 0 for n in kernel_wrappers},
+        "ssd_scan": len(LENS) * scfg.num_layers})      # 8 prefills x 24 layers
+    stokens = sum(len(v) for v in sout.values())
+    s_pool = seng.pool
+    pool_dtypes = {p: str(t.dtype) for p, t in
+                   _flatten_with_paths(s_pool.materialize())}
+
+    # prefill 300 tokens, decode the 301st: equals the full forward's last
+    # row (the kernel's prefill against the plain recurrence of decode)
+    rng = np.random.default_rng(SEED + 2)
+    stoks = torch.as_tensor(rng.integers(0, scfg.vocab_size, size=(1, 301)),
+                            device=dev)
+    s_full, _, _ = smodel.forward(sparams, {"tokens": stoks})
+    _, _, spc = smodel.forward(sparams, {"tokens": stoks[:, :300]},
+                               return_cache=True)
+    scache = smodel.init_cache(1, 512)
+    for (_, dst), (_, src) in zip(_flatten_with_paths(scache),
+                                  _flatten_with_paths(spc)):
+        dst.copy_(src)
+    s_dec, _ = smodel.decode(sparams, scache, {
+        "tokens": stoks[:, 300:301], "pos": torch.tensor(300, device=dev)})
+    torch.cuda.synchronize()
+    if tuple(s_full.shape) != (1, 301, scfg.vocab_size) or not (
+            torch.isfinite(s_full.float()).all()
+            and torch.isfinite(s_dec.float()).all()):
+        fail("mamba2: non-finite or misshapen logits")
+    s_decode_vs_forward = rel_err(s_dec[0], s_full[0, -1])
+    # how far bf16's roundings move this random-init model: the same weights
+    # with fp32 activations (data, not a check)
+    s_full32, _, _ = build_model(scfg.with_(dtype="float32"), dev).forward(
+        sparams, {"tokens": stoks})
+    s_bf16_vs_fp32 = rel_err(s_full, s_full32)
+    s_argmax_agree = float((s_full.argmax(-1) == s_full32.argmax(-1)).float().mean())
+    del s_full32
+    # one full-width layer: the kernel's route against the same layer with
+    # the plain ssd_chunked called in its place
+    lp = {k: v[0] for k, v in sparams["layers"].items()}
+    g = torch.Generator(device=dev).manual_seed(SEED + 3)
+    u = torch.randn(1, 1024, scfg.d_model, device=dev, generator=g).bfloat16()
+    y_k, c_k = mssm.apply_ssm(scfg, lp, u, mssm.init_ssm_cache(
+        scfg, 1, u.dtype, dev))
+    kernel_prefill = mssm._ssd_prefill
+    mssm._ssd_prefill = lambda cfg, xh, dt, A, B_, C_, s0: mssm.ssd_chunked(
+        xh, dt, A, B_, C_, cfg.ssm_chunk, init_state=s0)
+    try:
+        y_p, c_p = mssm.apply_ssm(scfg, lp, u, mssm.init_ssm_cache(
+            scfg, 1, u.dtype, dev))
+    finally:
+        mssm._ssd_prefill = kernel_prefill
+    torch.cuda.synchronize()
+    layer_rel, layer_state_rel = rel_err(y_k, y_p), rel_err(c_k.state, c_p.state)
+    if (s_decode_vs_forward >= MODEL_TOL or layer_rel >= SSD_TOL["bfloat16"]
+            or layer_state_rel >= SSD_STATE_TOL):
+        fail(f"mamba2: decode vs forward {s_decode_vs_forward:.3e} (limit "
+             f"{MODEL_TOL}), layer through the kernel vs ssd_chunked "
+             f"{layer_rel:.3e} (limit {SSD_TOL['bfloat16']}), its state "
+             f"{layer_state_rel:.3e} (limit {SSD_STATE_TOL})")
+    # the same requests with the pool fully in pinned host memory
+    heng = timed_engine(TenantEngine(smodel, sparams, slots=SLOTS,
+                                     max_seq=MAX_SEQ, offload_kv=True))
+    hout, hwall = run_engine(heng, make_requests(scfg, LENS, MAX_NEW))
+    if hout != sout:
+        fail("mamba2: tokens with the pool in pinned host memory differ")
+    h_pool = heng.pool
+    host_dtypes = [str(t.dtype) for t in h_pool.host_tensors()]
+    if (h_pool.memory_kinds() != {"pinned_host"}
+            or not all(t.is_pinned() for t in h_pool.host_tensors())
+            or host_dtypes != ["torch.bfloat16", "torch.float32"]
+            or pool_dtypes != {"ssm/.conv": "torch.bfloat16",
+                               "ssm/.state": "torch.float32"}):
+        fail(f"mamba2 pools: device leaves {pool_dtypes}, host leaves "
+             f"{host_dtypes} in {h_pool.memory_kinds()}")
+    emit("ssm", arch=scfg.name, layers=scfg.num_layers, d_model=scfg.d_model,
+         d_inner=scfg.d_inner, heads=scfg.ssm_heads, head_dim=scfg.ssm_head_dim,
+         state=scfg.ssm_state, vocab=scfg.vocab_size,
+         params=param_count(sparams), param_dtype=scfg.param_dtype,
+         init_seconds=s_init, requests=len(sout), prompt_lens=LENS,
+         slots=SLOTS, max_seq=MAX_SEQ, tokens=stokens, ticks=seng.ticks,
+         admitted=seng.stats.admitted, wall_seconds=swall,
+         tok_per_s=stokens / swall,
+         prefill_ms={str(n): t * 1e3 for n, t in seng.prefill_s},
+         prefill_ms_median=statistics.median(t for _, t in seng.prefill_s) * 1e3,
+         tick_ms_median=statistics.median(seng.tick_s) * 1e3,
+         launches=ssm_launches, pool_bytes=smodel.cache_bytes(SLOTS, MAX_SEQ),
+         pool_dtypes=pool_dtypes, decode_vs_forward_rel=s_decode_vs_forward,
+         bf16_vs_fp32_logits_rel=s_bf16_vs_fp32,
+         bf16_vs_fp32_argmax_agree=s_argmax_agree,
+         tol=MODEL_TOL, layer_kernel_vs_ssd_chunked_rel=layer_rel,
+         layer_state_rel=layer_state_rel,
+         pinned_pool={"tokens_equal": True, "host_leaf_dtypes": host_dtypes,
+                      "wall_seconds": hwall,
+                      "tick_ms_median": statistics.median(heng.tick_s) * 1e3,
+                      "h2d_bytes_per_tick": h_pool.h2d_bytes / max(heng.ticks, 1),
+                      "d2h_bytes_per_tick": h_pool.d2h_bytes / max(heng.ticks, 1)})
+    del smodel, sparams, seng, heng, s_pool, h_pool, scache, spc, s_full
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # --------------------------------------------------------------- hybrid
+    zcfg = get_config("zamba2-1.2b").with_(attn_impl="pallas", remat="none",
+                                           param_dtype="bfloat16")
+    zmeta = build_model(zcfg, dev)
+    zinv = zmeta.serving_inventory(zmeta.init(abstract=True)[0],
+                                   zmeta.cache_shapes(SLOTS, MAX_SEQ))
+    z_footprint = sum(t.bytes for t in zinv)
+    z_embed = sum(t.bytes for t in zinv if t.group == "embed")
+    z_kv = sum(t.bytes for t in zinv if t.group == "kv_cache")
+    # one byte over what spilling the table and the KV and state pools frees:
+    # by the planner's order the next spill is the largest stacked matrix
+    z_budget = z_footprint - z_embed - z_kv - 1
+    rt = SliceRuntime(device=dev)
+    t0 = time.time()
+    zt = rt.add_tenant(TenantSpec("hybrid", zcfg, profile="1s.16c",
+                                  slots=SLOTS, max_seq=MAX_SEQ,
+                                  hbm_budget=z_budget, seed=SEED))
+    torch.cuda.synchronize()
+    z_add_s = time.time() - t0
+    zplan = zt.plan
+    if param_count(zt.params) != ssm_param_count(zcfg):
+        fail(f"zamba2: parameter count {param_count(zt.params)} != "
+             f"{ssm_param_count(zcfg)}")
+    z_streamed = [n for n in zplan.offloaded if n.startswith("params/layers/")]
+    want_spilled = {"kv/k", "kv/v", "kv/ssm/.state"}
+    if (not want_spilled <= set(zplan.offloaded) or len(z_streamed) != 1
+            or z_streamed[0] not in ("params/layers/in_zx",
+                                     "params/layers/out_proj")):
+        fail(f"zamba2 plan spills {zplan.offloaded} {zplan.partial}; expected "
+             f"{sorted(want_spilled)} and one stacked SSM projection")
+    z_leaf = zt.params["layers"][z_streamed[0].split("/")[-1]]
+    if memory_kind_of(z_leaf) != "pinned_host" or not z_leaf.is_pinned():
+        fail(f"{z_streamed[0]} is not in pinned host memory after placement")
+    if zt.engine.pool.memory_kinds() != {"pinned_host"}:
+        fail(f"zamba2 pool kinds {zt.engine.pool.memory_kinds()}")
+    table_streamed = zplan.is_offloaded("params/tok_embed")
+    timed_engine(zt.engine)
+    zreqs = make_requests(zcfg, LENS, MAX_NEW)
+    rt.submit("hybrid", zreqs)
+    reset_counts()                                   # main path starts here
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    zreport = rt.run()
+    torch.cuda.synchronize()
+    z_wall = time.perf_counter() - t0
+    z_launches = {n: w.launches for n, w in kernel_wrappers.items()}
+    z_h2d = sm.stream_matmul.h2d_bytes
+    check_outputs(zt.engine.outputs, zreqs, zcfg, MAX_NEW)
+    zst = zt.engine.stats
+    n_groups = zcfg.num_layers // zcfg.attn_every
+    # per prefill and tick: the streamed matrix in every layer, and the tied
+    # unembedding when the plan spilled the table
+    per_pass = zcfg.num_layers + int(table_streamed)
+    check_launches("hybrid", z_launches, {
+        **{n: 0 for n in kernel_wrappers},
+        "ssd_scan": zst.admitted * zcfg.num_layers,
+        "flash_attention_fwd": zst.admitted * n_groups,
+        "stream_matmul": (zst.admitted + zst.ticks) * per_pass})
+    z_slice = z_leaf[0].numel() * z_leaf.element_size()
+    table_bytes = (zt.params["tok_embed"].numel()
+                   * zt.params["tok_embed"].element_size())
+    per_tick_bytes = zcfg.num_layers * z_slice + table_bytes * table_streamed
+    if z_h2d != (zst.admitted + zst.ticks) * per_tick_bytes:
+        fail(f"zamba2: stream_matmul moved {z_h2d} bytes, expected "
+             f"(prefills + ticks) x {per_tick_bytes}")
+    # the same requests through a lone engine on the same placement, and
+    # through one with every parameter on the device
+    lone = TenantEngine(zt.model, zt.params, slots=SLOTS, max_seq=MAX_SEQ,
+                        plan=zplan)
+    lone_out, _ = run_engine(lone, make_requests(zcfg, LENS, MAX_NEW))
+    if lone_out != zt.engine.outputs:
+        fail("zamba2: runtime tokens differ from a lone engine's on the same "
+             "placement")
+    del lone
+    z_on_device = {k: ({kk: vv.to(dev) for kk, vv in v.items()}
+                       if isinstance(v, dict) else v.to(dev))
+                   for k, v in zt.params.items()}
+    ztoks = torch.as_tensor(np.random.default_rng(SEED + 1).integers(
+        0, zcfg.vocab_size, size=(1, 301)), device=dev)
+    logits_h, _, _ = zt.model.forward(zt.params, {"tokens": ztoks})
+    logits_d16, _, _ = zt.model.forward(z_on_device, {"tokens": ztoks})
+    z_bf16_placed_vs_device = rel_err(logits_h, logits_d16)
+    # the placement against every weight on the device, in fp32 activations
+    # (the same bf16 weights): at random init the bf16 model's own roundings
+    # move its logits by a fifth or more of their largest value (PERF.md), so
+    # only fp32 can hold the placement to identical tokens
+    z32 = build_model(zcfg.with_(dtype="float32"), dev)
+    logits_h, _, _ = z32.forward(zt.params, {"tokens": ztoks})
+    logits_d, _, _ = z32.forward(z_on_device, {"tokens": ztoks})
+    torch.cuda.synchronize()
+    z_placed_vs_device = rel_err(logits_h, logits_d)
+    z_bf16_vs_fp32 = rel_err(logits_d16, logits_d)
+    z_argmax_agree = float((logits_d16.argmax(-1) == logits_d.argmax(-1)).float().mean())
+    if (not torch.isfinite(logits_h).all()
+            or z_placed_vs_device >= FP32_MODEL_TOL):
+        fail(f"zamba2 host-placed vs device logits (fp32): rel "
+             f"{z_placed_vs_device:.3e} (limit {FP32_MODEL_TOL})")
+    def fp32_engine(params, plan):
+        """An engine in fp32 activations over an fp32 pool: a bf16 pool would
+        round the two routes' caches to neighbouring bf16 values, which this
+        random-init model amplifies into other tokens."""
+        eng = TenantEngine(z32, params, slots=SLOTS, max_seq=MAX_SEQ, plan=plan)
+        eng.pool = KVPool(z32, SLOTS, MAX_SEQ, plan=plan, dtype=torch.float32)
+        return timed_engine(eng)
+
+    placed32 = fp32_engine(zt.params, zplan)
+    placed32_out, _ = run_engine(placed32, make_requests(zcfg, LENS, MAX_NEW))
+    resident = fp32_engine(z_on_device, None)
+    res_out, res_wall = run_engine(resident, make_requests(zcfg, LENS, MAX_NEW))
+    res_agree = (sum(a == b for r in res_out
+                     for a, b in zip(res_out[r], placed32_out[r]))
+                 / sum(len(v) for v in res_out.values()))
+    zrow = zreport["tenants"]["hybrid"]
+    emit("hybrid", arch=zcfg.name, layers=zcfg.num_layers,
+         attn_every=zcfg.attn_every, shared_applications=n_groups,
+         d_model=zcfg.d_model, heads=zcfg.ssm_heads, state=zcfg.ssm_state,
+         shared_heads=zcfg.num_heads, shared_head_dim=zcfg.head_dim,
+         shared_d_ff=zcfg.d_ff, vocab=zcfg.vocab_size,
+         params=param_count(zt.params), param_dtype=zcfg.param_dtype,
+         attn_impl=zcfg.attn_impl, profile=zrow["profile"],
+         footprint=z_footprint, hbm_budget=z_budget,
+         plan={"offloaded": list(zplan.offloaded), "partial": list(zplan.partial),
+               "resident_bytes": zplan.resident_bytes,
+               "host_bytes": zplan.host_bytes},
+         add_tenant_seconds=z_add_s, wall_seconds=z_wall,
+         tokens=zrow["tokens_out"], tok_per_s=zrow["tok_per_s"],
+         prefills=zst.admitted, ticks=zst.ticks,
+         tick_ms_median=statistics.median(zt.engine.tick_s) * 1e3,
+         prefill_ms_median=statistics.median(
+             t for _, t in zt.engine.prefill_s) * 1e3,
+         launches=z_launches, weight_h2d_bytes=z_h2d,
+         weight_h2d_bytes_per_tick=per_tick_bytes,
+         kv_host_bytes=zt.engine.pool.host_bytes,
+         lone_tokens_equal=True,
+         fp32_activations={
+             "placed_vs_device_rel": z_placed_vs_device, "tol": FP32_MODEL_TOL,
+             "device_resident_tokens_equal": res_out == placed32_out,
+             "device_resident_token_agreement": res_agree,
+             "placed_tick_ms_median": statistics.median(placed32.tick_s) * 1e3,
+             "device_resident_tick_ms_median":
+                 statistics.median(resident.tick_s) * 1e3,
+             "device_resident_wall_seconds": res_wall},
+         bf16_placed_vs_device_rel=z_bf16_placed_vs_device,
+         bf16_vs_fp32_logits_rel=z_bf16_vs_fp32,
+         bf16_vs_fp32_argmax_agree=z_argmax_agree)
+    if res_out != placed32_out:
+        fail(f"zamba2 (fp32): tokens with the plan's placement differ from "
+             f"the device-resident engine's (agreement {res_agree:.3f})")
+    rt.remove_tenant("hybrid")
+    del rt, zt, z32, placed32, resident, z_on_device, z_leaf, logits_h, logits_d
+    del logits_d16
+    gc.collect()
+    torch.cuda.empty_cache()
+
     # ------------------------------------------------------------- summary
-    head, shead = cases[0], stream_cases[0]
+    head, shead, ssd_head = cases[0], stream_cases[0], ssd_cases[0]
     print(json.dumps({"kernels": [{
         "name": "flash_attention_fwd", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention_fwd.cu",
@@ -974,7 +1358,19 @@ def main() -> None:
         ("flash_attention_bwd_dq",
          "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
          "src/repro/kernels/flash_attention.py:267", "dq", ("dq",),
-         "bwd_library_ms"))]}), flush=True)
+         "bwd_library_ms"))] + [{
+        "name": "ssd_scan", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+        "replaces": "src/repro/kernels/ssd_scan.py:81",
+        "launches": ssm_launches["ssd_scan"],
+        "shape": ssd_head["shape"], "N": ssd_head["N"],
+        "dtype": ssd_head["dtype"],
+        "max_abs_err": max(c["max_abs_err"] for c in ssd_cases),
+        "ms": ssd_head["ms"], "plain_ms": ssd_head["plain_ms"],
+        "bound_ms": ssd_head["bound_ms"], "bound_by": ssd_head["bound_by"],
+        "library_ms": None,
+        "library": "none: no single PyTorch call computes the SSD scan",
+    }]}), flush=True)
     print(card_line, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

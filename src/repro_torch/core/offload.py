@@ -24,6 +24,7 @@ import torch
 
 from repro_torch.core.hw import ChipSpec, HostSpec, V5E, V5E_HOST
 from repro_torch.core.slices import SliceProfile
+from repro_torch.models.common import rebuild, tree_items
 
 PyTree = Any
 
@@ -332,18 +333,16 @@ def _group_for(path: str) -> Tuple[str, bool]:
 
 
 def _flatten_with_paths(tree: PyTree, prefix: str = "") -> List[Tuple[str, Any]]:
-    """(path, leaf) pairs with ``/``-joined keys, dict keys in sorted order
-    and sequence items by index — the order and names the reference's pytree
-    flattening gives."""
+    """(path, leaf) pairs with ``/``-joined keys in the order and with the
+    names the reference's pytree flattening gives (``tree_items``: dict keys
+    sorted, NamedTuple fields as ``.name``, sequence items by index), e.g.
+    ``ssm/.state`` for an SSM cache."""
+    items = tree_items(tree)
+    if items is None:
+        return [] if tree is None else [(prefix[:-1], tree)]
     out: List[Tuple[str, Any]] = []
-    if isinstance(tree, dict):
-        for key in sorted(tree):
-            out += _flatten_with_paths(tree[key], f"{prefix}{key}/")
-    elif isinstance(tree, (list, tuple)):
-        for i, item in enumerate(tree):
-            out += _flatten_with_paths(item, f"{prefix}{i}/")
-    elif tree is not None:
-        out.append((prefix[:-1], tree))
+    for key, child in items:
+        out += _flatten_with_paths(child, f"{prefix}{key}/")
     return out
 
 
@@ -437,10 +436,9 @@ def place_tree(value_tree: PyTree, plan: OffloadPlan, device, *,
     host_kind = host_memory_kind(device)
 
     def walk(tree, path):
-        if isinstance(tree, dict):
-            return {k: walk(v, f"{path}{k}/") for k, v in tree.items()}
-        if isinstance(tree, (list, tuple)):
-            return type(tree)(walk(v, f"{path}{i}/") for i, v in enumerate(tree))
+        items = tree_items(tree)
+        if items is not None:
+            return rebuild(tree, (walk(v, f"{path}{k}/") for k, v in items))
         if kinds[path[:-1]] == host_kind and device.type == "cuda":
             return to_host(tree, device)
         return tree.to(device)

@@ -2,6 +2,7 @@
 from __future__ import annotations
 
 from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import ssd_scan as _ssd
 from repro_torch.kernels import stream_matmul as _sm
 
 
@@ -27,3 +28,12 @@ def stream_matmul(x, w, *, block_k: int = _sm.BLOCK_K):
     """x: (M, K) resident; w: (K, N) on x's device or in pinned host memory,
     streamed in ``block_k`` panels."""
     return _sm.stream_matmul(x, w, block_k=block_k)
+
+
+def ssd(x, dt, A, B_, C_, *, chunk: int = 128, nh_block=None,
+        init_state=None, return_state: bool = False):
+    """Mamba2 SSD scan. x: (B, S, nh, hp); dt: (B, S, nh); A: (nh,);
+    B_, C_: (B, S, N). Returns y, or (y, final_state) with ``return_state``;
+    ``init_state`` (B, nh, hp, N) fp32 starts the scan (zero when None)."""
+    return _ssd.ssd_scan(x, dt, A, B_, C_, chunk=chunk, nh_block=nh_block,
+                         init_state=init_state, return_state=return_state)

@@ -19,5 +19,21 @@ def attention_ref(q, k, v, *, causal: bool = True, scale=None):
     return torch.einsum("bqk,bkd->bqd", p, v.float()).to(q.dtype)
 
 
+def ssd_ref(x, dt, A, B_, C_):
+    """Naive sequential SSD recurrence (fp32), one token at a time.
+    x: (B,S,nh,hp); dt: (B,S,nh); A: (nh,); B_, C_: (B,S,N)."""
+    Bb, S, nh, hp = x.shape
+    N = B_.shape[-1]
+    xf, dtf, Af, Bf, Cf = x.float(), dt.float(), A.float(), B_.float(), C_.float()
+    state = torch.zeros((Bb, nh, hp, N), dtype=torch.float32, device=x.device)
+    ys = []
+    for t in range(S):
+        decay = torch.exp(dtf[:, t] * Af[None, :])                  # (B,nh)
+        upd = torch.einsum("bn,bh,bhp->bhpn", Bf[:, t], dtf[:, t], xf[:, t])
+        state = state * decay[:, :, None, None] + upd
+        ys.append(torch.einsum("bhpn,bn->bhp", state, Cf[:, t]))
+    return torch.stack(ys, dim=1).to(x.dtype)                      # (B,S,nh,hp)
+
+
 def matmul_ref(x, w):
     return (x.float() @ w.float()).to(x.dtype)

@@ -117,15 +117,40 @@ def cdtype(cfg: ModelConfig) -> torch.dtype:
     return to_dtype(cfg.dtype)
 
 
-def tree_leaves(tree: PyTree):
+def tree_items(tree: PyTree):
+    """(path component, child) pairs of one node in the reference's
+    flattening order and names: dict keys sorted, NamedTuple fields in order
+    as ``.name`` (how jax prints a ``GetAttrKey``), other sequence items by
+    index. None for a leaf."""
     if isinstance(tree, dict):
-        for key in sorted(tree):
-            yield from tree_leaves(tree[key])
-    elif isinstance(tree, (list, tuple)):
-        for item in tree:
-            yield from tree_leaves(item)
-    elif tree is not None:
-        yield tree
+        return [(str(k), tree[k]) for k in sorted(tree)]
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return [(f".{f}", getattr(tree, f)) for f in tree._fields]
+    if isinstance(tree, (list, tuple)):
+        return [(str(i), x) for i, x in enumerate(tree)]
+    return None
+
+
+def rebuild(tree: PyTree, children) -> PyTree:
+    """A node of ``tree``'s kind from new children in ``tree_items`` order:
+    dicts keep ``tree``'s key order, NamedTuples their type."""
+    children = list(children)
+    if isinstance(tree, dict):
+        built = dict(zip(sorted(tree), children))
+        return {k: built[k] for k in tree}
+    if hasattr(tree, "_fields"):
+        return type(tree)(*children)
+    return type(tree)(children)
+
+
+def tree_leaves(tree: PyTree):
+    items = tree_items(tree)
+    if items is None:
+        if tree is not None:
+            yield tree
+        return
+    for _, child in items:
+        yield from tree_leaves(child)
 
 
 def tree_unflatten(like: PyTree, leaves) -> PyTree:
@@ -135,13 +160,10 @@ def tree_unflatten(like: PyTree, leaves) -> PyTree:
     it = iter(leaves)
 
     def build(t):
-        if isinstance(t, dict):
-            built = {k: build(t[k]) for k in sorted(t)}
-            return {k: built[k] for k in t}
-        if isinstance(t, (list, tuple)):
-            items = [build(x) for x in t]
-            return type(t)(*items) if hasattr(t, "_fields") else type(t)(items)
-        return None if t is None else next(it)
+        items = tree_items(t)
+        if items is None:
+            return None if t is None else next(it)
+        return rebuild(t, (build(child) for _, child in items))
     return build(like)
 
 

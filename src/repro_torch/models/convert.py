@@ -13,16 +13,27 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
-from repro_torch.models.common import to_dtype
+from repro_torch.models.common import rebuild, to_dtype, tree_items
+from repro_torch.models.ssm import SSMCache
 
 PyTree = Any
 
 
+def _node_like(tree: PyTree) -> PyTree:
+    """The port's node type for a reference node: a reference NamedTuple
+    with the fields of ``SSMCache`` becomes the port's ``SSMCache`` (matched
+    by field names, as the reference's class cannot be imported here);
+    anything else keeps its type."""
+    if hasattr(tree, "_fields") and tuple(tree._fields) == SSMCache._fields:
+        return SSMCache(*tree)
+    return tree
+
+
 def _convert(tree: PyTree, device: torch.device, dtype: Optional[torch.dtype]):
-    if isinstance(tree, dict):
-        return {k: _convert(v, device, dtype) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(_convert(v, device, dtype) for v in tree)
+    items = tree_items(tree)
+    if items is not None:
+        return rebuild(_node_like(tree),
+                       (_convert(v, device, dtype) for _, v in items))
     t = torch.from_numpy(np.array(tree))   # a copy: the port writes in place
     if dtype is not None and t.is_floating_point():
         t = t.to(dtype)
@@ -38,7 +49,8 @@ def params_from_numpy(tree: PyTree, *, device, dtype=None) -> PyTree:
 
 
 def cache_from_numpy(tree: PyTree, *, device, dtype=None) -> PyTree:
-    """Reference cache tree (numpy leaves) -> the port's cache dict."""
+    """Reference cache tree (numpy leaves) -> the port's cache dict; an SSM
+    cache becomes the port's ``SSMCache``."""
     return params_from_numpy(tree, device=device, dtype=dtype)
 
 

@@ -1,4 +1,5 @@
-"""Unified model API of the port (dense decoder-only family so far).
+"""Unified model API of the port (dense, SSM and hybrid decoder-only
+families so far).
 
 ``Model`` wires a ModelConfig to (init, forward, loss, decode, caches) on one
 device. Where the reference took a mesh or an axis environment, ``Model``
@@ -70,11 +71,13 @@ class Model:
             device=self.device if device is None else device)
 
     def cache_shapes(self, batch: int, max_seq: int, dtype=torch.bfloat16):
-        """The cache tree as meta tensors: shapes and dtypes, no memory."""
+        """The cache tree as meta tensors: shapes and each leaf's own dtype
+        (an SSM state is fp32 in a ``dtype`` pool), no memory."""
         return self.init_cache(batch, max_seq, dtype, device="meta")
 
     def cache_bytes(self, batch: int, max_seq: int, dtype=torch.bfloat16) -> int:
-        """KV pool footprint without allocating it."""
+        """KV/state pool footprint without allocating it, each leaf at its
+        own dtype."""
         return sum(x.numel() * x.element_size()
                    for x in tree_leaves(self.cache_shapes(batch, max_seq, dtype)))
 

@@ -1,11 +1,14 @@
-"""Decoder-only LM assembly — dense family.
+"""Decoder-only LM assembly — dense, SSM and hybrid families.
 
 The reference scans over stacked layer parameters; here a Python loop indexes
 the same stacked tensors (``layers/wq`` with a leading ``L`` dim). Under
-autograd each layer is wrapped by ``remat_wrap`` (``cfg.remat``), as the
-reference wraps its scan body. MoE, VLM, SSM and hybrid branches are not
-ported yet and raise ``NotImplementedError`` naming the ROADMAP item that
-brings them.
+autograd each dense layer is wrapped by ``remat_wrap`` (``cfg.remat``), as
+the reference wraps its scan body; the SSM and hybrid families serve only
+(their SSD scan raises under autograd, ``models/ssm.py``). Hybrid (Zamba2):
+groups of ``attn_every`` Mamba2 layers, each group followed by one shared,
+unstacked attention + MLP block, then a tail of the remaining SSM layers.
+MoE and VLM branches are not ported yet and raise ``NotImplementedError``
+naming the ROADMAP item that brings them.
 """
 from __future__ import annotations
 
@@ -17,20 +20,19 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import DENSE, HYBRID, MOE, SSM, VLM, ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import layers as nn
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.common import ParamBuilder, to_dtype
 
 PyTree = Any
 
 _PENDING = {
     MOE: "MoE family: ROADMAP queue A item 10 (with kernel grouped_matmul)",
-    SSM: "SSM family: ROADMAP queue A item 9 (with kernel ssd_scan)",
-    HYBRID: "hybrid family: ROADMAP queue A item 9 (with kernel ssd_scan)",
     VLM: "VLM family: ROADMAP queue A item 11 (M-RoPE, embeds input)",
 }
 
 
-def _require_dense(cfg: ModelConfig) -> None:
-    if cfg.family != DENSE:
+def _require_ported(cfg: ModelConfig) -> None:
+    if cfg.family not in (DENSE, SSM, HYBRID):
         raise NotImplementedError(
             f"{cfg.name}: {_PENDING.get(cfg.family, cfg.family)} "
             f"is not ported yet")
@@ -87,14 +89,24 @@ def remat_wrap(cfg: ModelConfig, fn):
 def init_decoder_only(cfg: ModelConfig, generator: Optional[torch.Generator],
                       device: torch.device, *, abstract: bool = False
                       ) -> Tuple[PyTree, PyTree]:
-    _require_dense(cfg)
+    _require_ported(cfg)
     b = ParamBuilder(cfg, generator, device, abstract=abstract)
     nn.init_embeddings(b)
     lb = b.child("layers")
-    attn.init_attention(lb, stacked=True)
-    nn.init_norm(lb, "norm1", stacked=True)
-    nn.init_norm(lb, "norm2", stacked=True)
-    nn.init_mlp(lb, stacked=True)
+    if cfg.family == DENSE:
+        attn.init_attention(lb, stacked=True)
+        nn.init_norm(lb, "norm1", stacked=True)
+        nn.init_norm(lb, "norm2", stacked=True)
+        nn.init_mlp(lb, stacked=True)
+    else:
+        ssm_mod.init_ssm(lb, stacked=True)
+        nn.init_norm(lb, "norm1", stacked=True)
+    if cfg.family == HYBRID:
+        sb = b.child("shared")  # one shared attention + MLP block (Zamba2)
+        attn.init_attention(sb, stacked=False)
+        nn.init_mlp(sb)
+        nn.init_norm(sb, "norm1")
+        nn.init_norm(sb, "norm2")
     return b.params, b.specs
 
 
@@ -119,6 +131,55 @@ def _attn_mlp_layer(cfg: ModelConfig, lp, x, positions, cache=None,
 
 def _layer_params(lp_all, i: int):
     return {name: w[i] for name, w in lp_all.items()}
+
+
+def _ssm_layer(cfg: ModelConfig, lp, x, cache=None):
+    h = nn.apply_norm(cfg, lp, "norm1", x)
+    y, new_cache = ssm_mod.apply_ssm(cfg, lp, h, cache)
+    return x + y, new_cache
+
+
+def _ssm_stack(cfg: ModelConfig, params, x, positions, *, caches=None,
+               cache_pos=None, return_cache: bool = False):
+    """The SSM / hybrid layer stack. Prefill (``caches`` None): returns
+    (x, per-layer SSMCaches, per-group (k, v)) with the caches only when
+    ``return_cache``. Decode: ``caches`` is the layer-stacked cache, each
+    layer's slice is updated in place."""
+    lp_all = params["layers"]
+    B = x.shape[0]
+    hybrid = cfg.family == HYBRID
+    ssm_caches, kvs = [], []
+    for i in range(cfg.num_layers):
+        if caches is not None:
+            c = ssm_mod.SSMCache(caches["ssm"].conv[i], caches["ssm"].state[i])
+        elif return_cache:
+            c = ssm_mod.init_ssm_cache(cfg, B, x.dtype, x.device)
+        else:
+            c = None
+        x, c = _ssm_layer(cfg, _layer_params(lp_all, i), x, c)
+        ssm_caches.append(c)
+        if hybrid and (i + 1) % cfg.attn_every == 0:   # end of a group
+            grp = (i + 1) // cfg.attn_every - 1
+            kv = (None if caches is None
+                  else (caches["k"][grp], caches["v"][grp]))
+            # the shared block is the dense layer body on unstacked weights
+            x, kv = _attn_mlp_layer(cfg, params["shared"], x, positions, kv,
+                                    cache_pos)
+            kvs.append(kv)
+    return x, ssm_caches, kvs
+
+
+def _stacked_cache(cfg: ModelConfig, ssm_caches, kvs):
+    """Per-layer prefill caches -> the layer-stacked cache tree:
+    ``{"ssm": SSMCache((L, B, W-1, C), (L, B, nh, hp, N))}`` plus, for the
+    hybrid, ``"k"`` / ``"v"`` of shape (n_groups, B, S, KV, hd)."""
+    cache = {"ssm": ssm_mod.SSMCache(
+        conv=torch.stack([c.conv for c in ssm_caches]),
+        state=torch.stack([c.state for c in ssm_caches]))}
+    if cfg.family == HYBRID:
+        cache["k"] = torch.stack([k for k, _ in kvs])
+        cache["v"] = torch.stack([v for _, v in kvs])
+    return cache
 
 
 # ---------------------------------------------------------------------------
@@ -147,23 +208,32 @@ def forward_decoder_only(cfg: ModelConfig, params, batch, *,
                          return_cache: bool = False,
                          last_token_only: bool = False):
     """Full-sequence forward. Returns (logits, aux_loss, cache_or_None);
-    the cache is ``{"k", "v"}`` of shape (L, B, S, KV, hd). Differentiable:
-    serving calls it under ``torch.no_grad()`` (``Model.forward``), training
-    with autograd on (``Model.loss_fn``)."""
-    _require_dense(cfg)
+    the dense cache is ``{"k", "v"}`` of shape (L, B, S, KV, hd), the SSM and
+    hybrid caches as ``_stacked_cache`` gives them. Differentiable for the
+    dense family: serving calls it under ``torch.no_grad()``
+    (``Model.forward``), training with autograd on (``Model.loss_fn``)."""
+    _require_ported(cfg)
     x, positions = _embed_input(cfg, params, batch)
-    lp_all = params["layers"]
-    ks, vs = [], []
-    for i in range(cfg.num_layers):
-        lp = _layer_params(lp_all, i)
+    cache = None
+    if cfg.family == DENSE:
+        lp_all = params["layers"]
+        ks, vs = [], []
+        for i in range(cfg.num_layers):
+            lp = _layer_params(lp_all, i)
 
-        def body(x, lp=lp):
-            return _attn_mlp_layer(cfg, lp, x, positions)
-        x, (k, v) = remat_wrap(cfg, body)(x)
+            def body(x, lp=lp):
+                return _attn_mlp_layer(cfg, lp, x, positions)
+            x, (k, v) = remat_wrap(cfg, body)(x)
+            if return_cache:
+                ks.append(k)
+                vs.append(v)
         if return_cache:
-            ks.append(k)
-            vs.append(v)
-    cache = {"k": torch.stack(ks), "v": torch.stack(vs)} if return_cache else None
+            cache = {"k": torch.stack(ks), "v": torch.stack(vs)}
+    else:
+        x, ssm_caches, kvs = _ssm_stack(cfg, params, x, positions,
+                                        return_cache=return_cache)
+        if return_cache:
+            cache = _stacked_cache(cfg, ssm_caches, kvs)
     if last_token_only:
         x = x[:, -1:, :]  # prefill: only the next-token logits are needed
     logits = nn.unembed(cfg, params, x)
@@ -178,14 +248,18 @@ def decode_decoder_only(cfg: ModelConfig, params, cache, batch):
     """One-token decode. cache arrays are layer-stacked (L leading) and are
     updated **in place**; the same tree is returned as the new cache.
     Returns (logits (B, V), cache)."""
-    _require_dense(cfg)
+    _require_ported(cfg)
     x, positions = _embed_input(cfg, params, batch)
     pos = batch["pos"]
-    lp_all = params["layers"]
-    for i in range(cfg.num_layers):
-        x, _ = _attn_mlp_layer(cfg, _layer_params(lp_all, i), x, positions,
-                               cache=(cache["k"][i], cache["v"][i]),
-                               cache_pos=pos)
+    if cfg.family == DENSE:
+        lp_all = params["layers"]
+        for i in range(cfg.num_layers):
+            x, _ = _attn_mlp_layer(cfg, _layer_params(lp_all, i), x, positions,
+                                   cache=(cache["k"][i], cache["v"][i]),
+                                   cache_pos=pos)
+    else:
+        x, _, _ = _ssm_stack(cfg, params, x, positions, caches=cache,
+                             cache_pos=pos)
     logits = nn.unembed(cfg, params, x[:, 0:1, :])[:, 0, :]
     return logits, cache
 
@@ -195,8 +269,21 @@ def decode_decoder_only(cfg: ModelConfig, params, cache, batch):
 # ---------------------------------------------------------------------------
 def init_cache_decoder_only(cfg: ModelConfig, batch: int, max_seq: int,
                             dtype=torch.bfloat16, device=None) -> PyTree:
-    _require_dense(cfg)
-    shape = (cfg.num_layers, batch, max_seq, cfg.num_kv_heads, cfg.head_dim)
+    """The layer-stacked cache: dense ``{"k", "v"}`` (L, B, max_seq, KV,
+    hd); SSM ``{"ssm": SSMCache}`` with the conv window in ``dtype`` and the
+    state in fp32; hybrid both, KV stacked over the n_groups shared-block
+    applications."""
+    _require_ported(cfg)
     dtype = to_dtype(dtype)
-    return {"k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device)}
+    cache = {}
+    if cfg.family != DENSE:
+        cache["ssm"] = ssm_mod.init_ssm_cache(cfg, batch, dtype, device,
+                                              layers=cfg.num_layers)
+    if cfg.family != SSM:
+        # hybrid: one shared-block application per whole group of layers
+        n = (cfg.num_layers if cfg.family == DENSE
+             else cfg.num_layers // cfg.attn_every)
+        shape = (n, batch, max_seq, cfg.num_kv_heads, cfg.head_dim)
+        cache["k"] = torch.zeros(shape, dtype=dtype, device=device)
+        cache["v"] = torch.zeros(shape, dtype=dtype, device=device)
+    return cache

@@ -1,4 +1,4 @@
-"""KVPool — slot-paged KV pool with planner-driven host placement.
+"""KVPool — slot-paged KV/state pool with planner-driven host placement.
 
 The pool owns a fixed ``(slots, max_seq)`` cache tree plus the slot free list
 and per-slot lengths. Placement is where the paper's §VI-A mechanism becomes
@@ -18,6 +18,12 @@ on the current stream. ``paste()`` writes a prefill prefix straight into the
 tiers a slot's rows live in, so admitting a request moves only that
 request's bytes.
 
+SSM caches (``SSMCache``: the conv window in the pool's dtype, the state in
+fp32) have no sequence axis: a spilled one lives whole in the tier the
+majority of its bytes were planned for, and ``paste`` overwrites the slot.
+A leaf whose dim 2 happens to equal ``max_seq`` is read as a sequence leaf,
+as in the reference, so ``max_seq`` must differ from the SSM head count.
+
 When the engine runs on the CPU (the tests), both tiers are plain CPU memory
 and the split changes nothing physically; every placement path still runs.
 """
@@ -31,7 +37,7 @@ import torch
 
 from repro_torch.core.offload import (OffloadPlan, _flatten_with_paths,
                                       empty_host, memory_kind_of)
-from repro_torch.models.common import to_dtype
+from repro_torch.models.common import to_dtype, tree_unflatten
 
 PyTree = Any
 
@@ -46,17 +52,6 @@ def _nbytes(t) -> int:
     return int(t.numel()) * t.element_size()
 
 
-def _unflatten(paths: List[str], leaves: List[Any]) -> PyTree:
-    tree: Dict[str, Any] = {}
-    for path, leaf in zip(paths, leaves):
-        node = tree
-        *parents, last = path.split("/")
-        for key in parents:
-            node = node.setdefault(key, {})
-        node[last] = leaf
-    return tree
-
-
 class KVPool:
     def __init__(self, model, slots: int, max_seq: int, *, device=None,
                  plan: Optional[OffloadPlan] = None, offload_all: bool = False,
@@ -68,9 +63,10 @@ class KVPool:
         self.prefix = prefix
         self.positions = np.zeros(slots, np.int32)   # per-slot cache length
         self._free: List[int] = list(range(slots))
-        dtype = to_dtype(dtype)
-
-        shapes = _flatten_with_paths(model.cache_shapes(slots, max_seq, dtype))
+        # each leaf keeps the dtype ``init_cache`` gives it: ``dtype`` for KV
+        # and conv windows, fp32 for SSM states
+        self._like = model.cache_shapes(slots, max_seq, to_dtype(dtype))
+        shapes = _flatten_with_paths(self._like)
         self._paths = [p for p, _ in shapes]
 
         self._hot: List[torch.Tensor] = []            # device part, or the
@@ -86,18 +82,18 @@ class KVPool:
         for i, (path, meta) in enumerate(shapes):
             full_path = f"{prefix}/{path}" if prefix else path
             kind, hot_len = self._decide(full_path, meta, plan, offload_all)
-            shape = list(meta.shape)
+            shape, dt = list(meta.shape), meta.dtype
             if kind == "host":
                 self._host_leaves.add(i)
-                leaf = empty_host(shape, dtype, self.device).zero_()
+                leaf = empty_host(shape, dt, self.device).zero_()
             elif kind == "split":
                 self._hot_len[i] = hot_len
                 shape[SEQ_AXIS] = max_seq - hot_len
-                self._cold[i] = empty_host(shape, dtype, self.device).zero_()
+                self._cold[i] = empty_host(shape, dt, self.device).zero_()
                 shape[SEQ_AXIS] = hot_len
-                leaf = torch.zeros(shape, dtype=dtype, device=self.device)
+                leaf = torch.zeros(shape, dtype=dt, device=self.device)
             else:
-                leaf = torch.zeros(shape, dtype=dtype, device=self.device)
+                leaf = torch.zeros(shape, dtype=dt, device=self.device)
             self._hot.append(leaf)
 
     # ------------------------------------------------------------------
@@ -159,7 +155,7 @@ class KVPool:
                 leaves.append(self._to_device(hot))
             else:
                 leaves.append(hot)
-        return _unflatten(self._paths, leaves)
+        return tree_unflatten(self._like, leaves)
 
     def update(self, new_cache: PyTree) -> None:
         """Absorb a decode-updated cache tree: hot prefixes are copied back
@@ -192,7 +188,7 @@ class KVPool:
     def paste(self, slot: int, prefix_cache: PyTree, plen: int) -> None:
         """Write a prefill prefix into one slot (the admit path), in place:
         each tier receives the rows of the prefix that live in it, rounded to
-        the pool's dtype."""
+        the leaf's dtype (an SSM state stays fp32)."""
         self._wait_writeback()
         prefs = [leaf for _, leaf in _flatten_with_paths(prefix_cache)]
         if len(prefs) != len(self._hot):

@@ -24,33 +24,10 @@ from typing import Any, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.core.offload import _flatten_with_paths as _flatten
 from repro_torch.models.common import tree_unflatten
 
 PyTree = Any
-
-
-def _items(tree: PyTree):
-    """(path component, child) pairs in the reference's flattening order;
-    None for a leaf."""
-    if isinstance(tree, dict):
-        return [(str(k), tree[k]) for k in sorted(tree)]
-    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
-        return [(f".{f}", getattr(tree, f)) for f in tree._fields]
-    if isinstance(tree, (list, tuple)):
-        return [(str(i), x) for i, x in enumerate(tree)]
-    return None
-
-
-def _flatten(tree: PyTree, path: str = "") -> List[Tuple[str, Any]]:
-    if tree is None:
-        return []                      # an empty subtree, as in jax
-    items = _items(tree)
-    if items is None:
-        return [(path, tree)]
-    out = []
-    for key, child in items:
-        out += _flatten(child, f"{path}/{key}" if path else key)
-    return out
 
 
 def _np_dtype(leaf) -> str:

@@ -351,3 +351,93 @@ def test_train_step_on_card():
     params, opt, met = step(params, adamw.init(params), batch)
     assert torch.isfinite(met["loss"]) and int(opt.step) == 1
     assert not torch.equal(old, params["layers"]["wq"])
+
+
+def _ssd_inputs(dev, dtype, B, S, nh, hp, N, seed, with_state=False):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = (0.5 * torch.randn(B, S, nh, hp, device=dev, generator=g)).to(dtype)
+    dt = torch.nn.functional.softplus(torch.randn(B, S, nh, device=dev, generator=g))
+    A = -torch.exp(0.3 * torch.randn(nh, device=dev, generator=g))
+    B_, C_ = ((0.3 * torch.randn(B, S, N, device=dev, generator=g)).to(dtype)
+              for _ in range(2))
+    s0 = (0.5 * torch.randn(B, nh, hp, N, device=dev, generator=g)
+          if with_state else None)
+    return x, dt, A, B_, C_, s0
+
+
+SSD_CASES = [  # (B, S, nh, hp, N, init_state)
+    (1, 1024, 24, 64, 128, False),   # mamba2-130m's prefill
+    (1, 1000, 24, 64, 128, False),   # ragged S
+    (1, 300, 64, 64, 64, True),      # zamba2-1.2b's heads, a carried state
+    (2, 256, 8, 32, 64, True),       # the reference's shapes
+    (1, 128, 2, 64, 128, False),
+    (3, 5, 8, 16, 16, True),         # one short chunk, reduced widths
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,nh,hp,N,with_state", SSD_CASES)
+def test_ssd_scan_matches_plain_on_card(B, S, nh, hp, N, with_state, dtype):
+    """The SSD kernel against its plain version: y within fp32 1e-4 (the
+    reference's) or bf16 2e-2 (one rounding of the output), the final state
+    within 1e-4 in both (summed in fp32)."""
+    from repro_torch.kernels import ssd_scan as ssd
+    dev = _cuda()
+    x, dt, A, B_, C_, s0 = _ssd_inputs(dev, dtype, B, S, nh, hp, N, seed=S + nh,
+                                       with_state=with_state)
+    before = ssd.ssd_scan.launches
+    y, st = ssd.ssd_scan(x, dt, A, B_, C_, init_state=s0, return_state=True)
+    want_y, want_st = ssd.ssd_scan_plain(x, dt, A, B_, C_, init_state=s0,
+                                         return_state=True)
+    torch.cuda.synchronize()
+    assert ssd.ssd_scan.launches == before + 1
+    assert y.dtype == dtype and st.dtype == torch.float32
+    assert torch.isfinite(y.float()).all() and torch.isfinite(st).all()
+    assert _rel(y, want_y) < {torch.float32: 1e-4, torch.bfloat16: 2e-2}[dtype]
+    assert _rel(st, want_st) < 1e-4
+    y_only = ssd.ssd_scan(x, dt, A, B_, C_, init_state=s0)
+    assert torch.equal(y_only, y)
+
+
+@pytest.mark.gpu
+def test_ssd_scan_rejects_what_it_cannot_take():
+    from repro_torch.kernels import ssd_scan as ssd
+    dev = _cuda()
+    x, dt, A, B_, C_, _ = _ssd_inputs(dev, torch.bfloat16, 1, 64, 4, 32, 64, 0)
+    with pytest.raises(TypeError):
+        ssd.ssd_scan(x, dt.bfloat16(), A, B_, C_)
+    with pytest.raises(TypeError):
+        ssd.ssd_scan(x, dt, A, B_.float(), C_)
+    with pytest.raises(ValueError, match="contiguous"):
+        ssd.ssd_scan(x.transpose(2, 3).contiguous().transpose(2, 3), dt, A, B_, C_)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        ssd.ssd_scan(x[..., :24].contiguous(), dt, A, B_, C_)
+    with pytest.raises(ValueError):
+        ssd.ssd_scan(x, dt, A, B_.cpu(), C_)
+
+
+@pytest.mark.gpu
+def test_apply_ssm_prefill_launches_the_kernel():
+    """A CUDA prefill of a reduced mamba2 goes through the kernel (one
+    launch per layer) and equals the same model on the CPU (fp32, plain
+    ``ssd_chunked`` there)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ssd_scan as ssd
+    from repro_torch.models.model_zoo import build_model
+    dev = _cuda()
+    cfg = get_config("mamba2-130m").reduced().with_(remat="none", dtype="float32")
+    model = build_model(cfg, dev)
+    params, _ = model.init(torch.Generator(device=dev).manual_seed(0))
+    toks = torch.randint(0, cfg.vocab_size, (2, 100), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(1))
+    before = ssd.ssd_scan.launches
+    logits, _, cache = model.forward(params, {"tokens": toks}, return_cache=True)
+    torch.cuda.synchronize()
+    assert ssd.ssd_scan.launches - before == cfg.num_layers
+    cpu = build_model(cfg, "cpu")
+    cparams = {k: ({kk: vv.cpu() for kk, vv in v.items()} if isinstance(v, dict)
+                   else v.cpu()) for k, v in params.items()}
+    want, _, wcache = cpu.forward(cparams, {"tokens": toks.cpu()}, return_cache=True)
+    assert _rel(logits.cpu(), want) < 1e-4
+    assert _rel(cache["ssm"].state.cpu(), wcache["ssm"].state) < 1e-4
