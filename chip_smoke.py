@@ -6,14 +6,17 @@
 Drives the port's main path through its public entry points and prints one
 JSON line per phase; any failure is a non-zero exit:
 
-  env      torch / CUDA versions, the card's name and power limit
+  env      torch / CUDA versions, the card's name and power limit, the
+           host's RAM and the pinned-memory (memlock) limit
   build    builds every kernel under src/repro_torch/kernels/csrc with nvcc
   kernels  each kernel's wrapper against its plain PyTorch version on the
            card at the main paths' shapes, with its time, the plain
            version's, one library call's, and the card's bound for the work:
            the flash forward (serving), the forward with its lse output and
            the two backward kernels (training), stream_matmul, ssd_scan (no
-           single PyTorch call computes the SSD: no library time)
+           single PyTorch call computes the SSD: no library time),
+           grouped_matmul (library: torch.bmm) with w on the card and in
+           pinned host memory
   serve    llama3-8b at full width and depth (random bf16 weights from a
            seed) through ServingEngine.run; the kernel launch counts are set
            to 0 just before and read just after
@@ -49,6 +52,16 @@ JSON line per phase; any failure is a non-zero exit:
            block's prefill through the flash kernel; tokens against a lone
            engine on the same placement, and, in fp32 activations, against
            one with every weight on the device
+  moe      granite-moe-1b-a400m at full size (random bf16 weights from a seed)
+           through ServingEngine.run, every expert product through
+           grouped_matmul (counts set to 0 just before, read just after);
+           the capacity and dropped share of a 1024-token prefill, and
+           prefill -> decode against the full forward
+  moe_runtime  the same model through SliceRuntime.add_tenant with an HBM
+           budget that spills the table, the KV pool and one expert stack
+           (streamed through grouped_matmul from pinned memory); tokens
+           against a lone engine on the same placement and, in fp32
+           activations, against one with every weight on the device
 
 Then a line {"kernels": [...]} with every kernel's figures, the card's name
 and power limit, and last {"ok": true, "device": {...}}.
@@ -84,8 +97,8 @@ TOL = {"bfloat16": 2e-2, "float32": 2e-5}     # max |diff| / max |plain|
 # gradients at the reference's backward tolerance in fp32
 TRAIN_TOL = {"bfloat16": {"out": 2e-2, "lse": 2e-5, "grad": 2e-2},
              "float32": {"out": 2e-5, "lse": 2e-5, "grad": 1e-4}}
-# stream_matmul: the reference's fp32 tolerance (tests/test_kernels.py), and
-# one bf16 rounding of the output in bf16
+# stream_matmul and grouped_matmul: the reference's fp32 tolerance
+# (tests/test_kernels.py), and one bf16 rounding of the output in bf16
 STREAM_TOL = {"bfloat16": 2e-2, "float32": 1e-5}
 # ssd_scan: y at the reference's fp32 SSD tolerance, one bf16 rounding in
 # bf16; the final state is summed in fp32 in both
@@ -125,6 +138,34 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
+def host_memory() -> dict:
+    """The host's RAM (``/proc/meminfo``), the locked-memory limit of this
+    process (RLIMIT_MEMLOCK; CUDA's pinned allocations are not always held
+    to it) and the cgroup's memory limit, where each is visible."""
+    import resource
+    out = {}
+    try:
+        with open("/proc/meminfo") as f:
+            for line in f:
+                key, _, value = line.partition(":")
+                if key in ("MemTotal", "MemAvailable"):
+                    out[key] = value.strip()
+    except OSError:
+        pass
+    soft, _ = resource.getrlimit(resource.RLIMIT_MEMLOCK)
+    out["memlock_limit"] = ("unlimited" if soft == resource.RLIM_INFINITY
+                            else soft)
+    for path in ("/sys/fs/cgroup/memory.max",
+                 "/sys/fs/cgroup/memory/memory.limit_in_bytes"):
+        try:
+            with open(path) as f:
+                out["cgroup_memory_limit"] = f.read().strip()
+            break
+        except OSError:
+            continue
+    return out
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -139,6 +180,7 @@ def main() -> None:
     from repro_torch.core.offload import memory_kind_of, place_tree, plan_offload
     from repro_torch.kernels import _build
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import grouped_matmul as gmm
     from repro_torch.kernels import ops as kops
     from repro_torch.kernels import ssd_scan as ssd
     from repro_torch.kernels import stream_matmul as sm
@@ -146,6 +188,7 @@ def main() -> None:
     from repro_torch.launch.train import build_config, train as run_training
     from repro_torch.core.offload import _flatten_with_paths
     from repro_torch.models import layers as mlayers
+    from repro_torch.models import moe as mmoe
     from repro_torch.models import ssm as mssm
     from repro_torch.models import transformer as mtfm
     from repro_torch.models.common import tree_leaves
@@ -161,12 +204,14 @@ def main() -> None:
                        "flash_attention_bwd_dkdv": fa.flash_attention_bwd_dkdv,
                        "flash_attention_bwd_dq": fa.flash_attention_bwd_dq,
                        "stream_matmul": sm.stream_matmul,
-                       "ssd_scan": ssd.ssd_scan}
+                       "ssd_scan": ssd.ssd_scan,
+                       "grouped_matmul": gmm.grouped_matmul}
 
     def reset_counts():
         for w in kernel_wrappers.values():
             w.launches = 0
         sm.stream_matmul.h2d_bytes = 0
+        gmm.grouped_matmul.h2d_bytes = 0
         mlayers.gather_rows.h2d_bytes = 0
         mtfm.offload_activation.d2h_bytes = 0
 
@@ -179,7 +224,8 @@ def main() -> None:
     card_line = smi.stdout.strip().splitlines()[0].strip()
     emit("env", python=sys.version.split()[0], torch=torch.__version__,
          cuda=torch.version.cuda, device=torch.cuda.get_device_name(0),
-         device_count=torch.cuda.device_count(), card=card_line)
+         device_count=torch.cuda.device_count(), card=card_line,
+         host_memory=host_memory())
 
     # ---------------------------------------------------------------- build
     t0 = time.time()
@@ -506,8 +552,75 @@ def main() -> None:
                  ssd_case(1, 128, 4, 32, 64, "float32"),       # the reference's
                  ssd_case(2, 256, 8, 32, 64, "float32"),
                  ssd_case(1, 128, 2, 64, 128, "float32")]
+    def gmm_case(E, M, K, N, dtype_name, where, shared=False):
+        """grouped_matmul against its plain version; x (E, M, K) (with
+        ``shared`` one (M, K) buffer read by every expert, expert stride 0,
+        as the MoE decode passes it); w (E, K, N) on the card or in pinned
+        host memory. Bound: x read once (once in all when shared), w read
+        once, the output written once; 2*E*M*K*N operations; a pinned w's
+        bytes also cross the host link. Library: one torch.bmm on the same
+        inputs (with a pinned w, after copying it over)."""
+        dtype = getattr(torch, dtype_name)
+        g = torch.Generator(device=dev).manual_seed(SEED + E + M + K + N)
+        x = torch.randn(1 if shared else E, M, K, device=dev, generator=g).to(dtype)
+        x = x.expand(E, M, K) if shared else x
+        w_dev = (torch.randn(E, K, N, device=dev, generator=g) * K ** -0.5).to(dtype)
+        w = w_dev if where == "device" else w_dev.cpu().pin_memory()
+        before = gmm.grouped_matmul.h2d_bytes
+        got = gmm.grouped_matmul(x, w)
+        h2d = gmm.grouped_matmul.h2d_bytes - before
+        want = gmm.grouped_matmul_plain(x, w_dev)
+        torch.cuda.synchronize()
+        if not torch.isfinite(got.float()).all():
+            fail(f"grouped_matmul gave non-finite values at {(E, M, K, N)}")
+        abs_err = float((got.float() - want.float()).abs().max())
+        rel = abs_err / (float(want.float().abs().max()) + 1e-9)
+        tol = STREAM_TOL[dtype_name]
+        if rel >= tol:
+            fail(f"grouped_matmul disagrees with its plain version at "
+                 f"{(E, M, K, N)} {dtype_name} w {where} shared x {shared}: "
+                 f"rel {rel:.3e} >= {tol}")
+        es = x.element_size()
+        w_bytes = E * K * N * es
+        if h2d != (w_bytes if where == "pinned" else 0):
+            fail(f"grouped_matmul streamed {h2d} bytes for a {where} w of "
+                 f"{w_bytes} bytes")
+        nbytes = ((1 if shared else E) * M * K + E * M * N) * es + w_bytes
+        flops = 2.0 * E * M * K * N
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
+        t_link = w_bytes / link_bound_rate * 1e3 if where == "pinned" else 0.0
+        ms = time_ms(lambda: gmm.grouped_matmul(x, w))
+        lib_dev = time_ms(lambda: torch.bmm(x, w_dev))
+        lib_host = (time_ms(lambda: torch.bmm(x, w.to(dev, non_blocking=True)))
+                    if where == "pinned" else None)
+        return {
+            "shape": [E, M, K, N], "dtype": dtype_name, "where": where,
+            "x_expert_stride": x.stride(0), "max_abs_err": abs_err,
+            "rel_err": rel, "tol": tol, "ms": ms,
+            "plain_ms": time_ms(lambda: gmm.grouped_matmul_plain(x, w_dev), iters=5),
+            "library_ms": lib_host if lib_host is not None else lib_dev,
+            "library_device_w_ms": lib_dev, "library_host_w_ms": lib_host,
+            "bound_ms": max(t_bytes, t_ops, t_link),
+            "bound_by": "bytes" if max(t_bytes, t_link) >= t_ops else "operations",
+            "bytes": nbytes, "flops": flops, "h2d_bytes": h2d,
+            "h2d_gb_per_s": h2d / (ms * 1e-3) / 1e9 if h2d else None,
+        }
+
+    gmm_cases = [
+        gmm_case(32, 4, 1024, 512, "bfloat16", "device", shared=True),  # decode
+        gmm_case(32, 4, 512, 1024, "bfloat16", "device"),       # decode w_out
+        gmm_case(32, 320, 1024, 512, "bfloat16", "device"),     # 1024-token prefill
+        gmm_case(32, 4, 1024, 512, "bfloat16", "pinned", shared=True),
+        gmm_case(32, 320, 1024, 512, "bfloat16", "pinned"),
+        gmm_case(5, 77, 200, 96, "bfloat16", "device"),         # ragged C, d, f
+        gmm_case(5, 77, 200, 96, "float32", "pinned"),
+        gmm_case(32, 4, 1024, 512, "float32", "device", shared=True),
+        gmm_case(2, 128, 128, 128, "float32", "device"),        # the reference's
+        gmm_case(4, 256, 128, 384, "float32", "device"),
+        gmm_case(1, 128, 256, 128, "float32", "device")]
     emit("kernels", flash_attention_fwd=cases, flash_attention_train=train_cases,
-         stream_matmul=stream_cases, ssd_scan=ssd_cases,
+         stream_matmul=stream_cases, ssd_scan=ssd_cases, grouped_matmul=gmm_cases,
          ssd_scan_library="none: no single PyTorch call computes the SSD scan",
          host_link={"peak_gb_per_s": HOST_LINK_BYTES_PER_S / 1e9,
                     "bound_gb_per_s": link_bound_rate / 1e9,
@@ -944,7 +1057,8 @@ def main() -> None:
         "flash_attention_bwd_dq": ("layers x steps", L * steps_done),
         "flash_attention_fwd": ("0 (serving only)", 0),
         "stream_matmul": ("0 (weights on the device)", 0),
-        "ssd_scan": ("0 (no SSM layer)", 0)}
+        "ssd_scan": ("0 (no SSM layer)", 0),
+        "grouped_matmul": ("0 (no MoE layer)", 0)}
     if train_launches != {n: want for n, (_, want) in launch_formula.items()}:
         fail(f"train: launches {train_launches} != {launch_formula}")
     step_ms = statistics.median(tstats.step_seconds) * 1e3
@@ -1310,8 +1424,224 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
 
+    # ------------------------------------------------------------------ moe
+    mcfg = get_config("granite-moe-1b-a400m").with_(
+        attn_impl="pallas", remat="none", param_dtype="bfloat16")
+    E, TOPK = mcfg.num_experts, mcfg.experts_per_token
+    mmodel = build_model(mcfg, dev)
+    t0 = time.time()
+    mparams, _ = mmodel.init(torch.Generator(device=dev).manual_seed(SEED))
+    torch.cuda.synchronize()
+    m_init = time.time() - t0
+    if param_count(mparams) != mcfg.param_count():
+        fail(f"granite-moe: parameter count {param_count(mparams)} != "
+             f"{mcfg.param_count()}")
+    run_engine(ServingEngine(mmodel, mparams, slots=SLOTS, max_seq=MAX_SEQ),
+               make_requests(mcfg, LENS, 2))                   # warm-up
+    meng = timed_engine(ServingEngine(mmodel, mparams, slots=SLOTS,
+                                      max_seq=MAX_SEQ))
+    mreqs = make_requests(mcfg, LENS, MAX_NEW)
+    reset_counts()                                   # main path starts here
+    mout, mwall = run_engine(meng, mreqs)
+    moe_launches = {n: w.launches for n, w in kernel_wrappers.items()}
+    check_outputs(mout, mreqs, mcfg, MAX_NEW)
+    mst = meng.stats
+    # per layer: w_in, w_gate, w_out in every prefill and every tick
+    check_launches("moe", moe_launches, {
+        **{n: 0 for n in kernel_wrappers},
+        "flash_attention_fwd": mst.admitted * mcfg.num_layers,
+        "grouped_matmul": 3 * (mst.admitted + mst.ticks) * mcfg.num_layers})
+    mtokens = sum(len(v) for v in mout.values())
+
+    # capacity and drops of one 1024-token prefill: the share of the
+    # top-k assignments that find their expert's buffer full, per layer
+    dropped = []
+    slots_fn = mmoe._slots
+
+    def counting_slots(cfg, top_w, top_e, C):
+        slot_token, keep_w, slot = slots_fn(cfg, top_w, top_e, C)
+        dropped.append(float((slot == cfg.num_experts * C).float().mean()))
+        return slot_token, keep_w, slot
+
+    rng = np.random.default_rng(SEED + 4)
+    mtoks = torch.as_tensor(rng.integers(0, mcfg.vocab_size, size=(1, 1024)),
+                            device=dev)
+    mmoe._slots = counting_slots
+    try:
+        mmodel.forward(mparams, {"tokens": mtoks})
+    finally:
+        mmoe._slots = slots_fn
+    torch.cuda.synchronize()
+    cap_1024 = mmoe.capacity(mcfg, 1024)
+
+    # prefill 300 tokens, decode the 301st against the full forward's last
+    # row. The decode computes every expert densely and drops nothing, so
+    # the forward runs at the least capacity factor that drops nothing
+    # (C >= S: experts / top-k); fp32 activations hold it (bf16 is data: a
+    # rounding can flip a routing decision)
+    no_drop = E / TOPK
+    m_rows = {}
+    for act_dtype in ("float32", "bfloat16"):
+        dmodel = build_model(mcfg.with_(capacity_factor=no_drop, dtype=act_dtype), dev)
+        full, _, _ = dmodel.forward(mparams, {"tokens": mtoks[:, :301]})
+        _, _, pc = dmodel.forward(mparams, {"tokens": mtoks[:, :300]},
+                                  return_cache=True)
+        cache = dmodel.init_cache(1, 512, getattr(torch, act_dtype))
+        for name in cache:
+            cache[name][:, :, :300] = pc[name].to(cache[name].dtype)
+        dec, _ = dmodel.decode(mparams, cache, {
+            "tokens": mtoks[:, 300:301], "pos": torch.tensor(300, device=dev)})
+        torch.cuda.synchronize()
+        if not (torch.isfinite(full.float()).all() and torch.isfinite(dec.float()).all()):
+            fail(f"granite-moe: non-finite logits ({act_dtype})")
+        m_rows[act_dtype] = rel_err(dec[0], full[0, -1])
+        del full, pc, cache, dec
+    if m_rows["float32"] >= FP32_MODEL_TOL:
+        fail(f"granite-moe decode vs forward (fp32): rel {m_rows['float32']:.3e} "
+             f"(limit {FP32_MODEL_TOL})")
+    emit("moe", arch=mcfg.name, layers=mcfg.num_layers, d_model=mcfg.d_model,
+         experts=E, top_k=TOPK, d_ff=mcfg.d_ff, vocab=mcfg.vocab_size,
+         params=param_count(mparams), param_dtype=mcfg.param_dtype,
+         attn_impl=mcfg.attn_impl, init_seconds=m_init, requests=len(mout),
+         prompt_lens=LENS, slots=SLOTS, max_seq=MAX_SEQ, tokens=mtokens,
+         ticks=meng.ticks, admitted=mst.admitted, wall_seconds=mwall,
+         tok_per_s=mtokens / mwall,
+         prefill_ms={str(n): t * 1e3 for n, t in meng.prefill_s},
+         prefill_ms_median=statistics.median(t for _, t in meng.prefill_s) * 1e3,
+         tick_ms_median=statistics.median(meng.tick_s) * 1e3,
+         launches=moe_launches, kv_pool_bytes=mmodel.cache_bytes(SLOTS, MAX_SEQ),
+         capacity_factor=mcfg.capacity_factor, capacity_1024=cap_1024,
+         assignments_1024=1024 * TOPK,
+         dropped_share_1024_by_layer=dropped,
+         dropped_share_1024_mean=statistics.mean(dropped),
+         no_drop_capacity_factor=no_drop,
+         decode_vs_forward_fp32_rel=m_rows["float32"], tol=FP32_MODEL_TOL,
+         decode_vs_forward_bf16_rel=m_rows["bfloat16"])
+    del mmodel, mparams, meng
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---------------------------------------------------------- moe_runtime
+    mmeta = build_model(mcfg, dev)
+    minv = mmeta.serving_inventory(mmeta.init(abstract=True)[0],
+                                   mmeta.cache_shapes(SLOTS, MAX_SEQ))
+    m_footprint = sum(t.bytes for t in minv)
+    m_embed = sum(t.bytes for t in minv if t.group == "embed")
+    m_kv = sum(t.bytes for t in minv if t.group == "kv_cache")
+    # one byte over what spilling the table and the KV pool frees: by the
+    # planner's order the next spill is one whole expert stack
+    m_budget = m_footprint - m_embed - m_kv - 1
+    rt = SliceRuntime(device=dev)
+    t0 = time.time()
+    mt = rt.add_tenant(TenantSpec("moe", mcfg, profile="1s.16c", slots=SLOTS,
+                                  max_seq=MAX_SEQ, hbm_budget=m_budget,
+                                  seed=SEED))
+    torch.cuda.synchronize()
+    m_add_s = time.time() - t0
+    mplan = mt.plan
+    experts_spilled = [n for n in mplan.offloaded if n in (
+        "params/layers/w_in", "params/layers/w_gate", "params/layers/w_out")]
+    if len(experts_spilled) != 1:
+        fail(f"granite-moe plan spills {mplan.offloaded} {mplan.partial}; "
+             f"expected one expert stack")
+    m_leaf = mt.params["layers"][experts_spilled[0].split("/")[-1]]
+    if (memory_kind_of(m_leaf) != "pinned_host" or not m_leaf.is_pinned()
+            or not m_leaf[0].is_pinned()):
+        fail(f"{experts_spilled[0]} (or its layer slice) is not in pinned host "
+             f"memory after placement")
+    m_table_streamed = mplan.is_offloaded("params/tok_embed")
+    timed_engine(mt.engine)
+    rt_reqs = make_requests(mcfg, LENS, MAX_NEW)
+    rt.submit("moe", rt_reqs)
+    reset_counts()                                   # main path starts here
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mreport = rt.run()
+    torch.cuda.synchronize()
+    m_wall = time.perf_counter() - t0
+    mrt_launches = {n: w.launches for n, w in kernel_wrappers.items()}
+    m_h2d = gmm.grouped_matmul.h2d_bytes
+    check_outputs(mt.engine.outputs, rt_reqs, mcfg, MAX_NEW)
+    mrs = mt.engine.stats
+    passes = mrs.admitted + mrs.ticks
+    check_launches("moe_runtime", mrt_launches, {
+        **{n: 0 for n in kernel_wrappers},
+        "flash_attention_fwd": mrs.admitted * mcfg.num_layers,
+        "grouped_matmul": 3 * passes * mcfg.num_layers,
+        # the tied unembedding reads the spilled table once a pass
+        "stream_matmul": passes * int(m_table_streamed)})
+    per_pass = mcfg.num_layers * m_leaf[0].numel() * m_leaf.element_size()
+    if m_h2d != passes * per_pass:
+        fail(f"granite-moe: grouped_matmul streamed {m_h2d} bytes, expected "
+             f"(prefills + ticks) x {per_pass}")
+    lone = TenantEngine(mt.model, mt.params, slots=SLOTS, max_seq=MAX_SEQ,
+                        plan=mplan)
+    lone_out, _ = run_engine(lone, make_requests(mcfg, LENS, MAX_NEW))
+    if lone_out != mt.engine.outputs:
+        fail("granite-moe: runtime tokens differ from a lone engine's on the "
+             "same placement")
+    del lone
+    m_on_device = {k: ({kk: vv.to(dev) for kk, vv in v.items()}
+                       if isinstance(v, dict) else v.to(dev))
+                   for k, v in mt.params.items()}
+    mtoks = torch.as_tensor(np.random.default_rng(SEED + 1).integers(
+        0, mcfg.vocab_size, size=(1, 301)), device=dev)
+    logits_h, _, _ = mt.model.forward(mt.params, {"tokens": mtoks})
+    logits_d, _, _ = mt.model.forward(m_on_device, {"tokens": mtoks})
+    torch.cuda.synchronize()
+    m_bf16_placed_vs_device = rel_err(logits_h, logits_d)
+    if (not torch.isfinite(logits_h.float()).all()
+            or m_bf16_placed_vs_device >= MODEL_TOL):
+        fail(f"granite-moe host-placed vs device logits (bf16): rel "
+             f"{m_bf16_placed_vs_device:.3e} (limit {MODEL_TOL})")
+    del logits_h, logits_d
+    m32 = build_model(mcfg.with_(dtype="float32"), dev)
+
+    def moe_fp32_engine(params, plan):
+        eng = TenantEngine(m32, params, slots=SLOTS, max_seq=MAX_SEQ, plan=plan)
+        eng.pool = KVPool(m32, SLOTS, MAX_SEQ, plan=plan, dtype=torch.float32)
+        return timed_engine(eng)
+
+    m_placed32 = moe_fp32_engine(mt.params, mplan)
+    m_placed32_out, _ = run_engine(m_placed32, make_requests(mcfg, LENS, MAX_NEW))
+    m_res32 = moe_fp32_engine(m_on_device, None)
+    m_res32_out, m_res_wall = run_engine(m_res32, make_requests(mcfg, LENS, MAX_NEW))
+    m_agree = (sum(a == b for r in m_res32_out
+                   for a, b in zip(m_res32_out[r], m_placed32_out[r]))
+               / sum(len(v) for v in m_res32_out.values()))
+    mrow = mreport["tenants"]["moe"]
+    emit("moe_runtime", arch=mcfg.name, profile=mrow["profile"],
+         footprint=m_footprint, hbm_budget=m_budget,
+         plan={"offloaded": list(mplan.offloaded), "partial": list(mplan.partial),
+               "resident_bytes": mplan.resident_bytes,
+               "host_bytes": mplan.host_bytes},
+         add_tenant_seconds=m_add_s, wall_seconds=m_wall,
+         tokens=mrow["tokens_out"], tok_per_s=mrow["tok_per_s"],
+         prefills=mrs.admitted, ticks=mrs.ticks,
+         tick_ms_median=statistics.median(mt.engine.tick_s) * 1e3,
+         prefill_ms_median=statistics.median(t for _, t in mt.engine.prefill_s) * 1e3,
+         launches=mrt_launches, expert_h2d_bytes=m_h2d,
+         expert_h2d_bytes_per_pass=per_pass, table_streamed=m_table_streamed,
+         kv_host_bytes=mt.engine.pool.host_bytes, lone_tokens_equal=True,
+         fp32_activations={
+             "device_resident_tokens_equal": m_res32_out == m_placed32_out,
+             "device_resident_token_agreement": m_agree,
+             "placed_tick_ms_median": statistics.median(m_placed32.tick_s) * 1e3,
+             "device_resident_tick_ms_median":
+                 statistics.median(m_res32.tick_s) * 1e3,
+             "device_resident_wall_seconds": m_res_wall},
+         bf16_placed_vs_device_rel=m_bf16_placed_vs_device, tol=MODEL_TOL)
+    if m_res32_out != m_placed32_out:
+        fail(f"granite-moe (fp32): tokens with the plan's placement differ "
+             f"from the device-resident engine's (agreement {m_agree:.3f})")
+    rt.remove_tenant("moe")
+    del rt, mt, m32, m_placed32, m_res32, m_on_device, m_leaf
+    gc.collect()
+    torch.cuda.empty_cache()
+
     # ------------------------------------------------------------- summary
     head, shead, ssd_head = cases[0], stream_cases[0], ssd_cases[0]
+    gmm_head, gmm_prefill, gmm_pinned = gmm_cases[0], gmm_cases[2], gmm_cases[3]
     print(json.dumps({"kernels": [{
         "name": "flash_attention_fwd", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention_fwd.cu",
@@ -1370,6 +1700,23 @@ def main() -> None:
         "bound_ms": ssd_head["bound_ms"], "bound_by": ssd_head["bound_by"],
         "library_ms": None,
         "library": "none: no single PyTorch call computes the SSD scan",
+    }, {
+        "name": "grouped_matmul", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/grouped_matmul.cu",
+        "replaces": "src/repro/kernels/moe_gmm.py:54",
+        "launches": moe_launches["grouped_matmul"],
+        "launches_moe_runtime": mrt_launches["grouped_matmul"],
+        "shape": gmm_head["shape"], "dtype": gmm_head["dtype"],
+        "w": gmm_head["where"], "x_expert_stride": gmm_head["x_expert_stride"],
+        "max_abs_err": max(c["max_abs_err"] for c in gmm_cases),
+        "ms": gmm_head["ms"], "plain_ms": gmm_head["plain_ms"],
+        "bound_ms": gmm_head["bound_ms"], "bound_by": gmm_head["bound_by"],
+        "library_ms": gmm_head["library_ms"], "library": "torch.bmm",
+        "pinned": {k: gmm_pinned[k] for k in (
+            "shape", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "h2d_gb_per_s")},
+        "prefill": {k: gmm_prefill[k] for k in (
+            "shape", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
     }]}), flush=True)
     print(card_line, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -2,6 +2,7 @@
 from __future__ import annotations
 
 from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import grouped_matmul as _gmm
 from repro_torch.kernels import ssd_scan as _ssd
 from repro_torch.kernels import stream_matmul as _sm
 
@@ -28,6 +29,13 @@ def stream_matmul(x, w, *, block_k: int = _sm.BLOCK_K):
     """x: (M, K) resident; w: (K, N) on x's device or in pinned host memory,
     streamed in ``block_k`` panels."""
     return _sm.stream_matmul(x, w, block_k=block_k)
+
+
+def grouped_matmul(x, w):
+    """x: (E, C, d) capacity buffers (any expert stride: 0 shares one x);
+    w: (E, d, f) expert weights on x's device or in pinned host memory,
+    streamed in panels of ``grouped_matmul.BLOCK_K`` rows."""
+    return _gmm.grouped_matmul(x, w)
 
 
 def ssd(x, dt, A, B_, C_, *, chunk: int = 128, nh_block=None,

@@ -35,5 +35,10 @@ def ssd_ref(x, dt, A, B_, C_):
     return torch.stack(ys, dim=1).to(x.dtype)                      # (B,S,nh,hp)
 
 
+def gmm_ref(x, w):
+    """x: (E, C, d); w: (E, d, f)."""
+    return torch.einsum("ecd,edf->ecf", x.float(), w.float()).to(x.dtype)
+
+
 def matmul_ref(x, w):
     return (x.float() @ w.float()).to(x.dtype)

@@ -35,26 +35,11 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _streamed
 
 BLOCK_K = 512          # the reference's default panel depth
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-
-_fn = None
-
-
-def _kernel():
-    global _fn
-    if _fn is None:
-        lib = _build.load("stream_matmul")
-        fn = lib.stream_matmul
-        p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-        fn.argtypes = [p, ll, i, p, ll, i, i, i, p, p, p, i, i, i, i, p]
-        fn.restype = ctypes.c_int
-        lib.stream_matmul_error.argtypes = [ctypes.c_int]
-        lib.stream_matmul_error.restype = ctypes.c_char_p
-        _fn = (fn, lib.stream_matmul_error)
-    return _fn
+_p, _ll, _i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+_ARGTYPES = [_p, _ll, _i, _p, _ll, _i, _i, _i, _p, _p, _p, _i, _i, _i, _i, _p]
 
 
 def _check(x, w):
@@ -64,9 +49,7 @@ def _check(x, w):
     if x.shape[1] != w.shape[0]:
         raise ValueError(f"inner dims differ: x {tuple(x.shape)}, "
                          f"w {tuple(w.shape)}")
-    for name, t in (("x", x), ("w", w)):
-        if t.dtype not in _DTYPE_CODE:
-            raise TypeError(f"{name} must be float32 or bfloat16, got {t.dtype}")
+    _streamed.check_dtypes(x, w)
 
 
 def stream_matmul_plain(x, w):
@@ -91,19 +74,9 @@ def stream_matmul(x, w, *, block_k: int = BLOCK_K):
     """x: (M, K) activations; w: (K, N) weights on x's device or in pinned
     host memory. Returns (M, N) in x's dtype on x's device."""
     _check(x, w)
-    if x.device.type == "cpu":
-        if w.device.type != "cpu":
-            raise ValueError(f"x on the CPU with w on {w.device}")
+    on_host = _streamed.w_on_host(x, w)
+    if on_host is None:
         return stream_matmul_plain(x, w)
-    if x.device.type != "cuda":
-        raise ValueError(f"unsupported device {x.device}")
-    on_host = w.device.type == "cpu"
-    if on_host and not w.is_pinned():
-        raise ValueError("w is in pageable host memory: the kernel streams "
-                         "only pinned host memory (place it with "
-                         "core.offload.place_tree or pin_memory())")
-    if not on_host and w.device != x.device:
-        raise ValueError(f"x on {x.device}, w on {w.device}")
     if x.stride(1) != 1 and x.shape[1] > 1:
         raise ValueError("x must have a unit column stride")
     if block_k < 1:
@@ -116,26 +89,18 @@ def stream_matmul(x, w, *, block_k: int = BLOCK_K):
     if K == 0:
         return out.zero_()
     w_nk, ldw = _w_layout(w)
-    ldx = x.stride(0) if M > 1 else K
-    ring = acc = None
-    if on_host:
-        ring = torch.empty(2 * min(block_k, K) * N * w.element_size(),
-                           dtype=torch.uint8, device=x.device)
-        if K > block_k:
-            acc = torch.empty((M, N), dtype=torch.float32, device=x.device)
-    fn, err_str = _kernel()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        code = fn(x.data_ptr(), ldx, _DTYPE_CODE[x.dtype],
-                  w.data_ptr(), ldw, _DTYPE_CODE[w.dtype], w_nk, int(on_host),
-                  ring.data_ptr() if ring is not None else None,
-                  acc.data_ptr() if acc is not None else None,
-                  out.data_ptr(), M, N, K, block_k, stream)
-    if code != 0:
-        raise RuntimeError(
-            f"stream_matmul launch failed: CUDA error {code} "
-            f"({err_str(code).decode()}) for x {tuple(x.shape)} {x.dtype}, "
-            f"w {tuple(w.shape)} {w.dtype} on {w.device}")
+    ring, acc = _streamed.scratch(x, on_host,
+                                  2 * min(block_k, K) * N * w.element_size(),
+                                  (M, N) if K > block_k else None)
+    code = _streamed.DTYPE_CODE
+    _streamed.launch(
+        "stream_matmul", _streamed.kernel("stream_matmul", _ARGTYPES), x,
+        (x.data_ptr(), x.stride(0) if M > 1 else K, code[x.dtype],
+         w.data_ptr(), ldw, code[w.dtype], w_nk, int(on_host),
+         _streamed.ptr(ring), _streamed.ptr(acc), out.data_ptr(),
+         M, N, K, block_k),
+        f"x {tuple(x.shape)} {x.dtype}, w {tuple(w.shape)} {w.dtype} "
+        f"on {w.device}")
     stream_matmul.launches += 1
     if on_host:
         stream_matmul.h2d_bytes += K * N * w.element_size()

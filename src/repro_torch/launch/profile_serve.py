@@ -14,8 +14,9 @@ by the host issuing small kernels, not by the card.
 ``--hbm-budget`` profiles a ``SliceRuntime`` tenant instead, added with that
 HBM budget: the runtime cuts its ``OffloadPlan`` and places parameters and KV
 pool by it, so spilled parameters live in pinned host memory and are streamed
-through ``stream_matmul``. Copies on the side stream overlap kernels, so the
-device-busy sum can then exceed the time the device was busy.
+through ``stream_matmul`` (an MoE expert stack through ``grouped_matmul``,
+e.g. ``--arch granite-moe-1b-a400m``). Copies on the side stream overlap
+kernels, so the device-busy sum can then exceed the time the device was busy.
 """
 from __future__ import annotations
 
@@ -94,7 +95,8 @@ def profile(args) -> dict:
         "device_idle_share": 1.0 - (busy_us / 1e6) / wall,
         "device_ops_per_tick": launches / args.ticks,
         "top_device_ops": [
-            {"name": e.key[:80], "ms_per_tick": _device_us(e) / 1e3 / args.ticks,
+            {"name": e.key.replace("(anonymous namespace)::", "")[:80],
+             "ms_per_tick": _device_us(e) / 1e3 / args.ticks,
              "per_tick": e.count / args.ticks} for e in top],
     }
 

@@ -14,7 +14,13 @@ its own offload plan, and drive them round-robin:
 ``--hbm-budget BYTES`` pins the *first* tenant's plan budget below its
 footprint so the offload path engages (with a 4096-byte spill granule, as
 the reference does); on the card, parameters the plan spills live in pinned
-host memory and are streamed through the ``stream_matmul`` kernel.
+host memory and are streamed through the ``stream_matmul`` kernel (an MoE
+expert stack through ``grouped_matmul``).
+
+MoE (granite-moe-1b-a400m, phi3.5-moe-42b-a6.6b) serves like any other
+family; its expert products run through the ``grouped_matmul`` kernel on the
+card, e.g. ``--arch granite-moe-1b-a400m --full-size --attn-impl pallas``, or
+``--tenants granite-moe-1b-a400m:1s.16c,gpt2-124m:1s.16c``.
 
 Runs on the CUDA device unless ``--device cpu`` is given. ``--full-size``
 serves the published widths and depth in bf16 weights; the default is the

@@ -96,7 +96,16 @@ def weight_matmul(x, w):
     follows where the tensor lives; the wrapper raises on what it cannot
     stream (e.g. pageable host memory). The kernel has no backward, so a
     streamed product that autograd would differentiate raises instead of
-    losing the gradient."""
+    losing the gradient.
+
+    A 3-D ``w`` is an expert stack (E, d, f) with x (E, M, d) (any expert
+    stride: 0 shares one x among the experts); the product per expert goes
+    through ``grouped_matmul``, whose wrapper routes by placement the same
+    way: the plain version on the CPU, the kernel on the card for a weight
+    on the device or in pinned host memory (streamed), a raise for pageable
+    host memory or a gradient wanted through the kernel."""
+    if w.dim() == 3:
+        return kops.grouped_matmul(x, w)
     if w.device == x.device:
         return x @ w.to(x.dtype)
     if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):

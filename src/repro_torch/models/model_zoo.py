@@ -1,4 +1,4 @@
-"""Unified model API of the port (dense, SSM and hybrid decoder-only
+"""Unified model API of the port (dense, MoE, SSM and hybrid decoder-only
 families so far).
 
 ``Model`` wires a ModelConfig to (init, forward, loss, decode, caches) on one

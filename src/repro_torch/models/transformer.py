@@ -1,14 +1,16 @@
-"""Decoder-only LM assembly — dense, SSM and hybrid families.
+"""Decoder-only LM assembly — dense, MoE, SSM and hybrid families.
 
 The reference scans over stacked layer parameters; here a Python loop indexes
 the same stacked tensors (``layers/wq`` with a leading ``L`` dim). Under
-autograd each dense layer is wrapped by ``remat_wrap`` (``cfg.remat``), as
-the reference wraps its scan body; the SSM and hybrid families serve only
-(their SSD scan raises under autograd, ``models/ssm.py``). Hybrid (Zamba2):
-groups of ``attn_every`` Mamba2 layers, each group followed by one shared,
-unstacked attention + MLP block, then a tail of the remaining SSM layers.
-MoE and VLM branches are not ported yet and raise ``NotImplementedError``
-naming the ROADMAP item that brings them.
+autograd each dense or MoE layer is wrapped by ``remat_wrap``
+(``cfg.remat``), as the reference wraps its scan body; the SSM and hybrid
+families serve only (their SSD scan raises under autograd,
+``models/ssm.py``). MoE: the dense block with ``models/moe.py``'s expert FFN
+in place of the MLP, and the load-balancing loss summed over the layers as
+the forward's aux output. Hybrid (Zamba2): groups of ``attn_every`` Mamba2
+layers, each group followed by one shared, unstacked attention + MLP block,
+then a tail of the remaining SSM layers. The VLM branch is not ported yet
+and raises ``NotImplementedError`` naming the ROADMAP item that brings it.
 """
 from __future__ import annotations
 
@@ -20,19 +22,20 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import DENSE, HYBRID, MOE, SSM, VLM, ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import layers as nn
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.common import ParamBuilder, to_dtype
 
 PyTree = Any
 
 _PENDING = {
-    MOE: "MoE family: ROADMAP queue A item 10 (with kernel grouped_matmul)",
     VLM: "VLM family: ROADMAP queue A item 11 (M-RoPE, embeds input)",
 }
+_ATTN_STACK = (DENSE, MOE)     # a stack of attention + FFN layers
 
 
 def _require_ported(cfg: ModelConfig) -> None:
-    if cfg.family not in (DENSE, SSM, HYBRID):
+    if cfg.family not in (DENSE, MOE, SSM, HYBRID):
         raise NotImplementedError(
             f"{cfg.name}: {_PENDING.get(cfg.family, cfg.family)} "
             f"is not ported yet")
@@ -93,11 +96,14 @@ def init_decoder_only(cfg: ModelConfig, generator: Optional[torch.Generator],
     b = ParamBuilder(cfg, generator, device, abstract=abstract)
     nn.init_embeddings(b)
     lb = b.child("layers")
-    if cfg.family == DENSE:
+    if cfg.family in _ATTN_STACK:
         attn.init_attention(lb, stacked=True)
         nn.init_norm(lb, "norm1", stacked=True)
         nn.init_norm(lb, "norm2", stacked=True)
-        nn.init_mlp(lb, stacked=True)
+        if cfg.family == MOE:
+            moe_mod.init_moe(lb, stacked=True)
+        else:
+            nn.init_mlp(lb, stacked=True)
     else:
         ssm_mod.init_ssm(lb, stacked=True)
         nn.init_norm(lb, "norm1", stacked=True)
@@ -115,7 +121,9 @@ def init_decoder_only(cfg: ModelConfig, generator: Optional[torch.Generator],
 # ---------------------------------------------------------------------------
 def _attn_mlp_layer(cfg: ModelConfig, lp, x, positions, cache=None,
                     cache_pos=None):
-    """Standard pre-norm block. Returns (x, new_kv)."""
+    """Standard pre-norm block. Returns (x, new_kv, aux): aux is the MoE
+    load-balancing loss of a forward (None for a dense layer or a decode
+    step, whose aux nothing reads)."""
     h = nn.apply_norm(cfg, lp, "norm1", x)
     if cache is None:
         a, new_kv = attn.self_attention(cfg, lp, h, positions)
@@ -126,7 +134,11 @@ def _attn_mlp_layer(cfg: ModelConfig, lp, x, positions, cache=None,
         new_kv = (ck, cv)
     x = x + a
     h = nn.apply_norm(cfg, lp, "norm2", x)
-    return x + nn.apply_mlp(cfg, lp, h), new_kv
+    if cfg.family != MOE:
+        return x + nn.apply_mlp(cfg, lp, h), new_kv, None
+    out, probs, top_e = moe_mod.apply_moe(cfg, lp, h)
+    aux = moe_mod.balance_loss(cfg, probs, top_e) if cache is None else None
+    return x + out, new_kv, aux
 
 
 def _layer_params(lp_all, i: int):
@@ -163,8 +175,8 @@ def _ssm_stack(cfg: ModelConfig, params, x, positions, *, caches=None,
             kv = (None if caches is None
                   else (caches["k"][grp], caches["v"][grp]))
             # the shared block is the dense layer body on unstacked weights
-            x, kv = _attn_mlp_layer(cfg, params["shared"], x, positions, kv,
-                                    cache_pos)
+            x, kv, _ = _attn_mlp_layer(cfg, params["shared"], x, positions,
+                                       kv, cache_pos)
             kvs.append(kv)
     return x, ssm_caches, kvs
 
@@ -208,25 +220,33 @@ def forward_decoder_only(cfg: ModelConfig, params, batch, *,
                          return_cache: bool = False,
                          last_token_only: bool = False):
     """Full-sequence forward. Returns (logits, aux_loss, cache_or_None);
-    the dense cache is ``{"k", "v"}`` of shape (L, B, S, KV, hd), the SSM and
-    hybrid caches as ``_stacked_cache`` gives them. Differentiable for the
-    dense family: serving calls it under ``torch.no_grad()``
-    (``Model.forward``), training with autograd on (``Model.loss_fn``)."""
+    aux_loss is the MoE load-balancing loss summed over the layers (zero for
+    the other families); the dense and MoE cache is ``{"k", "v"}`` of shape
+    (L, B, S, KV, hd), the SSM and hybrid caches as ``_stacked_cache`` gives
+    them. Differentiable for the dense family, and for MoE on the CPU (the
+    expert kernel has no backward yet): serving calls it under
+    ``torch.no_grad()`` (``Model.forward``), training with autograd on
+    (``Model.loss_fn``)."""
     _require_ported(cfg)
     x, positions = _embed_input(cfg, params, batch)
     cache = None
-    if cfg.family == DENSE:
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if cfg.family in _ATTN_STACK:
         lp_all = params["layers"]
-        ks, vs = [], []
+        ks, vs, auxs = [], [], []
         for i in range(cfg.num_layers):
             lp = _layer_params(lp_all, i)
 
             def body(x, lp=lp):
                 return _attn_mlp_layer(cfg, lp, x, positions)
-            x, (k, v) = remat_wrap(cfg, body)(x)
+            x, (k, v), layer_aux = remat_wrap(cfg, body)(x)
+            if layer_aux is not None:
+                auxs.append(layer_aux)
             if return_cache:
                 ks.append(k)
                 vs.append(v)
+        if auxs:
+            aux = torch.stack(auxs).sum()
         if return_cache:
             cache = {"k": torch.stack(ks), "v": torch.stack(vs)}
     else:
@@ -237,7 +257,6 @@ def forward_decoder_only(cfg: ModelConfig, params, batch, *,
     if last_token_only:
         x = x[:, -1:, :]  # prefill: only the next-token logits are needed
     logits = nn.unembed(cfg, params, x)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return logits, aux, cache
 
 
@@ -251,12 +270,13 @@ def decode_decoder_only(cfg: ModelConfig, params, cache, batch):
     _require_ported(cfg)
     x, positions = _embed_input(cfg, params, batch)
     pos = batch["pos"]
-    if cfg.family == DENSE:
+    if cfg.family in _ATTN_STACK:
         lp_all = params["layers"]
         for i in range(cfg.num_layers):
-            x, _ = _attn_mlp_layer(cfg, _layer_params(lp_all, i), x, positions,
-                                   cache=(cache["k"][i], cache["v"][i]),
-                                   cache_pos=pos)
+            x, _, _ = _attn_mlp_layer(cfg, _layer_params(lp_all, i), x,
+                                      positions,
+                                      cache=(cache["k"][i], cache["v"][i]),
+                                      cache_pos=pos)
     else:
         x, _, _ = _ssm_stack(cfg, params, x, positions, caches=cache,
                              cache_pos=pos)
@@ -276,12 +296,12 @@ def init_cache_decoder_only(cfg: ModelConfig, batch: int, max_seq: int,
     _require_ported(cfg)
     dtype = to_dtype(dtype)
     cache = {}
-    if cfg.family != DENSE:
+    if cfg.family not in _ATTN_STACK:
         cache["ssm"] = ssm_mod.init_ssm_cache(cfg, batch, dtype, device,
                                               layers=cfg.num_layers)
     if cfg.family != SSM:
         # hybrid: one shared-block application per whole group of layers
-        n = (cfg.num_layers if cfg.family == DENSE
+        n = (cfg.num_layers if cfg.family in _ATTN_STACK
              else cfg.num_layers // cfg.attn_every)
         shape = (n, batch, max_seq, cfg.num_kv_heads, cfg.head_dim)
         cache["k"] = torch.zeros(shape, dtype=dtype, device=device)

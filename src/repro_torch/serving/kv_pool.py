@@ -21,8 +21,10 @@ request's bytes.
 SSM caches (``SSMCache``: the conv window in the pool's dtype, the state in
 fp32) have no sequence axis: a spilled one lives whole in the tier the
 majority of its bytes were planned for, and ``paste`` overwrites the slot.
-A leaf whose dim 2 happens to equal ``max_seq`` is read as a sequence leaf,
-as in the reference, so ``max_seq`` must differ from the SSM head count.
+Sequence leaves are known by their path (``k``, ``v``, ``cross_k``,
+``cross_v``), not by their shape alone: the reference also takes any leaf
+whose dim 2 equals ``max_seq`` for one, so an SSM state with as many heads
+as ``max_seq`` would be pasted only in part there.
 
 When the engine runs on the CPU (the tests), both tiers are plain CPU memory
 and the split changes nothing physically; every placement path still runs.
@@ -42,10 +44,12 @@ from repro_torch.models.common import to_dtype, tree_unflatten
 PyTree = Any
 
 SEQ_AXIS = 2  # layer-stacked caches: (L, slots, seq, heads, head_dim)
+SEQ_LEAVES = ("k", "v", "cross_k", "cross_v")   # the leaves that have one
 
 
-def _has_seq_axis(leaf, max_seq: int) -> bool:
-    return leaf.dim() > SEQ_AXIS and leaf.shape[SEQ_AXIS] == max_seq
+def _has_seq_axis(path: str, leaf, max_seq: int) -> bool:
+    return (path.rsplit("/", 1)[-1] in SEQ_LEAVES and leaf.dim() > SEQ_AXIS
+            and leaf.shape[SEQ_AXIS] == max_seq)
 
 
 def _nbytes(t) -> int:
@@ -68,6 +72,7 @@ class KVPool:
         self._like = model.cache_shapes(slots, max_seq, to_dtype(dtype))
         shapes = _flatten_with_paths(self._like)
         self._paths = [p for p, _ in shapes]
+        self._seq = [_has_seq_axis(p, leaf, max_seq) for p, leaf in shapes]
 
         self._hot: List[torch.Tensor] = []            # device part, or the
         self._cold: Dict[int, torch.Tensor] = {}      #   whole host leaf
@@ -81,7 +86,8 @@ class KVPool:
 
         for i, (path, meta) in enumerate(shapes):
             full_path = f"{prefix}/{path}" if prefix else path
-            kind, hot_len = self._decide(full_path, meta, plan, offload_all)
+            kind, hot_len = self._decide(full_path, meta, self._seq[i], plan,
+                                         offload_all)
             shape, dt = list(meta.shape), meta.dtype
             if kind == "host":
                 self._host_leaves.add(i)
@@ -97,7 +103,8 @@ class KVPool:
             self._hot.append(leaf)
 
     # ------------------------------------------------------------------
-    def _decide(self, full_path: str, leaf, plan: Optional[OffloadPlan],
+    def _decide(self, full_path: str, leaf, has_seq: bool,
+                plan: Optional[OffloadPlan],
                 offload_all: bool) -> Tuple[str, int]:
         """('device'|'host'|'split', hot_len) for one leaf."""
         if offload_all or (plan is not None and plan.is_offloaded(full_path)):
@@ -108,7 +115,7 @@ class KVPool:
         if not spilled:
             return "device", 0
         frac = min(1.0, spilled / _nbytes(leaf))
-        if _has_seq_axis(leaf, self.max_seq):
+        if has_seq:
             cold = min(self.max_seq - 1, max(1, math.ceil(frac * self.max_seq)))
             return "split", self.max_seq - cold
         # no seq axis to cut (state caches): round to majority side
@@ -203,7 +210,7 @@ class KVPool:
                     self._cold[i][:, slot:slot + 1, :plen - n_hot].copy_(
                         pref[:, :, n_hot:plen])
                     self.paste_host_bytes += _nbytes(pref[:, :, n_hot:plen])
-            elif _has_seq_axis(pool, self.max_seq):
+            elif self._seq[i]:
                 pool[:, slot:slot + 1, :plen].copy_(pref[:, :, :plen])
                 if i in self._host_leaves:
                     self.paste_host_bytes += _nbytes(pref[:, :, :plen])

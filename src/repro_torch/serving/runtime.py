@@ -11,7 +11,8 @@ The paper's system put together end to end on the real engine:
    parameter leaves by ``place_tree``, partial KV spills as a physically
    split cold tail in the tenant's ``KVPool`` (§VI-A). A product with a
    host-placed weight streams it over the host link through the
-   ``stream_matmul`` kernel (``models.common.weight_matmul``).
+   ``stream_matmul`` kernel, or ``grouped_matmul`` for an MoE expert stack
+   (``models.common.weight_matmul``).
 3. **Serve** — every tenant runs a ``TenantEngine`` (continuous batching,
    admission control); the runtime drives them round-robin and reports
    per-tenant tokens/sec plus pod utilization.

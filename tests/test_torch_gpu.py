@@ -441,3 +441,170 @@ def test_apply_ssm_prefill_launches_the_kernel():
     want, _, wcache = cpu.forward(cparams, {"tokens": toks.cpu()}, return_cache=True)
     assert _rel(logits.cpu(), want) < 1e-4
     assert _rel(cache["ssm"].state.cpu(), wcache["ssm"].state) < 1e-4
+
+
+# ---------------------------------------------------------------------------
+# grouped_matmul (MoE expert products)
+# ---------------------------------------------------------------------------
+GMM_CASES = [  # (E, M, K, N, x expert stride 0)
+    (2, 128, 128, 128, False),       # the reference's shapes
+    (4, 256, 128, 384, False),
+    (1, 128, 256, 128, False),
+    (32, 320, 1024, 512, False),     # granite-moe's prefill at 1024 tokens
+    (32, 4, 1024, 512, True),        # granite-moe's decode: one shared x
+    (32, 4, 512, 1024, False),       # its w_out
+    (5, 77, 200, 96, False),         # ragged C
+    (3, 33, 70, 50, True),           # ragged everywhere, shared x
+    (16, 1, 4096, 6400, True),       # phi3.5-moe's widths, one row
+]
+
+
+def _gmm_inputs(dev, E, M, K, N, shared, dtype, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(1 if shared else E, M, K, device=dev, generator=g).to(dtype)
+    w = (torch.randn(E, K, N, device=dev, generator=g) * K ** -0.5).to(dtype)
+    return (x.expand(E, M, K) if shared else x), w
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("where", ["device", "pinned"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("E,M,K,N,shared", GMM_CASES)
+def test_grouped_matmul_matches_plain(E, M, K, N, shared, dtype, where,
+                                     monkeypatch):
+    """The kernel against its plain version, w on the card or streamed from
+    pinned host memory (every byte once per call; a panel depth of 64 rows
+    splits one expert's K into panels)."""
+    from repro_torch.kernels import grouped_matmul as gmm
+    dev = _cuda()
+    x, w = _gmm_inputs(dev, E, M, K, N, shared, dtype, seed=E + M + K)
+    want = gmm.grouped_matmul_plain(x, w)
+    wk = w if where == "device" else w.cpu().pin_memory()
+    for block_k in (gmm.BLOCK_K, 64):
+        monkeypatch.setattr(gmm, "BLOCK_K", block_k)
+        before = gmm.grouped_matmul.launches, gmm.grouped_matmul.h2d_bytes
+        got = gmm.grouped_matmul(x, wk)
+        torch.cuda.synchronize()
+        assert gmm.grouped_matmul.launches == before[0] + 1
+        streamed = gmm.grouped_matmul.h2d_bytes - before[1]
+        assert streamed == (w.numel() * w.element_size() if where == "pinned" else 0)
+        assert got.dtype == dtype and tuple(got.shape) == (E, M, N)
+        assert torch.isfinite(got.float()).all()
+        assert _rel(got, want) < TOL[dtype], block_k
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("where", ["device", "pinned"])
+def test_grouped_matmul_never_reaches_a_library_product(monkeypatch, where):
+    """The CUDA route launches the kernel: with torch.bmm, torch.matmul,
+    torch.einsum and the ``@`` operator made to raise, it still runs."""
+    from repro_torch.kernels import grouped_matmul as gmm
+    from repro_torch.models.common import weight_matmul
+    dev = _cuda()
+    x, w = _gmm_inputs(dev, 4, 40, 64, 96, False, torch.bfloat16)
+    want = gmm.grouped_matmul_plain(x, w)
+    wk = w if where == "device" else w.cpu().pin_memory()
+
+    def refuse(*a, **k):
+        raise AssertionError("a library product was called")
+    for name in ("bmm", "matmul", "einsum", "baddbmm"):
+        monkeypatch.setattr(torch, name, refuse)
+    monkeypatch.setattr(torch.Tensor, "__matmul__", refuse)
+    got = weight_matmul(x, wk)
+    torch.cuda.synchronize()
+    monkeypatch.undo()
+    assert _rel(got, want) < TOL[torch.bfloat16]
+
+
+@pytest.mark.gpu
+def test_grouped_matmul_raises_under_autograd_and_on_pageable_w():
+    from repro_torch.kernels import grouped_matmul as gmm
+    dev = _cuda()
+    x, w = _gmm_inputs(dev, 2, 8, 32, 16, False, torch.float32)
+    with pytest.raises(RuntimeError, match="queue A item 16"):
+        gmm.grouped_matmul(x.requires_grad_(), w)
+    with pytest.raises(RuntimeError, match="queue A item 16"):
+        gmm.grouped_matmul(x.detach(), w.requires_grad_())
+    with torch.no_grad():
+        assert gmm.grouped_matmul(x, w).shape == (2, 8, 16)
+    with pytest.raises(ValueError, match="pageable"):
+        gmm.grouped_matmul(x.detach(), w.detach().cpu())
+
+
+@pytest.mark.gpu
+def test_moe_model_launches_the_kernel_and_equals_cpu():
+    """A reduced granite-moe on the card (fp32): a prefill launches the
+    kernel three times a layer (w_in, w_gate, w_out), so does a decode step
+    (one shared x), and the logits equal the same model's on the CPU."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import grouped_matmul as gmm
+    from repro_torch.models.model_zoo import build_model
+    dev = _cuda()
+    cfg = get_config("granite-moe-1b-a400m").reduced().with_(remat="none",
+                                                            dtype="float32")
+    model = build_model(cfg, dev)
+    params, _ = model.init(torch.Generator(device=dev).manual_seed(0))
+    toks = torch.randint(0, cfg.vocab_size, (2, 40), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(1))
+    before = gmm.grouped_matmul.launches
+    logits, aux, cache = model.forward(params, {"tokens": toks}, return_cache=True)
+    torch.cuda.synchronize()
+    assert gmm.grouped_matmul.launches - before == 3 * cfg.num_layers
+    big = model.init_cache(2, 64, torch.float32)
+    for name in ("k", "v"):
+        big[name][:, :, :40] = cache[name]
+    before = gmm.grouped_matmul.launches
+    dec, _ = model.decode(params, big, {"tokens": toks[:, -1:],
+                                        "pos": torch.tensor(40, device=dev)})
+    torch.cuda.synchronize()
+    assert gmm.grouped_matmul.launches - before == 3 * cfg.num_layers
+    cpu = build_model(cfg, "cpu")
+    cparams = {k: ({kk: vv.cpu() for kk, vv in v.items()} if isinstance(v, dict)
+                   else v.cpu()) for k, v in params.items()}
+    want, want_aux, _ = cpu.forward(cparams, {"tokens": toks.cpu()})
+    assert _rel(logits.cpu(), want) < 1e-4
+    assert abs(float(aux) - float(want_aux)) <= 1e-5 * float(want_aux)
+
+
+@pytest.mark.gpu
+def test_runtime_streams_offloaded_experts():
+    """A reduced granite-moe tenant whose budget spills an expert stack: the
+    stack lives in pinned memory (so do its per-layer slices), every prefill
+    and tick streams it once a layer through grouped_matmul, and the tokens
+    equal a lone engine's with every weight on the device (fp32)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.offload import memory_kind_of
+    from repro_torch.kernels import grouped_matmul as gmm
+    from repro_torch.serving import Request, SliceRuntime, TenantEngine, TenantSpec
+    dev = _cuda()
+    cfg = get_config("granite-moe-1b-a400m").reduced().with_(remat="none",
+                                                            dtype="float32")
+    rt = SliceRuntime(device=dev)
+    t = rt.add_tenant(TenantSpec("moe", cfg, profile="1s.16c", slots=2,
+                                 max_seq=48, hbm_budget=300_000,
+                                 spill_granule=4096))
+    spilled = [n for n in t.plan.offloaded
+               if n in ("params/layers/w_gate", "params/layers/w_in",
+                        "params/layers/w_out")]
+    assert spilled, t.plan.offloaded
+    stacks = [t.params["layers"][n.split("/")[-1]] for n in spilled]
+    for s in stacks:
+        assert memory_kind_of(s) == "pinned_host" and s.is_pinned()
+        assert s[0].is_pinned() and s[0].dim() == 3
+    rng = np.random.default_rng(0)
+    reqs = [Request(i, rng.integers(0, cfg.vocab_size, size=9).astype(np.int32), 4)
+            for i in range(3)]
+    launches, streamed = gmm.grouped_matmul.launches, gmm.grouped_matmul.h2d_bytes
+    rt.submit("moe", reqs)
+    rt.run()
+    stats = t.engine.stats
+    passes = stats.admitted + stats.ticks
+    assert gmm.grouped_matmul.launches - launches == 3 * cfg.num_layers * passes
+    assert gmm.grouped_matmul.h2d_bytes - streamed == passes * cfg.num_layers * sum(
+        s[0].numel() * s.element_size() for s in stacks)
+    on_device = {k: (v.to(dev) if torch.is_tensor(v) else
+                     {kk: vv.to(dev) for kk, vv in v.items()})
+                 for k, v in t.params.items()}
+    resident = TenantEngine(t.model, on_device, slots=2, max_seq=48)
+    again = [Request(r.rid, r.prompt, 4) for r in reqs]
+    assert resident.run(again) == t.engine.outputs

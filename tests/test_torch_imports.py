@@ -23,7 +23,8 @@ def test_port_sources_exist():
             "partitioner.py", "perfmodel.py", "power.py", "roofline.py",
             "workload.py", "slice_runtime_demo.py", "adamw.py",
             "train_step.py", "checkpoint.py", "fault.py", "pipeline.py",
-            "train.py", "train_gpt2.py", "ssm.py", "ssd_scan.py"} <= names
+            "train.py", "train_gpt2.py", "ssm.py", "ssd_scan.py", "moe.py",
+            "grouped_matmul.py"} <= names
     assert all(p.exists() for p in _port_sources())
 
 

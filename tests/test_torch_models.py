@@ -293,12 +293,20 @@ def test_ragged_decode_matches_reference_and_scalar_decode():
 
 
 def test_unported_families_say_which_roadmap_item():
+    """The families still to port raise naming their ROADMAP item; MoE
+    (queue A item 10) is ported: its init gives the reference's tree."""
+    from repro_torch.core.offload import _flatten_with_paths as port_flat
     from repro_torch.models.model_zoo import build_model
-    for arch, word in (("granite-moe-1b-a400m", "item 10"), ("qwen2-vl-72b", "item 11"),
-                       ("whisper-large-v3", "item 11")):
+    from repro.core.offload import _flatten_with_paths as ref_flat
+    for arch, word in (("qwen2-vl-72b", "item 11"), ("whisper-large-v3", "item 11")):
         model = build_model(port_configs.get_config(arch).reduced(), "cpu")
         with pytest.raises(NotImplementedError, match=word):
             model.init(torch.Generator().manual_seed(0))
+    _, rp, pm, _ = model_pair("granite-moe-1b-a400m", perturb=False)
+    params, roles = pm.init(torch.Generator().manual_seed(0))
+    assert [(p, tuple(a.shape)) for p, a in port_flat(params)] == \
+        [(p, tuple(a.shape)) for p, a in ref_flat(rp)]
+    assert roles["layers"]["w_gate"] == ("none", "experts", "d_fsdp", "none")
 
 
 def test_init_names_shapes_and_scales_match_reference():

@@ -338,6 +338,25 @@ def test_serving_inventory_names_and_bytes_equal_reference(arch):
     assert pm.cache_bytes(2, 48) == rm.cache_bytes(2, 48)
 
 
+def test_pool_pastes_whole_state_when_heads_equal_max_seq():
+    """A pool whose ``max_seq`` equals the SSM head count (8 reduced): the
+    state ``(L, slots, heads, hp, N)`` has ``max_seq`` in its sequence
+    position, yet only ``k``/``v`` carry a sequence axis, so a prefill
+    overwrites the slot's whole state. Two requests of different lengths
+    through one slot give the tokens a fresh engine gives each alone. The
+    reference classifies by shape and would paste only the first ``plen``
+    heads (leaving the previous request's state in the rest), so the port is
+    held to itself here."""
+    _, _, pm, pp = _pair("mamba2-130m")
+    max_seq = pm.cfg.ssm_heads
+    assert tuple(pm.cache_shapes(1, max_seq)["ssm"].state.shape)[2] == max_seq
+    reqs = _requests(Request, pm.cfg, (5, 3), 2)
+    shared = ServingEngine(pm, pp, slots=1, max_seq=max_seq).run(reqs)
+    for r in _requests(Request, pm.cfg, (5, 3), 2):
+        alone = ServingEngine(pm, pp, slots=1, max_seq=max_seq).run([r])
+        assert shared[r.rid] == alone[r.rid], r.rid
+
+
 def test_cache_from_numpy_gives_the_ports_ssm_cache():
     rm, rp, _, _ = _pair("zamba2-1.2b")
     ref_cache = rm.init_cache(2, 16)
