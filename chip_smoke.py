@@ -16,7 +16,8 @@ JSON line per phase; any failure is a non-zero exit:
            the two backward kernels (training), stream_matmul, ssd_scan (no
            single PyTorch call computes the SSD: no library time),
            grouped_matmul (library: torch.bmm) with w on the card and in
-           pinned host memory
+           pinned host memory, the pinned decode at four panel depths, and
+           the host time of one wrapper call beside its library call's
   serve    llama3-8b at full width and depth (random bf16 weights from a
            seed) through ServingEngine.run; the kernel launch counts are set
            to 0 just before and read just after
@@ -68,7 +69,14 @@ and power limit, and last {"ok": true, "device": {...}}.
 
 Timing: CUDA events around single launches after a warm-up, median of 20;
 inputs stay in the L2 cache between launches, as they do for the real caller
-whose previous kernels just wrote them. bound_ms is the larger of bytes moved
+whose previous kernels just wrote them. The card waits for each call to end
+before the next, so ``ms`` is one call from an idle card: the wrapper's host
+work before the launch, then the kernel. ``cold_ms`` writes a 256 MB buffer
+before each launch, outside the timed events: the inputs come from HBM (an
+expert stack of 33.5 MB fits the 50 MB L2, so the warm figure alone can read
+below the HBM bound, while on the main path 72 stacks pass a tick), and the
+write keeps the card busy while the host prepares the call, so the figure is
+the kernel's time alone. bound_ms is the larger of bytes moved
 (each input read once, the output written once) over 3.35 TB/s and operations
 over the peak rate of the input type (989 TFLOP/s bf16 on the tensor cores,
 67 TFLOP/s fp32), the published H100 SXM figures. For a weight in pinned host
@@ -207,9 +215,16 @@ def main() -> None:
                        "ssd_scan": ssd.ssd_scan,
                        "grouped_matmul": gmm.grouped_matmul}
 
+    # the wrappers that count their launches by kernel route as well
+    routed = {"flash_attention_fwd": fa.flash_attention_fwd,
+              "flash_attention_fwd_stats": fa.flash_attention_fwd_stats,
+              "grouped_matmul": gmm.grouped_matmul}
+
     def reset_counts():
         for w in kernel_wrappers.values():
             w.launches = 0
+        for w in routed.values():
+            w.launches_by_route = dict.fromkeys(w.launches_by_route, 0)
         sm.stream_matmul.h2d_bytes = 0
         gmm.grouped_matmul.h2d_bytes = 0
         mlayers.gather_rows.h2d_bytes = 0
@@ -245,7 +260,15 @@ def main() -> None:
         fail(f"ptxas reports register spills: {spills[:4]}")
 
     # -------------------------------------------------------------- kernels
-    def time_ms(fn, warmup=3, iters=20):
+    flush_buf = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+
+    def route_counts():
+        return {n: dict(w.launches_by_route) for n, w in routed.items()}
+
+    def time_ms(fn, warmup=3, iters=20, cold=False):
+        """Median ms of one call between CUDA events; ``cold`` writes
+        ``flush_buf`` (256 MB, five times the L2) before each call, outside
+        the events."""
         for _ in range(warmup):
             fn()
         torch.cuda.synchronize()
@@ -253,6 +276,8 @@ def main() -> None:
         for _ in range(iters):
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
+            if cold:
+                flush_buf.fill_(1)
             start.record()
             fn()
             end.record()
@@ -290,8 +315,11 @@ def main() -> None:
         ms = time_ms(lambda: fa.flash_attention_fwd(q, k, v, causal=causal))
         return {
             "shape": [BH, S, hd], "dtype": dtype_name, "causal": causal,
+            "route": fa.FWD_ROUTES[dtype],
             "max_abs_err": abs_err, "rel_err": rel, "tol": TOL[dtype_name],
             "ms": ms,
+            "cold_ms": time_ms(lambda: fa.flash_attention_fwd(
+                q, k, v, causal=causal), cold=True),
             "plain_ms": time_ms(lambda: fa.flash_attention_fwd_plain(
                 q, k, v, causal=causal), iters=5),
             "library_ms": time_ms(lambda: sdpa(q4, k4, v4, is_causal=causal)),
@@ -376,19 +404,26 @@ def main() -> None:
         row = {
             "shape": [BH, S, hd], "dtype": dtype_name, "causal": causal,
             "errors": errors,
+            "fwd_stats_route": fa.FWD_ROUTES[dtype],
             "fwd_stats_ms": time_ms(lambda: fa.flash_attention_fwd_stats(
                 q, k, v, causal=causal)),
+            "fwd_stats_cold_ms": time_ms(lambda: fa.flash_attention_fwd_stats(
+                q, k, v, causal=causal), cold=True),
             "fwd_stats_plain_ms": time_ms(lambda: fa.flash_attention_fwd_stats_plain(
                 q, k, v, causal=causal), iters=5),
             "fwd_stats_library_ms": time_ms(lib_fwd),
             "fwd_stats_bound_ms": fwd_b[0], "fwd_stats_bound_by": fwd_b[1],
             "dkdv_ms": time_ms(lambda: fa.flash_attention_bwd_dkdv(
                 *bwd_args, causal=causal)),
+            "dkdv_cold_ms": time_ms(lambda: fa.flash_attention_bwd_dkdv(
+                *bwd_args, causal=causal), cold=True),
             "dkdv_plain_ms": time_ms(lambda: fa.flash_attention_bwd_dkdv_plain(
                 *bwd_args, causal=causal), iters=5),
             "dkdv_bound_ms": dkdv_b[0], "dkdv_bound_by": dkdv_b[1],
             "dq_ms": time_ms(lambda: fa.flash_attention_bwd_dq(
                 *bwd_args, causal=causal)),
+            "dq_cold_ms": time_ms(lambda: fa.flash_attention_bwd_dq(
+                *bwd_args, causal=causal), cold=True),
             "dq_plain_ms": time_ms(lambda: fa.flash_attention_bwd_dq_plain(
                 *bwd_args, causal=causal), iters=5),
             "dq_bound_ms": dq_b[0], "dq_bound_by": dq_b[1],
@@ -460,6 +495,7 @@ def main() -> None:
             "shape": [M, K, N], "x": xdt, "w": wdt, "where": where,
             "transposed": transposed, "max_abs_err": abs_err, "rel_err": rel,
             "tol": tol, "kernel_ms": ms,
+            "cold_ms": time_ms(lambda: sm.stream_matmul(x, w), cold=True),
             "plain_ms": time_ms(lambda: sm.stream_matmul_plain(x, w_dev), iters=5),
             "library_ms": lib_host if lib_host is not None else lib_dev,
             "library_device_w_ms": lib_dev, "library_host_w_ms": lib_host,
@@ -539,6 +575,7 @@ def main() -> None:
             "init_state": with_state, "max_abs_err": abs_err, "rel_err": rel,
             "tol": SSD_TOL[dtype_name], "state_rel_err": state_rel,
             "state_tol": SSD_STATE_TOL, "ms": time_ms(run),
+            "cold_ms": time_ms(run, cold=True),
             "plain_ms": time_ms(plain, iters=5), "library_ms": None,
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
@@ -567,8 +604,11 @@ def main() -> None:
         w_dev = (torch.randn(E, K, N, device=dev, generator=g) * K ** -0.5).to(dtype)
         w = w_dev if where == "device" else w_dev.cpu().pin_memory()
         before = gmm.grouped_matmul.h2d_bytes
+        routes = dict(gmm.grouped_matmul.launches_by_route)
         got = gmm.grouped_matmul(x, w)
         h2d = gmm.grouped_matmul.h2d_bytes - before
+        route = [r for r, n in gmm.grouped_matmul.launches_by_route.items()
+                 if n != routes[r]]
         want = gmm.grouped_matmul_plain(x, w_dev)
         torch.cuda.synchronize()
         if not torch.isfinite(got.float()).all():
@@ -596,8 +636,9 @@ def main() -> None:
                     if where == "pinned" else None)
         return {
             "shape": [E, M, K, N], "dtype": dtype_name, "where": where,
-            "x_expert_stride": x.stride(0), "max_abs_err": abs_err,
-            "rel_err": rel, "tol": tol, "ms": ms,
+            "route": route[0], "x_expert_stride": x.stride(0),
+            "max_abs_err": abs_err, "rel_err": rel, "tol": tol, "ms": ms,
+            "cold_ms": time_ms(lambda: gmm.grouped_matmul(x, w), cold=True),
             "plain_ms": time_ms(lambda: gmm.grouped_matmul_plain(x, w_dev), iters=5),
             "library_ms": lib_host if lib_host is not None else lib_dev,
             "library_device_w_ms": lib_dev, "library_host_w_ms": lib_host,
@@ -607,6 +648,8 @@ def main() -> None:
             "h2d_gb_per_s": h2d / (ms * 1e-3) / 1e9 if h2d else None,
         }
 
+    # route by the wrapper's shape rule (grouped_matmul.plan): bf16 that TMA
+    # can describe -> wgmma, other bf16 -> mma_sync, fp32 -> fma
     gmm_cases = [
         gmm_case(32, 4, 1024, 512, "bfloat16", "device", shared=True),  # decode
         gmm_case(32, 4, 512, 1024, "bfloat16", "device"),       # decode w_out
@@ -618,9 +661,64 @@ def main() -> None:
         gmm_case(32, 4, 1024, 512, "float32", "device", shared=True),
         gmm_case(2, 128, 128, 128, "float32", "device"),        # the reference's
         gmm_case(4, 256, 128, 384, "float32", "device"),
-        gmm_case(1, 128, 256, 128, "float32", "device")]
+        gmm_case(1, 128, 256, 128, "float32", "device"),
+        gmm_case(5, 77, 100, 96, "bfloat16", "device")]         # x rows of 200 B
+    want_routes = ["wgmma"] * 6 + ["fma"] * 5 + ["mma_sync"]
+    got_routes = [c["route"] for c in gmm_cases]
+    if got_routes != want_routes:
+        fail(f"grouped_matmul routes {got_routes} != {want_routes}")
+    for c in cases:
+        if c["route"] != fa.FWD_ROUTES[getattr(torch, c["dtype"])]:
+            fail(f"flash_attention_fwd took {c['route']} for {c['dtype']}")
+    def panel_depths(E, M, K, N):
+        """The pinned decode (one shared x) at several panel depths
+        (``grouped_matmul.BLOCK_K``): cold ms, the kernel and the link
+        alone, so the depth the wrapper uses can be checked against the
+        others on this card."""
+        g = torch.Generator(device=dev).manual_seed(SEED)
+        x = torch.randn(1, M, K, device=dev, generator=g).to(torch.bfloat16)
+        x = x.expand(E, M, K)
+        w = (torch.randn(E, K, N, device=dev, generator=g) * K ** -0.5).to(
+            torch.bfloat16).cpu().pin_memory()
+        kept, out = gmm.BLOCK_K, {}
+        try:
+            for block_k in (2048, 4096, 8192, 16384):
+                gmm.BLOCK_K = block_k
+                out[block_k] = time_ms(lambda: gmm.grouped_matmul(x, w), cold=True)
+        finally:
+            gmm.BLOCK_K = kept
+        return {"shape": [E, M, K, N], "used": kept, "cold_ms": out}
+
+    def host_us(fn, calls=200):
+        """Host time of one wrapper call, µs: ``calls`` calls issued back to
+        back, the clock stopped before the card catches up."""
+        fn()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        t = time.perf_counter() - t
+        torch.cuda.synchronize()
+        return t / calls * 1e6
+
+    hq, hk, hv = (torch.randn(32, 1024, 128, device=dev).to(torch.bfloat16)
+                  for _ in range(3))
+    hx = torch.randn(1, 4, 1024, device=dev).to(torch.bfloat16).expand(32, 4, 1024)
+    hw = torch.randn(32, 1024, 512, device=dev).to(torch.bfloat16)
+    wrapper_host_us = {
+        "grouped_matmul decode (32,4,1024,512)": host_us(
+            lambda: gmm.grouped_matmul(hx, hw)),
+        "torch.bmm, the same": host_us(lambda: torch.bmm(hx, hw)),
+        "flash_attention_fwd (32,1024,128)": host_us(
+            lambda: fa.flash_attention_fwd(hq, hk, hv)),
+        "scaled_dot_product_attention, the same": host_us(
+            lambda: torch.nn.functional.scaled_dot_product_attention(
+                hq[None], hk[None], hv[None], is_causal=True))}
+    del hq, hk, hv, hx, hw
     emit("kernels", flash_attention_fwd=cases, flash_attention_train=train_cases,
          stream_matmul=stream_cases, ssd_scan=ssd_cases, grouped_matmul=gmm_cases,
+         grouped_matmul_panel_depths=panel_depths(32, 4, 1024, 512),
+         wrapper_host_us=wrapper_host_us,
          ssd_scan_library="none: no single PyTorch call computes the SSD scan",
          host_link={"peak_gb_per_s": HOST_LINK_BYTES_PER_S / 1e9,
                     "bound_gb_per_s": link_bound_rate / 1e9,
@@ -699,6 +797,7 @@ def main() -> None:
     reset_counts()                                   # main path starts here
     out, wall = run_engine(engine, reqs)
     main_path_launches = {n: w.launches for n, w in kernel_wrappers.items()}
+    main_path_routes = route_counts()
     check_outputs(out, reqs, cfg, MAX_NEW)
     want_launches = engine.stats.admitted * cfg.num_layers
     if main_path_launches["flash_attention_fwd"] != want_launches:
@@ -1034,6 +1133,7 @@ def main() -> None:
         torch.cuda.synchronize()
         train_wall = time.perf_counter() - t0
         train_launches = {n: w.launches for n, w in kernel_wrappers.items()}
+        train_routes = route_counts()
     train_peak = torch.cuda.max_memory_allocated()
     # the failure at step FAIL_AT restores the checkpoint of the last
     # multiple of CKPT_EVERY, so the steps between run twice
@@ -1444,6 +1544,7 @@ def main() -> None:
     reset_counts()                                   # main path starts here
     mout, mwall = run_engine(meng, mreqs)
     moe_launches = {n: w.launches for n, w in kernel_wrappers.items()}
+    moe_routes = route_counts()
     check_outputs(mout, mreqs, mcfg, MAX_NEW)
     mst = meng.stats
     # per layer: w_in, w_gate, w_out in every prefill and every tick
@@ -1451,6 +1552,14 @@ def main() -> None:
         **{n: 0 for n in kernel_wrappers},
         "flash_attention_fwd": mst.admitted * mcfg.num_layers,
         "grouped_matmul": 3 * (mst.admitted + mst.ticks) * mcfg.num_layers})
+    # every bf16 expert product (decode, prefill) on the wgmma route, every
+    # bf16 attention prefill on the wgmma flash kernel
+    check_launches("moe routes", moe_routes, {
+        "flash_attention_fwd": {"wgmma": moe_launches["flash_attention_fwd"],
+                                "fma": 0},
+        "flash_attention_fwd_stats": {"wgmma": 0, "fma": 0},
+        "grouped_matmul": {"wgmma": moe_launches["grouped_matmul"],
+                           "mma_sync": 0, "fma": 0}})
     mtokens = sum(len(v) for v in mout.values())
 
     # capacity and drops of one 1024-token prefill: the share of the
@@ -1509,7 +1618,7 @@ def main() -> None:
          prefill_ms={str(n): t * 1e3 for n, t in meng.prefill_s},
          prefill_ms_median=statistics.median(t for _, t in meng.prefill_s) * 1e3,
          tick_ms_median=statistics.median(meng.tick_s) * 1e3,
-         launches=moe_launches, kv_pool_bytes=mmodel.cache_bytes(SLOTS, MAX_SEQ),
+         launches=moe_launches, launches_by_route=moe_routes, kv_pool_bytes=mmodel.cache_bytes(SLOTS, MAX_SEQ),
          capacity_factor=mcfg.capacity_factor, capacity_1024=cap_1024,
          assignments_1024=1024 * TOPK,
          dropped_share_1024_by_layer=dropped,
@@ -1560,6 +1669,7 @@ def main() -> None:
     torch.cuda.synchronize()
     m_wall = time.perf_counter() - t0
     mrt_launches = {n: w.launches for n, w in kernel_wrappers.items()}
+    mrt_routes = route_counts()
     m_h2d = gmm.grouped_matmul.h2d_bytes
     check_outputs(mt.engine.outputs, rt_reqs, mcfg, MAX_NEW)
     mrs = mt.engine.stats
@@ -1570,6 +1680,13 @@ def main() -> None:
         "grouped_matmul": 3 * passes * mcfg.num_layers,
         # the tied unembedding reads the spilled table once a pass
         "stream_matmul": passes * int(m_table_streamed)})
+    # the streamed w_gate's panels too
+    check_launches("moe_runtime routes", mrt_routes, {
+        "flash_attention_fwd": {"wgmma": mrt_launches["flash_attention_fwd"],
+                                "fma": 0},
+        "flash_attention_fwd_stats": {"wgmma": 0, "fma": 0},
+        "grouped_matmul": {"wgmma": mrt_launches["grouped_matmul"],
+                           "mma_sync": 0, "fma": 0}})
     per_pass = mcfg.num_layers * m_leaf[0].numel() * m_leaf.element_size()
     if m_h2d != passes * per_pass:
         fail(f"granite-moe: grouped_matmul streamed {m_h2d} bytes, expected "
@@ -1620,7 +1737,8 @@ def main() -> None:
          prefills=mrs.admitted, ticks=mrs.ticks,
          tick_ms_median=statistics.median(mt.engine.tick_s) * 1e3,
          prefill_ms_median=statistics.median(t for _, t in mt.engine.prefill_s) * 1e3,
-         launches=mrt_launches, expert_h2d_bytes=m_h2d,
+         launches=mrt_launches, launches_by_route=mrt_routes,
+         expert_h2d_bytes=m_h2d,
          expert_h2d_bytes_per_pass=per_pass, table_streamed=m_table_streamed,
          kv_host_bytes=mt.engine.pool.host_bytes, lone_tokens_equal=True,
          fp32_activations={
@@ -1647,9 +1765,10 @@ def main() -> None:
         "source": "src/repro_torch/kernels/csrc/flash_attention_fwd.cu",
         "replaces": "src/repro/kernels/flash_attention.py:302",
         "launches": main_path_launches["flash_attention_fwd"],
+        "launches_by_route": main_path_routes["flash_attention_fwd"],
         "shape": head["shape"], "dtype": head["dtype"],
         "max_abs_err": max(c["max_abs_err"] for c in cases),
-        "ms": head["ms"], "plain_ms": head["plain_ms"],
+        "ms": head["ms"], "cold_ms": head["cold_ms"], "plain_ms": head["plain_ms"],
         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
         "library_ms": head["library_ms"],
     }, {
@@ -1659,7 +1778,8 @@ def main() -> None:
         "launches": rt_launches["stream_matmul"],
         "shape": shead["shape"], "dtype": shead["x"], "w": shead["where"],
         "max_abs_err": max(c["max_abs_err"] for c in stream_cases),
-        "ms": shead["kernel_ms"], "plain_ms": shead["plain_ms"],
+        "ms": shead["kernel_ms"], "cold_ms": shead["cold_ms"],
+        "plain_ms": shead["plain_ms"],
         "bound_ms": shead["bound_ms"], "bound_by": shead["bound_by"],
         "library_ms": shead["library_ms"],
         "library_device_w_ms": shead["library_device_w_ms"],
@@ -1668,10 +1788,13 @@ def main() -> None:
     }] + [{
         "name": name, "route": "cuda", "source": source, "replaces": replaces,
         "launches": train_launches[name],
+        **({"launches_by_route": train_routes[name]} if name in train_routes
+           else {}),
         "shape": train_cases[0]["shape"], "dtype": train_cases[0]["dtype"],
         "max_abs_err": max(c["errors"][e]["max_abs_err"]
                            for c in train_cases for e in errs),
         "ms": train_cases[0][f"{key}_ms"],
+        "cold_ms": train_cases[0][f"{key}_cold_ms"],
         "plain_ms": train_cases[0][f"{key}_plain_ms"],
         "bound_ms": train_cases[0][f"{key}_bound_ms"],
         "bound_by": train_cases[0][f"{key}_bound_by"],
@@ -1696,7 +1819,8 @@ def main() -> None:
         "shape": ssd_head["shape"], "N": ssd_head["N"],
         "dtype": ssd_head["dtype"],
         "max_abs_err": max(c["max_abs_err"] for c in ssd_cases),
-        "ms": ssd_head["ms"], "plain_ms": ssd_head["plain_ms"],
+        "ms": ssd_head["ms"], "cold_ms": ssd_head["cold_ms"],
+        "plain_ms": ssd_head["plain_ms"],
         "bound_ms": ssd_head["bound_ms"], "bound_by": ssd_head["bound_by"],
         "library_ms": None,
         "library": "none: no single PyTorch call computes the SSD scan",
@@ -1706,17 +1830,21 @@ def main() -> None:
         "replaces": "src/repro/kernels/moe_gmm.py:54",
         "launches": moe_launches["grouped_matmul"],
         "launches_moe_runtime": mrt_launches["grouped_matmul"],
+        "launches_by_route": moe_routes["grouped_matmul"],
+        "launches_by_route_moe_runtime": mrt_routes["grouped_matmul"],
         "shape": gmm_head["shape"], "dtype": gmm_head["dtype"],
         "w": gmm_head["where"], "x_expert_stride": gmm_head["x_expert_stride"],
         "max_abs_err": max(c["max_abs_err"] for c in gmm_cases),
-        "ms": gmm_head["ms"], "plain_ms": gmm_head["plain_ms"],
+        "ms": gmm_head["ms"], "cold_ms": gmm_head["cold_ms"],
+        "plain_ms": gmm_head["plain_ms"],
         "bound_ms": gmm_head["bound_ms"], "bound_by": gmm_head["bound_by"],
         "library_ms": gmm_head["library_ms"], "library": "torch.bmm",
         "pinned": {k: gmm_pinned[k] for k in (
-            "shape", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-            "h2d_gb_per_s")},
+            "shape", "route", "ms", "cold_ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms", "h2d_gb_per_s")},
         "prefill": {k: gmm_prefill[k] for k in (
-            "shape", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+            "shape", "route", "ms", "cold_ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms")},
     }]}), flush=True)
     print(card_line, flush=True)
     print(json.dumps({"ok": True, "device": {

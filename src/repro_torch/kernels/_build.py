@@ -1,4 +1,5 @@
-"""Builds the CUDA sources under ``csrc/`` at first use and loads them.
+"""Builds the CUDA sources under ``csrc/`` at first use, loads them, and
+calls their entry points on the current stream.
 
 Each ``csrc/<name>.cu`` has a plain C interface and becomes one shared
 library, ``<build dir>/<name>-<hash>.so``, compiled by ``nvcc`` for
@@ -21,6 +22,8 @@ import shutil
 import subprocess
 from pathlib import Path
 from typing import Dict, List, Optional
+
+import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -104,3 +107,19 @@ def load(name: str) -> ctypes.CDLL:
             raise KeyError(f"no kernel source csrc/{name}.cu")
         _libs[name] = ctypes.CDLL(str(targets[name]))
     return _libs[name]
+
+
+def call(fn, device: torch.device, *args) -> int:
+    """``fn(*args, stream)`` with ``stream`` the raw handle of ``device``'s
+    current stream, ``device`` made current only when it is not already.
+    Reading the handle without building a ``torch.cuda.Stream`` and skipping
+    a needless device switch saves more host time than a decode-sized kernel
+    takes on the card."""
+    idx = device.index
+    if idx is None:
+        idx = torch.cuda.current_device()
+    stream = torch._C._cuda_getCurrentRawStream(idx)
+    if idx == torch.cuda.current_device():
+        return fn(*args, stream)
+    with torch.cuda.device(idx):
+        return fn(*args, stream)

@@ -76,12 +76,12 @@ def ptr(t) -> Optional[int]:
 
 
 def launch(name: str, fns: Tuple[Callable, Callable], x, args: Sequence,
-           what: str) -> None:
+           what: Callable[[], str]) -> None:
     """Calls the entry point with ``args`` and the current stream of x's
-    card; a nonzero CUDA error code raises, naming ``what`` was launched."""
+    card; a nonzero CUDA error code raises, naming ``what()`` was
+    launched."""
     fn, err_str = fns
-    with torch.cuda.device(x.device):
-        code = fn(*args, torch.cuda.current_stream().cuda_stream)
+    code = _build.call(fn, x.device, *args)
     if code != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {code} "
-                           f"({err_str(code).decode()}) for {what}")
+                           f"({err_str(code).decode()}) for {what()}")

@@ -14,10 +14,10 @@
 // What differs from the TPU kernel. There the grid's innermost KV axis runs in
 // order on one core and m / l / acc live in VMEM scratch between grid steps.
 // Here thread blocks run in parallel and share nothing, so one block owns one
-// (bh, 64-row query tile) and walks the 64-row KV tiles in a loop of its own,
-// with m, l and acc in registers. KV tiles wholly above the diagonal are never
-// visited. The ragged edge (S not a multiple of 64) is masked here: rows past
-// Sq load as zero and are not stored, columns past Sk score NEG_INF.
+// (bh, query tile) and walks the 64-row KV tiles in a loop of its own, with
+// m, l and acc in registers. KV tiles wholly above the diagonal are never
+// visited. The ragged edge (S not a multiple of the tile) is masked here:
+// rows past Sq are not stored, columns past Sk score NEG_INF.
 //
 // What bounds it. At the serving path's shapes (hd = 128, S up to 1024) the
 // function needs 4*BH*S*hd*itemsize bytes and about 2*BH*S^2*hd operations
@@ -25,28 +25,31 @@
 // operations alone in fp32 (67 TFLOP/s outside the tensor cores). What the
 // design does about it, one kernel per input type:
 //
-//  * bf16 — flash_fwd_mma_kernel: both products on the tensor cores
-//    (mma.sync m16n8k16, fp32 accumulate). Scores, probabilities and output
-//    stay in accumulator registers; only Q, K and V^T tiles touch shared
-//    memory. Probabilities are rounded to bf16 for the second product.
+//  * bf16 — flash_fwd_wgmma_kernel: 128 query rows a block on two consumer
+//    warpgroups, both products on wgmma (fp32 accumulate), fed by a TMA
+//    ring of K and V tiles that a producer warp keeps loading while the
+//    warpgroups compute; probabilities stay in registers as the A operand of
+//    the second product, rounded to bf16, and V is read MN-major as TMA
+//    laid it down. What still bounds it: inside a warpgroup the softmax and
+//    the two products run one after the other (no ping-pong of the two
+//    warpgroups, no intra-warpgroup overlap), and the output leaves through
+//    4-byte stores.
 //  * fp32 — flash_fwd_kernel: fp32 FMA on the CUDA cores, so the products are
 //    exact fp32 (no TF32). Each thread keeps a 4x4 tile of scores and a
 //    4 x hd/16 tile of the output in registers so every shared-memory load
 //    feeds 4 or more FMAs; K and V share one staging buffer so that two
-//    blocks fit on an SM and one computes while the other loads.
+//    blocks fit on an SM and one computes while the other loads. 64 query
+//    rows a block; loads and products do not overlap inside a block.
 //
-// Both schedule the heaviest (last) query tiles first. Neither overlaps its
-// loads with its products inside a block (no cp.async / TMA ring yet) and
-// neither uses wgmma; that is the next step and keeps this interface.
+// Both schedule the heaviest (last) query tiles first.
 //
 // Inputs fp32 or bf16, head dim 16, 32, 64 or 128, output in the input type.
 #include "flash_common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
 using flash::NEG_INF;
-using flash::ld32;
-using flash::mma_bf16_m16n8k16;
 using flash::pack_bf16;
 
 constexpr int BM = 64;           // query rows per block
@@ -254,103 +257,165 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
 }
 
 // ---------------------------------------------------------------------------
-// bf16 inputs: the two products run on the tensor cores (mma.sync m16n8k16,
-// bf16 in, fp32 accumulate). One block is 4 warps and owns 64 query rows, 16
-// a warp; scores, probabilities and the output tile stay in the accumulator
-// registers of the warp that owns the rows, so the softmax needs shuffles
-// inside a quad only and nothing but Q, K and V^T ever sits in shared memory.
-// V is stored transposed so that both products read their B operand as
-// aligned 32-bit pairs, free of bank conflicts (pitch = width + 8).
+// bf16 inputs: wgmma on a TMA-fed ring. One block owns 128 query rows of one
+// (batch, head), two consumer warpgroups of 64 rows each, and a producer
+// warp. The producer loads the Q tile once, then K and V tiles of 64 rows
+// into a ring of WSTAGES stages, each tile completing its own mbarrier, so
+// that the next tile's loads overlap this tile's products and softmax. Per
+// tile a warpgroup runs S = Q K^T (wgmma, Q and K K-major in shared memory),
+// the online softmax on the accumulators, and O += P V (wgmma with P, rounded
+// to bf16, as the register A operand straight from S's accumulator layout,
+// and V read MN-major through the transpose bit: no transposed copy); then
+// each of its warps hands the stage back on the stage's empty barrier.
+//
+// A causal warpgroup stops at its own 64 rows' diagonal; the two
+// warpgroups of a block differ by at most the block's last tile, which the
+// producer never waits to refill, so the one that stops early owes that
+// tile no arrival.
 // ---------------------------------------------------------------------------
-constexpr int MT = 128;  // threads of the tensor-core kernel
+constexpr int WQ = 128;                // query rows per block
+constexpr int WKV = 64;                // kv rows per tile
+constexpr int WSTAGES = 2;             // K / V stages in the ring
+constexpr int WT = 2 * 128 + 32;       // two consumer warpgroups + a producer warp
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
 template <int HD>
-__global__ void __launch_bounds__(MT)
-flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
-                     const __nv_bfloat16* __restrict__ k,
-                     const __nv_bfloat16* __restrict__ v,
-                     __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
-                     int BH, int Sq, int Sk, int causal, float scale) {
-  constexpr int QP = HD + 8;   // pitch of the Q and K tiles
-  constexpr int VP = BN + 8;   // pitch of the transposed V tile
-  constexpr int KS = HD / 16;  // k-steps of Q K^T
-  constexpr int NS = BN / 8;   // 8-wide column tiles of the scores
-  constexpr int ON = HD / 8;   // 8-wide column tiles of the output
-  constexpr int KT = BN / 16;  // k-steps of P V
+struct FwdTile {
+  static constexpr int SW = HD * 2 >= 128 ? 128 : HD * 2;  // swizzle: bytes a row of a chunk
+  static constexpr int CH = HD * 2 / SW;                    // 128-byte column chunks
+  static constexpr int BOX = SW / 2;                        // elements a TMA box row
+  static constexpr int Q_BYTES = WQ * HD * 2;
+  static constexpr int KV_BYTES = WKV * HD * 2;             // one K or one V tile
+  static constexpr int SMEM = Q_BYTES + 2 * WSTAGES * KV_BYTES + 1024;
+};
 
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // (BM, QP)
-  __nv_bfloat16* Ks = Qs + BM * QP;                                // (BN, QP)
-  __nv_bfloat16* Vt = Ks + BN * QP;                                // (HD, VP)
+template <int R>
+__device__ __forceinline__ void fence_u32(uint32_t (&r)[R][4]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
+}
 
+// qmap (HD, Sq, BH), kmap and vmap (HD, Sk, BH): bf16, boxes of (BOX, WQ, 1)
+// and (BOX, WKV, 1), swizzled SW bytes; one box per column chunk.
+template <int HD>
+__global__ void __launch_bounds__(WT)
+flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
+                       const __grid_constant__ CUtensorMap kmap,
+                       const __grid_constant__ CUtensorMap vmap,
+                       __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+                       int BH, int Sq, int Sk, int causal, float scale_log2) {
+  using T = FwdTile<HD>;
+  constexpr int SW = T::SW;
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t qbar, kfull[WSTAGES], vfull[WSTAGES],
+      empty[WSTAGES];
+  unsigned char* Qs = hopper::align1024(smem_raw);   // chunk c of row r: c*WQ*SW + r*SW
+  unsigned char* Ks = Qs + T::Q_BYTES;       // stage s: s*KV_BYTES, chunks WKV*SW apart
+  unsigned char* Vs = Ks + WSTAGES * T::KV_BYTES;
+
+  const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const int r0 = (threadIdx.x >> 5) * 16;  // this warp's first row in the tile
-  const int g = lane >> 2;                 // row within 8 (and B column)
-  const int tig = lane & 3;                // thread in the quad
-  const int nq = (Sq + BM - 1) / BM;
+  const int nq = (Sq + WQ - 1) / WQ;
   const int qt = nq - 1 - static_cast<int>(blockIdx.x) / BH;  // heavy first
   const int bh = static_cast<int>(blockIdx.x) % BH;
-  const int q0 = qt * BM;
-  const int q_valid = min(BM, Sq - q0);
+  const int q0 = qt * WQ;
+  const int nkv = (Sk + WKV - 1) / WKV;
+  // KV tiles warpgroup g reads: a causal one stops at its rows' diagonal
+  auto tiles_of = [&](int g) {
+    return causal ? min(nkv, (q0 + 64 * g + 63) / WKV + 1) : nkv;
+  };
 
-  const __nv_bfloat16* qb = q + (static_cast<size_t>(bh) * Sq + q0) * HD;
-  const __nv_bfloat16* kb = k + static_cast<size_t>(bh) * Sk * HD;
-  const __nv_bfloat16* vb = v + static_cast<size_t>(bh) * Sk * HD;
-  __nv_bfloat16* ob = o + (static_cast<size_t>(bh) * Sq + q0) * HD;
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(&qbar, 1);
+    for (int s = 0; s < WSTAGES; ++s) {
+      hopper::mbar_init(&kfull[s], 1);
+      hopper::mbar_init(&vfull[s], 1);
+      hopper::mbar_init(&empty[s], 8);   // lane 0 of every consumer warp
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
 
-  flash::load_tile_bf16<HD, BM, MT>(Qs, qb, q_valid);
-
-  // each thread owns rows r0+g (half 0) and r0+g+8 (half 1) of its warp
-  float m[2] = {NEG_INF, NEG_INF};
-  float l[2] = {0.f, 0.f};
-  float oacc[ON][4];
+  if (warp == 8) {
+    // producer: the tiles either warpgroup reads; stage t % WSTAGES is
+    // refilled once both released its previous use, t - WSTAGES
+    if (lane == 0) {
+      const int ntiles = tiles_of(1);
+      hopper::mbar_expect_tx(&qbar, T::Q_BYTES);
 #pragma unroll
-  for (int n = 0; n < ON; ++n)
+      for (int c = 0; c < T::CH; ++c)
+        hopper::tma_load_3d(Qs + c * WQ * SW, &qmap, &qbar, c * T::BOX, q0, bh);
+      for (int t = 0; t < ntiles; ++t) {
+        const int s = t % WSTAGES;
+        if (t >= WSTAGES) hopper::mbar_wait(&empty[s], ((t / WSTAGES) - 1) & 1);
+        hopper::mbar_expect_tx(&kfull[s], T::KV_BYTES);
 #pragma unroll
-    for (int c = 0; c < 4; ++c) oacc[n][c] = 0.f;
-
-  int nkv = (Sk + BN - 1) / BN;
-  if (causal) nkv = min(nkv, (q0 + BM - 1) / BN + 1);
-
-  for (int t = 0; t < nkv; ++t) {
-    const int k0 = t * BN;
-    const int k_valid = min(BN, Sk - k0);
-
-    __syncthreads();  // the previous tile's K and V are no longer read
-    flash::load_tile_bf16<HD, BN, MT>(Ks, kb + static_cast<size_t>(k0) * HD, k_valid);
-    flash::load_tile_bf16_transposed<HD, BN, MT>(Vt, vb + static_cast<size_t>(k0) * HD, k_valid);
-    __syncthreads();
-
-    // scores of this warp's 16 rows against the tile's 64 keys
-    float s[NS][4];
+        for (int c = 0; c < T::CH; ++c)
+          hopper::tma_load_3d(Ks + s * T::KV_BYTES + c * WKV * SW, &kmap,
+                              &kfull[s], c * T::BOX, t * WKV, bh);
+        hopper::mbar_expect_tx(&vfull[s], T::KV_BYTES);
 #pragma unroll
-    for (int n = 0; n < NS; ++n)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) s[n][c] = 0.f;
-#pragma unroll
-    for (int ks = 0; ks < KS; ++ks) {
-      const __nv_bfloat16* qa = Qs + (r0 + g) * QP + ks * 16 + 2 * tig;
-      const uint32_t a[4] = {ld32(qa), ld32(qa + 8 * QP), ld32(qa + 8),
-                             ld32(qa + 8 * QP + 8)};
-#pragma unroll
-      for (int n = 0; n < NS; ++n) {
-        const __nv_bfloat16* kp = Ks + (n * 8 + g) * QP + ks * 16 + 2 * tig;
-        mma_bf16_m16n8k16(s[n], a, ld32(kp), ld32(kp + 8));
+        for (int c = 0; c < T::CH; ++c)
+          hopper::tma_load_3d(Vs + s * T::KV_BYTES + c * WKV * SW, &vmap,
+                              &vfull[s], c * T::BOX, t * WKV, bh);
       }
     }
+    return;
+  }
 
-    // scale, mask, online softmax; a row's 16 values of one thread and the
-    // other three threads of its quad make up the row
+  // consumers: warpgroup g owns query rows q0 + 64 g .. + 63; each thread
+  // rows r (half 0) and r + 8 (half 1) of its warp's 16
+  const int g = warp >> 2;
+  const int r = q0 + 64 * g + (warp & 3) * 16 + (lane >> 2);
+  const int tq = lane & 3;
+  const int ntiles = tiles_of(g);
+  float m[2] = {NEG_INF, NEG_INF};   // running max, log2 units
+  float l[2] = {0.f, 0.f};
+  float oacc[HD / 2];
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) oacc[i] = 0.f;
+  hopper::mbar_wait(&qbar, 0);
+  for (int t = 0; t < ntiles; ++t) {
+    const int s = t % WSTAGES;
+    const uint32_t par = (t / WSTAGES) & 1;
+    const int k0 = t * WKV;
+
+    // S = Q K^T: 64 rows x 64 keys, HD / 16 k-steps of 32 bytes
+    float sacc[WKV / 2];
+#pragma unroll
+    for (int i = 0; i < WKV / 2; ++i) sacc[i] = 0.f;
+    hopper::mbar_wait(&kfull[s], par);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk) {
+      const int c = kk * 32 / SW, off = kk * 32 % SW;
+      const uint64_t da = hopper::make_desc(Qs + c * WQ * SW + g * 64 * SW + off,
+                                            16, 8 * SW, SW);
+      const uint64_t db = hopper::make_desc(
+          Ks + s * T::KV_BYTES + c * WKV * SW + off, 16, 8 * SW, SW);
+      hopper::wgmma_ss<0>(sacc, da, db);
+    }
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(sacc);
+
+    // scale (to log2 units), mask, online softmax; a row is one thread's 16
+    // values and its quad's
+    const bool masked = k0 + WKV > Sk || (causal && k0 + WKV - 1 > q0 + 64 * g);
     float mx[2] = {NEG_INF, NEG_INF};
 #pragma unroll
-    for (int n = 0; n < NS; ++n)
+    for (int j = 0; j < WKV / 8; ++j)
 #pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int row = q0 + r0 + g + (c >> 1) * 8;
-        const int col = k0 + n * 8 + 2 * tig + (c & 1);
-        const bool keep = (col < Sk) && (!causal || row >= col);
-        s[n][c] = keep ? s[n][c] * scale : NEG_INF;
-        mx[c >> 1] = fmaxf(mx[c >> 1], s[n][c]);
+      for (int i = 0; i < 4; ++i) {
+        const int row = r + (i >> 1) * 8;
+        const int col = k0 + j * 8 + 2 * tq + (i & 1);
+        const bool keep = !masked || ((col < Sk) && (!causal || row >= col));
+        const float v = keep ? sacc[4 * j + i] * scale_log2 : NEG_INF;
+        sacc[4 * j + i] = v;
+        mx[i >> 1] = fmaxf(mx[i >> 1], v);
       }
     float corr[2], sum[2] = {0.f, 0.f};
 #pragma unroll
@@ -358,16 +423,14 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
       mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
       mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
       const float m_new = fmaxf(m[h], mx[h]);
-      corr[h] = expf(m[h] - m_new);
+      corr[h] = exp2f(m[h] - m_new);
       m[h] = m_new;
     }
 #pragma unroll
-    for (int n = 0; n < NS; ++n)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        s[n][c] = expf(s[n][c] - m[c >> 1]);
-        sum[c >> 1] += s[n][c];
-      }
+    for (int i = 0; i < WKV / 2; ++i) {
+      sacc[i] = exp2f(sacc[i] - m[(i >> 1) & 1]);
+      sum[(i >> 1) & 1] += sacc[i];
+    }
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 1);
@@ -375,68 +438,78 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
       l[h] = l[h] * corr[h] + sum[h];
     }
 #pragma unroll
-    for (int n = 0; n < ON; ++n)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) oacc[n][c] *= corr[c >> 1];
+    for (int i = 0; i < HD / 2; ++i) oacc[i] *= corr[(i >> 1) & 1];
 
-    // out += P V: the score accumulators of two neighbouring column tiles
-    // are, rounded to bf16, exactly the A operand of one k-step
+    // O += P V: the accumulators of two neighbouring 8-key groups, rounded
+    // to bf16, are the A fragment of one 16-key k-step
+    uint32_t pa[WKV / 16][4];
 #pragma unroll
-    for (int kt = 0; kt < KT; ++kt) {
-      const uint32_t a[4] = {pack_bf16(s[2 * kt][0], s[2 * kt][1]),
-                             pack_bf16(s[2 * kt][2], s[2 * kt][3]),
-                             pack_bf16(s[2 * kt + 1][0], s[2 * kt + 1][1]),
-                             pack_bf16(s[2 * kt + 1][2], s[2 * kt + 1][3])};
-#pragma unroll
-      for (int n = 0; n < ON; ++n) {
-        const __nv_bfloat16* vp = Vt + (n * 8 + g) * VP + kt * 16 + 2 * tig;
-        mma_bf16_m16n8k16(oacc[n], a, ld32(vp), ld32(vp + 8));
-      }
+    for (int kk = 0; kk < WKV / 16; ++kk) {
+      pa[kk][0] = pack_bf16(sacc[8 * kk + 0], sacc[8 * kk + 1]);
+      pa[kk][1] = pack_bf16(sacc[8 * kk + 2], sacc[8 * kk + 3]);
+      pa[kk][2] = pack_bf16(sacc[8 * kk + 4], sacc[8 * kk + 5]);
+      pa[kk][3] = pack_bf16(sacc[8 * kk + 6], sacc[8 * kk + 7]);
     }
+    hopper::mbar_wait(&vfull[s], par);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < WKV / 16; ++kk) {
+      // 16 kv rows of SW bytes; the column chunks WKV * SW bytes apart
+      const uint64_t db = hopper::make_desc(
+          Vs + s * T::KV_BYTES + kk * 16 * SW, WKV * SW, 8 * SW, SW);
+      hopper::wgmma_rs<1>(oacc, pa[kk], db);
+    }
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(oacc);
+    fence_u32(pa);
+    if (lane == 0) hopper::mbar_arrive(&empty[s]);
   }
 
-  // normalise; a warp writes its own 16 rows of the Q tile, which no other
-  // warp reads, then the block stores the tile 16 bytes a thread
+  // normalise and store: row r (+ 8), columns 8 j + 2 tq, + 1
   const float inv[2] = {1.f / fmaxf(l[0], 1e-30f), 1.f / fmaxf(l[1], 1e-30f)};
 #pragma unroll
-  for (int n = 0; n < ON; ++n) {
-    __nv_bfloat16* dst = Qs + (r0 + g) * QP + n * 8 + 2 * tig;
-    *reinterpret_cast<uint32_t*>(dst) =
-        pack_bf16(oacc[n][0] * inv[0], oacc[n][1] * inv[0]);
-    *reinterpret_cast<uint32_t*>(dst + 8 * QP) =
-        pack_bf16(oacc[n][2] * inv[1], oacc[n][3] * inv[1]);
-  }
-  __syncthreads();
-  flash::store_tile_bf16<HD, BM, MT>(ob, Qs, q_valid);
-  if (lse != nullptr && tig == 0) {
+  for (int h = 0; h < 2; ++h) {
+    const int row = r + 8 * h;
+    if (row >= Sq) continue;
+    __nv_bfloat16* dst = o + (static_cast<size_t>(bh) * Sq + row) * HD + 2 * tq;
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int row = q0 + r0 + g + h * 8;
-      if (row < Sq)
-        lse[static_cast<size_t>(bh) * Sq + row] = m[h] + logf(fmaxf(l[h], 1e-30f));
-    }
+    for (int j = 0; j < HD / 8; ++j)
+      *reinterpret_cast<uint32_t*>(dst + 8 * j) =
+          pack_bf16(oacc[4 * j + 2 * h] * inv[h], oacc[4 * j + 2 * h + 1] * inv[h]);
+    if (lse != nullptr && tq == 0)
+      lse[static_cast<size_t>(bh) * Sq + row] =
+          m[h] * LN2 + logf(fmaxf(l[h], 1e-30f));
   }
 }
 
 template <int HD>
-cudaError_t launch_mma(const void* q, const void* k, const void* v, void* o,
-                       float* lse, int BH, int Sq, int Sk, int causal,
-                       float scale, cudaStream_t stream) {
-  constexpr size_t smem_bytes =
-      (BM * (HD + 8) + BN * (HD + 8) + HD * (BN + 8)) * sizeof(__nv_bfloat16);
-  auto kern = flash_fwd_mma_kernel<HD>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem_bytes));
-  if (err != cudaSuccess) return err;
+cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* o,
+                         float* lse, int BH, int Sq, int Sk, int causal,
+                         float scale, cudaStream_t stream) {
+  using T = FwdTile<HD>;
   const long long blocks =
-      static_cast<long long>((Sq + BM - 1) / BM) * static_cast<long long>(BH);
+      static_cast<long long>((Sq + WQ - 1) / WQ) * static_cast<long long>(BH);
   if (blocks > 2147483647LL) return cudaErrorInvalidConfiguration;
-  using bf16 = __nv_bfloat16;
-  kern<<<dim3(static_cast<unsigned>(blocks)), dim3(MT), smem_bytes, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(o), lse, BH, Sq, Sk,
-      causal, scale);
+  CUtensorMap qmap, kmap, vmap;
+  const uint64_t qdims[3] = {HD, static_cast<uint64_t>(Sq), static_cast<uint64_t>(BH)};
+  const uint64_t kdims[3] = {HD, static_cast<uint64_t>(Sk), static_cast<uint64_t>(BH)};
+  const uint64_t qstr[2] = {HD, static_cast<uint64_t>(Sq) * HD};
+  const uint64_t kstr[2] = {HD, static_cast<uint64_t>(Sk) * HD};
+  const uint32_t qbox[3] = {T::BOX, WQ, 1};
+  const uint32_t kbox[3] = {T::BOX, WKV, 1};
+  cudaError_t err;
+  if ((err = hopper::make_map(&qmap, q, 3, qdims, qstr, qbox)) != cudaSuccess ||
+      (err = hopper::make_map(&kmap, k, 3, kdims, kstr, kbox)) != cudaSuccess ||
+      (err = hopper::make_map(&vmap, v, 3, kdims, kstr, kbox)) != cudaSuccess)
+    return err;
+  auto kern = flash_fwd_wgmma_kernel<HD>;
+  static int allowed[hopper::MAX_DEVICES] = {};   // this kernel's, by device
+  if ((err = hopper::allow_smem(kern, T::SMEM, allowed)) != cudaSuccess)
+    return err;
+  kern<<<dim3(static_cast<unsigned>(blocks)), dim3(WT), T::SMEM, stream>>>(
+      qmap, kmap, vmap, static_cast<__nv_bfloat16*>(o), lse, BH, Sq, Sk,
+      causal, scale * LOG2E);
   return cudaGetLastError();
 }
 
@@ -449,8 +522,8 @@ cudaError_t dispatch_hd(int hd, const void* q, const void* k, const void* v,
 #define FLASH_CASE(HD_)                                                        \
   case HD_:                                                                    \
     if constexpr (sizeof(T) == 2)                                              \
-      return launch_mma<HD_>(q, k, v, o, lse, BH, Sq, Sk, causal, scale,     \
-                             stream);                                          \
+      return launch_wgmma<HD_>(q, k, v, o, lse, BH, Sq, Sk, causal, scale,   \
+                               stream);                                          \
     else                                                                       \
       return launch<T, HD_>(q, k, v, o, lse, BH, Sq, Sk, causal, scale, stream);
   switch (hd) {

@@ -3,8 +3,10 @@
 // every library, so an edit rebuilds both.
 //
 // fp32 tiles live in shared memory as float with pitch HD + 4; bf16 tiles as
-// __nv_bfloat16 with pitch HD + 8 (row-major) or ROWS + 8 (transposed). Every
-// load moves 16 bytes a thread; rows past rows_valid read as zero.
+// __nv_bfloat16 with pitch HD + 8 (row-major) or ROWS + 8 (transposed), as
+// the backward kernels load them (the bf16 forward's tiles are TMA's,
+// hopper.cuh). Every load moves 16 bytes a thread; rows past rows_valid read
+// as zero.
 #pragma once
 
 #include <cuda_bf16.h>

@@ -5,17 +5,38 @@
 // one for stream_matmul, the experts for grouped_matmul), an fp32
 // accumulator, K innermost, the result in x's type. Each operand carries its
 // own batch stride, so a batch may share one x (stride 0: the MoE decode,
-// where every expert reads the same rows) and w may be any (K, N) or (N, K)
-// row-major slab. w may be of another type than x; each w tile is converted
-// to x's type after it is loaded, as the reference casts w before the
-// product. Any M, N, K: ragged edges are masked on load and on store.
+// where every expert reads the same rows) and w may be any (K, N) ("kn") or
+// (N, K) ("nk") row-major slab. Any M, N, K: ragged edges are masked.
 //
-// bf16 x runs on the tensor cores (mma.sync m16n8k16, fp32 accumulate),
-// 64 x 128 output tiles, four warps of 32 x 64; fp32 x as true fp32 FMA on
-// the CUDA cores (no TF32: the reference holds fp32 to 1e-5), 64 x 64
-// tiles, 4 x 4 outputs a thread. Tiles go through shared memory without
-// cp.async or TMA, and neither uses wgmma; those are later steps behind the
-// same interface.
+// Three kernels, one per route:
+//
+//  * wgmma_mm_kernel (bf16 x, bf16 w, TMA-aligned operands; grouped_matmul
+//    only): a ring of WSTAGES stages in shared memory, each a 64-deep slice
+//    of K of the x tile and the w tile, loaded by TMA from one producer warp
+//    and guarded by a full and an empty mbarrier; one or two consumer
+//    warpgroups run wgmma m64nBNk16 (fp32 accumulate) on each stage as it
+//    lands, so the loads of the next stages are in flight while the tensor
+//    cores work. x is the K-major A operand; w is read as it lies: "kn" is an
+//    MN-major B (the transpose bit), "nk" a K-major one. A shared x is read
+//    through a 2-D map of the one (M, K) buffer. Tiles: 64 x 64 with one
+//    consumer warpgroup when M <= 64 (a decode: bound by the bytes of w, so
+//    narrow tiles give the most blocks, about two per SM at granite-moe's
+//    shapes, each with four 16 KB stages in flight), 128 x 128 with two
+//    when M > 64 (a prefill's capacity buffers: the w tile feeds both).
+//    The caller (grouped_matmul.py::plan) picks the tile.
+//  * tiled_mm_mma_kernel (bf16 x otherwise: w in fp32, or an operand TMA
+//    cannot describe: a base not 16-byte aligned or a stride that is not a
+//    multiple of 8 elements; and every stream_matmul product): mma.sync
+//    m16n8k16, 64 x 128 output tiles, four warps of 32 x 64, tiles loaded
+//    into shared memory with plain loads (each w tile converted to x's type
+//    after loading, as the reference casts w before the product).
+//  * tiled_mm_fma_kernel (fp32 x): true fp32 FMA on the CUDA cores (no TF32:
+//    the reference holds fp32 to 1e-5), 64 x 64 tiles, 4 x 4 outputs a
+//    thread. Its summation order is what holds fp32 tokens equal between a
+//    resident and a streamed expert stack.
+//
+// No route splits K across blocks or uses atomics: every output is summed in
+// one fixed order, and two runs on the same inputs give the same bits.
 //
 // A product can be one panel of a longer K: accumulate adds the fp32
 // partial sum of the earlier panels (acc), finish writes the output in x's
@@ -25,7 +46,7 @@
 // (stream_resident, stream_pinned, gmm_resident, gmm_pinned: declared by the
 // two sources). It changes no code; it only gives every route its own
 // kernel name, so that a profile tells the routes apart, e.g.
-// tiled_mm_mma_kernel<gmm_pinned, __nv_bfloat16>.
+// wgmma_mm_kernel<gmm_pinned, 1, 64, 0>.
 //
 // stream_panels is the pipeline of both host routes: panels of a pinned w
 // cross the host link into a two-slot device ring on a side stream while
@@ -35,6 +56,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -300,6 +323,137 @@ tiled_mm_fma_kernel(const float* __restrict__ x, long long ldx, long long sxb,
 }
 
 // ---------------------------------------------------------------------------
+// bf16 x and w, TMA-aligned: wgmma on a TMA-fed ring of stages
+// ---------------------------------------------------------------------------
+constexpr int WBK = 64;       // K depth of a stage: one 128-byte swizzle row
+constexpr int WSTAGES = 4;    // stages in the ring
+
+template <int WG, int BN>
+struct WgmmaTile {
+  static constexpr int BM = 64 * WG;                 // one warpgroup a 64 rows
+  static constexpr int A_BYTES = BM * WBK * 2;       // x: BM rows of 128 B
+  static constexpr int B_BYTES = BN * WBK * 2;       // w: BN/64 chunks (kn) or BN rows (nk)
+  static constexpr int STAGE = A_BYTES + B_BYTES;
+  static constexpr int THREADS = 128 * WG + 32;      // + the producer warp
+  static constexpr int SMEM = WSTAGES * STAGE + 1024;  // + slack to align to 1 KB
+};
+
+// Two neighbouring outputs of one row: one 4-byte store when they can be
+// written as the output type straight away, else emit() each.
+__device__ __forceinline__ void emit2(float v0, float v1, int row, int col,
+                                      int M, int N, float* __restrict__ acc,
+                                      __nv_bfloat16* __restrict__ out,
+                                      int accumulate, int finish) {
+  if (row >= M) return;
+  if (!accumulate && finish && col + 1 < N && (N & 1) == 0) {
+    *reinterpret_cast<__nv_bfloat162*>(out + static_cast<long long>(row) * N + col) =
+        __floats2bfloat162_rn(v0, v1);
+    return;
+  }
+  emit(v0, row, col, M, N, acc, out, accumulate, finish);
+  emit(v1, row, col + 1, M, N, acc, out, accumulate, finish);
+}
+
+// xmap: (K, M) of a shared x (x_shared), else (K, M, batch); box (64, BM[, 1]).
+// wmap: "kn" (N, K, batch), box (64, 64, 1), BN / 64 boxes a stage; "nk"
+// (K, N, batch), box (64, BN, 1). All bf16, 128-byte swizzle.
+template <typename Route, int WG, int BN, int W_NK>
+__global__ void __launch_bounds__(WgmmaTile<WG, BN>::THREADS)
+wgmma_mm_kernel(const __grid_constant__ CUtensorMap xmap,
+                const __grid_constant__ CUtensorMap wmap, int x_shared,
+                float* __restrict__ acc, __nv_bfloat16* __restrict__ out,
+                int M, int N, int K, int accumulate, int finish) {
+  using T = WgmmaTile<WG, BN>;
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t full[WSTAGES], empty[WSTAGES];
+  unsigned char* smem = hopper::align1024(smem_raw);
+
+  const int b = blockIdx.z;
+  const int n0 = blockIdx.x * BN;
+  const int m0 = blockIdx.y * T::BM;
+  const int nk = (K + WBK - 1) / WBK;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < WSTAGES; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], 4 * WG);   // lane 0 of every consumer warp
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (warp == 4 * WG) {
+    // producer: stage kt % WSTAGES is refilled once the consumers released
+    // its previous use, kt - WSTAGES
+    if (lane == 0) {
+      for (int kt = 0; kt < nk; ++kt) {
+        const int s = kt % WSTAGES;
+        if (kt >= WSTAGES) hopper::mbar_wait(&empty[s], ((kt / WSTAGES) - 1) & 1);
+        unsigned char* a = smem + s * T::STAGE;
+        unsigned char* bt = a + T::A_BYTES;
+        hopper::mbar_expect_tx(&full[s], T::STAGE);
+        if (x_shared)
+          hopper::tma_load_2d(a, &xmap, &full[s], kt * WBK, m0);
+        else
+          hopper::tma_load_3d(a, &xmap, &full[s], kt * WBK, m0, b);
+        if (W_NK) {
+          hopper::tma_load_3d(bt, &wmap, &full[s], kt * WBK, n0, b);
+        } else {
+#pragma unroll
+          for (int c = 0; c < BN / 64; ++c)
+            hopper::tma_load_3d(bt + c * 64 * WBK * 2, &wmap, &full[s],
+                                n0 + 64 * c, kt * WBK, b);
+        }
+      }
+    }
+    return;
+  }
+
+  // consumers: warpgroup wg owns rows 64 wg .. 64 wg + 63 of the tile
+  const int wg = warp >> 2;
+  float d[BN / 2];
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) d[i] = 0.f;
+  for (int kt = 0; kt < nk; ++kt) {
+    const int s = kt % WSTAGES;
+    hopper::mbar_wait(&full[s], (kt / WSTAGES) & 1);
+    const unsigned char* a = smem + s * T::STAGE + wg * 64 * WBK * 2;
+    const unsigned char* bt = smem + s * T::STAGE + T::A_BYTES;
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < WBK / 16; ++kk) {
+      // A: K-major, a k-step is 32 bytes along the swizzled row
+      const uint64_t da = hopper::make_desc(a + kk * 32, 16, 1024, 128);
+      // B: "nk" K-major like A; "kn" MN-major, a k-step is 16 rows of 128 B,
+      // the 64-column chunks 64 * WBK * 2 bytes apart
+      const uint64_t db =
+          W_NK ? hopper::make_desc(bt + kk * 32, 16, 1024, 128)
+               : hopper::make_desc(bt + kk * 16 * 128, 64 * WBK * 2, 1024, 128);
+      hopper::wgmma_ss<W_NK ? 0 : 1>(d, da, db);
+    }
+    hopper::wgmma_commit();
+    // the stage before this one is no longer read: hand it back
+    hopper::wgmma_wait<1>();
+    if (kt > 0 && lane == 0) hopper::mbar_arrive(&empty[(kt - 1) % WSTAGES]);
+  }
+  hopper::wgmma_wait<0>();
+  hopper::fence_regs(d);
+
+  out += static_cast<long long>(b) * M * N;
+  if (acc != nullptr) acc += static_cast<long long>(b) * M * N;
+  const int row = m0 + wg * 64 + (warp & 3) * 16 + (lane >> 2);
+  const int col = n0 + 2 * (lane & 3);
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      emit2(d[4 * j + 2 * h], d[4 * j + 2 * h + 1], row + 8 * h, col + 8 * j, M,
+            N, acc, out, accumulate, finish);
+}
+
+// ---------------------------------------------------------------------------
 // launch of one batch of products (the whole K, or one panel of it)
 // ---------------------------------------------------------------------------
 struct Operand {
@@ -355,10 +509,73 @@ cudaError_t launch_product(const Operand& x, const Operand& w, int w_nk,
                                     accumulate, finish, stream);
 }
 
+template <typename Route, int WG, int BN, int W_NK>
+cudaError_t launch_wgmma_tile(const CUtensorMap& xmap, const CUtensorMap& wmap,
+                              int x_shared, float* acc, void* out, int batch,
+                              int M, int N, int K, int accumulate, int finish,
+                              cudaStream_t stream) {
+  using T = WgmmaTile<WG, BN>;
+  auto kern = wgmma_mm_kernel<Route, WG, BN, W_NK>;
+  static int allowed[hopper::MAX_DEVICES] = {};   // this kernel's, by device
+  cudaError_t err = hopper::allow_smem(kern, T::SMEM, allowed);
+  if (err != cudaSuccess) return err;
+  dim3 grid((N + BN - 1) / BN, (M + T::BM - 1) / T::BM, batch);
+  kern<<<grid, T::THREADS, T::SMEM, stream>>>(xmap, wmap, x_shared, acc,
+                                               static_cast<__nv_bfloat16*>(out),
+                                               M, N, K, accumulate, finish);
+  return cudaGetLastError();
+}
+
+// The wgmma route of a batch of bf16 products (the arguments as
+// launch_product's), on a block_m x block_n output tile: 64 x 64 or
+// 128 x 128. The TMA maps need 16-byte-aligned bases and strides that are
+// multiples of 8 elements; an operand that is not is refused
+// (cudaErrorInvalidValue), never rerouted: the caller's plan sends it to
+// launch_product.
+template <typename Route>
+cudaError_t launch_wgmma(const Operand& x, const Operand& w, int w_nk,
+                         float* acc, void* out, int batch, int M, int N, int K,
+                         int accumulate, int finish, int block_m, int block_n,
+                         cudaStream_t stream) {
+  if (x.dtype != 1 || w.dtype != 1 || batch < 1 || batch > 65535 ||
+      (M + block_m - 1) / block_m > 65535)
+    return cudaErrorInvalidValue;
+  const int x_shared = x.batch == 0;
+  CUtensorMap xmap, wmap;
+  const uint64_t xdims[3] = {static_cast<uint64_t>(K), static_cast<uint64_t>(M),
+                             static_cast<uint64_t>(batch)};
+  const uint64_t xstr[2] = {static_cast<uint64_t>(x.ld),
+                            static_cast<uint64_t>(x.batch)};
+  const uint32_t xbox[3] = {WBK, static_cast<uint32_t>(block_m), 1};
+  cudaError_t err = hopper::make_map(&xmap, x.ptr, x_shared ? 2 : 3, xdims,
+                                     xstr, xbox);
+  if (err != cudaSuccess) return err;
+  const uint64_t wdims[3] = {
+      static_cast<uint64_t>(w_nk ? K : N), static_cast<uint64_t>(w_nk ? N : K),
+      static_cast<uint64_t>(batch)};
+  const uint64_t wstr[2] = {static_cast<uint64_t>(w.ld),
+                            static_cast<uint64_t>(w.batch)};
+  const uint32_t wbox[3] = {WBK, static_cast<uint32_t>(w_nk ? block_n : 64), 1};
+  if ((err = hopper::make_map(&wmap, w.ptr, 3, wdims, wstr, wbox)) != cudaSuccess)
+    return err;
+#define WGMMA_TILE(WG_, BN_)                                                    \
+  if (block_m == 64 * WG_ && block_n == BN_)                                    \
+    return w_nk ? launch_wgmma_tile<Route, WG_, BN_, 1>(                        \
+                      xmap, wmap, x_shared, acc, out, batch, M, N, K,           \
+                      accumulate, finish, stream)                               \
+                : launch_wgmma_tile<Route, WG_, BN_, 0>(                        \
+                      xmap, wmap, x_shared, acc, out, batch, M, N, K,           \
+                      accumulate, finish, stream);
+  WGMMA_TILE(1, 64)
+  WGMMA_TILE(2, 128)
+#undef WGMMA_TILE
+  return cudaErrorInvalidValue;
+}
+
 // ---------------------------------------------------------------------------
 // the side stream and events of a host route, one set per device
 // ---------------------------------------------------------------------------
-constexpr int MAX_DEVICES = 64;
+using hopper::MAX_DEVICES;
 
 struct Streamer {
   bool ready = false;

@@ -19,9 +19,10 @@ written by one block, so the gradients are deterministic).
 Bound on an H100: the forward moves ``4*BH*S*hd*itemsize`` bytes and does
 ``4*BH*pairs*hd`` operations (``pairs`` = S(S+1)/2 when causal), which bound
 it about equally in bf16; the backward's five products make it
-operation-bound. bf16 inputs run the products on the tensor cores
-(``mma.sync``, fp32 accumulate; probabilities and dS rounded to bf16 for
-their products); fp32 inputs are multiplied on the CUDA cores in true fp32
+operation-bound. bf16 inputs run the products on the tensor cores, fp32
+accumulate, probabilities and dS rounded to bf16 for their products: the
+forward on ``wgmma`` fed by a TMA ring of K and V tiles, the backward on
+``mma.sync``. fp32 inputs are multiplied on the CUDA cores in true fp32
 (no TF32), as the reference holds fp32 gradients to 1e-4.
 
 ``delta = sum_d dO * O`` stays plain torch ops (``bwd_delta``): the reference
@@ -29,7 +30,8 @@ computes it outside any Pallas call.
 
 A tensor on the CPU takes the plain version beside each wrapper. A CUDA
 tensor launches the kernel or raises; nothing falls back. Each wrapper counts
-its launches in ``<wrapper>.launches``.
+its launches in ``<wrapper>.launches``; the two forward wrappers also by
+kernel route, ``<wrapper>.launches_by_route`` (``FWD_ROUTES``).
 """
 from __future__ import annotations
 
@@ -43,6 +45,8 @@ from repro_torch.kernels import _build
 
 NEG_INF = -1e30
 HEAD_DIMS = (16, 32, 64, 128)
+# the forward kernel by input type: bf16 on wgmma (TMA ring), fp32 on FMA
+FWD_ROUTES = {torch.bfloat16: "wgmma", torch.float32: "fma"}
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 _P = ctypes.c_void_p
@@ -73,12 +77,13 @@ def _kernel(name: str):
     return _fns[name]
 
 
-def _launch(name: str, *args, what: str) -> None:
+def _launch(name: str, q, *args) -> None:
     fn, err_str = _kernel(name)
-    code = fn(*args, torch.cuda.current_stream().cuda_stream)
+    code = _build.call(fn, q.device, *args)
     if code != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {code} "
-                           f"({err_str(code).decode()}) for {what}")
+                           f"({err_str(code).decode()}) for q "
+                           f"{tuple(q.shape)} {q.dtype}")
 
 
 def _check(q, k, v):
@@ -188,14 +193,13 @@ def _fwd_kernel(q, k, v, causal, scale, with_lse: bool, wrapper):
     lse = (torch.empty((BH, Sq), dtype=torch.float32, device=q.device)
            if with_lse else None)
     if BH:
-        with torch.cuda.device(q.device):
-            _launch("flash_attention_fwd", q.data_ptr(), k.data_ptr(),
-                    v.data_ptr(), out.data_ptr(),
-                    lse.data_ptr() if with_lse else None,
-                    BH, Sq, k.shape[1], hd, _DTYPE_CODE[q.dtype],
-                    int(bool(causal)), _scale(scale, hd),
-                    what=f"q {tuple(q.shape)} {q.dtype}")
+        _launch("flash_attention_fwd", q, q.data_ptr(),
+                k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                lse.data_ptr() if with_lse else None,
+                BH, Sq, k.shape[1], hd, _DTYPE_CODE[q.dtype],
+                int(bool(causal)), _scale(scale, hd))
         wrapper.launches += 1
+        wrapper.launches_by_route[FWD_ROUTES[q.dtype]] += 1
     return out, lse
 
 
@@ -227,6 +231,9 @@ def flash_attention_fwd_stats(q, k, v, *, causal: bool = True,
 
 flash_attention_fwd.launches = 0
 flash_attention_fwd_stats.launches = 0
+flash_attention_fwd.launches_by_route = dict.fromkeys(FWD_ROUTES.values(), 0)
+flash_attention_fwd_stats.launches_by_route = dict.fromkeys(FWD_ROUTES.values(),
+                                                            0)
 
 
 # ---------------------------------------------------------------------------
@@ -315,12 +322,10 @@ def flash_attention_bwd_dkdv(q, k, v, dout, lse, delta, *,
     BH, Sq, Sk, hd, code, sc = _bwd_launch_args(q, k, v, dout, lse, delta, scale)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     if BH:
-        with torch.cuda.device(q.device):
-            _launch("flash_attention_bwd_dkdv", q.data_ptr(), k.data_ptr(),
-                    v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
-                    delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), BH, Sq, Sk,
-                    hd, code, int(bool(causal)), sc,
-                    what=f"q {tuple(q.shape)} {q.dtype}")
+        _launch("flash_attention_bwd_dkdv", q, q.data_ptr(),
+                k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+                delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), BH, Sq, Sk,
+                hd, code, int(bool(causal)), sc)
         flash_attention_bwd_dkdv.launches += 1
     return dk, dv
 
@@ -336,12 +341,10 @@ def flash_attention_bwd_dq(q, k, v, dout, lse, delta, *, causal: bool = True,
     BH, Sq, Sk, hd, code, sc = _bwd_launch_args(q, k, v, dout, lse, delta, scale)
     dq = torch.empty_like(q)
     if BH:
-        with torch.cuda.device(q.device):
-            _launch("flash_attention_bwd_dq", q.data_ptr(), k.data_ptr(),
-                    v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
-                    delta.data_ptr(), dq.data_ptr(), BH, Sq, Sk, hd, code,
-                    int(bool(causal)), sc,
-                    what=f"q {tuple(q.shape)} {q.dtype}")
+        _launch("flash_attention_bwd_dq", q, q.data_ptr(),
+                k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+                delta.data_ptr(), dq.data_ptr(), BH, Sq, Sk, hd, code,
+                int(bool(causal)), sc)
         flash_attention_bwd_dq.launches += 1
     return dq
 

@@ -3,39 +3,54 @@
 Replaces ``repro/kernels/moe_gmm.py::grouped_matmul`` (the Pallas TPU
 kernel, body ``_gmm_kernel``): ``out[e] = x[e] @ w[e]`` over ``(E, M, K) x
 (E, K, N) -> (E, M, N)``, an fp32 accumulator, the result in ``x.dtype``.
-The kernel is ``csrc/grouped_matmul.cu``; its header says what bounds it on
-an H100 and what the design does about that.
+The kernel is ``csrc/grouped_matmul.cu``; its header and
+``csrc/tiled_matmul.cuh``'s say what bounds it on an H100 and what the
+design does about that.
 
 Beyond the TPU kernel, it takes any ``M``, ``K``, ``N`` (masked at the
 edges: capacities such as 320 are no multiple of 128), an ``x`` with any
 expert stride (0 for the MoE decode, where every expert reads the same
-rows: ``x.expand(E, M, K)``) and row stride, and a ``w`` in pinned host
-memory (an expert stack the offload plan spilled), which is streamed over
-the host link in panels through a two-panel device ring, each byte once per
-call. ``w``'s dtype may differ from ``x``'s; tiles are converted after
-loading, as the reference casts ``w`` before its product.
+rows: ``x.expand(E, M, K)``) and row stride, a ``w`` with a unit stride in
+either of its last two dims (``(K, N)`` row-major, or the transposed view of
+an ``(N, K)`` one), and a ``w`` in pinned host memory (an expert stack the
+offload plan spilled), which is streamed over the host link in panels
+through a two-panel device ring, each byte once per call. ``w``'s dtype may
+differ from ``x``'s; tiles are converted after loading, as the reference
+casts ``w`` before its product.
+
+``plan`` picks the kernel of a call by a shape and alignment rule: bf16
+``x`` and ``w`` that a TMA descriptor can describe (16-byte-aligned bases,
+strides in multiples of 8 elements) take the ``wgmma`` route; any other
+bf16 ``x`` the ``mma_sync`` route; fp32 ``x`` the ``fma`` route.
 
 CPU ``x`` with CPU ``w`` takes ``grouped_matmul_plain`` (with autograd).
 CUDA ``x`` with ``w`` on the same device or in pinned host memory launches
 the kernel; a pageable host ``w`` raises, and so does a gradient wanted
 through the kernel (it has no backward yet: ROADMAP queue A item 16).
 ``grouped_matmul.launches`` counts calls that launched,
+``grouped_matmul.launches_by_route`` the same calls by route,
 ``grouped_matmul.h2d_bytes`` the bytes of ``w`` streamed.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+import functools
+from typing import NamedTuple, Tuple
 
 import torch
 
 from repro_torch.kernels import _streamed
 from repro_torch.kernels.ref import gmm_ref
 
-BLOCK_K = 2048         # K rows of one streamed panel (whole experts if K fits)
+# K rows of one streamed panel (whole experts if K fits): 8 of granite-moe's
+# experts, an 8 MB copy; deeper panels reach the host link better than
+# 2-expert ones (chip_smoke.py's grouped_matmul_panel_depths, PERF.md)
+BLOCK_K = 8192
 _p, _ll, _i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-_ARGTYPES = [_p, _ll, _ll, _i, _p, _ll, _ll, _i, _i, _p, _p, _p,
-             _i, _i, _i, _i, _i, _i, _p]
+_ARGTYPES = [_p, _ll, _ll, _i, _p, _ll, _ll, _i, _i, _i, _i, _i, _i,
+             _p, _p, _p, _i, _i, _i, _i, _i, _i, _p]
+ROUTES = ("wgmma", "mma_sync", "fma")
+_ROUTE_CODE = {"wgmma": 1, "mma_sync": 0, "fma": 0}
 
 
 def _check(x, w):
@@ -63,10 +78,71 @@ def panel_shape(E: int, K: int, block_k: int) -> Tuple[int, int]:
     return 1, block_k
 
 
-def _unit_inner(t, name):
-    if t.shape[2] > 1 and t.stride(2) != 1:
-        raise ValueError(f"{name} must have a unit stride in its last dim; "
-                         f"strides {t.stride()}")
+class Plan(NamedTuple):
+    """How one call runs: the kernel (``route``), its output tile
+    (``block_m`` x ``block_n``, wgmma only, else 0), and for a pinned ``w``
+    the streamed panel (``panel_experts`` whole experts, or ``panel_k`` rows
+    of one; 0 for a ``w`` on the card)."""
+    route: str
+    block_m: int
+    block_n: int
+    panel_experts: int
+    panel_k: int
+
+
+@functools.lru_cache(maxsize=4096)
+def plan(E: int, M: int, K: int, N: int, x_dtype, w_dtype,
+         x_strides: Tuple[int, int], w_strides: Tuple[int, int], w_nk: bool,
+         aligned: bool, on_host: bool, block_k: int) -> Plan:
+    """The route of a call, by shape and alignment, decided before launch
+    (and remembered per call shape: a decode step repeats the same few
+    shapes thousands of times, on a path bound by host time).
+
+    ``x_strides`` (expert, row) and ``w_strides`` (expert, row) are the
+    strides handed to the kernel, in elements; ``aligned``: the 16-byte
+    alignment of x's base and, for a ``w`` on the card, of w's; ``block_k``
+    the depth of a streamed panel (``panel_shape``). fp32 ``x`` -> ``fma``.
+    bf16 ``x`` and ``w`` whose every stride is a multiple of 8 elements (16
+    bytes, what a TMA descriptor takes) -> ``wgmma``, on 64 x 64 tiles for
+    ``M <= 64`` (a decode: bound by w's bytes, so the most blocks) and
+    128 x 128 above (a prefill). A pinned ``w`` is read from the dense ring
+    slot, whose row stride is ``N`` ("kn") or the panel's depth ("nk"), and
+    x at offsets of ``panel_k`` columns. Anything else bf16 ->
+    ``mma_sync``."""
+    pe, pk = panel_shape(E, K, block_k) if on_host else (0, 0)
+    if x_dtype == torch.float32:
+        return Plan("fma", 0, 0, pe, pk)
+    strides = list(x_strides)
+    if on_host:
+        strides += [pk, K] if w_nk else [N]
+        if pk < K:
+            strides.append(pk)
+    else:
+        strides += list(w_strides)
+    if (w_dtype != torch.bfloat16 or not aligned
+            or any(s % 8 for s in strides)):
+        return Plan("mma_sync", 0, 0, pe, pk)
+    bm, bn = (64, 64) if M <= 64 else (128, 128)
+    return Plan("wgmma", bm, bn, pe, pk)
+
+
+def _x_layout(x):
+    if x.shape[2] > 1 and x.stride(2) != 1:
+        raise ValueError(f"x must have a unit stride in its last dim; "
+                         f"strides {x.stride()}")
+    return x.stride(0), (x.stride(1) if x.shape[1] > 1 else x.shape[2])
+
+
+def _w_layout(w):
+    """(w_nk, ldw): 0 for (K, N) slabs with a unit column stride, 1 for the
+    transposed view of (N, K) row-major slabs; raises otherwise."""
+    _, K, N = w.shape
+    if w.stride(2) == 1 or N == 1:
+        return 0, (w.stride(1) if K > 1 else N)
+    if w.stride(1) == 1 or K == 1:
+        return 1, (w.stride(2) if N > 1 else K)
+    raise ValueError(f"w must have a unit stride in one of its last two "
+                     f"dims; strides {w.stride()}")
 
 
 def grouped_matmul(x, w):
@@ -83,32 +159,39 @@ def grouped_matmul(x, w):
             "grouped_matmul's kernel has no backward yet (MoE training on the "
             "card is ROADMAP queue A item 16); run the expert products without "
             "autograd, or on the CPU")
-    _unit_inner(x, "x")
-    _unit_inner(w, "w")
+    sxe, ldx = _x_layout(x)
+    w_nk, ldw = _w_layout(w)
     E, M, K = x.shape
     N = w.shape[2]
-    out = torch.empty((E, M, N), dtype=x.dtype, device=x.device)
+    out = x.new_empty((E, M, N))
     if E == 0 or M == 0 or N == 0:
         return out
     if K == 0:
         return out.zero_()
-    pe, pk = panel_shape(E, K, BLOCK_K)
-    ring, acc = _streamed.scratch(x, on_host, 2 * pe * pk * N * w.element_size(),
-                                  (M, N) if pk < K else None)
+    xp, wp = x.data_ptr(), w.data_ptr()
+    p = plan(E, M, K, N, x.dtype, w.dtype, (sxe, ldx), (w.stride(0), ldw),
+             bool(w_nk), xp % 16 == 0 and (on_host or wp % 16 == 0), on_host,
+             BLOCK_K)
+    ring, acc = _streamed.scratch(
+        x, on_host, 2 * p.panel_experts * p.panel_k * N * w.element_size(),
+        (M, N) if p.panel_k < K else None)
     code = _streamed.DTYPE_CODE
     _streamed.launch(
         "grouped_matmul", _streamed.kernel("grouped_matmul", _ARGTYPES), x,
-        (x.data_ptr(), x.stride(0), x.stride(1) if M > 1 else K, code[x.dtype],
-         w.data_ptr(), w.stride(0), w.stride(1) if K > 1 else N, code[w.dtype],
-         int(on_host), _streamed.ptr(ring), _streamed.ptr(acc),
-         out.data_ptr(), E, M, N, K, pe, pk),
-        f"x {tuple(x.shape)} {x.dtype} strides {x.stride()}, "
-        f"w {tuple(w.shape)} {w.dtype} on {w.device}")
+        (xp, sxe, ldx, code[x.dtype], wp, w.stride(0), ldw, code[w.dtype],
+         w_nk, int(on_host), _ROUTE_CODE[p.route], p.block_m, p.block_n,
+         _streamed.ptr(ring), _streamed.ptr(acc), out.data_ptr(), E, M, N, K,
+         p.panel_experts, p.panel_k),
+        lambda: f"x {tuple(x.shape)} {x.dtype} strides {x.stride()}, "
+        f"w {tuple(w.shape)} {w.dtype} strides {w.stride()} on {w.device}, "
+        f"{p}")
     grouped_matmul.launches += 1
+    grouped_matmul.launches_by_route[p.route] += 1
     if on_host:
         grouped_matmul.h2d_bytes += E * K * N * w.element_size()
     return out
 
 
 grouped_matmul.launches = 0
+grouped_matmul.launches_by_route = dict.fromkeys(ROUTES, 0)
 grouped_matmul.h2d_bytes = 0

@@ -160,13 +160,12 @@ def ssd_scan(x, dt, A, B_, C_, *, chunk: int = 128,
             state.zero_()
     else:
         fn, err_str = _kernel()
-        with torch.cuda.device(x.device):
-            code = fn(x.data_ptr(), dt.data_ptr(), A.data_ptr(), B_.data_ptr(),
-                      C_.data_ptr(),
-                      init_state.data_ptr() if init_state is not None else None,
-                      y.data_ptr(), state.data_ptr() if state is not None else None,
-                      Bb, S, nh, hp, N, _DTYPE_CODE[x.dtype],
-                      torch.cuda.current_stream().cuda_stream)
+        code = _build.call(
+            fn, x.device, x.data_ptr(), dt.data_ptr(), A.data_ptr(),
+            B_.data_ptr(), C_.data_ptr(),
+            init_state.data_ptr() if init_state is not None else None,
+            y.data_ptr(), state.data_ptr() if state is not None else None,
+            Bb, S, nh, hp, N, _DTYPE_CODE[x.dtype])
         if code != 0:
             raise RuntimeError(
                 f"ssd_scan launch failed: CUDA error {code} "

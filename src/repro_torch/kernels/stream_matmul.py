@@ -99,7 +99,7 @@ def stream_matmul(x, w, *, block_k: int = BLOCK_K):
          w.data_ptr(), ldw, code[w.dtype], w_nk, int(on_host),
          _streamed.ptr(ring), _streamed.ptr(acc), out.data_ptr(),
          M, N, K, block_k),
-        f"x {tuple(x.shape)} {x.dtype}, w {tuple(w.shape)} {w.dtype} "
+        lambda: f"x {tuple(x.shape)} {x.dtype}, w {tuple(w.shape)} {w.dtype} "
         f"on {w.device}")
     stream_matmul.launches += 1
     if on_host:

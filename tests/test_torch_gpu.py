@@ -170,27 +170,39 @@ def test_runtime_streams_offloaded_weights():
     assert _rel(got, want) < 1e-4
 
 
+FLASH_SHAPES = [  # (Sq, Sk, causal): square, ragged, non-causal, cross-length
+    (128, 128, True), (300, 300, True), (77, 77, False), (1, 1, True),
+    (40, 200, False), (130, 257, True)]
+# the forward's edges besides: one KV tile, one short of two query tiles of
+# the bf16 kernel, a ragged S and a serving length, causal and full
+FWD_SHAPES = FLASH_SHAPES + [(S, S, c) for S in (64, 127, 300, 1024)
+                             for c in (True, False) if (S, S, c) != (300, 300, True)]
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_kernel_matches_plain_on_card(dtype):
     """The flash-attention forward kernel against its plain version, at every
-    head dim it takes, square and ragged lengths, causal and not; inputs it
-    cannot take raise."""
+    head dim it takes, square and ragged lengths, causal and not, each launch
+    counted on its route (bf16 wgmma, fp32 fma); inputs it cannot take
+    raise."""
     from repro_torch.kernels import flash_attention as fa
     dev = _cuda()
     tol = {torch.float32: 2e-5, torch.bfloat16: 2e-2}[dtype]
     for hd in fa.HEAD_DIMS:
-        for Sq, Sk, causal in ((128, 128, True), (300, 300, True), (77, 77, False),
-                               (1, 1, True), (40, 200, False), (130, 257, True)):
+        for Sq, Sk, causal in FWD_SHAPES:
             g = torch.Generator(device=dev).manual_seed(Sq + Sk + hd)
             q = torch.randn(4, Sq, hd, device=dev, generator=g).to(dtype)
             k, v = (torch.randn(4, Sk, hd, device=dev, generator=g).to(dtype)
                     for _ in range(2))
-            before = fa.flash_attention_fwd.launches
+            before = (fa.flash_attention_fwd.launches,
+                      fa.flash_attention_fwd.launches_by_route[fa.FWD_ROUTES[dtype]])
             got = fa.flash_attention_fwd(q, k, v, causal=causal)
             want = fa.flash_attention_fwd_plain(q, k, v, causal=causal)
             torch.cuda.synchronize()
-            assert fa.flash_attention_fwd.launches == before + 1
+            assert (fa.flash_attention_fwd.launches,
+                    fa.flash_attention_fwd.launches_by_route[fa.FWD_ROUTES[dtype]]
+                    ) == (before[0] + 1, before[1] + 1)
             assert _rel(got, want) < tol, (dtype, hd, Sq, Sk, causal)
     wide = torch.zeros(4, 8, 32, device=dev, dtype=dtype)
     with pytest.raises(ValueError, match="contiguous"):
@@ -202,9 +214,6 @@ def test_kernel_matches_plain_on_card(dtype):
         fa.flash_attention_fwd(odd, odd, odd)
 
 
-FLASH_SHAPES = [  # (Sq, Sk, causal): square, ragged, non-causal, cross-length
-    (128, 128, True), (300, 300, True), (77, 77, False), (1, 1, True),
-    (40, 200, False), (130, 257, True)]
 
 
 def _flash_inputs(dev, dtype, BH, Sq, Sk, hd, seed):
@@ -226,7 +235,7 @@ def test_flash_fwd_stats_matches_plain_on_card(dtype):
     dev = _cuda()
     tol = {torch.float32: 2e-5, torch.bfloat16: 2e-2}[dtype]
     for hd in fa.HEAD_DIMS:
-        for Sq, Sk, causal in FLASH_SHAPES:
+        for Sq, Sk, causal in FWD_SHAPES:
             q, k, v, _ = _flash_inputs(dev, dtype, 4, Sq, Sk, hd, Sq + Sk + hd)
             before = (fa.flash_attention_fwd_stats.launches,
                       fa.flash_attention_fwd.launches)
@@ -446,51 +455,121 @@ def test_apply_ssm_prefill_launches_the_kernel():
 # ---------------------------------------------------------------------------
 # grouped_matmul (MoE expert products)
 # ---------------------------------------------------------------------------
-GMM_CASES = [  # (E, M, K, N, x expert stride 0)
-    (2, 128, 128, 128, False),       # the reference's shapes
-    (4, 256, 128, 384, False),
-    (1, 128, 256, 128, False),
-    (32, 320, 1024, 512, False),     # granite-moe's prefill at 1024 tokens
-    (32, 4, 1024, 512, True),        # granite-moe's decode: one shared x
-    (32, 4, 512, 1024, False),       # its w_out
-    (5, 77, 200, 96, False),         # ragged C
-    (3, 33, 70, 50, True),           # ragged everywhere, shared x
-    (16, 1, 4096, 6400, True),       # phi3.5-moe's widths, one row
+GMM_CASES = [  # (E, M, K, N, x expert stride 0, bf16 takes the wgmma route)
+    (2, 128, 128, 128, False, True),        # the reference's shapes
+    (4, 256, 128, 384, False, True),
+    (1, 128, 256, 128, False, True),
+    (32, 320, 1024, 512, False, True),      # granite-moe's prefill at 1024 tokens
+    (1, 320, 1024, 512, False, True),
+    (32, 4, 1024, 512, True, True),         # granite-moe's decode: one shared x
+    (32, 4, 512, 1024, False, True),        # its w_out
+    (32, 1, 1024, 512, True, True),         # one slot
+    (32, 16, 1024, 512, True, True),
+    (32, 17, 1024, 520, False, True),       # one row past a 16-row tile
+    (32, 64, 512, 1024, False, True),       # the last M of the 64 x 64 tiles
+    (5, 77, 200, 96, False, True),          # ragged C; K, N off the tile
+    (1, 65, 72, 40, True, True),            # N below one tile, shared x
+    (3, 33, 70, 50, True, False),           # ragged everywhere, shared x
+    (4, 8, 100, 64, False, False),          # x's rows not 16-byte multiples
+    (16, 1, 4096, 6400, True, True),        # phi3.5-moe's widths, one row
 ]
 
 
-def _gmm_inputs(dev, E, M, K, N, shared, dtype, seed=0):
+def _gmm_inputs(dev, E, M, K, N, shared, dtype, seed=0, layout="kn"):
+    """x (E, M, K) (one expanded (M, K) buffer when shared); w (E, K, N),
+    row-major ("kn") or the transposed view of an (E, N, K) stack ("nk")."""
     g = torch.Generator(device=dev).manual_seed(seed)
     x = torch.randn(1 if shared else E, M, K, device=dev, generator=g).to(dtype)
-    w = (torch.randn(E, K, N, device=dev, generator=g) * K ** -0.5).to(dtype)
-    return (x.expand(E, M, K) if shared else x), w
+    shape = (E, N, K) if layout == "nk" else (E, K, N)
+    w = (torch.randn(*shape, device=dev, generator=g) * K ** -0.5).to(dtype)
+    return (x.expand(E, M, K) if shared else x), (
+        w.transpose(1, 2) if layout == "nk" else w)
+
+
+def _pinned(w):
+    """The same stack in pinned host memory, in the same layout."""
+    if w.stride(1) == 1 and w.stride(2) != 1:
+        return w.transpose(1, 2).cpu().pin_memory().transpose(1, 2)
+    return w.cpu().pin_memory()
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("layout", ["kn", "nk"])
 @pytest.mark.parametrize("where", ["device", "pinned"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("E,M,K,N,shared", GMM_CASES)
-def test_grouped_matmul_matches_plain(E, M, K, N, shared, dtype, where,
-                                     monkeypatch):
+@pytest.mark.parametrize("E,M,K,N,shared,tma", GMM_CASES)
+def test_grouped_matmul_matches_plain(E, M, K, N, shared, tma, dtype, where,
+                                     layout, monkeypatch):
     """The kernel against its plain version, w on the card or streamed from
-    pinned host memory (every byte once per call; a panel depth of 64 rows
-    splits one expert's K into panels)."""
+    pinned host memory (every byte once per call) in panels of several whole
+    experts (``BLOCK_K``), of one (``K``), and of 64 rows of one; each call
+    counted on the route the shape rule names: fp32 x -> fma, bf16 whose
+    operands a TMA descriptor takes -> wgmma, any other bf16 -> mma_sync."""
     from repro_torch.kernels import grouped_matmul as gmm
     dev = _cuda()
-    x, w = _gmm_inputs(dev, E, M, K, N, shared, dtype, seed=E + M + K)
+    x, w = _gmm_inputs(dev, E, M, K, N, shared, dtype, seed=E + M + K,
+                       layout=layout)
     want = gmm.grouped_matmul_plain(x, w)
-    wk = w if where == "device" else w.cpu().pin_memory()
-    for block_k in (gmm.BLOCK_K, 64):
+    wk = w if where == "device" else _pinned(w)
+    route = ("fma" if dtype == torch.float32 else
+             "wgmma" if tma else "mma_sync")
+    for block_k in (gmm.BLOCK_K, K, 64):
         monkeypatch.setattr(gmm, "BLOCK_K", block_k)
-        before = gmm.grouped_matmul.launches, gmm.grouped_matmul.h2d_bytes
+        before = (gmm.grouped_matmul.launches, gmm.grouped_matmul.h2d_bytes,
+                  dict(gmm.grouped_matmul.launches_by_route))
         got = gmm.grouped_matmul(x, wk)
         torch.cuda.synchronize()
         assert gmm.grouped_matmul.launches == before[0] + 1
+        assert {r: n - before[2][r] for r, n in
+                gmm.grouped_matmul.launches_by_route.items()} == {
+            r: int(r == route) for r in gmm.ROUTES}, block_k
         streamed = gmm.grouped_matmul.h2d_bytes - before[1]
         assert streamed == (w.numel() * w.element_size() if where == "pinned" else 0)
         assert got.dtype == dtype and tuple(got.shape) == (E, M, N)
         assert torch.isfinite(got.float()).all()
         assert _rel(got, want) < TOL[dtype], block_k
+
+
+@pytest.mark.gpu
+def test_grouped_matmul_misaligned_base_takes_mma_sync():
+    """An x whose base is not 16-byte aligned cannot be described by a TMA
+    descriptor: the plan sends it to the mma.sync kernel, which matches."""
+    from repro_torch.kernels import grouped_matmul as gmm
+    dev = _cuda()
+    _, w = _gmm_inputs(dev, 4, 8, 64, 64, False, torch.bfloat16)
+    # every stride a multiple of 8 elements, the base 2 bytes past an
+    # aligned one
+    x = torch.randn(4 * 8 * 64 + 1, device=dev).to(torch.bfloat16)[1:].view(4, 8, 64)
+    before = dict(gmm.grouped_matmul.launches_by_route)
+    got = gmm.grouped_matmul(x, w)
+    torch.cuda.synchronize()
+    assert gmm.grouped_matmul.launches_by_route["mma_sync"] == before["mma_sync"] + 1
+    assert _rel(got, gmm.grouped_matmul_plain(x, w)) < TOL[torch.bfloat16]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("what", ["gmm_decode", "gmm_prefill", "gmm_pinned",
+                                  "flash", "flash_stats"])
+def test_bf16_kernels_are_bit_identical_across_runs(what):
+    """No atomics, no split reduction in a changing order: the same bf16
+    inputs give the same bits twice."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import grouped_matmul as gmm
+    dev = _cuda()
+    if what.startswith("gmm"):
+        M, shared = (320, False) if what == "gmm_prefill" else (4, True)
+        x, w = _gmm_inputs(dev, 32, M, 1024, 512, shared, torch.bfloat16)
+        w = _pinned(w) if what == "gmm_pinned" else w
+        run = lambda: gmm.grouped_matmul(x, w)
+    else:
+        q, k, v, _ = _flash_inputs(dev, torch.bfloat16, 8, 1000, 1000, 128, 3)
+        run = ((lambda: fa.flash_attention_fwd_stats(q, k, v)) if what == "flash_stats"
+               else (lambda: fa.flash_attention_fwd(q, k, v)))
+    a, b = run(), run()
+    torch.cuda.synchronize()
+    for u, v_ in zip(a if isinstance(a, tuple) else (a,),
+                     b if isinstance(b, tuple) else (b,)):
+        assert torch.equal(u, v_)
 
 
 @pytest.mark.gpu

@@ -102,6 +102,74 @@ def test_streamed_panel_shape(E, K, block_k, want):
     assert port_gmm.panel_shape(E, K, block_k) == want
 
 
+_BF, _F32 = torch.bfloat16, torch.float32
+
+
+@pytest.mark.parametrize("case,want", [
+    # granite-moe's decode (one shared x) and w_out: 64 x 64 wgmma tiles
+    (dict(E=32, M=4, K=1024, N=512, xs=(0, 1024), ws=(524288, 512)),
+     ("wgmma", 64, 64, 0, 0)),
+    (dict(E=32, M=4, K=512, N=1024, xs=(2048, 512), ws=(524288, 1024)),
+     ("wgmma", 64, 64, 0, 0)),
+    (dict(E=32, M=64, K=512, N=1024, xs=(32768, 512), ws=(524288, 1024)),
+     ("wgmma", 64, 64, 0, 0)),
+    # its 1024-token prefill (capacity 320): 128 x 128 tiles
+    (dict(E=32, M=320, K=1024, N=512, xs=(327680, 1024), ws=(524288, 512)),
+     ("wgmma", 128, 128, 0, 0)),
+    (dict(E=1, M=65, K=64, N=8, xs=(4160, 64), ws=(512, 8)),
+     ("wgmma", 128, 128, 0, 0)),
+    # "nk": w's row stride is K
+    (dict(E=4, M=8, K=64, N=100, xs=(512, 64), ws=(6400, 64), nk=True),
+     ("wgmma", 64, 64, 0, 0)),
+    # strides TMA cannot take (not multiples of 8 elements), a misaligned
+    # base, a w in fp32: mma.sync
+    (dict(E=5, M=77, K=100, N=96, xs=(7700, 100), ws=(9600, 96)),
+     ("mma_sync", 0, 0, 0, 0)),
+    (dict(E=5, M=77, K=200, N=96, xs=(15400, 200), ws=(19200, 100)),
+     ("mma_sync", 0, 0, 0, 0)),
+    (dict(E=3, M=33, K=72, N=56, xs=(0, 72), ws=(4032, 56), aligned=False),
+     ("mma_sync", 0, 0, 0, 0)),
+    (dict(E=2, M=4, K=64, N=64, xs=(256, 64), ws=(4096, 64), wdt=_F32),
+     ("mma_sync", 0, 0, 0, 0)),
+    # fp32 x: exact FMA, whatever the strides
+    (dict(E=2, M=4, K=63, N=64, xs=(252, 63), ws=(4032, 64), xdt=_F32),
+     ("fma", 0, 0, 0, 0)),
+    # pinned w: read from the dense ring slot, so w's own strides do not
+    # matter, the slot's do; panels of whole experts, or of block_k rows
+    (dict(E=32, M=4, K=1024, N=512, xs=(0, 1024), ws=(7, 9), host=True),
+     ("wgmma", 64, 64, 8, 1024)),
+    (dict(E=32, M=4, K=1024, N=512, xs=(0, 1024), ws=(7, 9), host=True,
+          block_k=1024), ("wgmma", 64, 64, 1, 1024)),
+    (dict(E=2, M=4, K=200, N=96, xs=(800, 200), ws=(7, 9), host=True,
+          block_k=64), ("wgmma", 64, 64, 1, 64)),
+    (dict(E=2, M=4, K=200, N=96, xs=(800, 200), ws=(7, 9), host=True,
+          block_k=60), ("mma_sync", 0, 0, 1, 60)),
+    (dict(E=2, M=4, K=200, N=100, xs=(800, 200), ws=(7, 9), host=True),
+     ("mma_sync", 0, 0, 2, 200)),
+    (dict(E=2, M=4, K=200, N=100, xs=(800, 200), ws=(7, 9), host=True,
+          nk=True), ("wgmma", 64, 64, 2, 200)),
+    (dict(E=2, M=4, K=204, N=96, xs=(816, 204), ws=(7, 9), host=True,
+          nk=True, xdt=_F32), ("fma", 0, 0, 2, 204)),
+])
+def test_plan_routes_by_shape_and_alignment(case, want):
+    """The wrapper's choice of kernel, tile and panel for a call, made before
+    launch by a stated rule: bf16 operands that a TMA descriptor can take
+    (16-byte-aligned bases, strides in multiples of 8 elements) take wgmma
+    on 64 x 64 tiles up to 64 rows and 128 x 128 above; other bf16 x takes
+    mma.sync, fp32 x the FMA kernel; a pinned w streams in the panels of
+    ``panel_shape``."""
+    c = {**dict(nk=False, aligned=True, host=False, xdt=_BF, wdt=_BF,
+                block_k=port_gmm.BLOCK_K), **case}
+    got = port_gmm.plan(c["E"], c["M"], c["K"], c["N"], c["xdt"], c["wdt"],
+                        c["xs"], c["ws"], c["nk"], c["aligned"], c["host"],
+                        c["block_k"])
+    assert tuple(got) == want
+    assert got.route in port_gmm.ROUTES
+    if c["host"]:
+        assert (got.panel_experts, got.panel_k) == port_gmm.panel_shape(
+            c["E"], c["K"], c["block_k"])
+
+
 # ---------------------------------------------------------------------------
 # routing and dispatch
 # ---------------------------------------------------------------------------
