@@ -13,7 +13,8 @@ JSON line per phase; any failure is a non-zero exit:
            card at the main paths' shapes, with its time, the plain
            version's, one library call's, and the card's bound for the work:
            the flash forward (serving), the forward with its lse output and
-           the two backward kernels (training), stream_matmul, ssd_scan (no
+           the two backward kernels (training; the port's whole backward in
+           one call beside the library's), stream_matmul, ssd_scan (no
            single PyTorch call computes the SSD: no library time),
            grouped_matmul (library: torch.bmm) with w on the card and in
            pinned host memory, the pinned decode at four panel depths, and
@@ -37,7 +38,9 @@ JSON line per phase; any failure is a non-zero exit:
            (FaultTolerantRunner, StaticPartitioner, checkpoints): 30 AdamW
            steps of 8 x 1024 tokens, attention through the flash forward and
            backward kernels, one injected chip failure (restore + repartition);
-           the counts are set to 0 just before and read just after
+           the counts are set to 0 just before and read just after, every
+           flash launch (forward and both backward kernels) checked to take
+           the bf16 wgmma route
   grads    one step's loss and gradients of full gpt2-124m through the kernels
            against the eager attention, and the remat routes none / offload
            against layer (equal), with the offload route's host bytes
@@ -218,6 +221,8 @@ def main() -> None:
     # the wrappers that count their launches by kernel route as well
     routed = {"flash_attention_fwd": fa.flash_attention_fwd,
               "flash_attention_fwd_stats": fa.flash_attention_fwd_stats,
+              "flash_attention_bwd_dkdv": fa.flash_attention_bwd_dkdv,
+              "flash_attention_bwd_dq": fa.flash_attention_bwd_dq,
               "grouped_matmul": gmm.grouped_matmul}
 
     def reset_counts():
@@ -254,8 +259,12 @@ def main() -> None:
                      if "spill" in ln and "0 bytes spill stores, 0 bytes spill loads" not in ln})
     regs = sorted({int(ln.split("Used ")[1].split(" registers")[0])
                    for lines in ptxas.values() for ln in lines if "Used " in ln})
+    # ptxas's C7510-C7519 notes: a wgmma it had to serialize
+    serialized = sorted({ln.strip() for log in _build.build_log.values()
+                         for ln in log.splitlines() if "(C751" in ln})
     emit("build", seconds=round(time.time() - t0, 2), libraries=sorted(libs),
-         nvcc=_build.find_nvcc(), registers=regs, spilling=spills[:8])
+         nvcc=_build.find_nvcc(), registers=regs, spilling=spills[:8],
+         wgmma_serialized=serialized)
     if spills:
         fail(f"ptxas reports register spills: {spills[:4]}")
 
@@ -264,6 +273,10 @@ def main() -> None:
 
     def route_counts():
         return {n: dict(w.launches_by_route) for n, w in routed.items()}
+
+    def check_launches(phase, got, want):
+        if got != want:
+            fail(f"{phase}: launches {got} != expected {want}")
 
     def time_ms(fn, warmup=3, iters=20, cold=False):
         """Median ms of one call between CUDA events; ``cold`` writes
@@ -413,6 +426,8 @@ def main() -> None:
                 q, k, v, causal=causal), iters=5),
             "fwd_stats_library_ms": time_ms(lib_fwd),
             "fwd_stats_bound_ms": fwd_b[0], "fwd_stats_bound_by": fwd_b[1],
+            "bwd_route": fa.BWD_ROUTES[dtype],
+            "delta_ms": time_ms(lambda: fa.bwd_delta(p_out, do)),
             "dkdv_ms": time_ms(lambda: fa.flash_attention_bwd_dkdv(
                 *bwd_args, causal=causal)),
             "dkdv_cold_ms": time_ms(lambda: fa.flash_attention_bwd_dkdv(
@@ -430,6 +445,10 @@ def main() -> None:
             # the library's whole backward (dq, dk, dv in one call), and the
             # same through autograd, whose host work adds to the timed span
             "bwd_library_ms": time_ms(lib_bwd),
+            # like for like with it: one call of the port's whole backward,
+            # delta then dk/dv then dq
+            "bwd_total_ms": time_ms(lambda: fa.flash_attention_bwd(
+                q, k, v, p_out, p_lse, do, causal=causal)),
             "bwd_library_autograd_ms": time_ms(lambda: torch.autograd.grad(
                 lib_out, (ql, kl, vl), do4, retain_graph=True)),
             "bwd_bound_ms": bwd_b[0], "bwd_bound_by": bwd_b[1],
@@ -1161,6 +1180,12 @@ def main() -> None:
         "grouped_matmul": ("0 (no MoE layer)", 0)}
     if train_launches != {n: want for n, (_, want) in launch_formula.items()}:
         fail(f"train: launches {train_launches} != {launch_formula}")
+    # the model trains in bf16: every flash launch on the wgmma kernels
+    check_launches("train routes", train_routes, {
+        n: {"wgmma": train_launches[n], "fma": 0}
+        for n in ("flash_attention_fwd", "flash_attention_fwd_stats",
+                  "flash_attention_bwd_dkdv", "flash_attention_bwd_dq")}
+        | {"grouped_matmul": {"wgmma": 0, "mma_sync": 0, "fma": 0}})
     step_ms = statistics.median(tstats.step_seconds) * 1e3
     emit("train", arch=tcfg.name, layers=L, d_model=tcfg.d_model,
          vocab=tcfg.vocab_size, params=tcfg.param_count(),
@@ -1246,10 +1271,6 @@ def main() -> None:
         the per-head ``D_skip`` of every Mamba2 layer, which both packages'
         init create."""
         return cfg.param_count() + cfg.num_layers * cfg.ssm_heads
-
-    def check_launches(phase, got, want):
-        if got != want:
-            fail(f"{phase}: launches {got} != expected {want}")
 
     scfg = get_config("mamba2-130m").with_(remat="none", param_dtype="bfloat16")
     smodel = build_model(scfg, dev)
@@ -1558,6 +1579,8 @@ def main() -> None:
         "flash_attention_fwd": {"wgmma": moe_launches["flash_attention_fwd"],
                                 "fma": 0},
         "flash_attention_fwd_stats": {"wgmma": 0, "fma": 0},
+        "flash_attention_bwd_dkdv": {"wgmma": 0, "fma": 0},
+        "flash_attention_bwd_dq": {"wgmma": 0, "fma": 0},
         "grouped_matmul": {"wgmma": moe_launches["grouped_matmul"],
                            "mma_sync": 0, "fma": 0}})
     mtokens = sum(len(v) for v in mout.values())
@@ -1685,6 +1708,8 @@ def main() -> None:
         "flash_attention_fwd": {"wgmma": mrt_launches["flash_attention_fwd"],
                                 "fma": 0},
         "flash_attention_fwd_stats": {"wgmma": 0, "fma": 0},
+        "flash_attention_bwd_dkdv": {"wgmma": 0, "fma": 0},
+        "flash_attention_bwd_dq": {"wgmma": 0, "fma": 0},
         "grouped_matmul": {"wgmma": mrt_launches["grouped_matmul"],
                            "mma_sync": 0, "fma": 0}})
     per_pass = mcfg.num_layers * m_leaf[0].numel() * m_leaf.element_size()

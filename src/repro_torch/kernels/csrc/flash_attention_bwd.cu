@@ -21,24 +21,36 @@
 // recomputed forward gives the same gradients bit for bit. Under causality
 // the dk/dv block starts its q loop at the diagonal (the TPU kernel's
 // `needed`, reversed) and the dq block stops its kv loop there. Rows past Sq
-// and columns past Sk are masked here, so any S works.
+// and columns past Sk are masked here, so any S works. The heaviest blocks
+// are scheduled first: kv tile 0 for dk/dv, the last q tile for dq.
 //
-// What bounds it. The five products of the backward (2*BH*Sq*Sk*hd
-// operations each, half of it when causal) make it operation-bound at the
-// training shapes in bf16, and in fp32 (67 TFLOP/s outside the tensor cores).
-// One kernel per input type:
+// What bounds it. The seven products of the backward (2*BH*Sq*Sk*hd
+// operations each, half of it when causal; four in dkdv, three in dq) make
+// it operation-bound at the training shapes in bf16, and in fp32 (67 TFLOP/s
+// outside the tensor cores). One kernel per input type:
 //
-//  * bf16 — tensor cores (mma.sync m16n8k16, fp32 accumulate). In dkdv a warp
-//    owns 16 kv rows: S^T = K Q^T and dP^T = V dO^T land in accumulator
-//    registers, and p^T and dS^T, rounded to bf16, are directly the A operand
-//    of dV += p^T dO and dK += dS^T Q, whose B operands are dO and Q stored
-//    transposed in shared memory. In dq a warp owns 16 q rows the same way and
-//    dS, rounded to bf16, feeds dQ += dS K with K stored transposed.
-//    Register pressure sets the q tile of dkdv: its dK and dV accumulators
-//    are hd/2 fp32 registers each per thread (128 at hd = 128), beside the
-//    score and dP tiles (q tile / 2 each); the q tile is 64 rows for hd <= 64
-//    and 32 rows at hd = 128, so that ptxas keeps everything in registers
-//    (checked with -Xptxas -v in the build; no spills).
+//  * bf16 — wgmma fed by TMA (flash_bwd_dkdv_wgmma_kernel,
+//    flash_bwd_dq_wgmma_kernel). A block is one warpgroup, and two blocks
+//    share an SM, so that one's tensor-core products overlap the other's
+//    exponentials. In dkdv the K and V tiles land in swizzled shared memory
+//    once, and (Q, dO) tiles of 64 q rows stream through a two-stage TMA
+//    ring. Per q tile the warpgroup runs S^T = K Q^T and dP^T = V dO^T (both
+//    operands K-major as TMA laid them down), forms p^T and dS^T in
+//    registers, and runs dV += p^T dO and dK += dS^T Q with p^T and dS^T,
+//    rounded to bf16, as the register A operand and dO and Q read MN-major
+//    through the transpose bit. In dq, Q and dO land once and K and V stream
+//    through the ring: S = Q K^T, dP = dO V^T, dQ += dS K with K read
+//    MN-major. Nothing is transposed in shared memory. The products go out
+//    in separate commit groups, so that the exponentials run while dP is
+//    multiplied, and dS is formed while dV is. There is no producer warp:
+//    lse and delta take plain loads (their fp32 rows need not be 16-byte
+//    multiples, which TMA wants), and thread 0 refills a stage once a block
+//    barrier shows every warp done with it. Four warps a block leave a
+//    thread up to 255 registers with two blocks an SM (a fifth, producer,
+//    warp capped it at 168, which dK and dV at hd 128 alone nearly fill).
+//    What still bounds it: inside one warpgroup the exponentials and the
+//    products still take turns in part (two blocks an SM hide some of it),
+//    and the tiles are 64 x 64, so every wgmma is short.
 //  * fp32 — true fp32 FMA on the CUDA cores (no TF32), as the reference holds
 //    fp32 gradients to 1e-4. 256 threads; each keeps a 4x4 tile of scores and
 //    4 x hd/16 tiles of its accumulators in registers; p and dS go through
@@ -46,19 +58,18 @@
 //    shared memory, so one block fills an SM: the launch bounds say so, and
 //    ptxas may then give a thread up to 255 registers (at the default it
 //    held them to 128 and spilled in dq at hd = 128 and dkdv at hd = 64).
+//    Loads do not overlap products.
 //
-// Neither overlaps loads with products (no cp.async / TMA ring) and neither
-// uses wgmma; that is later work behind the same interface.
-//
-// Inputs fp32 or bf16, head dim 16, 32, 64 or 128, outputs in the input type.
+// Every bf16 input the wrapper takes (contiguous, 16-byte aligned, rows of
+// hd * 2 >= 32 bytes) is one a TMA descriptor takes, so bf16 has no other
+// route. Inputs fp32 or bf16, head dim 16, 32, 64 or 128, outputs in the
+// input type.
 #include "flash_common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
-using flash::ld32;
-using flash::mma_bf16_m16n8k16;
 using flash::pack_bf16;
-using flash::st32;
 
 // ---------------------------------------------------------------------------
 // fp32: FMA kernels, 16 x 16 threads, 64 x 64 score tiles
@@ -326,277 +337,369 @@ bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// bf16: tensor-core kernels, 4 warps, 16 rows a warp
+// bf16: wgmma on TMA rings, one warpgroup a block
 // ---------------------------------------------------------------------------
-constexpr int MT = 128;
+constexpr int TILE = 64;           // rows of every tile: a block's own, and those it streams
+constexpr int STAGES = 2;          // stages of either ring (deeper ones were no faster)
+constexpr int WT = 128;            // one warpgroup
+constexpr float LOG2E = 1.4426950408889634f;
 
-// q rows per tile of the dkdv kernel (see the header on register pressure)
-template <int HD> struct DkdvTile { static constexpr int BMQ = HD <= 64 ? 64 : 32; };
-
-template <int HD>
-__global__ void __launch_bounds__(MT)
-bwd_dkdv_mma_kernel(const __nv_bfloat16* __restrict__ q,
-                    const __nv_bfloat16* __restrict__ k,
-                    const __nv_bfloat16* __restrict__ v,
-                    const __nv_bfloat16* __restrict__ dout,
-                    const float* __restrict__ lse,
-                    const float* __restrict__ delta,
-                    __nv_bfloat16* __restrict__ dk,
-                    __nv_bfloat16* __restrict__ dv, int BH, int Sq, int Sk,
-                    int causal, float scale) {
-  constexpr int BMQ = DkdvTile<HD>::BMQ;
-  constexpr int KP = HD + 8;     // pitch of the row-major tiles
-  constexpr int TP = BMQ + 8;    // pitch of the transposed (HD, BMQ) tiles
-  constexpr int KS = HD / 16;    // k-steps over hd
-  constexpr int NQ = BMQ / 8;    // 8-wide column tiles over the q tile
-  constexpr int KQ = BMQ / 16;   // k-steps over the q tile
-  constexpr int ND = HD / 8;     // 8-wide column tiles over hd
-
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // (BK, KP)
-  __nv_bfloat16* Vs = Ks + BK * KP;                                // (BK, KP)
-  __nv_bfloat16* Qs = Vs + BK * KP;                                // (BMQ, KP)
-  __nv_bfloat16* dOs = Qs + BMQ * KP;                              // (BMQ, KP)
-  __nv_bfloat16* Qt = dOs + BMQ * KP;                              // (HD, TP)
-  __nv_bfloat16* dOt = Qt + HD * TP;                               // (HD, TP)
-  float* Ls = reinterpret_cast<float*>(dOt + HD * TP);             // (BMQ)
-  float* Ds = Ls + BMQ;                                            // (BMQ)
-
-  const int lane = threadIdx.x & 31;
-  const int r0 = (threadIdx.x >> 5) * 16;  // this warp's first kv row
-  const int g = lane >> 2;
-  const int tig = lane & 3;
-  const int kt = static_cast<int>(blockIdx.x) / BH;  // kv tile 0 is heaviest
-  const int bh = static_cast<int>(blockIdx.x) % BH;
-  const int k0 = kt * BK;
-  const int k_valid = min(BK, Sk - k0);
-  const size_t qrow0 = static_cast<size_t>(bh) * Sq;
-  const size_t krow0 = static_cast<size_t>(bh) * Sk + k0;
-
-  flash::load_tile_bf16<HD, BK, MT>(Ks, k + krow0 * HD, k_valid);
-  flash::load_tile_bf16<HD, BK, MT>(Vs, v + krow0 * HD, k_valid);
-
-  float dk_acc[ND][4], dv_acc[ND][4];
-#pragma unroll
-  for (int n = 0; n < ND; ++n)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) dk_acc[n][c] = dv_acc[n][c] = 0.f;
-
-  const int nq = (Sq + BMQ - 1) / BMQ;
-  for (int iq = causal ? k0 / BMQ : 0; iq < nq; ++iq) {
-    const int q0 = iq * BMQ;
-    const int q_valid = min(BMQ, Sq - q0);
-    __syncthreads();  // the previous tile is no longer read
-    const __nv_bfloat16* qt = q + (qrow0 + q0) * HD;
-    const __nv_bfloat16* dot = dout + (qrow0 + q0) * HD;
-    flash::load_tile_bf16<HD, BMQ, MT>(Qs, qt, q_valid);
-    flash::load_tile_bf16<HD, BMQ, MT>(dOs, dot, q_valid);
-    flash::load_tile_bf16_transposed<HD, BMQ, MT>(Qt, qt, q_valid);
-    flash::load_tile_bf16_transposed<HD, BMQ, MT>(dOt, dot, q_valid);
-    for (int i = threadIdx.x; i < BMQ; i += MT) {
-      Ls[i] = i < q_valid ? lse[qrow0 + q0 + i] : 0.f;
-      Ds[i] = i < q_valid ? delta[qrow0 + q0 + i] : 0.f;
-    }
-    __syncthreads();
-
-    // S^T = K Q^T and dP^T = V dO^T for this warp's 16 kv rows
-    float s[NQ][4], dp[NQ][4];
-#pragma unroll
-    for (int n = 0; n < NQ; ++n)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) s[n][c] = dp[n][c] = 0.f;
-#pragma unroll
-    for (int ks = 0; ks < KS; ++ks) {
-      const __nv_bfloat16* ka = Ks + (r0 + g) * KP + ks * 16 + 2 * tig;
-      const __nv_bfloat16* va = Vs + (r0 + g) * KP + ks * 16 + 2 * tig;
-      const uint32_t a_k[4] = {ld32(ka), ld32(ka + 8 * KP), ld32(ka + 8),
-                               ld32(ka + 8 * KP + 8)};
-      const uint32_t a_v[4] = {ld32(va), ld32(va + 8 * KP), ld32(va + 8),
-                               ld32(va + 8 * KP + 8)};
-#pragma unroll
-      for (int n = 0; n < NQ; ++n) {
-        const __nv_bfloat16* qb = Qs + (n * 8 + g) * KP + ks * 16 + 2 * tig;
-        const __nv_bfloat16* ob = dOs + (n * 8 + g) * KP + ks * 16 + 2 * tig;
-        mma_bf16_m16n8k16(s[n], a_k, ld32(qb), ld32(qb + 8));
-        mma_bf16_m16n8k16(dp[n], a_v, ld32(ob), ld32(ob + 8));
-      }
-    }
-
-    // p^T and dS^T in place of S^T and dP^T
-#pragma unroll
-    for (int n = 0; n < NQ; ++n)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int kv = k0 + r0 + g + (c >> 1) * 8;
-        const int qc = n * 8 + 2 * tig + (c & 1);
-        const int qq = q0 + qc;
-        const bool keep = kv < Sk && qq < Sq && (!causal || qq >= kv);
-        const float p = keep ? expf(s[n][c] * scale - Ls[qc]) : 0.f;
-        s[n][c] = p;
-        dp[n][c] = p * (dp[n][c] - Ds[qc]);
-      }
-
-    // dV += p^T dO and dK += dS^T Q: two neighbouring column tiles of the
-    // accumulators, rounded to bf16, are the A operand of one k-step
-#pragma unroll
-    for (int kq = 0; kq < KQ; ++kq) {
-      const uint32_t a_p[4] = {pack_bf16(s[2 * kq][0], s[2 * kq][1]),
-                               pack_bf16(s[2 * kq][2], s[2 * kq][3]),
-                               pack_bf16(s[2 * kq + 1][0], s[2 * kq + 1][1]),
-                               pack_bf16(s[2 * kq + 1][2], s[2 * kq + 1][3])};
-      const uint32_t a_ds[4] = {pack_bf16(dp[2 * kq][0], dp[2 * kq][1]),
-                                pack_bf16(dp[2 * kq][2], dp[2 * kq][3]),
-                                pack_bf16(dp[2 * kq + 1][0], dp[2 * kq + 1][1]),
-                                pack_bf16(dp[2 * kq + 1][2], dp[2 * kq + 1][3])};
-#pragma unroll
-      for (int n = 0; n < ND; ++n) {
-        const __nv_bfloat16* ob = dOt + (n * 8 + g) * TP + kq * 16 + 2 * tig;
-        const __nv_bfloat16* qb = Qt + (n * 8 + g) * TP + kq * 16 + 2 * tig;
-        mma_bf16_m16n8k16(dv_acc[n], a_p, ld32(ob), ld32(ob + 8));
-        mma_bf16_m16n8k16(dk_acc[n], a_ds, ld32(qb), ld32(qb + 8));
-      }
-    }
-  }
-
-  // a warp reads only its own 16 rows of Ks and Vs, so it may overwrite them
-  // with its dK and dV rows; then the block stores both tiles
-#pragma unroll
-  for (int n = 0; n < ND; ++n) {
-    __nv_bfloat16* kd = Ks + (r0 + g) * KP + n * 8 + 2 * tig;
-    __nv_bfloat16* vd = Vs + (r0 + g) * KP + n * 8 + 2 * tig;
-    st32(kd, pack_bf16(dk_acc[n][0] * scale, dk_acc[n][1] * scale));
-    st32(kd + 8 * KP, pack_bf16(dk_acc[n][2] * scale, dk_acc[n][3] * scale));
-    st32(vd, pack_bf16(dv_acc[n][0], dv_acc[n][1]));
-    st32(vd + 8 * KP, pack_bf16(dv_acc[n][2], dv_acc[n][3]));
-  }
-  __syncthreads();
-  flash::store_tile_bf16<HD, BK, MT>(dk + krow0 * HD, Ks, k_valid);
-  flash::store_tile_bf16<HD, BK, MT>(dv + krow0 * HD, Vs, k_valid);
+// 2^x on the MUFU unit, results below 2^-126 flushed to 0 (exp2f rescales
+// around the instruction to keep them, which measured slower)
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
 }
 
 template <int HD>
-__global__ void __launch_bounds__(MT)
-bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q,
-                  const __nv_bfloat16* __restrict__ k,
-                  const __nv_bfloat16* __restrict__ v,
-                  const __nv_bfloat16* __restrict__ dout,
-                  const float* __restrict__ lse,
-                  const float* __restrict__ delta,
-                  __nv_bfloat16* __restrict__ dq, int BH, int Sq, int Sk,
-                  int causal, float scale) {
-  constexpr int KP = HD + 8;     // pitch of the row-major tiles
-  constexpr int TP = BK + 8;     // pitch of the transposed K tile
-  constexpr int KS = HD / 16;    // k-steps over hd
-  constexpr int NK = BK / 8;     // 8-wide column tiles over the kv tile
-  constexpr int KK = BK / 16;    // k-steps over the kv tile
-  constexpr int ND = HD / 8;     // 8-wide column tiles over hd
+struct BwdTile {
+  static constexpr int SW = HD * 2 >= 128 ? 128 : HD * 2;  // swizzle: bytes a row of a chunk
+  static constexpr int CH = HD * 2 / SW;                    // 128-byte column chunks
+  static constexpr int BOX = SW / 2;                        // elements a TMA box row
+  static constexpr int BYTES = TILE * HD * 2;               // one tile
+  // the block's two tiles and a ring of two a stage, 1 KB of alignment slack
+  static constexpr int SMEM = (2 + 2 * STAGES) * BYTES + 1024;
+};
 
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // (BQ, KP)
-  __nv_bfloat16* dOs = Qs + BQ * KP;                               // (BQ, KP)
-  __nv_bfloat16* Ks = dOs + BQ * KP;                               // (BK, KP)
-  __nv_bfloat16* Vs = Ks + BK * KP;                                // (BK, KP)
-  __nv_bfloat16* Kt = Vs + BK * KP;                                // (HD, TP)
+// A tile from row `row` of head bh: one TMA box per column chunk, chunk c
+// at c * TILE * SW.
+template <int HD>
+__device__ __forceinline__ void tma_tile(unsigned char* dst, const CUtensorMap* map,
+                                         uint64_t* bar, int row, int bh) {
+  using T = BwdTile<HD>;
+#pragma unroll
+  for (int c = 0; c < T::CH; ++c)
+    hopper::tma_load_3d(dst + c * TILE * T::SW, map, bar, c * T::BOX, row, bh);
+}
 
-  const int lane = threadIdx.x & 31;
-  const int r0 = (threadIdx.x >> 5) * 16;  // this warp's first q row
-  const int g = lane >> 2;
-  const int tig = lane & 3;
-  const int nq = (Sq + BQ - 1) / BQ;
+// Descriptors of k-step kk of a tile: K-major (hd is the product's K: 32
+// bytes a step, inside the chunk that holds them), and MN-major (the tile's
+// rows are the product's K: 16 rows a step, the column chunks TILE * SW
+// bytes apart).
+template <int HD>
+__device__ __forceinline__ uint64_t kmajor(const unsigned char* tile, int kk) {
+  constexpr int SW = BwdTile<HD>::SW;
+  return hopper::make_desc(tile + (kk * 32 / SW) * TILE * SW + kk * 32 % SW, 16,
+                           8 * SW, SW);
+}
+template <int HD>
+__device__ __forceinline__ uint64_t mnmajor(const unsigned char* tile, int kk) {
+  constexpr int SW = BwdTile<HD>::SW;
+  return hopper::make_desc(tile + kk * 16 * SW, TILE * SW, 8 * SW, SW);
+}
+
+// Accumulators rounded to bf16 as A fragments: those of two neighbouring
+// 8-column groups are one 16-wide k-step.
+template <int N>
+__device__ __forceinline__ void to_frags(uint32_t (&a)[N / 16][4],
+                                         const float (&d)[N / 2]) {
+#pragma unroll
+  for (int kk = 0; kk < N / 16; ++kk)
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      a[kk][i] = pack_bf16(d[8 * kk + 2 * i], d[8 * kk + 2 * i + 1]);
+}
+
+// Rows r and r + 8 of a 64-row accumulator (d[4j + 2h + e]: row r + 8h,
+// column 8j + 2tq + e) to bf16 rows of HD at dst, each multiplied by mul,
+// rows at or past `valid` skipped.
+template <int HD>
+__device__ __forceinline__ void store_rows(__nv_bfloat16* dst, const float (&d)[HD / 2],
+                                           int r, int tq, int valid, float mul) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    if (r + 8 * h >= valid) continue;
+    __nv_bfloat16* row = dst + static_cast<size_t>(r + 8 * h) * HD + 2 * tq;
+#pragma unroll
+    for (int j = 0; j < HD / 8; ++j)
+      *reinterpret_cast<uint32_t*>(row + 8 * j) =
+          pack_bf16(d[4 * j + 2 * h] * mul, d[4 * j + 2 * h + 1] * mul);
+  }
+}
+
+// dk/dv. qmap and domap (HD, Sq, BH), kmap and vmap (HD, Sk, BH), all with
+// boxes of (BOX, TILE, 1); swizzled SW bytes.
+template <int HD>
+__global__ void __launch_bounds__(WT, 2)
+flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
+                            const __grid_constant__ CUtensorMap kmap,
+                            const __grid_constant__ CUtensorMap vmap,
+                            const __grid_constant__ CUtensorMap domap,
+                            const float* __restrict__ lse,
+                            const float* __restrict__ delta,
+                            __nv_bfloat16* __restrict__ dk,
+                            __nv_bfloat16* __restrict__ dv, int BH, int Sq,
+                            int Sk, int causal, float scale_log2, float scale) {
+  using T = BwdTile<HD>;
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t kvbar, full[STAGES];
+  __shared__ __align__(16) float Ls[2][TILE];   // lse * log2(e) of tile t's rows at t & 1
+  __shared__ __align__(16) float Ds[2][TILE];   // delta of the same rows
+  unsigned char* Ks = hopper::align1024(smem_raw);
+  unsigned char* Vs = Ks + T::BYTES;
+  unsigned char* Qs = Vs + T::BYTES;             // stage s at s * BYTES
+  unsigned char* dOs = Qs + STAGES * T::BYTES;
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int kt = static_cast<int>(blockIdx.x) / BH;  // kv tile 0 is heaviest
+  const int bh = static_cast<int>(blockIdx.x) % BH;
+  const int k0 = kt * TILE;
+  const int nq = (Sq + TILE - 1) / TILE;
+  const int iq0 = causal ? min(k0 / TILE, nq) : 0;     // the diagonal's q tile
+  const int ntiles = nq - iq0;
+  const float* lse_bh = lse + static_cast<size_t>(bh) * Sq;
+  const float* delta_bh = delta + static_cast<size_t>(bh) * Sq;
+  // thread tid < TILE reads lse and delta of row tid of q tile t
+  auto stats = [&](int t, float& l, float& d) {
+    const int row = (iq0 + t) * TILE + tid;
+    const bool in = tid < TILE && t < ntiles && row < Sq;
+    l = in ? lse_bh[row] * LOG2E : 0.f;
+    d = in ? delta_bh[row] : 0.f;
+  };
+  auto load_q_tile = [&](int t) {   // (Q, dO) tile t into stage t % STAGES
+    const int s = t % STAGES;
+    hopper::mbar_expect_tx(&full[s], 2 * T::BYTES);
+    tma_tile<HD>(Qs + s * T::BYTES, &qmap, &full[s], (iq0 + t) * TILE, bh);
+    tma_tile<HD>(dOs + s * T::BYTES, &domap, &full[s], (iq0 + t) * TILE, bh);
+  };
+
+  if (tid == 0) {
+    hopper::mbar_init(&kvbar, 1);
+    for (int s = 0; s < STAGES; ++s) hopper::mbar_init(&full[s], 1);
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    hopper::mbar_expect_tx(&kvbar, 2 * T::BYTES);
+    tma_tile<HD>(Ks, &kmap, &kvbar, k0, bh);
+    tma_tile<HD>(Vs, &vmap, &kvbar, k0, bh);
+    for (int t = 0; t < min(STAGES, ntiles); ++t) load_q_tile(t);
+  }
+  if (tid < TILE) stats(0, Ls[0][tid], Ds[0][tid]);
+
+  // kv rows k0 + r and k0 + r + 8 of this thread; its S^T columns (q rows)
+  // 8 j + 2 tq, + 1
+  const int r = warp * 16 + (lane >> 2);
+  const int tq = lane & 3;
+  float dka[HD / 2], dva[HD / 2];
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) dka[i] = dva[i] = 0.f;
+  __syncthreads();                        // tile 0's lse and delta
+  hopper::mbar_wait(&kvbar, 0);
+  for (int t = 0; t < ntiles; ++t) {
+    const int s = t % STAGES;
+    const int cur = t & 1;
+    const int q0 = (iq0 + t) * TILE;
+    const unsigned char* Qt = Qs + s * T::BYTES;
+    const unsigned char* dOt = dOs + s * T::BYTES;
+    float l_next, d_next;                 // the next tile's, stored at its end
+    stats(t + 1, l_next, d_next);
+
+    // S^T = K Q^T and dP^T = V dO^T (64 kv rows x 64 q columns), two groups
+    float sacc[TILE / 2], dpacc[TILE / 2];
+#pragma unroll
+    for (int i = 0; i < TILE / 2; ++i) sacc[i] = dpacc[i] = 0.f;
+    hopper::mbar_wait(&full[s], (t / STAGES) & 1);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk)
+      hopper::wgmma_ss<0>(sacc, kmajor<HD>(Ks, kk), kmajor<HD>(Qt, kk));
+    hopper::wgmma_commit();
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk)
+      hopper::wgmma_ss<0>(dpacc, kmajor<HD>(Vs, kk), kmajor<HD>(dOt, kk));
+    hopper::wgmma_commit();
+
+    // p^T while dP^T runs; masks only on tiles at an edge or the diagonal
+    hopper::wgmma_wait<1>();
+    hopper::fence_regs(sacc);
+    const bool masked = k0 + TILE > Sk || q0 + TILE > Sq ||
+                        (causal && q0 < k0 + TILE - 1);
+#pragma unroll
+    for (int j = 0; j < TILE / 8; ++j) {
+      const float2 l2 = *reinterpret_cast<const float2*>(&Ls[cur][8 * j + 2 * tq]);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int kv = k0 + r + (i >> 1) * 8;
+        const int qq = q0 + 8 * j + 2 * tq + (i & 1);
+        const bool keep = !masked || (kv < Sk && qq < Sq && (!causal || qq >= kv));
+        sacc[4 * j + i] =
+            keep ? exp2_ftz(sacc[4 * j + i] * scale_log2 - ((i & 1) ? l2.y : l2.x)) : 0.f;
+      }
+    }
+
+    // dV += p^T dO (dO read MN-major), and dS^T = p^T (dP^T - delta) while it
+    // runs; then dK += dS^T Q
+    uint32_t pa[TILE / 16][4], da[TILE / 16][4];
+    to_frags<TILE>(pa, sacc);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < TILE / 16; ++kk)
+      hopper::wgmma_rs<1>(dva, pa[kk], mnmajor<HD>(dOt, kk));
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<1>();
+    hopper::fence_regs(dpacc);
+#pragma unroll
+    for (int j = 0; j < TILE / 8; ++j) {
+      const float2 d2 = *reinterpret_cast<const float2*>(&Ds[cur][8 * j + 2 * tq]);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        dpacc[4 * j + i] = sacc[4 * j + i] * (dpacc[4 * j + i] - ((i & 1) ? d2.y : d2.x));
+    }
+    to_frags<TILE>(da, dpacc);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < TILE / 16; ++kk)
+      hopper::wgmma_rs<1>(dka, da[kk], mnmajor<HD>(Qt, kk));
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(dva);
+    hopper::fence_regs(dka);
+    hopper::fence_frags(pa);
+    hopper::fence_frags(da);
+
+    // every warp is done with stage s and with tile t's lse and delta: the
+    // next tile's go in, and stage s takes tile t + STAGES
+    if (tid < TILE) {
+      Ls[cur ^ 1][tid] = l_next;
+      Ds[cur ^ 1][tid] = d_next;
+    }
+    __syncthreads();
+    if (tid == 0 && t + STAGES < ntiles) load_q_tile(t + STAGES);
+  }
+
+  const size_t row0 = static_cast<size_t>(bh) * Sk + k0;
+  store_rows<HD>(dk + row0 * HD, dka, r, tq, Sk - k0, scale);
+  store_rows<HD>(dv + row0 * HD, dva, r, tq, Sk - k0, 1.f);
+}
+
+// dq. The same maps.
+template <int HD>
+__global__ void __launch_bounds__(WT, 2)
+flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
+                          const __grid_constant__ CUtensorMap kmap,
+                          const __grid_constant__ CUtensorMap vmap,
+                          const __grid_constant__ CUtensorMap domap,
+                          const float* __restrict__ lse,
+                          const float* __restrict__ delta,
+                          __nv_bfloat16* __restrict__ dq, int BH, int Sq, int Sk,
+                          int causal, float scale_log2, float scale) {
+  using T = BwdTile<HD>;
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t qbar, full[STAGES];
+  unsigned char* Qs = hopper::align1024(smem_raw);
+  unsigned char* dOs = Qs + T::BYTES;
+  unsigned char* Ks = dOs + T::BYTES;               // stage s at s * BYTES
+  unsigned char* Vs = Ks + STAGES * T::BYTES;
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int nq = (Sq + TILE - 1) / TILE;
   const int qt = nq - 1 - static_cast<int>(blockIdx.x) / BH;  // heavy first
   const int bh = static_cast<int>(blockIdx.x) % BH;
-  const int q0 = qt * BQ;
-  const int q_valid = min(BQ, Sq - q0);
-  const size_t qrow0 = static_cast<size_t>(bh) * Sq + q0;
-  const size_t krow0 = static_cast<size_t>(bh) * Sk;
+  const int q0 = qt * TILE;
+  int nkv = (Sk + TILE - 1) / TILE;
+  if (causal) nkv = min(nkv, (q0 + TILE - 1) / TILE + 1);   // to the diagonal
+  auto load_kv_tile = [&](int t) {   // K and V tile t into stage t % STAGES
+    const int s = t % STAGES;
+    hopper::mbar_expect_tx(&full[s], 2 * T::BYTES);
+    tma_tile<HD>(Ks + s * T::BYTES, &kmap, &full[s], t * TILE, bh);
+    tma_tile<HD>(Vs + s * T::BYTES, &vmap, &full[s], t * TILE, bh);
+  };
 
-  flash::load_tile_bf16<HD, BQ, MT>(Qs, q + qrow0 * HD, q_valid);
-  flash::load_tile_bf16<HD, BQ, MT>(dOs, dout + qrow0 * HD, q_valid);
+  if (tid == 0) {
+    hopper::mbar_init(&qbar, 1);
+    for (int s = 0; s < STAGES; ++s) hopper::mbar_init(&full[s], 1);
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    hopper::mbar_expect_tx(&qbar, 2 * T::BYTES);
+    tma_tile<HD>(Qs, &qmap, &qbar, q0, bh);
+    tma_tile<HD>(dOs, &domap, &qbar, q0, bh);
+    for (int t = 0; t < min(STAGES, nkv); ++t) load_kv_tile(t);
+  }
+
+  // q rows q0 + r and q0 + r + 8 of this thread
+  const int r = warp * 16 + (lane >> 2);
+  const int tq = lane & 3;
   float lse_r[2], delta_r[2];
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
-    const int r = r0 + g + h * 8;
-    lse_r[h] = r < q_valid ? lse[qrow0 + r] : 0.f;
-    delta_r[h] = r < q_valid ? delta[qrow0 + r] : 0.f;
+    const int row = q0 + r + 8 * h;
+    const size_t at = static_cast<size_t>(bh) * Sq + row;
+    lse_r[h] = row < Sq ? lse[at] * LOG2E : 0.f;
+    delta_r[h] = row < Sq ? delta[at] : 0.f;
   }
-
-  float dq_acc[ND][4];
+  float dqa[HD / 2];
 #pragma unroll
-  for (int n = 0; n < ND; ++n)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) dq_acc[n][c] = 0.f;
-
-  int nkv = (Sk + BK - 1) / BK;
-  if (causal) nkv = min(nkv, (q0 + BQ - 1) / BK + 1);
+  for (int i = 0; i < HD / 2; ++i) dqa[i] = 0.f;
+  hopper::mbar_wait(&qbar, 0);
   for (int t = 0; t < nkv; ++t) {
-    const int k0 = t * BK;
-    const int k_valid = min(BK, Sk - k0);
-    __syncthreads();  // the previous tile is no longer read
-    const __nv_bfloat16* kb = k + (krow0 + k0) * HD;
-    flash::load_tile_bf16<HD, BK, MT>(Ks, kb, k_valid);
-    flash::load_tile_bf16<HD, BK, MT>(Vs, v + (krow0 + k0) * HD, k_valid);
-    flash::load_tile_bf16_transposed<HD, BK, MT>(Kt, kb, k_valid);
+    const int s = t % STAGES;
+    const int k0 = t * TILE;
+    const unsigned char* Kt = Ks + s * T::BYTES;
+    const unsigned char* Vt = Vs + s * T::BYTES;
+
+    // S = Q K^T and dP = dO V^T (64 q rows x 64 kv columns), two groups
+    float sacc[TILE / 2], dpacc[TILE / 2];
+#pragma unroll
+    for (int i = 0; i < TILE / 2; ++i) sacc[i] = dpacc[i] = 0.f;
+    hopper::mbar_wait(&full[s], (t / STAGES) & 1);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk)
+      hopper::wgmma_ss<0>(sacc, kmajor<HD>(Qs, kk), kmajor<HD>(Kt, kk));
+    hopper::wgmma_commit();
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk)
+      hopper::wgmma_ss<0>(dpacc, kmajor<HD>(dOs, kk), kmajor<HD>(Vt, kk));
+    hopper::wgmma_commit();
+
+    // p while dP runs, then dS = p (dP - delta) in place of dP
+    hopper::wgmma_wait<1>();
+    hopper::fence_regs(sacc);
+    const bool masked = k0 + TILE > Sk || q0 + TILE > Sq ||
+                        (causal && k0 + TILE - 1 > q0);
+#pragma unroll
+    for (int j = 0; j < TILE / 8; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int qq = q0 + r + (i >> 1) * 8;
+        const int kv = k0 + 8 * j + 2 * tq + (i & 1);
+        const bool keep = !masked || (qq < Sq && kv < Sk && (!causal || qq >= kv));
+        sacc[4 * j + i] =
+            keep ? exp2_ftz(sacc[4 * j + i] * scale_log2 - lse_r[i >> 1]) : 0.f;
+      }
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(dpacc);
+#pragma unroll
+    for (int i = 0; i < TILE / 2; ++i)
+      dpacc[i] = sacc[i] * (dpacc[i] - delta_r[(i >> 1) & 1]);
+
+    // dQ += dS K: K read MN-major
+    uint32_t da[TILE / 16][4];
+    to_frags<TILE>(da, dpacc);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < TILE / 16; ++kk)
+      hopper::wgmma_rs<1>(dqa, da[kk], mnmajor<HD>(Kt, kk));
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(dqa);
+    hopper::fence_frags(da);
+
+    // every warp is done with stage s: it takes tile t + STAGES
     __syncthreads();
-
-    // S = Q K^T and dP = dO V^T for this warp's 16 q rows
-    float s[NK][4], dp[NK][4];
-#pragma unroll
-    for (int n = 0; n < NK; ++n)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) s[n][c] = dp[n][c] = 0.f;
-#pragma unroll
-    for (int ks = 0; ks < KS; ++ks) {
-      const __nv_bfloat16* qa = Qs + (r0 + g) * KP + ks * 16 + 2 * tig;
-      const __nv_bfloat16* oa = dOs + (r0 + g) * KP + ks * 16 + 2 * tig;
-      const uint32_t a_q[4] = {ld32(qa), ld32(qa + 8 * KP), ld32(qa + 8),
-                               ld32(qa + 8 * KP + 8)};
-      const uint32_t a_o[4] = {ld32(oa), ld32(oa + 8 * KP), ld32(oa + 8),
-                               ld32(oa + 8 * KP + 8)};
-#pragma unroll
-      for (int n = 0; n < NK; ++n) {
-        const __nv_bfloat16* kb2 = Ks + (n * 8 + g) * KP + ks * 16 + 2 * tig;
-        const __nv_bfloat16* vb2 = Vs + (n * 8 + g) * KP + ks * 16 + 2 * tig;
-        mma_bf16_m16n8k16(s[n], a_q, ld32(kb2), ld32(kb2 + 8));
-        mma_bf16_m16n8k16(dp[n], a_o, ld32(vb2), ld32(vb2 + 8));
-      }
-    }
-
-    // dS = p * (dP - delta) in place of dP
-#pragma unroll
-    for (int n = 0; n < NK; ++n)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int qq = q0 + r0 + g + (c >> 1) * 8;
-        const int kv = k0 + n * 8 + 2 * tig + (c & 1);
-        const bool keep = qq < Sq && kv < Sk && (!causal || qq >= kv);
-        const float p = keep ? expf(s[n][c] * scale - lse_r[c >> 1]) : 0.f;
-        dp[n][c] = p * (dp[n][c] - delta_r[c >> 1]);
-      }
-
-    // dQ += dS K, with dS rounded to bf16 as the A operand
-#pragma unroll
-    for (int kk = 0; kk < KK; ++kk) {
-      const uint32_t a_ds[4] = {pack_bf16(dp[2 * kk][0], dp[2 * kk][1]),
-                                pack_bf16(dp[2 * kk][2], dp[2 * kk][3]),
-                                pack_bf16(dp[2 * kk + 1][0], dp[2 * kk + 1][1]),
-                                pack_bf16(dp[2 * kk + 1][2], dp[2 * kk + 1][3])};
-#pragma unroll
-      for (int n = 0; n < ND; ++n) {
-        const __nv_bfloat16* kb2 = Kt + (n * 8 + g) * TP + kk * 16 + 2 * tig;
-        mma_bf16_m16n8k16(dq_acc[n], a_ds, ld32(kb2), ld32(kb2 + 8));
-      }
-    }
+    if (tid == 0 && t + STAGES < nkv) load_kv_tile(t + STAGES);
   }
 
-  // a warp reads only its own 16 rows of Qs: it overwrites them with dQ
-#pragma unroll
-  for (int n = 0; n < ND; ++n) {
-    __nv_bfloat16* d = Qs + (r0 + g) * KP + n * 8 + 2 * tig;
-    st32(d, pack_bf16(dq_acc[n][0] * scale, dq_acc[n][1] * scale));
-    st32(d + 8 * KP, pack_bf16(dq_acc[n][2] * scale, dq_acc[n][3] * scale));
-  }
-  __syncthreads();
-  flash::store_tile_bf16<HD, BQ, MT>(dq + qrow0 * HD, Qs, q_valid);
+  store_rows<HD>(dq + (static_cast<size_t>(bh) * Sq + q0) * HD, dqa, r, tq,
+                 Sq - q0, scale);
 }
 
 // ---------------------------------------------------------------------------
@@ -624,36 +727,73 @@ struct Args {
   int BH, Sq, Sk, causal; float scale;
 };
 
+// TMA maps of q, k, v, dout, (HD, S, BH) with boxes of (BOX, TILE, 1).
+template <int HD>
+cudaError_t bwd_maps(const Args& a, CUtensorMap (&m)[4]) {
+  using T = BwdTile<HD>;
+  const uint64_t qdims[3] = {HD, static_cast<uint64_t>(a.Sq), static_cast<uint64_t>(a.BH)};
+  const uint64_t kdims[3] = {HD, static_cast<uint64_t>(a.Sk), static_cast<uint64_t>(a.BH)};
+  const uint64_t qstr[2] = {HD, static_cast<uint64_t>(a.Sq) * HD};
+  const uint64_t kstr[2] = {HD, static_cast<uint64_t>(a.Sk) * HD};
+  const uint32_t box[3] = {T::BOX, TILE, 1};
+  cudaError_t err;
+  if ((err = hopper::make_map(&m[0], a.q, 3, qdims, qstr, box)) != cudaSuccess ||
+      (err = hopper::make_map(&m[1], a.k, 3, kdims, kstr, box)) != cudaSuccess ||
+      (err = hopper::make_map(&m[2], a.v, 3, kdims, kstr, box)) != cudaSuccess)
+    return err;
+  return hopper::make_map(&m[3], a.dout, 3, qdims, qstr, box);
+}
+
+// Either bf16 kernel: a block per (bh, 64-row tile), of k for dkdv, of q
+// for dq.
+template <int HD, bool DKDV>
+cudaError_t launch_wgmma(const Args& a, cudaStream_t stream) {
+  using T = BwdTile<HD>;
+  const long long blocks = static_cast<long long>(((DKDV ? a.Sk : a.Sq) + TILE - 1) / TILE) *
+                           static_cast<long long>(a.BH);
+  if (blocks > 2147483647LL) return cudaErrorInvalidConfiguration;
+  CUtensorMap m[4];
+  cudaError_t err = bwd_maps<HD>(a, m);
+  if (err != cudaSuccess) return err;
+  __nv_bfloat16* o1 = static_cast<__nv_bfloat16*>(a.o1);
+  const dim3 grid(static_cast<unsigned>(blocks));
+  static int allowed[hopper::MAX_DEVICES] = {};   // this kernel's, by device
+  if constexpr (DKDV) {
+    auto kern = flash_bwd_dkdv_wgmma_kernel<HD>;
+    if ((err = hopper::allow_smem(kern, T::SMEM, allowed)) != cudaSuccess) return err;
+    kern<<<grid, dim3(WT), T::SMEM, stream>>>(
+        m[0], m[1], m[2], m[3], a.lse, a.delta, o1, static_cast<__nv_bfloat16*>(a.o2),
+        a.BH, a.Sq, a.Sk, a.causal, a.scale * LOG2E, a.scale);
+  } else {
+    auto kern = flash_bwd_dq_wgmma_kernel<HD>;
+    if ((err = hopper::allow_smem(kern, T::SMEM, allowed)) != cudaSuccess) return err;
+    kern<<<grid, dim3(WT), T::SMEM, stream>>>(m[0], m[1], m[2], m[3], a.lse, a.delta,
+                                                o1, a.BH, a.Sq, a.Sk, a.causal,
+                                                a.scale * LOG2E, a.scale);
+  }
+  return cudaGetLastError();
+}
+
 template <int HD>
 cudaError_t dkdv_hd(int dtype, Args a, cudaStream_t stream) {
+  if (dtype == 1) return launch_wgmma<HD, true>(a, stream);
   const long long tiles = (a.Sk + BK - 1) / BK;
   void* args[] = {&a.q, &a.k, &a.v, &a.dout, &a.lse, &a.delta, &a.o1, &a.o2,
                   &a.BH, &a.Sq, &a.Sk, &a.causal, &a.scale};
-  if (dtype == 0) {
-    constexpr size_t smem = (2 * BK * (HD + 4) + 2 * BQ * (HD + 4) + 2 * BK * PP +
-                             2 * BQ) * sizeof(float);
-    return launch_grid(bwd_dkdv_kernel<HD>, smem, NT, tiles, a.BH, stream, args);
-  }
-  constexpr int BMQ = DkdvTile<HD>::BMQ;
-  constexpr size_t smem = (2 * BK * (HD + 8) + 2 * BMQ * (HD + 8) +
-                           2 * HD * (BMQ + 8)) * sizeof(__nv_bfloat16) +
-                          2 * BMQ * sizeof(float);
-  return launch_grid(bwd_dkdv_mma_kernel<HD>, smem, MT, tiles, a.BH, stream, args);
+  constexpr size_t smem = (2 * BK * (HD + 4) + 2 * BQ * (HD + 4) + 2 * BK * PP +
+                           2 * BQ) * sizeof(float);
+  return launch_grid(bwd_dkdv_kernel<HD>, smem, NT, tiles, a.BH, stream, args);
 }
 
 template <int HD>
 cudaError_t dq_hd(int dtype, Args a, cudaStream_t stream) {
+  if (dtype == 1) return launch_wgmma<HD, false>(a, stream);
   const long long tiles = (a.Sq + BQ - 1) / BQ;
   void* args[] = {&a.q, &a.k, &a.v, &a.dout, &a.lse, &a.delta, &a.o1,
                   &a.BH, &a.Sq, &a.Sk, &a.causal, &a.scale};
-  if (dtype == 0) {
-    constexpr size_t smem = (2 * BQ * (HD + 4) + 2 * BK * (HD + 4) + BQ * PP) *
-                            sizeof(float);
-    return launch_grid(bwd_dq_kernel<HD>, smem, NT, tiles, a.BH, stream, args);
-  }
-  constexpr size_t smem = (2 * BQ * (HD + 8) + 2 * BK * (HD + 8) +
-                           HD * (BK + 8)) * sizeof(__nv_bfloat16);
-  return launch_grid(bwd_dq_mma_kernel<HD>, smem, MT, tiles, a.BH, stream, args);
+  constexpr size_t smem = (2 * BQ * (HD + 4) + 2 * BK * (HD + 4) + BQ * PP) *
+                          sizeof(float);
+  return launch_grid(bwd_dq_kernel<HD>, smem, NT, tiles, a.BH, stream, args);
 }
 
 template <bool DKDV>

@@ -290,14 +290,6 @@ struct FwdTile {
   static constexpr int SMEM = Q_BYTES + 2 * WSTAGES * KV_BYTES + 1024;
 };
 
-template <int R>
-__device__ __forceinline__ void fence_u32(uint32_t (&r)[R][4]) {
-#pragma unroll
-  for (int i = 0; i < R; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
-}
-
 // qmap (HD, Sq, BH), kmap and vmap (HD, Sk, BH): bf16, boxes of (BOX, WQ, 1)
 // and (BOX, WKV, 1), swizzled SW bytes; one box per column chunk.
 template <int HD>
@@ -462,7 +454,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
     hopper::wgmma_commit();
     hopper::wgmma_wait<0>();
     hopper::fence_regs(oacc);
-    fence_u32(pa);
+    hopper::fence_frags(pa);
     if (lane == 0) hopper::mbar_arrive(&empty[s]);
   }
 

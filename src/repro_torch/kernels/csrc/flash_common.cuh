@@ -1,12 +1,11 @@
 // Tile helpers shared by the flash-attention kernels (flash_attention_fwd.cu,
-// flash_attention_bwd.cu). Header only; kernels/_build.py hashes it into
-// every library, so an edit rebuilds both.
+// flash_attention_bwd.cu) and the mma.sync pieces ssd_scan.cu takes from
+// here. Header only; kernels/_build.py hashes it into every library, so an
+// edit rebuilds all of them.
 //
-// fp32 tiles live in shared memory as float with pitch HD + 4; bf16 tiles as
-// __nv_bfloat16 with pitch HD + 8 (row-major) or ROWS + 8 (transposed), as
-// the backward kernels load them (the bf16 forward's tiles are TMA's,
-// hopper.cuh). Every load moves 16 bytes a thread; rows past rows_valid read
-// as zero.
+// fp32 tiles live in shared memory as float with pitch HD + 4 (the bf16
+// kernels' tiles are TMA's, hopper.cuh). Every load moves 16 bytes a thread;
+// rows past rows_valid read as zero.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -99,64 +98,6 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 
 __device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ void st32(__nv_bfloat16* p, uint32_t v) {
-  *reinterpret_cast<uint32_t*>(p) = v;
-}
-
-// ROWS rows of HD bf16 into a tile of pitch HD + 8.
-template <int HD, int ROWS, int NT>
-__device__ __forceinline__ void load_tile_bf16(__nv_bfloat16* dst,
-                                               const __nv_bfloat16* src,
-                                               int rows_valid) {
-  constexpr int VPR = HD / 8;
-  constexpr int PITCH = HD + 8;
-  for (int idx = threadIdx.x; idx < ROWS * VPR; idx += NT) {
-    const int r = idx / VPR;
-    const int cv = idx - r * VPR;
-    uint4 raw = make_uint4(0u, 0u, 0u, 0u);
-    if (r < rows_valid)
-      raw = *reinterpret_cast<const uint4*>(src + static_cast<size_t>(r) * HD + cv * 8);
-    *reinterpret_cast<uint4*>(dst + r * PITCH + cv * 8) = raw;
-  }
-}
-
-// The same rows stored transposed, dst[col][row], pitch ROWS + 8, so that a
-// product whose B operand runs along the rows reads aligned 32-bit pairs.
-// Neighbouring threads take neighbouring rows so that the 16-bit stores do
-// not collide.
-template <int HD, int ROWS, int NT>
-__device__ __forceinline__ void load_tile_bf16_transposed(
-    __nv_bfloat16* dst, const __nv_bfloat16* src, int rows_valid) {
-  constexpr int VPR = HD / 8;
-  constexpr int PITCH = ROWS + 8;
-  for (int idx = threadIdx.x; idx < ROWS * VPR; idx += NT) {
-    const int r = idx % ROWS;
-    const int cv = idx / ROWS;
-    uint4 raw = make_uint4(0u, 0u, 0u, 0u);
-    if (r < rows_valid)
-      raw = *reinterpret_cast<const uint4*>(src + static_cast<size_t>(r) * HD + cv * 8);
-    const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&raw);
-#pragma unroll
-    for (int i = 0; i < 8; ++i) dst[(cv * 8 + i) * PITCH + r] = e[i];
-  }
-}
-
-// A bf16 tile of pitch HD + 8 back to device memory, rows < rows_valid.
-template <int HD, int ROWS, int NT>
-__device__ __forceinline__ void store_tile_bf16(__nv_bfloat16* dst,
-                                                const __nv_bfloat16* src,
-                                                int rows_valid) {
-  constexpr int VPR = HD / 8;
-  constexpr int PITCH = HD + 8;
-  for (int idx = threadIdx.x; idx < ROWS * VPR; idx += NT) {
-    const int r = idx / VPR;
-    const int cv = idx - r * VPR;
-    if (r < rows_valid)
-      *reinterpret_cast<uint4*>(dst + static_cast<size_t>(r) * HD + cv * 8) =
-          *reinterpret_cast<const uint4*>(src + r * PITCH + cv * 8);
-  }
 }
 
 }  // namespace flash

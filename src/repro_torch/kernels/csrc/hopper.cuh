@@ -1,14 +1,17 @@
 // Hopper (sm_90a) building blocks shared by the wgmma kernels of
-// tiled_matmul.cuh (grouped_matmul.cu) and flash_attention_fwd.cu: mbarriers,
-// TMA tile loads, wgmma shared-memory descriptors and instructions, and the
-// host side that encodes a TMA descriptor.
+// tiled_matmul.cuh (grouped_matmul.cu), flash_attention_fwd.cu and
+// flash_attention_bwd.cu: mbarriers, TMA tile loads, wgmma shared-memory
+// descriptors and instructions, and the host side that encodes a TMA
+// descriptor.
 //
-// The shape every kernel built from these takes: a ring of tiles in shared
+// The shape the kernels built from these take: a ring of tiles in shared
 // memory, each stage guarded by a "full" mbarrier (the TMA copy of the stage
 // completes it through its transaction count) and an "empty" one (each
 // consumer warp arrives once it no longer reads the stage); one producer warp
 // whose lane 0 issues the TMA loads; consumer warpgroups that run wgmma on
-// the stages that have landed, the accumulators in registers.
+// the stages that have landed, the accumulators in registers. The flash
+// backward's blocks are one warpgroup that issues its own loads from thread
+// 0 after a block barrier, with no producer warp and no empty barriers.
 //
 // Shared-memory tiles use the TMA's swizzled layouts, which are the layouts
 // wgmma reads: rows of SW bytes (SW = 32, 64 or 128), 16-byte chunks XORed
@@ -153,6 +156,16 @@ template <int R>
 __device__ __forceinline__ void fence_regs(float (&d)[R]) {
 #pragma unroll
   for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// The same for A fragments in registers that a wgmma still reads until the
+// wait.
+template <int R>
+__device__ __forceinline__ void fence_frags(uint32_t (&a)[R][4]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[i][j])::"memory");
 }
 
 // D(64 x N, fp32) += A(64 x 16) B(16 x N), bf16 in. wgmma_ss: A and B from

@@ -20,18 +20,19 @@ Bound on an H100: the forward moves ``4*BH*S*hd*itemsize`` bytes and does
 ``4*BH*pairs*hd`` operations (``pairs`` = S(S+1)/2 when causal), which bound
 it about equally in bf16; the backward's five products make it
 operation-bound. bf16 inputs run the products on the tensor cores, fp32
-accumulate, probabilities and dS rounded to bf16 for their products: the
-forward on ``wgmma`` fed by a TMA ring of K and V tiles, the backward on
-``mma.sync``. fp32 inputs are multiplied on the CUDA cores in true fp32
-(no TF32), as the reference holds fp32 gradients to 1e-4.
+accumulate, probabilities and dS rounded to bf16 for their products, all on
+``wgmma`` fed by TMA rings: the forward's and dq's of K and V tiles, dk/dv's
+of Q and dO tiles; no operand is transposed in shared memory. fp32 inputs
+are multiplied on the CUDA cores in true fp32 (no TF32), as the reference
+holds fp32 gradients to 1e-4.
 
 ``delta = sum_d dO * O`` stays plain torch ops (``bwd_delta``): the reference
 computes it outside any Pallas call.
 
 A tensor on the CPU takes the plain version beside each wrapper. A CUDA
 tensor launches the kernel or raises; nothing falls back. Each wrapper counts
-its launches in ``<wrapper>.launches``; the two forward wrappers also by
-kernel route, ``<wrapper>.launches_by_route`` (``FWD_ROUTES``).
+its launches in ``<wrapper>.launches``, and by kernel route in
+``<wrapper>.launches_by_route`` (``FWD_ROUTES``, ``BWD_ROUTES``).
 """
 from __future__ import annotations
 
@@ -47,6 +48,8 @@ NEG_INF = -1e30
 HEAD_DIMS = (16, 32, 64, 128)
 # the forward kernel by input type: bf16 on wgmma (TMA ring), fp32 on FMA
 FWD_ROUTES = {torch.bfloat16: "wgmma", torch.float32: "fma"}
+# the backward kernels (dk/dv and dq) by input type, the same two routes
+BWD_ROUTES = {torch.bfloat16: "wgmma", torch.float32: "fma"}
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 _P = ctypes.c_void_p
@@ -123,7 +126,9 @@ def _on_cpu(q) -> bool:
 
 def _check_launch(tensors, hd: int, dtype: torch.dtype) -> None:
     """What the kernels take: fp32 or bf16, head dim in HEAD_DIMS, contiguous
-    and 16-byte aligned (they load 16 bytes a thread)."""
+    and 16-byte aligned (the fp32 kernels load 16 bytes a thread; a TMA
+    descriptor of the bf16 ones takes 16-byte bases, and rows of hd * 2 >= 32
+    bytes are whole 16-byte strides)."""
     if dtype not in _DTYPE_CODE:
         raise TypeError(f"kernel takes float32 or bfloat16, got {dtype}")
     if hd not in HEAD_DIMS:
@@ -132,8 +137,8 @@ def _check_launch(tensors, hd: int, dtype: torch.dtype) -> None:
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
         if t.data_ptr() % 16:
-            raise ValueError(f"{name} must be 16-byte aligned (the kernel "
-                             f"loads 16 bytes a thread)")
+            raise ValueError(f"{name} must be 16-byte aligned (the kernels "
+                             f"read 16-byte units)")
 
 
 def _scale(scale, hd) -> float:
@@ -241,8 +246,10 @@ flash_attention_fwd_stats.launches_by_route = dict.fromkeys(FWD_ROUTES.values(),
 # ---------------------------------------------------------------------------
 def bwd_delta(out, dout):
     """delta = sum_d dO * O per row, fp32 (BH, Sq): plain torch ops, outside
-    any kernel, as in the reference."""
-    return (dout.float() * out.float()).sum(dim=-1)
+    any kernel, as in the reference. The product promotes ``out`` to fp32
+    inside the multiply, so only ``dout`` is copied to fp32 first: the same
+    values as casting both, one pass over memory fewer."""
+    return (dout.float() * out).sum(dim=-1)
 
 
 def _bwd_block(qs, k, v, do, lse, delta, k0, block_k, causal):
@@ -327,6 +334,7 @@ def flash_attention_bwd_dkdv(q, k, v, dout, lse, delta, *,
                 delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), BH, Sq, Sk,
                 hd, code, int(bool(causal)), sc)
         flash_attention_bwd_dkdv.launches += 1
+        flash_attention_bwd_dkdv.launches_by_route[BWD_ROUTES[q.dtype]] += 1
     return dk, dv
 
 
@@ -346,11 +354,14 @@ def flash_attention_bwd_dq(q, k, v, dout, lse, delta, *, causal: bool = True,
                 delta.data_ptr(), dq.data_ptr(), BH, Sq, Sk, hd, code,
                 int(bool(causal)), sc)
         flash_attention_bwd_dq.launches += 1
+        flash_attention_bwd_dq.launches_by_route[BWD_ROUTES[q.dtype]] += 1
     return dq
 
 
 flash_attention_bwd_dkdv.launches = 0
 flash_attention_bwd_dq.launches = 0
+flash_attention_bwd_dkdv.launches_by_route = dict.fromkeys(BWD_ROUTES.values(), 0)
+flash_attention_bwd_dq.launches_by_route = dict.fromkeys(BWD_ROUTES.values(), 0)
 
 
 def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool = True,

@@ -173,8 +173,9 @@ def test_runtime_streams_offloaded_weights():
 FLASH_SHAPES = [  # (Sq, Sk, causal): square, ragged, non-causal, cross-length
     (128, 128, True), (300, 300, True), (77, 77, False), (1, 1, True),
     (40, 200, False), (130, 257, True)]
-# the forward's edges besides: one KV tile, one short of two query tiles of
-# the bf16 kernel, a ragged S and a serving length, causal and full
+# the bf16 kernels' tile edges besides: one 64-row tile, one short of two
+# (the forward's 128-row query block), a ragged S and a serving length,
+# causal and full; the forward and the backward tests take both lists
 FWD_SHAPES = FLASH_SHAPES + [(S, S, c) for S in (64, 127, 300, 1024)
                              for c in (True, False) if (S, S, c) != (300, 300, True)]
 
@@ -263,17 +264,22 @@ def _close(got, want, tol, atol=1e-5) -> bool:
 def test_flash_bwd_kernels_match_plain_on_card(dtype):
     """dk/dv and dq kernels against their plain versions on the same lse and
     delta (fp32 1e-4, the reference's backward tolerance; bf16 2e-2), at
-    every head dim, square, ragged and cross lengths, causal and not."""
+    every head dim, square, ragged and cross lengths and the forward's tile
+    edges, causal and not, each launch counted on its route (bf16 wgmma,
+    fp32 fma)."""
     from repro_torch.kernels import flash_attention as fa
     dev = _cuda()
     tol = {torch.float32: 1e-4, torch.bfloat16: 2e-2}[dtype]
+    route = fa.BWD_ROUTES[dtype]
     for hd in fa.HEAD_DIMS:
-        for Sq, Sk, causal in FLASH_SHAPES:
+        for Sq, Sk, causal in FWD_SHAPES:
             q, k, v, do = _flash_inputs(dev, dtype, 4, Sq, Sk, hd, Sq * Sk + hd)
             out, lse = fa.flash_attention_fwd_stats_plain(q, k, v, causal=causal)
             delta = fa.bwd_delta(out, do)
             before = (fa.flash_attention_bwd_dkdv.launches,
-                      fa.flash_attention_bwd_dq.launches)
+                      fa.flash_attention_bwd_dq.launches,
+                      fa.flash_attention_bwd_dkdv.launches_by_route[route],
+                      fa.flash_attention_bwd_dq.launches_by_route[route])
             dk, dv = fa.flash_attention_bwd_dkdv(q, k, v, do, lse, delta,
                                                  causal=causal)
             dq = fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, causal=causal)
@@ -283,8 +289,10 @@ def test_flash_bwd_kernels_match_plain_on_card(dtype):
                                                       causal=causal)
             torch.cuda.synchronize()
             assert (fa.flash_attention_bwd_dkdv.launches,
-                    fa.flash_attention_bwd_dq.launches) == (before[0] + 1,
-                                                            before[1] + 1)
+                    fa.flash_attention_bwd_dq.launches,
+                    fa.flash_attention_bwd_dkdv.launches_by_route[route],
+                    fa.flash_attention_bwd_dq.launches_by_route[route]
+                    ) == tuple(n + 1 for n in before)
             case = (dtype, hd, Sq, Sk, causal)
             assert dq.dtype == dk.dtype == dv.dtype == dtype
             assert _close(dq, want_dq, tol), ("dq",) + case
@@ -549,7 +557,7 @@ def test_grouped_matmul_misaligned_base_takes_mma_sync():
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("what", ["gmm_decode", "gmm_prefill", "gmm_pinned",
-                                  "flash", "flash_stats"])
+                                  "flash", "flash_stats", "flash_bwd"])
 def test_bf16_kernels_are_bit_identical_across_runs(what):
     """No atomics, no split reduction in a changing order: the same bf16
     inputs give the same bits twice."""
@@ -562,9 +570,14 @@ def test_bf16_kernels_are_bit_identical_across_runs(what):
         w = _pinned(w) if what == "gmm_pinned" else w
         run = lambda: gmm.grouped_matmul(x, w)
     else:
-        q, k, v, _ = _flash_inputs(dev, torch.bfloat16, 8, 1000, 1000, 128, 3)
-        run = ((lambda: fa.flash_attention_fwd_stats(q, k, v)) if what == "flash_stats"
-               else (lambda: fa.flash_attention_fwd(q, k, v)))
+        q, k, v, do = _flash_inputs(dev, torch.bfloat16, 8, 1000, 1000, 128, 3)
+        if what == "flash_bwd":             # dq, dk, dv
+            out, lse = fa.flash_attention_fwd_stats(q, k, v)
+            run = lambda: fa.flash_attention_bwd(q, k, v, out, lse, do)
+        elif what == "flash_stats":
+            run = lambda: fa.flash_attention_fwd_stats(q, k, v)
+        else:
+            run = lambda: fa.flash_attention_fwd(q, k, v)
     a, b = run(), run()
     torch.cuda.synchronize()
     for u, v_ in zip(a if isinstance(a, tuple) else (a,),

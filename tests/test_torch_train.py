@@ -132,6 +132,25 @@ def test_flash_bwd_pieces_and_counts_on_cpu():
         fa.flash_attention_bwd_dkdv(q, k, v, do.float(), lse, delta)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_bwd_routes_count_no_launch_on_cpu(dtype):
+    """The backward wrappers' route table maps bf16 to the wgmma kernels and
+    fp32 to the FMA ones, as the forward's does; CPU tensors take the plain
+    versions and count no launch on any route."""
+    assert fa.BWD_ROUTES == {torch.bfloat16: "wgmma", torch.float32: "fma"}
+    assert fa.BWD_ROUTES == fa.FWD_ROUTES
+    wrappers = (fa.flash_attention_bwd_dkdv, fa.flash_attention_bwd_dq)
+    assert all(set(w.launches_by_route) == {"wgmma", "fma"} for w in wrappers)
+    rng = np.random.default_rng(5)
+    q, k, v, do = (to_torch(rng.standard_normal((2, 40, 16)).astype(np.float32),
+                            dtype) for _ in range(4))
+    before = [(w.launches, dict(w.launches_by_route)) for w in wrappers]
+    out, lse = fa.flash_attention_fwd_stats(q, k, v)
+    dq, dk, dv = fa.flash_attention_bwd(q, k, v, out, lse, do)
+    assert dq.dtype == dk.dtype == dv.dtype == dtype
+    assert [(w.launches, dict(w.launches_by_route)) for w in wrappers] == before
+
+
 def test_flash_cv_grads_match_reference():
     """jax.grad of sum(sin(flash_attention_cv)) against torch autograd of the
     port's flash_attention_cv (test_kernels.py:81), 1e-4."""
