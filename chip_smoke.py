@@ -14,11 +14,14 @@ JSON line per phase; any failure is a non-zero exit:
            version's, one library call's, and the card's bound for the work:
            the flash forward (serving), the forward with its lse output and
            the two backward kernels (training; the port's whole backward in
-           one call beside the library's), stream_matmul, ssd_scan (no
-           single PyTorch call computes the SSD: no library time),
-           grouped_matmul (library: torch.bmm) with w on the card and in
-           pinned host memory, the pinned decode at four panel depths, and
-           the host time of one wrapper call beside its library call's
+           one call beside the library's), stream_matmul (each case's
+           route; a pinned w's rate as a share of the 1 GiB pinned copy's,
+           link_memcpy_gb_per_s; the ring at several panel depths beside
+           the library), ssd_scan (no single PyTorch call computes the SSD:
+           no library time), grouped_matmul (library: torch.bmm) with w on
+           the card and in pinned host memory, the pinned decode at four
+           panel depths, and the host time of one wrapper call beside its
+           library call's
   serve    llama3-8b at full width and depth (random bf16 weights from a
            seed) through ServingEngine.run; the kernel launch counts are set
            to 0 just before and read just after
@@ -31,7 +34,9 @@ JSON line per phase; any failure is a non-zero exit:
            KV pool and one stacked MLP matrix to pinned host memory (the
            matrix streamed through stream_matmul in every prefill and tick),
            next to gpt2-124m on 1s.16c; the counts are set to 0 just before
-           SliceRuntime.run and read just after
+           SliceRuntime.run and read just after, every stream_matmul launch
+           checked to take the route stream_matmul.plan gives it (here,
+           hybrid and moe_runtime)
   gpt2     gpt2-124m at full size (layernorm, learned positions, tanh-GELU,
            biases, tied embeddings)
   train    gpt2-124m at full size trained through launch/train.py's path
@@ -230,6 +235,7 @@ def main() -> None:
             w.launches = 0
         for w in routed.values():
             w.launches_by_route = dict.fromkeys(w.launches_by_route, 0)
+        sm.stream_matmul.launches_by_route = dict.fromkeys(sm.ROUTES, 0)
         sm.stream_matmul.h2d_bytes = 0
         gmm.grouped_matmul.h2d_bytes = 0
         mlayers.gather_rows.h2d_bytes = 0
@@ -268,6 +274,7 @@ def main() -> None:
     if spills:
         fail(f"ptxas reports register spills: {spills[:4]}")
 
+
     # -------------------------------------------------------------- kernels
     flush_buf = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
 
@@ -277,6 +284,13 @@ def main() -> None:
     def check_launches(phase, got, want):
         if got != want:
             fail(f"{phase}: launches {got} != expected {want}")
+
+    def planned_stream_routes(engine, per_pass):
+        """stream_matmul's launches by route that stream_matmul.plan gives a
+        run of ``engine`` whose streamed weights are pinned: ``per_pass``
+        calls in each prefill and each tick, all on the ring."""
+        n = (len(engine.prefill_s) + engine.stats.ticks) * per_pass
+        return {"ring": n, "resident": 0}
 
     def time_ms(fn, warmup=3, iters=20, cold=False):
         """Median ms of one call between CUDA events; ``cold`` writes
@@ -463,6 +477,22 @@ def main() -> None:
                    flash_train_case(4, 256, 64, "float32", False),
                    flash_train_case(12, 1000, 64, "bfloat16", True)]   # ragged S
 
+    def host_us(fn, calls=200):
+        """Host time of one wrapper call, µs: ``calls`` calls issued back to
+        back, the clock stopped before the card catches up."""
+        fn()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        t = time.perf_counter() - t
+        torch.cuda.synchronize()
+        return t / calls * 1e6
+
+    def rel_err(a, b):
+        return float((a.float() - b.float()).abs().max()
+                     / (b.float().abs().max() + 1e-9))
+
     # the host link's rate: one 1 GiB pinned -> device copy between events
     host_buf = torch.empty(1 << 30, dtype=torch.uint8, pin_memory=True)
     dev_buf = torch.empty(1 << 30, dtype=torch.uint8, device=dev)
@@ -473,9 +503,15 @@ def main() -> None:
     # a bound is never above what was reached
     link_bound_rate = max(HOST_LINK_BYTES_PER_S, link_bytes_per_s)
 
+    def stream_plan(x, w, where):
+        return sm.plan(x.shape[0], x.shape[1], w.shape[1], x.dtype, w.dtype,
+                       bool(sm._w_layout(w)[0]), where)
+
     def stream_case(M, K, N, xdt, wdt, where, transposed=False):
         """x (M, K) on the card; w (K, N) on the card or in pinned host
-        memory, or the transposed view of an (N, K) table."""
+        memory, or the transposed view of an (N, K) table. A pinned case's
+        rate is given as a share of the 1 GiB pinned copy's (``link_share``
+        for the kernel alone, cold; ``link_share_idle`` from an idle card)."""
         g = torch.Generator(device=dev).manual_seed(SEED + M + K + N)
         x = torch.randn(M, K, device=dev, generator=g).to(getattr(torch, xdt))
         shape = (N, K) if transposed else (K, N)
@@ -485,8 +521,14 @@ def main() -> None:
         if transposed:
             w_dev, w = w_dev.T, w.T
         before = sm.stream_matmul.h2d_bytes
+        routes = dict(sm.stream_matmul.launches_by_route)
         got = sm.stream_matmul(x, w)
         h2d = sm.stream_matmul.h2d_bytes - before
+        route = [r for r, n in sm.stream_matmul.launches_by_route.items()
+                 if n != routes[r]]
+        if route != [stream_plan(x, w, where).route]:
+            fail(f"stream_matmul took {route} at {(M, K, N)}, not its plan's "
+                 f"{stream_plan(x, w, where)}")
         want = sm.stream_matmul_plain(x, w_dev)
         torch.cuda.synchronize()
         if not torch.isfinite(got.float()).all():
@@ -507,14 +549,20 @@ def main() -> None:
         t_ops = flops / PEAK_FLOPS[xdt] * 1e3
         t_link = w_bytes / link_bound_rate * 1e3 if where == "pinned" else 0.0
         ms = time_ms(lambda: sm.stream_matmul(x, w))
+        cold = time_ms(lambda: sm.stream_matmul(x, w), cold=True)
         lib_dev = time_ms(lambda: x @ w_dev.to(x.dtype))
         lib_host = (time_ms(lambda: x @ w.to(dev, non_blocking=True).to(x.dtype))
                     if where == "pinned" else None)
+        link = lambda t: w_bytes / (t * 1e-3) / link_bytes_per_s
         return {
             "shape": [M, K, N], "x": xdt, "w": wdt, "where": where,
-            "transposed": transposed, "max_abs_err": abs_err, "rel_err": rel,
-            "tol": tol, "kernel_ms": ms,
-            "cold_ms": time_ms(lambda: sm.stream_matmul(x, w), cold=True),
+            "transposed": transposed, "route": route[0],
+            "plan": stream_plan(x, w, where)._asdict(),
+            "max_abs_err": abs_err, "rel_err": rel,
+            "tol": tol, "kernel_ms": ms, "cold_ms": cold,
+            "link_share": link(cold) if where == "pinned" else None,
+            "link_share_idle": link(ms) if where == "pinned" else None,
+            "wrapper_host_us": host_us(lambda: sm.stream_matmul(x, w), calls=20),
             "plain_ms": time_ms(lambda: sm.stream_matmul_plain(x, w_dev), iters=5),
             "library_ms": lib_host if lib_host is not None else lib_dev,
             "library_device_w_ms": lib_dev, "library_host_w_ms": lib_host,
@@ -524,30 +572,57 @@ def main() -> None:
             "h2d_gb_per_s": h2d / (ms * 1e-3) / 1e9 if h2d else None,
         }
 
+    # routes by stream_matmul.plan: a pinned w -> ring, a device w -> resident
     stream_cases = [
         stream_case(4, 4096, 14336, "bfloat16", "bfloat16", "pinned"),  # decode
         stream_case(1024, 4096, 14336, "bfloat16", "bfloat16", "pinned"),
-        stream_case(4, 14336, 4096, "bfloat16", "bfloat16", "pinned"),
+        stream_case(4, 14336, 4096, "bfloat16", "bfloat16", "pinned"),  # w_out-like
         stream_case(5, 4096, 1000, "bfloat16", "bfloat16", "pinned"),   # ragged
+        stream_case(4, 1024, 49155, "bfloat16", "bfloat16", "pinned",
+                    transposed=True),                    # granite's tied unembed
         stream_case(4, 768, 50257, "bfloat16", "float32", "pinned",
                     transposed=True),                    # gpt2's tied unembed
         stream_case(4, 4096, 4096, "bfloat16", "float32", "pinned"),
         stream_case(128, 512, 128, "float32", "float32", "device"),  # reference
         stream_case(256, 1024, 384, "float32", "float32", "device"),
         stream_case(4, 4096, 14336, "bfloat16", "bfloat16", "device"),
+        stream_case(1024, 4096, 14336, "bfloat16", "bfloat16", "device"),
     ]
-    def rel_err(a, b):
-        return float((a.float() - b.float()).abs().max()
-                     / (b.float().abs().max() + 1e-9))
+
+    def ring_depths(M, K, N):
+        """The ring at several panel depths (``block_k`` rows; "plan": the
+        byte-sized panels the plan picks), ms from an idle card and cold ms,
+        beside the library's one copy and product, so the depth the plan
+        uses can be checked against the others on this card."""
+        g = torch.Generator(device=dev).manual_seed(SEED)
+        x = torch.randn(M, K, device=dev, generator=g).to(torch.bfloat16)
+        w = (torch.randn(K, N, device=dev, generator=g) * K ** -0.5).to(
+            torch.bfloat16).cpu().pin_memory()
+        out = {"shape": [M, K, N],
+               "plan_rows": sm.panel_rows(K, N, w.element_size()),
+               "library_host_w_ms": time_ms(lambda: x @ w.to(dev, non_blocking=True)),
+               "ms": {}, "cold_ms": {}}
+        for bk in (512, 1024, 2048, 4096, None):
+            key = bk or "plan"
+            run = lambda: sm.stream_matmul(x, w, block_k=bk)
+            out["ms"][key] = time_ms(run)
+            out["cold_ms"][key] = time_ms(run, cold=True)
+        return out
+
+    stream_ring_depths = [ring_depths(4, 4096, 14336), ring_depths(4, 14336, 4096),
+                          ring_depths(1024, 4096, 14336)]
 
     def ssd_case(B, S, nh, hp, N, dtype_name, with_state=False):
         """y and the final state of the SSD kernel against its plain version.
         Bound: x, dt, A, B_, C_ (and an initial state) read once, y and the
         final state written once; the chunked algorithm's operations at the
-        kernel's chunk, counted for the rows this S has: C B^T once per
-        (batch, chunk) on the tensor cores in bf16, the decay-weighted
-        intra-chunk product and the carried-state and state-update products
-        per head in fp32; the larger of the two units' times."""
+        kernels' chunk, counted for the rows this S has: C B^T once per
+        (batch, chunk), the decay-weighted intra-chunk product and the
+        carried-state and state-update products per head. ``bound_ms``: all
+        of them at the peak rate of the input type (bf16 on the tensor
+        cores, fp32 on the CUDA cores), against bytes. ``bound_fma_ms``: the
+        earlier mixed-unit figure, C B^T at the bf16 rate and the rest at
+        fp32 FMA's."""
         dtype = getattr(torch, dtype_name)
         g = torch.Generator(device=dev).manual_seed(SEED + S + nh + N)
         x = (0.5 * torch.randn(B, S, nh, hp, device=dev, generator=g)).to(dtype)
@@ -580,11 +655,10 @@ def main() -> None:
                     for v in (min(Q, S - c) for c in range(0, S, Q)))
         g_flops = 2.0 * B * pairs * N
         rest_flops = 2.0 * B * nh * (pairs * hp + 2 * S * hp * N)
-        if dtype == torch.bfloat16:
-            t_ops = max(g_flops / PEAK_FLOPS["bfloat16"],
-                        rest_flops / PEAK_FLOPS["float32"]) * 1e3
-        else:
-            t_ops = (g_flops + rest_flops) / PEAK_FLOPS["float32"] * 1e3
+        t_ops = (g_flops + rest_flops) / PEAK_FLOPS[dtype_name] * 1e3
+        t_fma = (max(g_flops / PEAK_FLOPS["bfloat16"],
+                     rest_flops / PEAK_FLOPS["float32"]) * 1e3
+                 if dtype == torch.bfloat16 else t_ops)
         nbytes = (2 * x.numel() * x.element_size() + 4 * dt.numel() + 4 * nh
                   + 2 * Bm.numel() * Bm.element_size()
                   + (2 if with_state else 1) * 4 * st.numel())
@@ -598,6 +672,7 @@ def main() -> None:
             "plain_ms": time_ms(plain, iters=5), "library_ms": None,
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bound_fma_ms": max(t_bytes, t_fma),
             "flops": g_flops + rest_flops, "bytes": nbytes,
         }
 
@@ -607,7 +682,8 @@ def main() -> None:
                  ssd_case(1, 1024, 64, 64, 64, "bfloat16", with_state=True),
                  ssd_case(1, 128, 4, 32, 64, "float32"),       # the reference's
                  ssd_case(2, 256, 8, 32, 64, "float32"),
-                 ssd_case(1, 128, 2, 64, 128, "float32")]
+                 ssd_case(1, 128, 2, 64, 128, "float32"),
+                 ssd_case(1, 4096, 24, 64, 128, "bfloat16")]   # 64 chunks
     def gmm_case(E, M, K, N, dtype_name, where, shared=False):
         """grouped_matmul against its plain version; x (E, M, K) (with
         ``shared`` one (M, K) buffer read by every expert, expert stride 0,
@@ -708,18 +784,6 @@ def main() -> None:
             gmm.BLOCK_K = kept
         return {"shape": [E, M, K, N], "used": kept, "cold_ms": out}
 
-    def host_us(fn, calls=200):
-        """Host time of one wrapper call, µs: ``calls`` calls issued back to
-        back, the clock stopped before the card catches up."""
-        fn()
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        for _ in range(calls):
-            fn()
-        t = time.perf_counter() - t
-        torch.cuda.synchronize()
-        return t / calls * 1e6
-
     hq, hk, hv = (torch.randn(32, 1024, 128, device=dev).to(torch.bfloat16)
                   for _ in range(3))
     hx = torch.randn(1, 4, 1024, device=dev).to(torch.bfloat16).expand(32, 4, 1024)
@@ -735,7 +799,9 @@ def main() -> None:
                 hq[None], hk[None], hv[None], is_causal=True))}
     del hq, hk, hv, hx, hw
     emit("kernels", flash_attention_fwd=cases, flash_attention_train=train_cases,
-         stream_matmul=stream_cases, ssd_scan=ssd_cases, grouped_matmul=gmm_cases,
+         stream_matmul=stream_cases, stream_matmul_ring_depths=stream_ring_depths,
+         link_memcpy_gb_per_s=link_bytes_per_s / 1e9,
+         ssd_scan=ssd_cases, grouped_matmul=gmm_cases,
          grouped_matmul_panel_depths=panel_depths(32, 4, 1024, 512),
          wrapper_host_us=wrapper_host_us,
          ssd_scan_library="none: no single PyTorch call computes the SSD scan",
@@ -985,6 +1051,7 @@ def main() -> None:
     torch.cuda.synchronize()
     rt_wall = time.perf_counter() - t0
     rt_launches = {n: w.launches for n, w in kernel_wrappers.items()}
+    rt_stream_routes = dict(sm.stream_matmul.launches_by_route)
     weight_h2d = sm.stream_matmul.h2d_bytes
     embed_h2d = mlayers.gather_rows.h2d_bytes
     check_outputs(llm.engine.outputs, llm_reqs, cfg, MAX_NEW)
@@ -994,6 +1061,8 @@ def main() -> None:
     if rt_launches["stream_matmul"] != calls:
         fail(f"stream_matmul launched {rt_launches['stream_matmul']} times, "
              f"expected (prefills + ticks) x layers x matrices = {calls}")
+    check_launches("runtime stream_matmul routes", rt_stream_routes,
+                   planned_stream_routes(llm.engine, cfg.num_layers * len(streamed)))
     slice_bytes = sum(leaf[0].numel() * leaf.element_size()
                       for leaf in host_leaves.values()) // len(streamed)
     if weight_h2d != calls * slice_bytes:
@@ -1094,7 +1163,8 @@ def main() -> None:
                "resident_bytes": plan.resident_bytes, "host_bytes": plan.host_bytes},
          add_tenants_seconds=add_s, wall_seconds=rt_wall, tenants=tenants_out,
          llm_prefills=lst.admitted, llm_ticks=lst.ticks,
-         launches=rt_launches, stream_matmul_h2d_bytes=weight_h2d,
+         launches=rt_launches, stream_matmul_launches_by_route=rt_stream_routes,
+         stream_matmul_h2d_bytes=weight_h2d,
          weight_h2d_bytes_per_call=slice_bytes,
          weight_h2d_bytes_per_tick=slice_bytes * cfg.num_layers * len(streamed),
          embed_h2d_bytes=embed_h2d,
@@ -1437,6 +1507,7 @@ def main() -> None:
     torch.cuda.synchronize()
     z_wall = time.perf_counter() - t0
     z_launches = {n: w.launches for n, w in kernel_wrappers.items()}
+    z_stream_routes = dict(sm.stream_matmul.launches_by_route)
     z_h2d = sm.stream_matmul.h2d_bytes
     check_outputs(zt.engine.outputs, zreqs, zcfg, MAX_NEW)
     zst = zt.engine.stats
@@ -1449,6 +1520,8 @@ def main() -> None:
         "ssd_scan": zst.admitted * zcfg.num_layers,
         "flash_attention_fwd": zst.admitted * n_groups,
         "stream_matmul": (zst.admitted + zst.ticks) * per_pass})
+    check_launches("hybrid stream_matmul routes", z_stream_routes,
+                   planned_stream_routes(zt.engine, per_pass))
     z_slice = z_leaf[0].numel() * z_leaf.element_size()
     table_bytes = (zt.params["tok_embed"].numel()
                    * zt.params["tok_embed"].element_size())
@@ -1521,7 +1594,8 @@ def main() -> None:
          tick_ms_median=statistics.median(zt.engine.tick_s) * 1e3,
          prefill_ms_median=statistics.median(
              t for _, t in zt.engine.prefill_s) * 1e3,
-         launches=z_launches, weight_h2d_bytes=z_h2d,
+         launches=z_launches, stream_matmul_launches_by_route=z_stream_routes,
+         weight_h2d_bytes=z_h2d,
          weight_h2d_bytes_per_tick=per_tick_bytes,
          kv_host_bytes=zt.engine.pool.host_bytes,
          lone_tokens_equal=True,
@@ -1693,6 +1767,7 @@ def main() -> None:
     m_wall = time.perf_counter() - t0
     mrt_launches = {n: w.launches for n, w in kernel_wrappers.items()}
     mrt_routes = route_counts()
+    mrt_stream_routes = dict(sm.stream_matmul.launches_by_route)
     m_h2d = gmm.grouped_matmul.h2d_bytes
     check_outputs(mt.engine.outputs, rt_reqs, mcfg, MAX_NEW)
     mrs = mt.engine.stats
@@ -1712,6 +1787,8 @@ def main() -> None:
         "flash_attention_bwd_dq": {"wgmma": 0, "fma": 0},
         "grouped_matmul": {"wgmma": mrt_launches["grouped_matmul"],
                            "mma_sync": 0, "fma": 0}})
+    check_launches("moe_runtime stream_matmul routes", mrt_stream_routes,
+                   planned_stream_routes(mt.engine, int(m_table_streamed)))
     per_pass = mcfg.num_layers * m_leaf[0].numel() * m_leaf.element_size()
     if m_h2d != passes * per_pass:
         fail(f"granite-moe: grouped_matmul streamed {m_h2d} bytes, expected "
@@ -1763,6 +1840,7 @@ def main() -> None:
          tick_ms_median=statistics.median(mt.engine.tick_s) * 1e3,
          prefill_ms_median=statistics.median(t for _, t in mt.engine.prefill_s) * 1e3,
          launches=mrt_launches, launches_by_route=mrt_routes,
+         stream_matmul_launches_by_route=mrt_stream_routes,
          expert_h2d_bytes=m_h2d,
          expert_h2d_bytes_per_pass=per_pass, table_streamed=m_table_streamed,
          kv_host_bytes=mt.engine.pool.host_bytes, lone_tokens_equal=True,
@@ -1801,15 +1879,19 @@ def main() -> None:
         "source": "src/repro_torch/kernels/csrc/stream_matmul.cu",
         "replaces": "src/repro/kernels/stream_matmul.py:55",
         "launches": rt_launches["stream_matmul"],
+        "launches_by_route": rt_stream_routes,
         "shape": shead["shape"], "dtype": shead["x"], "w": shead["where"],
+        "route_at_shape": shead["route"],
         "max_abs_err": max(c["max_abs_err"] for c in stream_cases),
         "ms": shead["kernel_ms"], "cold_ms": shead["cold_ms"],
         "plain_ms": shead["plain_ms"],
         "bound_ms": shead["bound_ms"], "bound_by": shead["bound_by"],
         "library_ms": shead["library_ms"],
         "library_device_w_ms": shead["library_device_w_ms"],
+        "link_share": shead["link_share"],
         "host_link_peak_gb_per_s": HOST_LINK_BYTES_PER_S / 1e9,
         "host_link_measured_gb_per_s": link_bytes_per_s / 1e9,
+        "link_memcpy_gb_per_s": link_bytes_per_s / 1e9,
     }] + [{
         "name": name, "route": "cuda", "source": source, "replaces": replaces,
         "launches": train_launches[name],
@@ -1847,6 +1929,7 @@ def main() -> None:
         "ms": ssd_head["ms"], "cold_ms": ssd_head["cold_ms"],
         "plain_ms": ssd_head["plain_ms"],
         "bound_ms": ssd_head["bound_ms"], "bound_by": ssd_head["bound_by"],
+        "bound_fma_ms": ssd_head["bound_fma_ms"],
         "library_ms": None,
         "library": "none: no single PyTorch call computes the SSD scan",
     }, {

@@ -60,9 +60,10 @@ def w_on_host(x, w) -> Optional[bool]:
 
 
 def scratch(x, on_host: bool, ring_bytes: int, acc_shape) -> Tuple:
-    """(ring, acc) of the streamed route on x's card: two panels of device
-    memory, and an fp32 partial sum when a product spans several panels
-    (``acc_shape`` not None). Both None for a device w."""
+    """(ring, acc) of the streamed route on x's card: ``ring_bytes`` of
+    device memory for the panels in flight, and an fp32 buffer when a
+    product spans several panels (``acc_shape`` not None). Both None for a
+    device w."""
     if not on_host:
         return None, None
     ring = torch.empty(ring_bytes, dtype=torch.uint8, device=x.device)

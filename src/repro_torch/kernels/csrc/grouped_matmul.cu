@@ -85,19 +85,6 @@ cudaError_t copy_panel(void* dst, const void* w, long long swe, long long ldw,
   return cudaSuccess;
 }
 
-// One batch of products on the route the plan named.
-template <typename Route>
-cudaError_t product(int route, int block_m, int block_n, const Operand& x,
-                    const Operand& w, int w_nk, float* acc, void* out,
-                    int batch, int M, int N, int K, int accumulate, int finish,
-                    cudaStream_t s) {
-  if (route == 1)
-    return launch_wgmma<Route>(x, w, w_nk, acc, out, batch, M, N, K,
-                               accumulate, finish, block_m, block_n, s);
-  return launch_product<Route>(x, w, w_nk, acc, out, batch, M, N, K,
-                               accumulate, finish, s);
-}
-
 }  // namespace
 
 // out (E, M, N), dense, in x's type = x @ w per expert. dtypes: 0 = float32,
@@ -123,7 +110,7 @@ extern "C" int grouped_matmul(const void* x, long long sxe, long long ldx,
       M <= 0 || N <= 0 || K <= 0 || route < 0 || route > 1)
     return static_cast<int>(cudaErrorInvalidValue);
   if (!w_on_host)
-    return static_cast<int>(product<gmm_resident>(
+    return static_cast<int>(launch_planned<gmm_resident>(
         route, block_m, block_n, Operand{x, ldx, sxe, x_dtype},
         Operand{w, ldw, swe, w_dtype}, w_nk, nullptr, out, E, M, N, K, 0, 1, s));
 
@@ -155,7 +142,7 @@ extern "C" int grouped_matmul(const void* x, long long sxe, long long ldx,
     const char* xp = static_cast<const char*>(x) +
                      (static_cast<size_t>(p.e0) * sxe + p.k0) * xs;
     char* op = static_cast<char*>(out) + static_cast<size_t>(p.e0) * M * N * xs;
-    return product<gmm_pinned>(
+    return launch_planned<gmm_pinned>(
         route, block_m, block_n, Operand{xp, ldx, sxe, x_dtype},
         Operand{slot, w_nk ? p.kb : N, static_cast<long long>(p.kb) * N,
                 w_dtype},

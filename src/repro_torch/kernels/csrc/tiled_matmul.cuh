@@ -8,28 +8,27 @@
 // where every expert reads the same rows) and w may be any (K, N) ("kn") or
 // (N, K) ("nk") row-major slab. Any M, N, K: ragged edges are masked.
 //
-// Three kernels, one per route:
+// Three kernels; the caller's plan (grouped_matmul.py::plan,
+// stream_matmul.py::plan) names one per call, and launch_planned runs it:
 //
-//  * wgmma_mm_kernel (bf16 x, bf16 w, TMA-aligned operands; grouped_matmul
-//    only): a ring of WSTAGES stages in shared memory, each a 64-deep slice
-//    of K of the x tile and the w tile, loaded by TMA from one producer warp
-//    and guarded by a full and an empty mbarrier; one or two consumer
-//    warpgroups run wgmma m64nBNk16 (fp32 accumulate) on each stage as it
-//    lands, so the loads of the next stages are in flight while the tensor
-//    cores work. x is the K-major A operand; w is read as it lies: "kn" is an
-//    MN-major B (the transpose bit), "nk" a K-major one. A shared x is read
-//    through a 2-D map of the one (M, K) buffer. Tiles: 64 x 64 with one
-//    consumer warpgroup when M <= 64 (a decode: bound by the bytes of w, so
-//    narrow tiles give the most blocks, about two per SM at granite-moe's
-//    shapes, each with four 16 KB stages in flight), 128 x 128 with two
-//    when M > 64 (a prefill's capacity buffers: the w tile feeds both).
-//    The caller (grouped_matmul.py::plan) picks the tile.
+//  * wgmma_mm_kernel (bf16 x, bf16 w, TMA-aligned operands): a ring of
+//    WSTAGES stages in shared memory, each a 64-deep slice of K of the x
+//    tile and the w tile, loaded by TMA from one producer warp and guarded
+//    by a full and an empty mbarrier; one or two consumer warpgroups run
+//    wgmma m64nBNk16 (fp32 accumulate) on each stage as it lands, so the
+//    loads of the next stages are in flight while the tensor cores work. x
+//    is the K-major A operand; w is read as it lies: "kn" is an MN-major B
+//    (the transpose bit), "nk" a K-major one. A shared x is read through a
+//    2-D map of the one (M, K) buffer. Tiles: 64 x 64 with one consumer
+//    warpgroup when M <= 64 (a decode: bound by the bytes of w, so narrow
+//    tiles give the most blocks, each with four 16 KB stages in flight),
+//    128 x 128 with two when M > 64 (a prefill: the w tile feeds both).
 //  * tiled_mm_mma_kernel (bf16 x otherwise: w in fp32, or an operand TMA
 //    cannot describe: a base not 16-byte aligned or a stride that is not a
-//    multiple of 8 elements; and every stream_matmul product): mma.sync
-//    m16n8k16, 64 x 128 output tiles, four warps of 32 x 64, tiles loaded
-//    into shared memory with plain loads (each w tile converted to x's type
-//    after loading, as the reference casts w before the product).
+//    multiple of 8 elements): mma.sync m16n8k16, 64 x 128 output tiles, four
+//    warps of 32 x 64, tiles loaded into shared memory with plain loads
+//    (each w tile converted to x's type after loading, as the reference
+//    casts w before the product).
 //  * tiled_mm_fma_kernel (fp32 x): true fp32 FMA on the CUDA cores (no TF32:
 //    the reference holds fp32 to 1e-5), 64 x 64 tiles, 4 x 4 outputs a
 //    thread. Its summation order is what holds fp32 tokens equal between a
@@ -48,9 +47,9 @@
 // kernel name, so that a profile tells the routes apart, e.g.
 // wgmma_mm_kernel<gmm_pinned, 1, 64, 0>.
 //
-// stream_panels is the pipeline of both host routes: panels of a pinned w
-// cross the host link into a two-slot device ring on a side stream while
-// the caller's stream multiplies the panel before.
+// stream_panels is the pipeline of both copy-engine routes: panels of a
+// pinned w cross the host link into a two-slot device ring on a side stream
+// while the caller's stream multiplies the panel before.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -570,6 +569,22 @@ cudaError_t launch_wgmma(const Operand& x, const Operand& w, int w_nk,
   WGMMA_TILE(2, 128)
 #undef WGMMA_TILE
   return cudaErrorInvalidValue;
+}
+
+// One batch of products on the kernel the caller's plan named: product 1 is
+// the wgmma route on a block_m x block_n tile, product 0 the tiled kernels
+// (mma.sync for bf16 x, FMA for fp32 x; block_m, block_n unused).
+template <typename Route>
+cudaError_t launch_planned(int product, int block_m, int block_n,
+                           const Operand& x, const Operand& w, int w_nk,
+                           float* acc, void* out, int batch, int M, int N,
+                           int K, int accumulate, int finish,
+                           cudaStream_t stream) {
+  if (product == 1)
+    return launch_wgmma<Route>(x, w, w_nk, acc, out, batch, M, N, K,
+                               accumulate, finish, block_m, block_n, stream);
+  return launch_product<Route>(x, w, w_nk, acc, out, batch, M, N, K,
+                               accumulate, finish, stream);
 }
 
 // ---------------------------------------------------------------------------

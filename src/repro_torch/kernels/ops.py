@@ -25,9 +25,10 @@ def flash_attention_grads(q, k, v, dout, *, causal: bool = True):
     return out, dq, dk, dv
 
 
-def stream_matmul(x, w, *, block_k: int = _sm.BLOCK_K):
+def stream_matmul(x, w, *, block_k=None):
     """x: (M, K) resident; w: (K, N) on x's device or in pinned host memory,
-    streamed in ``block_k`` panels."""
+    streamed in panels of ``block_k`` rows (the wrapper's byte-sized panels
+    when None)."""
     return _sm.stream_matmul(x, w, block_k=block_k)
 
 

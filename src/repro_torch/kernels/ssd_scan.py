@@ -1,25 +1,33 @@
-"""Mamba2 SSD chunked scan: wrapper of the hand-written Hopper kernel.
+"""Mamba2 SSD chunked scan: wrapper of the hand-written Hopper kernels.
 
 Replaces ``repro/kernels/ssd_scan.py::ssd_scan`` (the Pallas TPU kernel, body
-``_ssd_kernel``). The kernel is ``csrc/ssd_scan.cu``; its header says what
-bounds it on an H100 and what the design does about that.
+``_ssd_kernel``). The kernels are ``csrc/ssd_scan.cu``; its header says what
+bounds them on an H100 and what the design does about that.
 
 Per chunk of ``CHUNK`` tokens, with ``cum`` the within-chunk cumulative sum of
 ``dt * A``: the intra-chunk output ``tril(C B^T * exp(cum_i - cum_j)) (x dt)``,
-the carried state's contribution ``exp(cum_i) C state^T``, and the state
-update ``state * exp(cum_last) + sum_j B_j exp(cum_last - cum_j) dt_j x_j``,
-the ``(hp, N)`` state per head in fp32.
+the carried state's contribution ``exp(cum_i) C h_c^T``, and the state
+recurrence ``h_{c+1} = h_c * exp(cum_last) + S_c`` with the chunk's own state
+``S_c = sum_j B_j exp(cum_last - cum_j) dt_j x_j``, the ``(hp, N)`` state per
+head in fp32. The sequence dependence runs only through ``h``, so the scan
+is three steps, each but the second parallel over chunks: ``chunk_states``,
+``pass_states`` (the serial, elementwise pass), ``chunk_outputs``. The plain
+version is those three functions; the kernels are one launch each, and the
+wrapper allocates their scratch with one ``torch.empty`` a call (the chunk
+states, fp32, ``B x nc x nh x hp x N``: 12.6 MB for mamba2-130m at 1024
+tokens; the state entering each chunk, in x's type, as many; each chunk's
+total decay).
 
 Beyond the TPU kernel, this one fulfils ``models.ssm.ssd_chunked``'s contract,
 which the serving path needs: it starts from an optional ``init_state``,
 returns the final state on request (the cache decode reads), and takes any
-``S`` (rows past ``S`` are masked, which equals the reference's ``dt = 0``
+``S`` (rows past ``S`` read as zero with ``dt = 0``, the reference's
 padding). ``chunk`` and ``nh_block`` are the reference's arguments and are
-kept for its signature; the kernel chooses its own tiles.
+kept for its signature; the kernels choose their own tiles.
 
-CPU tensors take ``ssd_scan_plain``, the same loop over chunks in PyTorch
-ops. CUDA tensors launch the kernel on the current stream or raise; nothing
-falls back. ``ssd_scan.launches`` counts the launches.
+CPU tensors take ``ssd_scan_plain``. CUDA tensors launch the kernels on the
+current stream or raise; nothing falls back. ``ssd_scan.launches`` counts the
+calls that launched them.
 """
 from __future__ import annotations
 
@@ -30,9 +38,8 @@ import torch
 
 from repro_torch.kernels import _build
 
-CHUNK = 64            # the kernel's chunk length
-P_TILE = 16           # head-dim columns of one thread block
-MAX_STATE = 256       # largest N the kernel's shared memory takes
+CHUNK = 64            # the kernels' chunk length
+MAX_STATE = 256       # largest N the kernels' shared memory takes
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 _fn = None
@@ -44,7 +51,7 @@ def _kernel():
         lib = _build.load("ssd_scan")
         fn = lib.ssd_scan
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p] * 8 + [i] * 6 + [p]
+        fn.argtypes = [p] * 11 + [i] * 7 + [p]
         fn.restype = ctypes.c_int
         lib.ssd_scan_error.argtypes = [ctypes.c_int]
         lib.ssd_scan_error.restype = ctypes.c_char_p
@@ -76,38 +83,66 @@ def _check(x, dt, A, B_, C_, init_state):
     return tensors
 
 
+def _chunked(t, Q):
+    """(B, S, ...) -> (B, nc, Q, ...), rows past S zero."""
+    S = t.shape[1]
+    pad = -S % Q
+    if pad:
+        t = torch.cat([t, t.new_zeros((t.shape[0], pad) + tuple(t.shape[2:]))], 1)
+    return t.reshape(t.shape[0], (S + pad) // Q, Q, *t.shape[2:])
+
+
+def chunk_states(x, dt, A, B_, chunk: int = CHUNK):
+    """Step 1, parallel over chunks: each chunk's own state ``S_c`` (B, nc,
+    nh, hp, N) fp32, as if it started from zero, and its total decay
+    ``cum_last`` (B, nc, nh)."""
+    xc, dtc, Bc = (_chunked(t.float(), chunk) for t in (x, dt, B_))
+    cum = torch.cumsum(dtc * A.float(), dim=2)              # (B,nc,Q,nh)
+    last = cum[:, :, -1]                                    # (B,nc,nh)
+    w = torch.exp(last[:, :, None] - cum) * dtc             # (B,nc,Q,nh)
+    return torch.einsum("bcjn,bcjh,bcjhp->bchpn", Bc, w, xc), last
+
+
+def pass_states(S_c, last, init_state: Optional[torch.Tensor] = None):
+    """Step 2, the only serial one, elementwise: ``h_{c+1} = h_c *
+    exp(last_c) + S_c`` from ``init_state`` (zero when None). Returns the
+    state entering every chunk (B, nc, nh, hp, N) and the final state."""
+    h = (S_c.new_zeros((S_c.shape[0],) + tuple(S_c.shape[2:]))
+         if init_state is None else init_state.float().clone())
+    h_in = torch.empty_like(S_c)
+    for c in range(S_c.shape[1]):
+        h_in[:, c] = h
+        h = h * torch.exp(last[:, c])[:, :, None, None] + S_c[:, c]
+    return h_in, h
+
+
+def chunk_outputs(x, dt, A, B_, C_, h_in, chunk: int = CHUNK):
+    """Step 3, parallel over chunks: y (B, S, nh, hp) fp32, the intra-chunk
+    output ``tril(C B^T o exp(cum_i - cum_j)) (dt x)`` plus the carried one
+    ``exp(cum_i) C h_c^T``."""
+    S = x.shape[1]
+    xc, dtc, Bc, Cc = (_chunked(t.float(), chunk) for t in (x, dt, B_, C_))
+    cum = torch.cumsum(dtc * A.float(), dim=2)              # (B,nc,Q,nh)
+    G = torch.einsum("bcin,bcjn->bcij", Cc, Bc)             # (B,nc,Q,Q)
+    causal = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
+                                   device=x.device))
+    decay = torch.exp(cum[:, :, :, None, :] - cum[:, :, None, :, :])
+    M = torch.where(causal[None, None, :, :, None], G[..., None] * decay, 0.0)
+    y = torch.einsum("bcijh,bcjh,bcjhp->bcihp", M, dtc, xc)
+    y = y + torch.einsum("bcin,bchpn,bcih->bcihp", Cc, h_in, torch.exp(cum))
+    return y.reshape(x.shape[0], y.shape[1] * chunk, *x.shape[2:])[:, :S]
+
+
 def ssd_scan_plain(x, dt, A, B_, C_, *, chunk: int = CHUNK,
                    init_state: Optional[torch.Tensor] = None,
                    return_state: bool = False):
-    """The kernel's function in plain PyTorch: a loop over chunks of
-    ``chunk`` tokens with the fp32 state carried from one to the next, fp32
-    inside, ``y`` in x's dtype. Rows past ``S`` in the last chunk get
-    ``dt = 0``."""
+    """The kernels' function in plain PyTorch, in their three steps:
+    ``chunk_states``, ``pass_states``, ``chunk_outputs``; fp32 inside, ``y``
+    in x's dtype."""
     _check(x, dt, A, B_, C_, init_state)
-    Bb, S, nh, hp = x.shape
-    N = B_.shape[2]
-    Af = A.float()
-    state = (torch.zeros((Bb, nh, hp, N), dtype=torch.float32, device=x.device)
-             if init_state is None else init_state.float().clone())
-    y = torch.empty(x.shape, dtype=torch.float32, device=x.device)
-    for s0 in range(0, S, chunk):
-        xc = x[:, s0:s0 + chunk].float()                      # (B,Q,nh,hp)
-        dtc = dt[:, s0:s0 + chunk].float()                    # (B,Q,nh)
-        Bc, Cc = B_[:, s0:s0 + chunk].float(), C_[:, s0:s0 + chunk].float()
-        Q = xc.shape[1]
-        cum = torch.cumsum(dtc * Af, dim=1)                   # (B,Q,nh)
-        G = torch.einsum("bin,bjn->bij", Cc, Bc)              # (B,Q,Q)
-        causal = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=x.device))
-        decay = torch.exp(cum[:, :, None, :] - cum[:, None, :, :])  # (B,i,j,nh)
-        M = torch.where(causal[None, :, :, None], G[..., None] * decay, 0.0)
-        yc = torch.einsum("bijh,bjh,bjhp->bihp", M, dtc, xc)
-        yc = yc + torch.einsum("bin,bhpn,bih->bihp", Cc, state, torch.exp(cum))
-        y[:, s0:s0 + Q] = yc
-        last = cum[:, -1]                                     # (B,nh)
-        w = torch.exp(last[:, None, :] - cum) * dtc           # (B,Q,nh)
-        state = (state * torch.exp(last)[:, :, None, None]
-                 + torch.einsum("bjn,bjh,bjhp->bhpn", Bc, w, xc))
-    y = y.to(x.dtype)
+    S_c, last = chunk_states(x, dt, A, B_, chunk)
+    h_in, state = pass_states(S_c, last, init_state)
+    y = chunk_outputs(x, dt, A, B_, C_, h_in, chunk).to(x.dtype)
     return (y, state) if return_state else y
 
 
@@ -120,9 +155,11 @@ def _check_launch(tensors, x, B_):
             raise TypeError(f"{name} must be {want} (x is {x.dtype}); got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+        if name not in ("dt", "A") and t.data_ptr() % 16:
+            raise ValueError(f"{name} must start on a 16-byte boundary")
     hp, N = x.shape[3], B_.shape[2]
-    if hp % P_TILE:
-        raise ValueError(f"kernel takes hp a multiple of {P_TILE}, got {hp}")
+    if hp % 16:
+        raise ValueError(f"kernel takes hp a multiple of 16, got {hp}")
     if N % 16 or not 16 <= N <= MAX_STATE:
         raise ValueError(f"kernel takes N a multiple of 16 up to {MAX_STATE}, "
                          f"got {N}")
@@ -137,8 +174,9 @@ def ssd_scan(x, dt, A, B_, C_, *, chunk: int = 128,
     N) fp32 or None (zero). Returns y (B, S, nh, hp) in x's dtype, or
     (y, final_state (B, nh, hp, N) fp32) with ``return_state``.
 
-    The kernel takes x in fp32 or bf16, every tensor contiguous, hp a
-    multiple of 16 and N a multiple of 16 up to 256; anything else raises.
+    The kernels take x in fp32 or bf16, every tensor contiguous (x, B_, C_
+    and init_state 16-byte aligned), hp a multiple of 16 and N a multiple of 16 up to 256;
+    anything else raises.
     """
     del nh_block
     tensors = _check(x, dt, A, B_, C_, init_state)
@@ -158,20 +196,33 @@ def ssd_scan(x, dt, A, B_, C_, *, chunk: int = 128,
             state.copy_(init_state)
         elif state is not None:
             state.zero_()
-    else:
-        fn, err_str = _kernel()
-        code = _build.call(
-            fn, x.device, x.data_ptr(), dt.data_ptr(), A.data_ptr(),
-            B_.data_ptr(), C_.data_ptr(),
-            init_state.data_ptr() if init_state is not None else None,
-            y.data_ptr(), state.data_ptr() if state is not None else None,
-            Bb, S, nh, hp, N, _DTYPE_CODE[x.dtype])
-        if code != 0:
-            raise RuntimeError(
-                f"ssd_scan launch failed: CUDA error {code} "
-                f"({err_str(code).decode()}) for x {tuple(x.shape)} {x.dtype}, "
-                f"N {N}")
-        ssd_scan.launches += 1
+        return (y, state) if return_state else y
+    # one scratch allocation: the chunk states (fp32), the state entering
+    # each chunk (x's dtype), each B x nc x nh x hp x N, and the chunks'
+    # decays (fp32, B x nc x nh)
+    nc = -(-S // CHUNK)
+    n_state = Bb * nc * nh * hp * N
+    h_off = 4 * n_state
+    seg_off = h_off + -(-n_state * x.element_size() // 16) * 16
+    scratch = torch.empty(seg_off + 4 * Bb * nc * nh, dtype=torch.uint8,
+                          device=x.device)
+    base = scratch.data_ptr()
+    fn, err_str = _kernel()
+    code = _build.call(
+        fn, x.device, x.data_ptr(), dt.data_ptr(), A.data_ptr(),
+        B_.data_ptr(), C_.data_ptr(),
+        init_state.data_ptr() if init_state is not None else None,
+        y.data_ptr(), state.data_ptr() if state is not None else None,
+        base, base + seg_off, base + h_off,
+        # heads a block of the chunk kernels takes: two where nh allows, so
+        # that a chunk's C B^T is computed once for both
+        Bb, S, nh, hp, N, 2 if nh % 2 == 0 else 1, _DTYPE_CODE[x.dtype])
+    if code != 0:
+        raise RuntimeError(
+            f"ssd_scan launch failed: CUDA error {code} "
+            f"({err_str(code).decode()}) for x {tuple(x.shape)} {x.dtype}, "
+            f"N {N}")
+    ssd_scan.launches += 1
     return (y, state) if return_state else y
 
 

@@ -93,6 +93,72 @@ def test_stream_matmul_transposed_table(where, dtype):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("block_k", [None, 64, "K"])
+@pytest.mark.parametrize("M,K,N,xdt,wdt", CASES)
+def test_stream_matmul_ring_panel_depths_match_plain(M, K, N, xdt, wdt, block_k):
+    """The ring at its byte-sized panels, at 64-row panels (ragged last one)
+    and at one panel of the whole K: the same function, each byte of w
+    streamed once, each launch counted on the ring."""
+    dev = _cuda()
+    x, w = _inputs(M, K, N, xdt, wdt, seed=1)
+    x, w = x.to(dev), w.pin_memory()
+    before = (sm.stream_matmul.h2d_bytes, dict(sm.stream_matmul.launches_by_route))
+    got = sm.stream_matmul(x, w, block_k=K if block_k == "K" else block_k)
+    want = sm.stream_matmul_plain(x, w.to(dev))
+    torch.cuda.synchronize()
+    assert got.dtype == xdt and got.shape == (M, N)
+    assert _rel(got, want) < TOL[xdt], (M, K, N, xdt, wdt, block_k)
+    assert sm.stream_matmul.h2d_bytes - before[0] == K * N * w.element_size()
+    assert {r: n - before[1][r] for r, n in sm.stream_matmul.launches_by_route.items()
+            } == {"ring": 1, "resident": 0}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M", [1, 4, 16, 17, 64, 200])
+@pytest.mark.parametrize("where", ["device", "pinned"])
+def test_stream_matmul_routes_by_placement_on_card(M, where):
+    """The plan's routes at decode and prefill sizes, at llama3-8b's w_gate
+    widths cut to 1024 columns: a pinned w through the ring, a device w
+    resident; each matches."""
+    dev = _cuda()
+    x, w = _inputs(M, 4096, 1024, torch.bfloat16, torch.bfloat16, seed=M)
+    x = x.to(dev)
+    w = w.to(dev) if where == "device" else w.pin_memory()
+    want_route = "resident" if where == "device" else "ring"
+    before = dict(sm.stream_matmul.launches_by_route)
+    got = sm.stream_matmul(x, w)
+    torch.cuda.synchronize()
+    assert {r: n - before[r] for r, n in sm.stream_matmul.launches_by_route.items()
+            } == {r: int(r == want_route) for r in sm.ROUTES}
+    assert _rel(got, sm.stream_matmul_plain(x, w.to(dev))) < TOL[torch.bfloat16]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M", [1, 4, 16, 100])
+@pytest.mark.parametrize("tdt,xdt", [(torch.bfloat16, torch.bfloat16),
+                                     (torch.float32, torch.float32),
+                                     (torch.float32, torch.bfloat16)])
+def test_stream_matmul_streams_a_table_by_rows(M, tdt, xdt):
+    """The tied unembedding: w is the transposed view of a pinned (N, K)
+    table (granite-moe's bf16 one, gpt2's fp32 one, cut in rows), streamed
+    in panels of whole table rows, each product placed into its output
+    columns; N off every tile."""
+    dev = _cuda()
+    rng = np.random.default_rng(M)
+    K = 768 if tdt == torch.float32 else 1024
+    table = torch.from_numpy(rng.standard_normal((5003, K)).astype(np.float32)
+                             ).to(tdt).pin_memory()
+    x = torch.from_numpy(rng.standard_normal((M, K)).astype(np.float32)).to(xdt).to(dev)
+    want = sm.stream_matmul_plain(x, table.T.to(dev))
+    for block_k in (None, 64, 5003):   # byte-sized panels, 64 rows, one panel
+        before = dict(sm.stream_matmul.launches_by_route)
+        got = sm.stream_matmul(x, table.T, block_k=block_k)
+        torch.cuda.synchronize()
+        assert sm.stream_matmul.launches_by_route["ring"] == before["ring"] + 1
+        assert _rel(got, want) < TOL[xdt], block_k
+
+
+@pytest.mark.gpu
 def test_stream_matmul_rejects_pageable_and_mixed():
     dev = _cuda()
     x = torch.zeros(4, 8, device=dev)
@@ -389,6 +455,13 @@ SSD_CASES = [  # (B, S, nh, hp, N, init_state)
     (2, 256, 8, 32, 64, True),       # the reference's shapes
     (1, 128, 2, 64, 128, False),
     (3, 5, 8, 16, 16, True),         # one short chunk, reduced widths
+    (1, 4096, 24, 64, 128, False),   # 64 chunks
+    (1, 4096, 64, 64, 64, True),
+    (1, 65, 24, 64, 128, True),      # one chunk and one row
+    (2, 40, 6, 64, 128, False),      # S below one chunk
+    (3, 200, 6, 48, 32, True),       # three batches, hp not a multiple of 64
+    (3, 130, 5, 16, 16, False),      # an odd head count: one head a block
+    (1, 100, 2, 128, 256, True),     # the widest state the kernels take
 ]
 
 
@@ -557,14 +630,33 @@ def test_grouped_matmul_misaligned_base_takes_mma_sync():
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("what", ["gmm_decode", "gmm_prefill", "gmm_pinned",
-                                  "flash", "flash_stats", "flash_bwd"])
+                                  "flash", "flash_stats", "flash_bwd",
+                                  "stream_ring", "stream_ring_nk",
+                                  "stream_prefill", "stream_resident", "ssd",
+                                  "ssd_fp32"])
 def test_bf16_kernels_are_bit_identical_across_runs(what):
     """No atomics, no split reduction in a changing order: the same bf16
     inputs give the same bits twice."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import grouped_matmul as gmm
     dev = _cuda()
-    if what.startswith("gmm"):
+    if what.startswith("stream"):
+        M = 300 if what == "stream_prefill" else 4
+        x, w = _inputs(M, 4096, 14336, torch.bfloat16, torch.bfloat16)
+        x = x.to(dev)
+        if what == "stream_ring_nk":
+            w = w.T.contiguous().pin_memory().T
+        else:
+            w = w.to(dev) if what == "stream_resident" else w.pin_memory()
+        run = lambda: sm.stream_matmul(x, w)
+    elif what.startswith("ssd"):
+        from repro_torch.kernels import ssd_scan as ssd
+        dtype = torch.float32 if what == "ssd_fp32" else torch.bfloat16
+        x, dt, A, B_, C_, s0 = _ssd_inputs(dev, dtype, 2, 1000, 24, 64, 128, 5,
+                                           with_state=True)
+        run = lambda: ssd.ssd_scan(x, dt, A, B_, C_, init_state=s0,
+                                   return_state=True)
+    elif what.startswith("gmm"):
         M, shared = (320, False) if what == "gmm_prefill" else (4, True)
         x, w = _gmm_inputs(dev, 32, M, 1024, 512, shared, torch.bfloat16)
         w = _pinned(w) if what == "gmm_pinned" else w

@@ -25,6 +25,7 @@ from repro_torch.core.offload import _flatten_with_paths as port_flat
 from repro_torch.core.offload import place_tree, plan_offload
 from repro_torch.kernels import ops as port_ops
 from repro_torch.kernels import ref as port_ref
+from repro_torch.kernels import ssd_scan as port_ssd
 from repro_torch.models import ssm as port_ssm
 from repro_torch.models.convert import cache_from_numpy
 from repro_torch.serving import KVPool, Request, ServingEngine, TenantEngine
@@ -118,6 +119,52 @@ def test_ssd_chunked_and_kernel_plain_match_reference_with_state(S, chunk):
                           return_state=True)
     assert rel_err(to_np(torch.cat([y1, y2], 1)), to_np(want_y)) < 1e-4
     assert rel_err(to_np(s2), to_np(want_s)) < 1e-4
+
+
+@pytest.mark.parametrize("B,S,nh,hp,N", [(1, 128, 4, 32, 64), (2, 256, 2, 16, 32)])
+def test_chunk_parallel_steps_match_reference_kernel(B, S, nh, hp, N):
+    """The kernels' decomposition in plain PyTorch (chunk states, the serial
+    pass over chunks, chunk outputs), composed at their 64-token chunk,
+    against the reference's Pallas kernel in interpret mode (S a multiple of
+    its chunk, zero initial state)."""
+    j, t = _both(_ssd_inputs(B, S, nh, hp, N, seed=7 * S + nh))
+    want = ref_ops.ssd(*j, chunk=64, nh_block=2)
+    x, dt, A, B_, C_ = t
+    S_c, last = port_ssd.chunk_states(x, dt, A, B_)
+    h_in, _ = port_ssd.pass_states(S_c, last)
+    assert torch.equal(h_in[:, 0], torch.zeros_like(h_in[:, 0]))
+    y = port_ssd.chunk_outputs(x, dt, A, B_, C_, h_in)
+    assert y.shape == (B, S, nh, hp)
+    assert rel_err(to_np(y), to_np(want)) < 1e-4
+
+
+@pytest.mark.parametrize("S", [100, 65, 7, 192])
+def test_chunk_parallel_steps_match_ssd_chunked_with_state(S):
+    """The same steps at a ragged S (rows past S read as zero with dt = 0)
+    from a nonzero initial state, against the reference's ``ssd_chunked``:
+    y, the final state, and the state entering each chunk, which equals the
+    reference's final state over the tokens before that chunk."""
+    B, nh, hp, N = 2, 4, 16, 32
+    arrays = _ssd_inputs(B, S, nh, hp, N, seed=S + 11)
+    s0 = (0.5 * np.random.default_rng(10).standard_normal((B, nh, hp, N))
+          ).astype(np.float32)
+    j, t = _both(arrays)
+    ref_scan = jax.jit(ref_ssm.ssd_chunked, static_argnums=5)
+    want_y, want_s = ref_scan(*j, 64, to_jax(s0))
+    x, dt, A, B_, C_ = t
+    S_c, last = port_ssd.chunk_states(x, dt, A, B_)
+    h_in, state = port_ssd.pass_states(S_c, last, to_torch(s0))
+    y = port_ssd.chunk_outputs(x, dt, A, B_, C_, h_in)
+    assert rel_err(to_np(y), to_np(want_y)) < 1e-4
+    assert rel_err(to_np(state), to_np(want_s)) < 1e-4
+    assert rel_err(to_np(h_in[:, 0]), s0) == 0.0
+    for c in range(1, h_in.shape[1]):
+        _, before = ref_scan(*(a[:, :64 * c] for a in j[:2]), j[2],
+                             *(a[:, :64 * c] for a in j[3:]), 64, to_jax(s0))
+        assert rel_err(to_np(h_in[:, c]), to_np(before)) < 1e-4
+    gy, gs = port_ssd.ssd_scan_plain(x, dt, A, B_, C_, init_state=to_torch(s0),
+                                     return_state=True)
+    assert torch.equal(gy, y) and torch.equal(gs, state)
 
 
 def test_ssd_decode_step_matches_reference():

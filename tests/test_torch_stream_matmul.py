@@ -105,3 +105,74 @@ def test_weight_matmul_on_one_device_is_the_plain_product():
     before = port_layers.gather_rows.h2d_bytes
     assert torch.equal(port_layers.gather_rows(table, tokens), table[tokens])
     assert port_layers.gather_rows.h2d_bytes == before
+
+
+@pytest.mark.parametrize("M", [1, 4, 16, 17, 1024])
+@pytest.mark.parametrize("where,route", [("pinned", "ring"), ("device", "resident")])
+def test_plan_picks_route_by_placement(M, where, route):
+    """A pinned w streams through the copy engine's ring at any M (decode
+    ticks and prefills), in byte-sized panels unless a depth is given; a
+    device w is resident."""
+    p = port_sm.plan(M, 4096, 14336, torch.bfloat16, torch.bfloat16, False, where)
+    assert p.route == route
+    assert p.product == "wgmma" and p.tile == (64 if M <= 64 else 128)
+    assert p.panel == (port_sm.panel_rows(4096, 14336, 2) if route == "ring" else 0)
+    given = port_sm.plan(M, 4096, 14336, torch.bfloat16, torch.bfloat16, False,
+                         where, block_k=512)
+    assert given.panel == (512 if route == "ring" else 0)
+
+
+@pytest.mark.parametrize("K,N,itemsize,w_nk,rows", [
+    (4096, 14336, 2, False, 1152),   # llama3-8b's w_gate: 28 KB a row of K
+    (14336, 4096, 2, False, 4096),   # its w_out: 8 KB a row
+    (1024, 49155, 2, True, 16384),   # granite-moe's tied table, 2 KB a table row
+    (768, 50257, 4, True, 10880),    # gpt2's fp32 one, 3 KB a table row
+    (4096, 1000, 2, False, 4096),    # a small w: one panel
+    (5, 3, 4, False, 5), (5, 3, 4, True, 3)])
+def test_panel_rows_by_bytes(K, N, itemsize, w_nk, rows):
+    """About PANEL_BYTES of w a panel, in multiples of 64 rows of its
+    slab (rows of K, or of the table), at most the slab's rows."""
+    got = port_sm.panel_rows(K, N, itemsize, w_nk)
+    row_bytes, slab = (K * itemsize, N) if w_nk else (N * itemsize, K)
+    assert got == rows
+    assert got == slab or (got % 64 == 0 and got * row_bytes <= port_sm.PANEL_BYTES)
+
+
+@pytest.mark.parametrize("x_dtype,w_dtype,w_nk,K,N,aligned,product", [
+    (torch.float32, torch.float32, False, 512, 128, True, "fma"),
+    (torch.bfloat16, torch.float32, False, 4096, 4096, True, "mma_sync"),
+    (torch.bfloat16, torch.bfloat16, False, 4096, 1000, True, "wgmma"),
+    (torch.bfloat16, torch.bfloat16, False, 4096, 1001, True, "mma_sync"),
+    (torch.bfloat16, torch.bfloat16, True, 768, 50257, True, "wgmma"),
+    (torch.bfloat16, torch.bfloat16, True, 1001, 64, True, "mma_sync"),
+    (torch.bfloat16, torch.bfloat16, False, 4096, 1024, False, "mma_sync")])
+def test_plan_products_of_the_ring(x_dtype, w_dtype, w_nk, K, N, aligned, product):
+    """The ring's products: wgmma where every operand a TMA descriptor
+    describes has 16-byte strides (the dense slot's row stride is N for
+    "kn", with x read at offsets of the panel's depth; K for "nk"),
+    mma.sync for other bf16 x, FMA for fp32 x."""
+    p = port_sm.plan(128, K, N, x_dtype, w_dtype, w_nk, "pinned", aligned)
+    assert (p.route, p.product) == ("ring", product)
+
+
+@pytest.mark.parametrize("block_k", [None, 512, 100, 64])
+@pytest.mark.parametrize("K,N,itemsize,w_nk", [
+    (4096, 14336, 2, False), (14336, 4096, 2, False), (1024, 49155, 2, True),
+    (768, 50257, 4, True), (4096, 1000, 2, False), (1000, 77, 4, False),
+    (1, 1, 2, False)])
+def test_ring_panels_cover_w_once(block_k, K, N, itemsize, w_nk):
+    """The ring's panels, as the kernel cuts them from the plan's depth
+    (rows of K, or of the table for "nk": ceil(rows / panel) slabs, the last
+    ragged), tile w without overlap, so every byte crosses the link once and
+    ``h2d_bytes`` is K*N*itemsize; a default panel holds at most
+    PANEL_BYTES."""
+    dtype = torch.bfloat16 if itemsize == 2 else torch.float32
+    p = port_sm.plan(4, K, N, dtype, dtype, w_nk, "pinned", block_k=block_k)
+    rows, row_bytes = (N, K * itemsize) if w_nk else (K, N * itemsize)
+    assert 0 < p.panel <= rows
+    starts = list(range(0, rows, p.panel))
+    sizes = [min(p.panel, rows - r0) for r0 in starts]
+    assert starts == [sum(sizes[:i]) for i in range(len(sizes))]
+    assert sum(sizes) * row_bytes == K * N * itemsize
+    if block_k is None and p.panel < rows:
+        assert p.panel * row_bytes <= port_sm.PANEL_BYTES
