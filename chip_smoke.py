@@ -14,10 +14,11 @@ JSON line per phase; any failure is a non-zero exit:
            version's, one library call's, and the card's bound for the work:
            the flash forward (serving), the forward with its lse output and
            the two backward kernels (training; the port's whole backward in
-           one call beside the library's), stream_matmul (each case's
-           route; a pinned w's rate as a share of the 1 GiB pinned copy's,
-           link_memcpy_gb_per_s; the ring at several panel depths beside
-           the library), ssd_scan (no single PyTorch call computes the SSD:
+           one call beside the library's; the serving forward also at
+           whisper's and qwen2-vl's decoder-prefill shapes), stream_matmul
+           (each case's route; a pinned w's rate as a share of the 1 GiB
+           pinned copy's, link_memcpy_gb_per_s; the ring at several panel
+           depths beside the library), ssd_scan (no single PyTorch call computes the SSD:
            no library time), grouped_matmul (library: torch.bmm) with w on
            the card and in pinned host memory, the pinned decode at four
            panel depths, and the host time of one wrapper call beside its
@@ -71,6 +72,23 @@ JSON line per phase; any failure is a non-zero exit:
            (streamed through grouped_matmul from pinned memory); tokens
            against a lone engine on the same placement and, in fp32
            activations, against one with every weight on the device
+  encdec   whisper-large-v3 at full size (32 + 32 layers, 1500 frames from
+           the stubbed audio front end): 4 requests, each prefilled alone
+           through Model.forward and pasted into a 4-slot KVPool (max_seq
+           448, so the cross K/V are held whole), then decoded together with
+           per-row pos; the decoder's causal prefill through the flash kernel
+           (counts set to 0 just before, read just after; 4 x 32 launches,
+           all wgmma); encoder and decoder-prefill ms apart; logits against
+           the eager attention, and each request's first decode step against
+           the full forward of its prompt and one token; then 4 more ticks
+           and the longest prompt's prefill under torch.profiler (device-busy
+           ms, idle share, the top device ops)
+  vlm      qwen2-vl-72b at full width, 32 of its 80 layers (all 80 would not
+           fit the card), alone on the card: 4 requests laid out as Qwen2-VL
+           lays out one image (text, a gh x gw block of stubbed vision
+           embeddings, text) with three M-RoPE position streams, whose
+           positions fall below the cache index after the image; the same
+           pool, launch and logit checks and profiles as encdec
 
 Then a line {"kernels": [...]} with every kernel's figures, the card's name
 and power limit, and last {"ok": true, "device": {...}}.
@@ -201,8 +219,10 @@ def main() -> None:
     from repro_torch.kernels import ssd_scan as ssd
     from repro_torch.kernels import stream_matmul as sm
     from repro_torch.data.pipeline import DataPipeline, SyntheticSource, to_device
+    from repro_torch.launch.profile_serve import device_summary
     from repro_torch.launch.train import build_config, train as run_training
     from repro_torch.core.offload import _flatten_with_paths
+    from repro_torch.models import encdec as mencdec
     from repro_torch.models import layers as mlayers
     from repro_torch.models import moe as mmoe
     from repro_torch.models import ssm as mssm
@@ -361,7 +381,10 @@ def main() -> None:
              flash_case(32, 128, 128, "float32", True),
              flash_case(32, 300, 128, "float32", True),
              flash_case(32, 256, 128, "float32", False),
-             flash_case(12, 300, 64, "bfloat16", True)]     # gpt2's head dim
+             flash_case(12, 300, 64, "bfloat16", True),     # gpt2's head dim
+             flash_case(20, 224, 64, "bfloat16", True),     # whisper's decoder prefill
+             flash_case(64, 1048, 128, "bfloat16", True)]   # qwen2-vl's prefill
+    encdec_case, vlm_case = cases[-2], cases[-1]
 
     def flash_train_case(BH, S, hd, dtype_name, causal):
         """The forward with lse and the two backward kernels against their
@@ -1860,6 +1883,301 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
 
+    # ------------------------------------------------------- encdec and vlm
+    def pool_serve(model, params, prompts, step_inputs, max_new, slots, max_seq):
+        """Serve ``prompts`` (batches of one request each) through a KVPool
+        of ``slots`` x ``max_seq`` on the card: each request prefilled alone
+        (``Model.forward(return_cache=True, last_token_only=True)``) and
+        pasted into its slot, then all slots decoded together, greedy, with
+        per-row ``pos`` (the pool's lengths). ``step_inputs(rows, tokens)``
+        gives a decode step's inputs for the requests in ``rows`` (one a
+        slot) and their last tokens. Returns the tokens by request, the
+        prefill and tick seconds, the first tick's logits by request, the
+        wall time, and a function that runs one more tick (the pool kept)."""
+        pool = KVPool(model, slots, max_seq)
+        rows, out, prefill_s, tick_s = [None] * slots, {}, [], []
+        torch.cuda.synchronize()
+        t_wall = time.perf_counter()
+        for rid, batch in enumerate(prompts):
+            t = time.perf_counter()
+            logits, _, pc = model.forward(params, batch, return_cache=True,
+                                          last_token_only=True)
+            slot = pool.alloc_slot()
+            plen = (batch["tokens"] if "tokens" in batch else batch["embeds"]).shape[1]
+            pool.paste(slot, pc, plen)
+            rows[slot] = rid
+            out[rid] = [int(logits[0, -1].argmax())]
+            torch.cuda.synchronize()
+            prefill_s.append((plen, time.perf_counter() - t))
+
+        def tick():
+            last = torch.tensor([[out[r][-1]] for r in rows], device=dev)
+            batch = {**step_inputs(rows, last),
+                     "pos": torch.as_tensor(pool.positions, device=dev)}
+            logits, cache = model.decode(params, pool.materialize(), batch)
+            pool.update(cache)
+            pool.positions += 1
+            return logits
+
+        first = {}
+        for _ in range(max_new - 1):
+            t = time.perf_counter()
+            logits = tick()
+            nxt = logits.argmax(-1).tolist()
+            for slot, rid in enumerate(rows):
+                out[rid].append(nxt[slot])
+            if not first:
+                first = {rid: logits[slot] for slot, rid in enumerate(rows)}
+            torch.cuda.synchronize()
+            tick_s.append(time.perf_counter() - t)
+        wall = time.perf_counter() - t_wall
+        return out, prefill_s, tick_s, first, wall, tick
+
+    def device_profile(fn, calls, unit):
+        """``calls`` calls of ``fn`` under torch.profiler: per call the wall
+        and device-busy ms, the idle share, device ops, the top ops."""
+        from torch.profiler import ProfilerActivity, profile as torch_profile
+        torch.cuda.synchronize()
+        with torch_profile(activities=[ProfilerActivity.CPU,
+                                       ProfilerActivity.CUDA]) as prof:
+            t = time.perf_counter()
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+        return device_summary(prof, wall, calls, top=8, unit=unit)
+
+    def check_pool_outputs(name, out, n_req, max_new, vocab):
+        if sorted(out) != list(range(n_req)):
+            fail(f"{name}: missing requests {sorted(out)}")
+        for rid, toks in out.items():
+            if len(toks) != max_new or min(toks) < 0 or max(toks) >= vocab:
+                fail(f"{name}: request {rid} returned {toks}")
+
+    # ---------------------------------------------------------------- encdec
+    wcfg = get_config("whisper-large-v3").with_(attn_impl="pallas", remat="none",
+                                                param_dtype="bfloat16")
+    wmodel = build_model(wcfg, dev)
+    t0 = time.time()
+    wparams, _ = wmodel.init(torch.Generator(device=dev).manual_seed(SEED))
+    torch.cuda.synchronize()
+    w_init = time.time() - t0
+    # max_seq: whisper's text context, not encoder_seq (1500), so the pool
+    # holds the cross K/V whole instead of cutting them along dim 2
+    W_LENS, W_NEW, W_SLOTS, W_MAX_SEQ = [4, 16, 64, 224], 32, 4, 448
+    g = torch.Generator(device=dev).manual_seed(SEED + 5)
+    rng = np.random.default_rng(SEED + 5)
+    w_prompts = [{
+        "frames": (0.02 * torch.randn(1, wcfg.encoder_seq, wcfg.d_model,
+                                      generator=g, device=dev)).to(torch.bfloat16),
+        "tokens": torch.as_tensor(rng.integers(0, wcfg.vocab_size, size=(1, n)),
+                                  device=dev)} for n in W_LENS]
+
+    def w_step(rows, last):
+        return {"tokens": last}
+
+    # warm-up: the same prompts, 2 new tokens
+    pool_serve(wmodel, wparams, w_prompts, w_step, 2, W_SLOTS, W_MAX_SEQ)
+    enc_fn, enc_s = mencdec.encode, []
+
+    def timed_encode(*a, **k):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        y = enc_fn(*a, **k)
+        torch.cuda.synchronize()
+        enc_s.append(time.perf_counter() - t)
+        return y
+
+    torch.cuda.reset_peak_memory_stats()
+    mencdec.encode = timed_encode
+    reset_counts()                                   # main path starts here
+    try:
+        wout, w_pre, w_ticks, w_first, w_wall, w_tick = pool_serve(
+            wmodel, wparams, w_prompts, w_step, W_NEW, W_SLOTS, W_MAX_SEQ)
+    finally:
+        mencdec.encode = enc_fn
+    encdec_launches = {n: w.launches for n, w in kernel_wrappers.items()}
+    encdec_routes = route_counts()
+    w_peak = torch.cuda.max_memory_allocated()
+    check_pool_outputs("encdec", wout, len(W_LENS), W_NEW, wcfg.vocab_size)
+    # the decoder's causal prefill, once a layer a request; the encoder's
+    # and the cross attention (not causal) take the eager flash
+    check_launches("encdec", encdec_launches, {
+        **{n: 0 for n in kernel_wrappers},
+        "flash_attention_fwd": len(W_LENS) * wcfg.num_layers})
+    check_launches("encdec routes", encdec_routes["flash_attention_fwd"],
+                   {"wgmma": len(W_LENS) * wcfg.num_layers, "fma": 0})
+    # full-width logits through the kernel against the eager flash, and each
+    # request's first decode step against the full forward of prompt + 1
+    wlast = w_prompts[-1]
+    w_k, _, _ = wmodel.forward(wparams, wlast)
+    w_e, _, _ = build_model(wcfg.with_(attn_impl="xla"), dev).forward(wparams, wlast)
+    if tuple(w_k.shape) != (1, W_LENS[-1], wcfg.vocab_size) or not torch.isfinite(
+            w_k.float()).all():
+        fail(f"whisper logits: shape {tuple(w_k.shape)} or non-finite values")
+    w_kernel_vs_eager = rel_err(w_k, w_e)
+    w_argmax = float((w_k.argmax(-1) == w_e.argmax(-1)).float().mean())
+    del w_k, w_e
+    w_dec_vs_fwd = []
+    for rid, batch in enumerate(w_prompts):
+        longer = {"frames": batch["frames"], "tokens": torch.cat([
+            batch["tokens"], torch.tensor([[wout[rid][0]]], device=dev)], dim=1)}
+        full, _, _ = wmodel.forward(wparams, longer, last_token_only=True)
+        w_dec_vs_fwd.append(rel_err(w_first[rid], full[0, -1]))
+    torch.cuda.synchronize()
+    if w_kernel_vs_eager >= MODEL_TOL or max(w_dec_vs_fwd) >= MODEL_TOL:
+        fail(f"whisper: kernel vs eager {w_kernel_vs_eager:.3e}, decode vs "
+             f"forward {w_dec_vs_fwd} (limit {MODEL_TOL})")
+    # where the time goes: 4 more ticks, and the longest request's prefill,
+    # under the profiler (after the counts were read)
+    w_tick_prof = device_profile(w_tick, 4, "tick")
+    del w_tick
+    w_prefill_prof = device_profile(lambda: wmodel.forward(
+        wparams, wlast, return_cache=True, last_token_only=True), 1, "prefill")
+    w_tokens = sum(map(len, wout.values()))
+    emit("encdec", arch=wcfg.name, encoder_layers=wcfg.encoder_layers,
+         decoder_layers=wcfg.num_layers, d_model=wcfg.d_model,
+         heads=wcfg.num_heads, head_dim=wcfg.head_dim, vocab=wcfg.vocab_size,
+         encoder_seq=wcfg.encoder_seq, params=param_count(wparams),
+         param_dtype=wcfg.param_dtype, attn_impl=wcfg.attn_impl,
+         init_seconds=w_init, requests=len(W_LENS), prompt_lens=W_LENS,
+         max_new=W_NEW, slots=W_SLOTS, max_seq=W_MAX_SEQ, tokens=w_tokens,
+         ticks=len(w_ticks), wall_seconds=w_wall, tok_per_s=w_tokens / w_wall,
+         encoder_ms=[t * 1e3 for t in enc_s],
+         decoder_prefill_ms=[(t - e) * 1e3 for (_, t), e in zip(w_pre, enc_s)],
+         prefill_ms={str(n): t * 1e3 for n, t in w_pre},
+         tick_ms_median=statistics.median(w_ticks) * 1e3,
+         tick_ms_max=max(w_ticks) * 1e3,
+         kv_pool_bytes=wmodel.cache_bytes(W_SLOTS, W_MAX_SEQ),
+         launches=encdec_launches, launches_by_route=encdec_routes,
+         kernel_vs_eager_rel=w_kernel_vs_eager, argmax_agree=w_argmax,
+         decode_vs_forward_rel=w_dec_vs_fwd, tol=MODEL_TOL,
+         max_memory_allocated=w_peak, tick_profile=w_tick_prof,
+         prefill_profile=w_prefill_prof)
+    del wmodel, wparams, w_prompts, w_first
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ------------------------------------------------------------------ vlm
+    # full width, 32 of the 80 layers: 80 would not fit the card (145 GB of
+    # bf16 weights); nothing else is resident while it runs
+    qfull = get_config("qwen2-vl-72b")
+    qcfg = qfull.with_(num_layers=32, attn_impl="pallas", remat="none",
+                       param_dtype="bfloat16")
+    q_before = torch.cuda.memory_allocated()
+    qmodel = build_model(qcfg, dev)
+    t0 = time.time()
+    qparams, _ = qmodel.init(torch.Generator(device=dev).manual_seed(SEED))
+    torch.cuda.synchronize()
+    q_init = time.time() - t0
+    GRIDS, PREFIX, SUFFIX = [(16, 16), (24, 32), (32, 32), (8, 8)], 8, 16
+    Q_NEW, Q_SLOTS, Q_MAX_SEQ = 16, 4, 2048
+    g = torch.Generator(device=dev).manual_seed(SEED + 6)
+    rng = np.random.default_rng(SEED + 6)
+
+    def text_embeds(ids):
+        return mlayers.embed_tokens(qcfg, qparams, ids)
+
+    def vlm_prompt(gh, gw):
+        """PREFIX text tokens, a gh x gw image (the stubbed vision tower's
+        embeddings), SUFFIX text tokens, laid out on the three M-RoPE
+        streams as Qwen2-VL lays out one image; also the position the next
+        token takes on all three streams."""
+        ids = torch.as_tensor(rng.integers(0, qcfg.vocab_size,
+                                           size=(1, PREFIX + SUFFIX)), device=dev)
+        image = (0.02 * torch.randn(1, gh * gw, qcfg.d_model, generator=g,
+                                    device=dev)).to(torch.bfloat16)
+        embeds = torch.cat([text_embeds(ids[:, :PREFIX]), image,
+                            text_embeds(ids[:, PREFIX:])], dim=1)
+        a = PREFIX
+        idx = torch.arange(gh * gw, device=dev)
+        rows, cols = idx // gw, idx % gw
+        start = a + max(gh, gw)
+        positions = torch.cat([
+            torch.arange(a, device=dev).expand(3, a),
+            torch.stack([torch.full_like(rows, a), a + rows, a + cols]),
+            torch.arange(start, start + SUFFIX, device=dev).expand(3, SUFFIX)],
+            dim=1)[:, None, :]
+        return {"embeds": embeds, "positions": positions}, start + SUFFIX
+
+    q_prompts, q_next = zip(*(vlm_prompt(gh, gw) for gh, gw in GRIDS))
+    q_lens = [p["embeds"].shape[1] for p in q_prompts]
+    q_steps = {}
+
+    def q_step(rows, last):
+        """Table rows of the last tokens; each request's M-RoPE position
+        moves on from its prompt's, one a step, on all three streams (the
+        cache index, ``pos``, is another number)."""
+        for r in rows:
+            q_steps[r] = q_steps.get(r, -1) + 1
+        mpos = torch.tensor([q_next[r] + q_steps[r] for r in rows], device=dev)
+        return {"embeds": text_embeds(last),
+                "positions": mpos.view(1, -1, 1).expand(3, -1, 1)}
+
+    pool_serve(qmodel, qparams, q_prompts, q_step, 2, Q_SLOTS, Q_MAX_SEQ)  # warm-up
+    q_steps.clear()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()                                   # main path starts here
+    qout, q_pre, q_ticks, q_first, q_wall, q_tick = pool_serve(
+        qmodel, qparams, q_prompts, q_step, Q_NEW, Q_SLOTS, Q_MAX_SEQ)
+    vlm_launches = {n: w.launches for n, w in kernel_wrappers.items()}
+    vlm_routes = route_counts()
+    q_peak = torch.cuda.max_memory_allocated()
+    check_pool_outputs("vlm", qout, len(GRIDS), Q_NEW, qcfg.vocab_size)
+    check_launches("vlm", vlm_launches, {
+        **{n: 0 for n in kernel_wrappers},
+        "flash_attention_fwd": len(GRIDS) * qcfg.num_layers})
+    check_launches("vlm routes", vlm_routes["flash_attention_fwd"],
+                   {"wgmma": len(GRIDS) * qcfg.num_layers, "fma": 0})
+    big = q_prompts[q_lens.index(max(q_lens))]
+    q_k, _, _ = qmodel.forward(qparams, big)
+    q_e, _, _ = build_model(qcfg.with_(attn_impl="xla"), dev).forward(qparams, big)
+    if tuple(q_k.shape) != (1, max(q_lens), qcfg.vocab_size) or not torch.isfinite(
+            q_k.float()).all():
+        fail(f"qwen2-vl logits: shape {tuple(q_k.shape)} or non-finite values")
+    q_kernel_vs_eager = rel_err(q_k, q_e)
+    q_argmax = float((q_k.argmax(-1) == q_e.argmax(-1)).float().mean())
+    del q_k, q_e
+    q_dec_vs_fwd = []
+    for rid, batch in enumerate(q_prompts):
+        tok = torch.tensor([[qout[rid][0]]], device=dev)
+        longer = {"embeds": torch.cat([batch["embeds"], text_embeds(tok)], dim=1),
+                  "positions": torch.cat([batch["positions"], torch.full(
+                      (3, 1, 1), q_next[rid], device=dev)], dim=2)}
+        full, _, _ = qmodel.forward(qparams, longer, last_token_only=True)
+        q_dec_vs_fwd.append(rel_err(q_first[rid], full[0, -1]))
+    torch.cuda.synchronize()
+    if q_kernel_vs_eager >= MODEL_TOL or max(q_dec_vs_fwd) >= MODEL_TOL:
+        fail(f"qwen2-vl: kernel vs eager {q_kernel_vs_eager:.3e}, decode vs "
+             f"forward {q_dec_vs_fwd} (limit {MODEL_TOL})")
+    q_tick_prof = device_profile(q_tick, 4, "tick")
+    del q_tick
+    q_prefill_prof = device_profile(lambda: qmodel.forward(
+        qparams, big, return_cache=True, last_token_only=True), 1, "prefill")
+    q_tokens = sum(map(len, qout.values()))
+    emit("vlm", arch=qcfg.name, layers=qcfg.num_layers,
+         reduced={"num_layers": [qfull.num_layers, qcfg.num_layers]},
+         d_model=qcfg.d_model, heads=qcfg.num_heads, kv_heads=qcfg.num_kv_heads,
+         head_dim=qcfg.head_dim, d_ff=qcfg.d_ff, vocab=qcfg.vocab_size,
+         params=param_count(qparams), param_dtype=qcfg.param_dtype,
+         attn_impl=qcfg.attn_impl, memory_allocated_before_init=q_before,
+         init_seconds=q_init, requests=len(GRIDS), image_grids=GRIDS,
+         prompt_lens=q_lens, next_mrope_positions=list(q_next), max_new=Q_NEW,
+         slots=Q_SLOTS, max_seq=Q_MAX_SEQ, tokens=q_tokens, ticks=len(q_ticks),
+         wall_seconds=q_wall, tok_per_s=q_tokens / q_wall,
+         prefill_ms={str(n): t * 1e3 for n, t in q_pre},
+         tick_ms_median=statistics.median(q_ticks) * 1e3,
+         tick_ms_max=max(q_ticks) * 1e3,
+         kv_pool_bytes=qmodel.cache_bytes(Q_SLOTS, Q_MAX_SEQ),
+         launches=vlm_launches, launches_by_route=vlm_routes,
+         kernel_vs_eager_rel=q_kernel_vs_eager, argmax_agree=q_argmax,
+         decode_vs_forward_rel=q_dec_vs_fwd, tol=MODEL_TOL,
+         max_memory_allocated=q_peak, tick_profile=q_tick_prof,
+         prefill_profile=q_prefill_prof)
+    del qmodel, qparams, q_prompts, q_first
+    gc.collect()
+    torch.cuda.empty_cache()
+
     # ------------------------------------------------------------- summary
     head, shead, ssd_head = cases[0], stream_cases[0], ssd_cases[0]
     gmm_head, gmm_prefill, gmm_pinned = gmm_cases[0], gmm_cases[2], gmm_cases[3]
@@ -1874,6 +2192,12 @@ def main() -> None:
         "ms": head["ms"], "cold_ms": head["cold_ms"], "plain_ms": head["plain_ms"],
         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
         "library_ms": head["library_ms"],
+        "launches_encdec": encdec_launches["flash_attention_fwd"],
+        "launches_vlm": vlm_launches["flash_attention_fwd"],
+        **{f"{name}_prefill": {k: case[k] for k in (
+            "shape", "dtype", "ms", "cold_ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms")}
+           for name, case in (("encdec", encdec_case), ("vlm", vlm_case))},
     }, {
         "name": "stream_matmul", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/stream_matmul.cu",

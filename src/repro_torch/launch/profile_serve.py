@@ -38,6 +38,32 @@ def _device_us(evt) -> float:
                  or getattr(evt, "cuda_time_total", 0.0))
 
 
+def device_summary(prof, wall_s: float, calls: int, top: int = 12,
+                   unit: str = "tick") -> dict:
+    """What a ``torch.profiler`` window of ``calls`` calls (each a ``unit``)
+    taking ``wall_s`` seconds spent on the device, per call: wall ms,
+    device-busy ms (the sum of kernel and copy durations), the device's idle
+    share, device ops, and the ``top`` ops by device time."""
+    # device-side events only: kernels and memcpys (their own device time)
+    dev_events = [e for e in prof.key_averages()
+                  if _device_us(e) > 0 and getattr(e, "device_type", None)
+                  is not None and "CUDA" in str(e.device_type)]
+    if not dev_events:
+        raise RuntimeError("the profiler recorded no device activity")
+    busy_us = sum(_device_us(e) for e in dev_events)
+    return {
+        f"wall_ms_per_{unit}": wall_s * 1e3 / calls,
+        f"device_busy_ms_per_{unit}": busy_us / 1e3 / calls,
+        "device_idle_share": 1.0 - (busy_us / 1e6) / wall_s,
+        f"device_ops_per_{unit}": sum(e.count for e in dev_events) / calls,
+        "top_device_ops": [
+            {"name": e.key.replace("(anonymous namespace)::", "")[:80],
+             f"ms_per_{unit}": _device_us(e) / 1e3 / calls,
+             f"per_{unit}": e.count / calls}
+            for e in sorted(dev_events, key=_device_us, reverse=True)[:top]],
+    }
+
+
 def profile(args) -> dict:
     from torch.profiler import ProfilerActivity, profile as torch_profile
 
@@ -73,15 +99,7 @@ def profile(args) -> dict:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
 
-    # device-side events only: kernels and memcpys (their own device time)
-    dev_events = [e for e in prof.key_averages()
-                  if _device_us(e) > 0 and getattr(e, "device_type", None)
-                  is not None and "CUDA" in str(e.device_type)]
-    if not dev_events:
-        raise RuntimeError("the profiler recorded no device activity")
-    busy_us = sum(_device_us(e) for e in dev_events)
-    launches = sum(e.count for e in dev_events)
-    top = sorted(dev_events, key=_device_us, reverse=True)[:args.top]
+    summary = device_summary(prof, wall, args.ticks, args.top)
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True).stdout.strip()
@@ -90,14 +108,7 @@ def profile(args) -> dict:
         "max_seq": args.max_seq, "prompt_len": args.prompt_len,
         "offload_kv": args.offload_kv, "ticks": args.ticks, "card": card,
         "plan_offloaded": list(plan.offloaded) if plan else [],
-        "wall_ms_per_tick": wall * 1e3 / args.ticks,
-        "device_busy_ms_per_tick": busy_us / 1e3 / args.ticks,
-        "device_idle_share": 1.0 - (busy_us / 1e6) / wall,
-        "device_ops_per_tick": launches / args.ticks,
-        "top_device_ops": [
-            {"name": e.key.replace("(anonymous namespace)::", "")[:80],
-             "ms_per_tick": _device_us(e) / 1e3 / args.ticks,
-             "per_tick": e.count / args.ticks} for e in top],
+        **summary,
     }
 
 

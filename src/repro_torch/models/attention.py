@@ -13,8 +13,10 @@ the reference's values:
     ``repro_torch.kernels.ops.flash_attention`` (causal prefill). It has no
     backward, as in the reference, and raises under autograd.
 
-GQA is handled by gather-expanding K/V head-wise. ``cross_attention`` arrives
-with the encoder-decoder path.
+GQA is handled by gather-expanding K/V head-wise. ``cross_attention`` (the
+encoder-decoder's) is not causal, so like the encoder's self-attention it
+takes the eager flash whatever ``attn_impl`` says, as in the reference, whose
+kernel route is for causal self-attention only.
 """
 from __future__ import annotations
 
@@ -26,7 +28,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import flash_attention as fa_kernels
 from repro_torch.kernels import ops as kops
 from repro_torch.models.common import ParamBuilder, weight_matmul
-from repro_torch.models.layers import apply_rope, rms_norm_vec
+from repro_torch.models.layers import apply_mrope, apply_rope, rms_norm_vec
 
 
 # ---------------------------------------------------------------------------
@@ -59,8 +61,7 @@ def _rope(cfg: ModelConfig, x, positions, use_rope: bool):
     if not use_rope:
         return x
     if cfg.mrope:
-        raise NotImplementedError(
-            "M-RoPE is not ported yet (ROADMAP queue A item 11, VLM)")
+        return apply_mrope(x, positions, cfg.rope_theta)
     return apply_rope(x, positions, cfg.rope_theta)
 
 
@@ -308,3 +309,12 @@ def decode_self_attention(cfg: ModelConfig, p, x, cache_k, cache_v, cache_pos,
     attn = attention_core(cfg, q, cache_k, cache_v, causal=False,
                           kv_len=pos + x.shape[1])
     return out_proj(cfg, p, attn, prefix=prefix), cache_k, cache_v
+
+
+def cross_attention(cfg: ModelConfig, p, x, enc_k, enc_v, *,
+                    prefix: str = "cross_"):
+    """Decoder cross-attention over precomputed encoder K/V (no mask, no
+    rope): (B, S, D) queries against (B, S_enc, KV, hd) keys and values."""
+    q = q_proj(cfg, p, x, None, prefix=prefix, use_rope=False)
+    attn = attention_core(cfg, q, enc_k, enc_v, causal=False)
+    return out_proj(cfg, p, attn, prefix=prefix)

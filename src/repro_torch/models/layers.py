@@ -1,10 +1,10 @@
 """Shared neural blocks: norms, RoPE, MLPs, embeddings.
 
-Counterparts of ``repro/models/layers.py``; ``apply_mrope`` arrives with the
-VLM family. Weights are cast to the activation dtype at each use, as the
-reference does, and may live in either tier of an offload plan: products go
-through ``weight_matmul``, small leaves (norm scales, biases) are moved to
-the activations' device at use, and embedding rows of a host-tier table are
+Counterparts of ``repro/models/layers.py``, Qwen2-VL's M-RoPE included.
+Weights are cast to the activation dtype at each use, as the reference does,
+and may live in either tier of an offload plan: products go through
+``weight_matmul``, small leaves (norm scales, biases) are moved to the
+activations' device at use, and embedding rows of a host-tier table are
 gathered on the host.
 """
 from __future__ import annotations
@@ -63,15 +63,38 @@ def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
                                          device=device) / half))
 
 
-def apply_rope(x, positions, theta: float):
-    """x: (..., S, H, hd); positions: broadcastable to (..., S)."""
-    hd = x.shape[-1]
-    freqs = rope_freqs(hd, theta, x.device)                 # (hd/2,)
-    ang = positions[..., None].float() * freqs              # (..., S, hd/2)
+def _rotate(x, ang):
+    """Rotate the two halves of x's last dim by ``ang`` (..., S, hd/2), fp32
+    inside, the result in x's dtype."""
     cos, sin = torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :]
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
+
+
+def apply_rope(x, positions, theta: float):
+    """x: (..., S, H, hd); positions: broadcastable to (..., S)."""
+    freqs = rope_freqs(x.shape[-1], theta, x.device)        # (hd/2,)
+    return _rotate(x, positions[..., None].float() * freqs)
+
+
+def apply_mrope(x, positions_thw, theta: float, sections=(2, 3, 3)):
+    """Qwen2-VL multimodal RoPE. x: (B, S, H, hd); positions_thw: (3, B, S),
+    the temporal / height / width position streams.
+
+    The hd/2 frequency dims are split into three contiguous groups in the
+    ratio ``sections`` (16:24:24 at hd 128), each rotated by its own stream.
+    """
+    half = x.shape[-1] // 2
+    total, acc, starts = sum(sections), 0, []
+    for s in sections:
+        starts.append(half * acc // total)
+        acc += s
+    dims = torch.arange(half, device=x.device)
+    stream = (dims[None, :] >= torch.tensor(starts, device=x.device)[:, None]
+              ).sum(dim=0) - 1                              # (hd/2,) in 0..2
+    pos = positions_thw.to(x.device).index_select(0, stream).movedim(0, -1)
+    return _rotate(x, pos.float() * rope_freqs(x.shape[-1], theta, x.device))
 
 
 # ---------------------------------------------------------------------------

@@ -1,5 +1,7 @@
-"""Unified model API of the port (dense, MoE, SSM and hybrid decoder-only
-families so far).
+"""Unified model API of the port over all families: the decoder-only ones
+(dense, MoE, VLM, SSM, hybrid; ``models/transformer.py``) and the
+encoder-decoder (``models/encdec.py``), dispatched on ``cfg.family`` as in
+the reference.
 
 ``Model`` wires a ModelConfig to (init, forward, loss, decode, caches) on one
 device. Where the reference took a mesh or an axis environment, ``Model``
@@ -14,6 +16,7 @@ import torch
 
 from repro_torch.configs.base import ENCDEC, VLM, ModelConfig
 from repro_torch.configs.shapes import DECODE, TRAIN, ShapeSuite
+from repro_torch.models import encdec as encdec_mod
 from repro_torch.models import transformer as tfm
 from repro_torch.models.common import resolve_device, tree_leaves
 
@@ -25,50 +28,49 @@ class Model:
     cfg: ModelConfig
     device: torch.device
 
-    def _check_family(self):
-        if self.cfg.family == ENCDEC:
-            raise NotImplementedError(
-                f"{self.cfg.name}: encoder-decoder family is not ported yet "
-                f"(ROADMAP queue A item 11)")
-
     # ------------------------------------------------------------------
     def init(self, generator: Optional[torch.Generator] = None, *,
              abstract: bool = False) -> Tuple[PyTree, PyTree]:
         """Returns (params, role tree). ``generator`` must live on the
         model's device; ``abstract=True`` gives meta tensors (no memory)."""
-        self._check_family()
-        return tfm.init_decoder_only(self.cfg, generator, self.device,
-                                     abstract=abstract)
+        init = (encdec_mod.init_encdec if self.cfg.family == ENCDEC
+                else tfm.init_decoder_only)
+        return init(self.cfg, generator, self.device, abstract=abstract)
 
     # ------------------------------------------------------------------
+    def _forward(self, params, batch, *, return_cache: bool = False,
+                 last_token_only: bool = False):
+        forward = (encdec_mod.forward_encdec if self.cfg.family == ENCDEC
+                   else tfm.forward_decoder_only)
+        return forward(self.cfg, params, batch, return_cache=return_cache,
+                       last_token_only=last_token_only)
+
     @torch.no_grad()
     def forward(self, params, batch, *, return_cache: bool = False,
                 last_token_only: bool = False):
-        self._check_family()
-        return tfm.forward_decoder_only(
-            self.cfg, params, batch, return_cache=return_cache,
-            last_token_only=last_token_only)
+        return self._forward(params, batch, return_cache=return_cache,
+                             last_token_only=last_token_only)
 
     def loss_fn(self, params, batch) -> torch.Tensor:
         """Mean next-token cross-entropy plus 0.01 x the auxiliary loss, with
         autograd on (the serving ``forward`` runs without it)."""
-        self._check_family()
-        logits, aux, _ = tfm.forward_decoder_only(self.cfg, params, batch)
+        logits, aux, _ = self._forward(params, batch)
         return softmax_xent(logits, batch["labels"]) + 0.01 * aux
 
     @torch.no_grad()
     def decode(self, params, cache, batch):
         """Updates ``cache`` in place and returns it with the logits."""
-        self._check_family()
-        return tfm.decode_decoder_only(self.cfg, params, cache, batch)
+        decode = (encdec_mod.decode_encdec if self.cfg.family == ENCDEC
+                  else tfm.decode_decoder_only)
+        return decode(self.cfg, params, cache, batch)
 
     # ------------------------------------------------------------------
     def init_cache(self, batch: int, max_seq: int, dtype=torch.bfloat16,
                    device=None):
-        self._check_family()
-        return tfm.init_cache_decoder_only(
-            self.cfg, batch, max_seq, dtype,
-            device=self.device if device is None else device)
+        init_cache = (encdec_mod.init_cache_encdec if self.cfg.family == ENCDEC
+                      else tfm.init_cache_decoder_only)
+        return init_cache(self.cfg, batch, max_seq, dtype,
+                          device=self.device if device is None else device)
 
     def cache_shapes(self, batch: int, max_seq: int, dtype=torch.bfloat16):
         """The cache tree as meta tensors: shapes and each leaf's own dtype

@@ -1,4 +1,4 @@
-"""Decoder-only LM assembly — dense, MoE, SSM and hybrid families.
+"""Decoder-only LM assembly — dense, MoE, VLM, SSM and hybrid families.
 
 The reference scans over stacked layer parameters; here a Python loop indexes
 the same stacked tensors (``layers/wq`` with a leading ``L`` dim). Under
@@ -9,8 +9,11 @@ families serve only (their SSD scan raises under autograd,
 in place of the MLP, and the load-balancing loss summed over the layers as
 the forward's aux output. Hybrid (Zamba2): groups of ``attn_every`` Mamba2
 layers, each group followed by one shared, unstacked attention + MLP block,
-then a tail of the remaining SSM layers. The VLM branch is not ported yet
-and raises ``NotImplementedError`` naming the ROADMAP item that brings it.
+then a tail of the remaining SSM layers. VLM (Qwen2-VL): the dense block
+over precomputed input embeddings with three M-RoPE position streams; its
+``positions`` are the rotary angles' and ``pos`` the cache index, and after
+an image the first is smaller than the second. The encoder-decoder family is
+``models/encdec.py``.
 """
 from __future__ import annotations
 
@@ -24,21 +27,17 @@ from repro_torch.models import attention as attn
 from repro_torch.models import layers as nn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
-from repro_torch.models.common import ParamBuilder, to_dtype
+from repro_torch.models.common import ParamBuilder, cdtype, to_dtype
 
 PyTree = Any
 
-_PENDING = {
-    VLM: "VLM family: ROADMAP queue A item 11 (M-RoPE, embeds input)",
-}
-_ATTN_STACK = (DENSE, MOE)     # a stack of attention + FFN layers
+_ATTN_STACK = (DENSE, MOE, VLM)     # a stack of attention + FFN layers
 
 
-def _require_ported(cfg: ModelConfig) -> None:
-    if cfg.family not in (DENSE, MOE, SSM, HYBRID):
-        raise NotImplementedError(
-            f"{cfg.name}: {_PENDING.get(cfg.family, cfg.family)} "
-            f"is not ported yet")
+def _require_decoder_only(cfg: ModelConfig) -> None:
+    if cfg.family not in _ATTN_STACK + (SSM, HYBRID):
+        raise ValueError(f"{cfg.name}: family {cfg.family!r} is not "
+                         f"decoder-only")
 
 
 # ---------------------------------------------------------------------------
@@ -92,7 +91,7 @@ def remat_wrap(cfg: ModelConfig, fn):
 def init_decoder_only(cfg: ModelConfig, generator: Optional[torch.Generator],
                       device: torch.device, *, abstract: bool = False
                       ) -> Tuple[PyTree, PyTree]:
-    _require_ported(cfg)
+    _require_decoder_only(cfg)
     b = ParamBuilder(cfg, generator, device, abstract=abstract)
     nn.init_embeddings(b)
     lb = b.child("layers")
@@ -198,7 +197,11 @@ def _stacked_cache(cfg: ModelConfig, ssm_caches, kvs):
 # forward (prefill)
 # ---------------------------------------------------------------------------
 def _embed_input(cfg: ModelConfig, params, batch):
-    """Returns (x, positions)."""
+    """Returns (x, positions): VLM takes ``embeds`` and its (3, B, S)
+    M-RoPE ``positions`` as given; every other family embeds ``tokens`` at
+    ``pos`` + 0..S-1 (``pos`` a scalar or per row, 0 when absent)."""
+    if cfg.family == VLM:
+        return batch["embeds"].to(cdtype(cfg)), batch["positions"]
     tokens = batch["tokens"]
     S = tokens.shape[1]
     ar = torch.arange(S, device=tokens.device)
@@ -227,7 +230,7 @@ def forward_decoder_only(cfg: ModelConfig, params, batch, *,
     expert kernel has no backward yet): serving calls it under
     ``torch.no_grad()`` (``Model.forward``), training with autograd on
     (``Model.loss_fn``)."""
-    _require_ported(cfg)
+    _require_decoder_only(cfg)
     x, positions = _embed_input(cfg, params, batch)
     cache = None
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -267,7 +270,7 @@ def decode_decoder_only(cfg: ModelConfig, params, cache, batch):
     """One-token decode. cache arrays are layer-stacked (L leading) and are
     updated **in place**; the same tree is returned as the new cache.
     Returns (logits (B, V), cache)."""
-    _require_ported(cfg)
+    _require_decoder_only(cfg)
     x, positions = _embed_input(cfg, params, batch)
     pos = batch["pos"]
     if cfg.family in _ATTN_STACK:
@@ -293,7 +296,7 @@ def init_cache_decoder_only(cfg: ModelConfig, batch: int, max_seq: int,
     hd); SSM ``{"ssm": SSMCache}`` with the conv window in ``dtype`` and the
     state in fp32; hybrid both, KV stacked over the n_groups shared-block
     applications."""
-    _require_ported(cfg)
+    _require_decoder_only(cfg)
     dtype = to_dtype(dtype)
     cache = {}
     if cfg.family not in _ATTN_STACK:

@@ -792,3 +792,52 @@ def test_runtime_streams_offloaded_experts():
     resident = TenantEngine(t.model, on_device, slots=2, max_seq=48)
     again = [Request(r.rid, r.prompt, 4) for r in reqs]
     assert resident.run(again) == t.engine.outputs
+
+
+def _flash_prefill_vs_eager(arch, make_batch):
+    """A reduced ``arch`` on the card (fp32): one forward with
+    ``attn_impl="pallas"`` launches the flash forward once a decoder layer,
+    and its logits and cache equal the same weights' with the eager flash."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models.model_zoo import build_model
+    dev = _cuda()
+    cfg = get_config(arch).reduced().with_(remat="none", dtype="float32",
+                                           attn_impl="pallas")
+    model = build_model(cfg, dev)
+    params, _ = model.init(torch.Generator(device=dev).manual_seed(0))
+    batch = make_batch(cfg, dev, torch.Generator(device=dev).manual_seed(1))
+    before = fa.flash_attention_fwd.launches
+    logits, _, cache = model.forward(params, batch, return_cache=True)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_fwd.launches - before == cfg.num_layers
+    eager = build_model(cfg.with_(attn_impl="xla"), dev)
+    want, _, want_cache = eager.forward(params, batch, return_cache=True)
+    assert torch.isfinite(logits).all()
+    assert _rel(logits, want) < 1e-4
+    for name in cache:
+        assert _rel(cache[name], want_cache[name]) < 1e-4, name
+
+
+@pytest.mark.gpu
+def test_encdec_decoder_prefill_through_the_flash_kernel():
+    """whisper: the decoder's causal self-attention takes the kernel; the
+    encoder's and the cross attention (not causal) take the eager flash."""
+    def batch(cfg, dev, g):
+        return {"frames": 0.02 * torch.randn(2, cfg.encoder_seq, cfg.d_model,
+                                             generator=g, device=dev),
+                "tokens": torch.randint(0, cfg.vocab_size, (2, 40),
+                                        generator=g, device=dev)}
+    _flash_prefill_vs_eager("whisper-large-v3", batch)
+
+
+@pytest.mark.gpu
+def test_vlm_prefill_through_the_flash_kernel():
+    """qwen2-vl: input embeddings and three M-RoPE streams that differ."""
+    def batch(cfg, dev, g):
+        return {"embeds": 0.02 * torch.randn(2, 40, cfg.d_model, generator=g,
+                                             device=dev),
+                "positions": torch.stack([
+                    torch.randint(lo, lo + 40, (2, 40), generator=g, device=dev)
+                    for lo in (0, 100, 1000)])}
+    _flash_prefill_vs_eager("qwen2-vl-72b", batch)
