@@ -19,10 +19,13 @@ JSON line per phase; any failure is a non-zero exit:
            (each case's route; a pinned w's rate as a share of the 1 GiB
            pinned copy's, link_memcpy_gb_per_s; the ring at several panel
            depths beside the library), ssd_scan (no single PyTorch call computes the SSD:
-           no library time), grouped_matmul (library: torch.bmm) with w on
-           the card and in pinned host memory, the pinned decode at four
-           panel depths, and the host time of one wrapper call beside its
-           library call's
+           no library time) and its autograd Function (gradients against
+           autograd through ssd_chunked, the plain backward's time at the
+           training shapes), grouped_matmul (library: torch.bmm) with w on
+           the card and in pinned host memory, its two backward products at
+           granite-moe's training shapes, the pinned decode at four panel
+           depths, and the host time of one wrapper call beside its library
+           call's
   serve    llama3-8b at full width and depth (random bf16 weights from a
            seed) through ServingEngine.run; the kernel launch counts are set
            to 0 just before and read just after
@@ -50,6 +53,17 @@ JSON line per phase; any failure is a non-zero exit:
   grads    one step's loss and gradients of full gpt2-124m through the kernels
            against the eager attention, and the remat routes none / offload
            against layer (equal), with the offload route's host bytes
+  train_ssm, train_hybrid, train_moe
+           mamba2-130m, zamba2-1.2b and granite-moe-1b-a400m at full size
+           trained through launch/train.py's path: 8, 12 and 8 AdamW steps of
+           8 x 1024 tokens, remat "layer", attention through the flash kernels,
+           every prefill SSD through ssd_scan (the SSD Function's backward
+           is plain torch) and every expert product, forward and backward,
+           through grouped_matmul; the counts are set to 0 just before and
+           read just after and must equal the remat nesting's formulas, every
+           bf16 launch on the wgmma route; one step's loss and gradients
+           through the kernels against the plain routes on the card (fp32,
+           the SSM families' at a cut depth where fp32 rounding allows 1e-4)
   ssm      mamba2-130m at full size (random bf16 weights from a seed) through
            ServingEngine.run, every prefill's SSD through the ssd_scan kernel
            (counts set to 0 just before, read just after); prefill -> decode
@@ -75,7 +89,7 @@ JSON line per phase; any failure is a non-zero exit:
   encdec   whisper-large-v3 at full size (32 + 32 layers, 1500 frames from
            the stubbed audio front end): 4 requests, each prefilled alone
            through Model.forward and pasted into a 4-slot KVPool (max_seq
-           448, so the cross K/V are held whole), then decoded together with
+           448, whisper's text context; the cross K/V held whole), then decoded together with
            per-row pos; the decoder's causal prefill through the flash kernel
            (counts set to 0 just before, read just after; 4 x 32 launches,
            all wgmma); encoder and decoder-prefill ms apart; logits against
@@ -258,6 +272,7 @@ def main() -> None:
         sm.stream_matmul.launches_by_route = dict.fromkeys(sm.ROUTES, 0)
         sm.stream_matmul.h2d_bytes = 0
         gmm.grouped_matmul.h2d_bytes = 0
+        gmm.grouped_matmul.transpose_bytes = 0
         mlayers.gather_rows.h2d_bytes = 0
         mtfm.offload_activation.d2h_bytes = 0
 
@@ -780,8 +795,11 @@ def main() -> None:
         gmm_case(2, 128, 128, 128, "float32", "device"),        # the reference's
         gmm_case(4, 256, 128, 384, "float32", "device"),
         gmm_case(1, 128, 256, 128, "float32", "device"),
-        gmm_case(5, 77, 100, 96, "bfloat16", "device")]         # x rows of 200 B
-    want_routes = ["wgmma"] * 6 + ["fma"] * 5 + ["mma_sync"]
+        gmm_case(5, 77, 100, 96, "bfloat16", "device"),         # x rows of 200 B
+        # granite-moe training, 8 x 1024 tokens: 8 groups x capacity 320
+        gmm_case(32, 2560, 1024, 512, "bfloat16", "device"),    # w_in, w_gate
+        gmm_case(32, 2560, 512, 1024, "bfloat16", "device")]    # w_out
+    want_routes = ["wgmma"] * 6 + ["fma"] * 5 + ["mma_sync"] + ["wgmma"] * 2
     got_routes = [c["route"] for c in gmm_cases]
     if got_routes != want_routes:
         fail(f"grouped_matmul routes {got_routes} != {want_routes}")
@@ -807,6 +825,129 @@ def main() -> None:
             gmm.BLOCK_K = kept
         return {"shape": [E, M, K, N], "used": kept, "cold_ms": out}
 
+    def gmm_bwd_case(which, E, M, K, N):
+        """One product of grouped_matmul's backward at granite-moe's training
+        shapes (x (E, M, K), w (E, K, N), dy (E, M, N), bf16), as the
+        autograd Function runs it: ``dx = dy @ w^T`` on w's transposed view
+        ("nk"), or ``dw = x^T @ dy`` on x's transposed view (the wgmma
+        kernel's transposed A); neither copies an operand (``copy_bytes``,
+        checked 0). Held to the plain version under the bf16 tolerance.
+        Bound: the inputs read once and the output written once; 2*E*M*K*N
+        operations. Library: one torch.bmm on the same transposed views."""
+        g = torch.Generator(device=dev).manual_seed(SEED + 11 * M + N)
+        x = torch.randn(E, M, K, device=dev, generator=g).to(torch.bfloat16)
+        w = (torch.randn(E, K, N, device=dev, generator=g) * K ** -0.5).to(
+            torch.bfloat16)
+        dy = torch.randn(E, M, N, device=dev, generator=g).to(torch.bfloat16)
+        if which == "dx":
+            a, b = dy, w.transpose(1, 2)
+            run = lambda: gmm._launch(dy, w.transpose(1, 2))
+        else:
+            a, b = x.transpose(1, 2), dy
+            run = lambda: gmm._launch(gmm.transposed_x(x, dy), dy)
+        routes = dict(gmm.grouped_matmul.launches_by_route)
+        copied = gmm.grouped_matmul.transpose_bytes
+        got = run()
+        copy_bytes = gmm.grouped_matmul.transpose_bytes - copied
+        route = [r for r, n in gmm.grouped_matmul.launches_by_route.items()
+                 if n != routes[r]]
+        want = gmm.grouped_matmul_plain(a, b)
+        torch.cuda.synchronize()
+        abs_err = float((got.float() - want.float()).abs().max())
+        rel = abs_err / (float(want.float().abs().max()) + 1e-9)
+        if not torch.isfinite(got.float()).all() or rel >= TOL["bfloat16"]:
+            fail(f"grouped_matmul backward {which} disagrees with its plain "
+                 f"version at {(E, M, K, N)}: rel {rel:.3e}")
+        if route != ["wgmma"] or copy_bytes:
+            fail(f"grouped_matmul backward {which} took {route}, not wgmma, "
+                 f"or copied {copy_bytes} bytes")
+        nbytes = (a.numel() + b.numel() + got.numel()) * 2
+        bound_ms, bound_by = bound(nbytes, 2.0 * E * M * K * N, "bfloat16")
+        return {"product": which, "shape": [E, M, K, N], "dtype": "bfloat16",
+                "operands": [list(a.shape), list(b.shape)], "route": route[0],
+                "max_abs_err": abs_err, "rel_err": rel, "tol": TOL["bfloat16"],
+                "ms": time_ms(run), "cold_ms": time_ms(run, cold=True),
+                "plain_ms": time_ms(lambda: gmm.grouped_matmul_plain(a, b),
+                                    iters=5),
+                "library_ms": time_ms(lambda: torch.bmm(a, b)),
+                "library": "torch.bmm", "bound_ms": bound_ms,
+                "bound_by": bound_by, "copy_bytes": copy_bytes}
+
+    # granite-moe at 8 x 1024 tokens (capacity 320 x 8 groups): w_in and
+    # w_gate (1024 -> 512), then w_out (512 -> 1024)
+    gmm_bwd_cases = [gmm_bwd_case(which, 32, 2560, K, N)
+                     for K, N in ((1024, 512), (512, 1024))
+                     for which in ("dx", "dw")]
+
+    def ssd_bwd_case(B, S, nh, hp, N):
+        """The SSD Function (models.ssm.ssd_autograd, the kernel as its
+        forward) at a training shape. Its forward, the kernel, held to
+        ssd_chunked on the same inputs: y under SSD_TOL and the final state
+        under SSD_STATE_TOL, in fp32 and in bf16 (x, B_, C_ bf16, the
+        training dtype). Its gradients against autograd through ssd_chunked
+        (fp32, 1e-4 relative, every input): the backward recomputes
+        ssd_chunked and never reads the kernel's output, so this checks the
+        Function's wiring, not the kernel. And the time of its backward
+        (plain torch) in bf16."""
+        ins = []
+        g = torch.Generator(device=dev).manual_seed(SEED + nh + N)
+        for dtype in (torch.float32, torch.bfloat16):
+            gg = torch.Generator(device=dev).manual_seed(SEED + nh + N)
+            ins.append([
+                (0.5 * torch.randn(B, S, nh, hp, device=dev, generator=gg)).to(dtype),
+                torch.nn.functional.softplus(
+                    torch.randn(B, S, nh, device=dev, generator=gg)),
+                -torch.exp(0.3 * torch.randn(nh, device=dev, generator=gg)),
+                (0.3 * torch.randn(B, S, N, device=dev, generator=gg)).to(dtype),
+                (0.3 * torch.randn(B, S, N, device=dev, generator=gg)).to(dtype)])
+        forward = {}
+        for dtype_name, args in zip(("float32", "bfloat16"), ins):
+            before = ssd.ssd_scan.launches
+            y, st = mssm.ssd_autograd(mssm.ssd_kernel, *args, 128)
+            launched = ssd.ssd_scan.launches - before
+            py, pst = mssm.ssd_chunked(*args, 128)
+            torch.cuda.synchronize()
+            forward[dtype_name] = {
+                "y_rel_err": rel_err(y, py), "tol": SSD_TOL[dtype_name],
+                "state_rel_err": rel_err(st, pst), "state_tol": SSD_STATE_TOL}
+            f = forward[dtype_name]
+            if (launched != 1 or not f["y_rel_err"] < f["tol"]
+                    or not f["state_rel_err"] < SSD_STATE_TOL):
+                fail(f"the SSD Function's forward ({launched} kernel "
+                     f"launches) disagrees with ssd_chunked at "
+                     f"{(B, S, nh, hp, N)} {dtype_name}: {f}")
+            del y, st, py, pst
+        dy = torch.randn(B, S, nh, hp, device=dev, generator=g)
+        grads = []
+        for fn in ("kernel", "plain"):
+            leaves = [t.clone().requires_grad_() for t in ins[0]]
+            y, _ = (mssm.ssd_autograd(mssm.ssd_kernel, *leaves, 128)
+                    if fn == "kernel" else mssm.ssd_chunked(*leaves, 128))
+            grads.append(torch.autograd.grad(y, leaves, dy))
+        torch.cuda.synchronize()
+        errs = {name: rel_err(a, b) for name, a, b in zip(
+            ("x", "dt", "A", "B_", "C_"), *grads)}
+        if not max(errs.values()) < 1e-4:          # NaN fails too
+            fail(f"the SSD Function's gradients disagree with autograd "
+                 f"through ssd_chunked at {(B, S, nh, hp, N)}: {errs}")
+        del grads
+        leaves = [t.clone().requires_grad_() for t in ins[1]]
+        y, _ = mssm.ssd_autograd(mssm.ssd_kernel, *leaves, 128)
+        dyb = dy.to(torch.bfloat16)
+        bwd = lambda: torch.autograd.grad(y, leaves, dyb, retain_graph=True)
+        return {"shape": [B, S, nh, hp], "N": N,
+                "forward_vs_ssd_chunked": forward,
+                "grad_rel_err_fp32": errs, "grad_tol": 1e-4,
+                "grad_checks": "the Function's wiring (its backward is "
+                               "ssd_chunked's)",
+                "dtype": "bfloat16",
+                "backward_ms": time_ms(bwd, warmup=1, iters=5),
+                "forward_ms": time_ms(lambda: mssm.ssd_kernel(*ins[1], 128)),
+                "backward": "plain torch: ssd_chunked recomputed under autograd"}
+
+    ssd_bwd_cases = [ssd_bwd_case(8, 1024, 24, 64, 128),   # mamba2-130m training
+                     ssd_bwd_case(8, 1024, 64, 64, 64)]    # zamba2-1.2b training
+
     hq, hk, hv = (torch.randn(32, 1024, 128, device=dev).to(torch.bfloat16)
                   for _ in range(3))
     hx = torch.randn(1, 4, 1024, device=dev).to(torch.bfloat16).expand(32, 4, 1024)
@@ -824,7 +965,8 @@ def main() -> None:
     emit("kernels", flash_attention_fwd=cases, flash_attention_train=train_cases,
          stream_matmul=stream_cases, stream_matmul_ring_depths=stream_ring_depths,
          link_memcpy_gb_per_s=link_bytes_per_s / 1e9,
-         ssd_scan=ssd_cases, grouped_matmul=gmm_cases,
+         ssd_scan=ssd_cases, ssd_function_backward=ssd_bwd_cases,
+         grouped_matmul=gmm_cases, grouped_matmul_backward=gmm_bwd_cases,
          grouped_matmul_panel_depths=panel_depths(32, 4, 1024, 512),
          wrapper_host_us=wrapper_host_us,
          ssd_scan_library="none: no single PyTorch call computes the SSD scan",
@@ -1353,6 +1495,214 @@ def main() -> None:
          remat_vs_layer=remat_rows, remat_tol=1e-6,
          offload_host_bytes_expected=want_host)
     del grads_k, gparams
+    torch.cuda.empty_cache()
+
+    # ------------------------------------- train_ssm, train_hybrid, train_moe
+    def plain_routes(chunk):
+        """The plain routes for one step: the SSD's forward by ssd_chunked at
+        ``chunk`` (its backward is ssd_chunked at the model's chunk on every
+        route); the expert products by grouped_matmul_plain."""
+        def plain_ssd(x, dt, A, B_, C_, _, init_state=None):
+            return mssm.ssd_chunked(x, dt, A, B_, C_, chunk,
+                                    init_state=init_state)
+        return {"ssd_kernel": plain_ssd,
+                "grouped_matmul": gmm.grouped_matmul_plain}
+
+    def step_grads(cfg, params, batch, routes=None):
+        """Loss and flat gradients of one step; ``routes`` swaps the kernels
+        for plain versions (and attention for the eager flash) meanwhile."""
+        mods = {"ssd_kernel": mssm, "grouped_matmul": gmm}
+        kept = {n: getattr(m, n) for n, m in mods.items()}
+        try:
+            for n, fn in (routes or {}).items():
+                setattr(mods[n], n, fn)
+            model = build_model(cfg.with_(attn_impl="xla") if routes else cfg,
+                                dev)
+            loss, grads = _accumulate_grads(model, params, batch, 1)
+        finally:
+            for n, fn in kept.items():
+                setattr(mods[n], n, fn)
+        return float(loss), dict(_flatten_with_paths(grads))
+
+    def compare(a, b):
+        rel = {n: rel_err(a[1][n], b[1][n]) for n in b[1]}
+        worst = max(rel, key=rel.get)
+        return {"loss_rel": abs(a[0] - b[0]) / abs(b[0]),
+                "max_leaf_rel": rel[worst], "worst_leaf": worst,
+                "leaves_over_tol": {n: r for n, r in rel.items()
+                                    if not r < 1e-4}}
+
+    def routes_vs_plain(cfg, spread=False):
+        """One step's loss and gradients of ``cfg`` in fp32 activations
+        (T_BATCH x T_SEQ tokens, random weights from SEED) through the
+        kernels against the same step with the plain routes on the card: the
+        SSD by ssd_chunked at the kernel's chunk (ssd_scan.CHUNK), the expert
+        products by grouped_matmul_plain, attention by the eager chunked
+        flash. With ``spread``, also the plain route against itself at the
+        model's own chunk: how far two plain fp32 runs of the step part, the
+        floor under any comparison of this model in fp32."""
+        fcfg = cfg.with_(dtype="float32")
+        params, _ = build_model(fcfg, dev).init(
+            torch.Generator(device=dev).manual_seed(SEED))
+        batch = to_device(DataPipeline(SyntheticSource(fcfg.vocab_size,
+                                                       seed=SEED),
+                                       T_BATCH, T_SEQ).batch_at(0), dev)
+        kern = step_grads(fcfg, params, batch)
+        plain = step_grads(fcfg, params, batch, plain_routes(ssd.CHUNK))
+        out = {"layers": cfg.num_layers, "loss_kernel": kern[0],
+               "loss_plain": plain[0], "kernel_vs_plain": compare(kern, plain)}
+        if spread:
+            if cfg.ssm_chunk == ssd.CHUNK:
+                fail(f"{cfg.name}: the model's chunk is the kernel's; no "
+                     f"second plain route to measure the spread with")
+            other = step_grads(fcfg, params, batch, plain_routes(cfg.ssm_chunk))
+            out["plain_vs_plain_at_model_chunk"] = compare(plain, other)
+            out["model_chunk"] = cfg.ssm_chunk
+        c = out["kernel_vs_plain"]
+        out["ok"] = (bool(np.isfinite(kern[0])) and c["loss_rel"] < 1e-4
+                     and not c["leaves_over_tol"])
+        return out
+
+    def family_grads_vs_plain(cfg, check_layers=None):
+        """The kernel-vs-plain gradient check: each leaf within 1e-4 of its
+        largest value (no leaf of these models has a gradient that is zero
+        in exact arithmetic: none has a key bias, so no absolute floor).
+        Held at full depth, or, where the full-depth model's own fp32
+        spread (plain vs plain at the model's chunk) is not below 1e-4, at
+        1e-4 at ``check_layers`` layers of the full width: at full depth the
+        SSM families amplify fp32 rounding past 1e-4 (PERF.md). The
+        full-depth reading is then held to twice that spread, measured in
+        the same run: loss and worst leaf within max(1e-4, 2 x plain vs
+        plain)."""
+        full = routes_vs_plain(cfg, spread=bool(check_layers))
+        out = {"rows": T_BATCH, "seq": T_SEQ, "dtype": "float32", "tol": 1e-4,
+               "full_depth": full}
+        if not check_layers:
+            out["checked_at_layers"] = full["layers"]
+            out["ok"] = full["ok"]
+            return out
+        c, spread = full["kernel_vs_plain"], full["plain_vs_plain_at_model_chunk"]
+        limit = {k: max(1e-4, 2 * spread[k])
+                 for k in ("loss_rel", "max_leaf_rel")}
+        full["full_depth_limit"] = limit
+        full["full_depth_ok"] = bool(np.isfinite(full["loss_kernel"])) and all(
+            c[k] <= limit[k] for k in limit)
+        checked = routes_vs_plain(cfg.with_(num_layers=check_layers))
+        out["checked_at_layers"] = checked["layers"]
+        out["checked"] = checked
+        out["ok"] = checked["ok"] and full["full_depth_ok"]
+        return out
+
+    def train_family(phase, arch, steps, formula, check_layers=None):
+        """``arch`` at full size trained through launch/train.py's path
+        (FaultTolerantRunner, checkpoints; no failure injected): ``steps``
+        AdamW steps of T_BATCH x T_SEQ tokens, bf16 activations, fp32
+        parameters, attention through the flash kernels, remat "layer". The
+        counts are set to 0 just before and read just after, and must equal
+        ``formula(cfg)`` (per step) times the steps; every bf16 launch of a
+        routed kernel takes the wgmma route."""
+        cfg = build_config(arch, full_size=True, attn_impl="xla_cv",
+                           remat="layer")
+        gc.collect()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as ckpt_dir:
+            reset_counts()                           # main path starts here
+            t0 = time.perf_counter()
+            st = run_training(cfg, steps=steps, batch=T_BATCH, seq=T_SEQ,
+                              lr=3e-3, device=dev, ckpt_dir=ckpt_dir,
+                              ckpt_every=steps + 1, seed=SEED)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = {n: w.launches for n, w in kernel_wrappers.items()}
+            routes = route_counts()
+            transpose_bytes = gmm.grouped_matmul.transpose_bytes
+        peak = torch.cuda.max_memory_allocated()
+        if st.steps_done != steps or not all(np.isfinite(st.losses)):
+            fail(f"{phase}: steps {st.steps_done} of {steps}, losses {st.losses}")
+        first, last5 = st.losses[0], statistics.mean(st.losses[-5:])
+        if first - last5 < 0.5:
+            fail(f"{phase}: loss {first:.4f} -> {last5:.4f} fell less than "
+                 f"0.5 nat")
+        want = {n: (f, n_step * steps)
+                for n, (f, n_step) in formula(cfg).items()}
+        if launches != {n: c for n, (_, c) in want.items()}:
+            fail(f"{phase}: launches {launches} != {want}")
+        check_launches(f"{phase} routes", routes, {
+            n: {r: (launches[n] if r == "wgmma" else 0) for r in routes[n]}
+            for n in routes})
+        if transpose_bytes:
+            fail(f"{phase}: grouped_matmul copied {transpose_bytes} bytes of "
+                 f"x^T; the wgmma dw reads x through its transposed A")
+        grads = family_grads_vs_plain(cfg, check_layers)
+        if not grads["ok"]:
+            fail(f"{phase}: kernel vs plain-route gradients over their limit: "
+                 f"{grads}")
+        step_ms = statistics.median(st.step_seconds) * 1e3
+        emit(phase, arch=cfg.name, layers=cfg.num_layers, d_model=cfg.d_model,
+             vocab=cfg.vocab_size, params=cfg.param_count(),
+             param_dtype=cfg.param_dtype, dtype=cfg.dtype,
+             attn_impl=cfg.attn_impl, remat=cfg.remat, batch=T_BATCH,
+             seq=T_SEQ, tokens_per_step=T_BATCH * T_SEQ, steps=steps,
+             loss_first=first, loss_last5_mean=last5, losses=st.losses,
+             step_ms_median=step_ms,
+             step_ms_min=min(st.step_seconds) * 1e3,
+             step_ms_max=max(st.step_seconds) * 1e3,
+             tokens_per_s=T_BATCH * T_SEQ / (step_ms * 1e-3),
+             wall_seconds=wall, memory_allocated_before=base,
+             max_memory_allocated=peak, peak_memory_of_training=peak - base,
+             launches={n: {"count": launches[n], "formula": f, "expected": c}
+                       for n, (f, c) in want.items()},
+             launches_by_route=routes,
+             grouped_matmul_transpose_bytes=transpose_bytes,
+             grads_vs_plain=grads)
+        return launches, routes
+
+    def no_launch(**nonzero):
+        base = {n: ("0", 0) for n in kernel_wrappers}
+        base.update(nonzero)
+        return base
+
+    def ssm_formula(cfg):
+        # each layer wrapped alone: its forward and the backward's recompute;
+        # the backward itself recomputes the plain ssd_chunked: no launch
+        return no_launch(ssd_scan=("2 x layers a step", 2 * cfg.num_layers))
+
+    def hybrid_formula(cfg):
+        # a grouped SSM layer runs the forward, the group's recompute and its
+        # own recompute inside that; a tail layer the forward and its
+        # recompute; the shared block is checkpointed only with its group
+        g = cfg.attn_every
+        n_groups = cfg.num_layers // g
+        tail = cfg.num_layers - n_groups * g
+        return no_launch(
+            ssd_scan=("3 x grouped layers + 2 x tail layers a step",
+                      3 * n_groups * g + 2 * tail),
+            flash_attention_fwd_stats=("2 x groups a step", 2 * n_groups),
+            flash_attention_bwd_dkdv=("groups a step", n_groups),
+            flash_attention_bwd_dq=("groups a step", n_groups))
+
+    def moe_formula(cfg):
+        # per layer: 3 expert products forward, 3 recomputed, and dx, dw of
+        # each in the backward
+        L = cfg.num_layers
+        return no_launch(
+            grouped_matmul=("12 x layers a step", 12 * L),
+            flash_attention_fwd_stats=("2 x layers a step", 2 * L),
+            flash_attention_bwd_dkdv=("layers a step", L),
+            flash_attention_bwd_dq=("layers a step", L))
+
+    # steps: each loss falls well past 0.5 nat by then (the warm-up is 20
+    # steps, so the first steps' rates do not depend on the count); the
+    # SSM families' gradient check at full width and 4 layers (mamba2), one
+    # group, the shared block and the 2 tail layers (zamba2)
+    tssm_launches, _ = train_family("train_ssm", "mamba2-130m", 8, ssm_formula,
+                                    check_layers=4)
+    thyb_launches, _ = train_family("train_hybrid", "zamba2-1.2b", 12,
+                                    hybrid_formula, check_layers=8)
+    tmoe_launches, tmoe_routes = train_family("train_moe", "granite-moe-1b-a400m",
+                                              8, moe_formula)
     torch.cuda.empty_cache()
 
     # ------------------------------------------------------------------ ssm
@@ -1962,8 +2312,8 @@ def main() -> None:
     wparams, _ = wmodel.init(torch.Generator(device=dev).manual_seed(SEED))
     torch.cuda.synchronize()
     w_init = time.time() - t0
-    # max_seq: whisper's text context, not encoder_seq (1500), so the pool
-    # holds the cross K/V whole instead of cutting them along dim 2
+    # max_seq: whisper's text context (448 tokens); the pool holds the cross
+    # K/V (1500 frames) whole whatever max_seq is
     W_LENS, W_NEW, W_SLOTS, W_MAX_SEQ = [4, 16, 64, 224], 32, 4, 448
     g = torch.Generator(device=dev).manual_seed(SEED + 5)
     rng = np.random.default_rng(SEED + 5)
@@ -2230,6 +2580,8 @@ def main() -> None:
         "bound_ms": train_cases[0][f"{key}_bound_ms"],
         "bound_by": train_cases[0][f"{key}_bound_by"],
         "library_ms": train_cases[0][lib],
+        "launches_train_hybrid": thyb_launches[name],
+        "launches_train_moe": tmoe_launches[name],
     } for name, source, replaces, key, errs, lib in (
         ("flash_attention_fwd_stats",
          "src/repro_torch/kernels/csrc/flash_attention_fwd.cu",
@@ -2256,6 +2608,9 @@ def main() -> None:
         "bound_fma_ms": ssd_head["bound_fma_ms"],
         "library_ms": None,
         "library": "none: no single PyTorch call computes the SSD scan",
+        "launches_train_ssm": tssm_launches["ssd_scan"],
+        "launches_train_hybrid": thyb_launches["ssd_scan"],
+        "function_backward": ssd_bwd_cases,
     }, {
         "name": "grouped_matmul", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/grouped_matmul.cu",
@@ -2277,6 +2632,9 @@ def main() -> None:
         "prefill": {k: gmm_prefill[k] for k in (
             "shape", "route", "ms", "cold_ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms")},
+        "launches_train_moe": tmoe_launches["grouped_matmul"],
+        "launches_by_route_train_moe": tmoe_routes["grouped_matmul"],
+        "backward": gmm_bwd_cases,
     }]}), flush=True)
     print(card_line, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -14,7 +14,10 @@
 // 320). x carries its own expert stride and row stride: the MoE decode sets
 // the expert stride to 0, so every expert reads the same rows of one
 // (M, K) buffer and no copy per expert is made. w is (K, N) row-major per
-// expert ("kn") or (N, K) ("nk"), read as it lies.
+// expert ("kn") or (N, K) ("nk"), read as it lies. x may also be given as
+// its transpose (x_t: (K, M) rows with M contiguous), the backward's
+// dw[e] = x[e]^T dy[e] on the (E, C, d) capacity buffer as it lies, on the
+// wgmma route only (A's transpose bit), with w "kn" on the device.
 //
 // The products are tiled_matmul.cuh's, on the route the caller's plan
 // names (kernels/grouped_matmul.py::plan, by a shape and alignment rule):
@@ -89,17 +92,19 @@ cudaError_t copy_panel(void* dst, const void* w, long long swe, long long ldw,
 
 // out (E, M, N), dense, in x's type = x @ w per expert. dtypes: 0 = float32,
 // 1 = bfloat16. x[e] starts at x + e * sxe with row stride ldx (sxe = 0:
-// one x for every expert); w[e] at w + e * swe, (K, N) with row stride ldw
-// (w_nk = 0) or (N, K) with row stride ldw (w_nk = 1). route 1: the wgmma
-// kernel on a block_m x block_n tile (64 x 64 or 128 x 128); route 0: the
-// tiled kernels (block_m, block_n unused). w_on_host = 0: w is device
+// one x for every expert; x_t = 1: x[e] is stored transposed, (K, M) with
+// row stride ldx, route 1 only, w "kn" on the device, sxe not 0); w[e] at
+// w + e * swe, (K, N) with row stride ldw (w_nk = 0) or (N, K) with row
+// stride ldw (w_nk = 1). route 1: the wgmma kernel on a block_m x block_n
+// tile (64 x 64 or 128 x 128); route 0: the tiled kernels (block_m, block_n
+// unused). w_on_host = 0: w is device
 // memory, one launch. w_on_host = 1: w is pinned host memory and is streamed
 // in panels of panel_experts x panel_k x N elements through ring (two such
 // panels of device memory); acc is an (M, N) fp32 scratch buffer, needed
 // when panel_k < K (then panel_experts must be 1). Launches on `stream` and
 // does not synchronise. Returns the CUDA error code (0 = launched).
 extern "C" int grouped_matmul(const void* x, long long sxe, long long ldx,
-                              int x_dtype, const void* w, long long swe,
+                              int x_dtype, int x_t, const void* w, long long swe,
                               long long ldw, int w_dtype, int w_nk,
                               int w_on_host, int route, int block_m,
                               int block_n, void* ring, float* acc, void* out,
@@ -109,6 +114,13 @@ extern "C" int grouped_matmul(const void* x, long long sxe, long long ldx,
   if (x_dtype < 0 || x_dtype > 1 || w_dtype < 0 || w_dtype > 1 || E <= 0 ||
       M <= 0 || N <= 0 || K <= 0 || route < 0 || route > 1)
     return static_cast<int>(cudaErrorInvalidValue);
+  if (x_t) {
+    if (w_on_host || w_nk || route != 1)
+      return static_cast<int>(cudaErrorInvalidValue);
+    return static_cast<int>(launch_wgmma_xt<gmm_resident>(
+        Operand{x, ldx, sxe, x_dtype}, Operand{w, ldw, swe, w_dtype}, out, E,
+        M, N, K, block_m, block_n, s));
+  }
   if (!w_on_host)
     return static_cast<int>(launch_planned<gmm_resident>(
         route, block_m, block_n, Operand{x, ldx, sxe, x_dtype},

@@ -354,9 +354,13 @@ __device__ __forceinline__ void emit2(float v0, float v1, int row, int col,
 }
 
 // xmap: (K, M) of a shared x (x_shared), else (K, M, batch); box (64, BM[, 1]).
+// X_T = 1: x is given as its transpose, (M, K, batch) with M innermost (the
+// backward's x^T of an (E, C, d) buffer, read as it lies), box (64, 64, 1),
+// BM / 64 boxes a stage, an MN-major A (A's transpose bit), as "kn" w is an
+// MN-major B.
 // wmap: "kn" (N, K, batch), box (64, 64, 1), BN / 64 boxes a stage; "nk"
 // (K, N, batch), box (64, BN, 1). All bf16, 128-byte swizzle.
-template <typename Route, int WG, int BN, int W_NK>
+template <typename Route, int WG, int BN, int W_NK, int X_T = 0>
 __global__ void __launch_bounds__(WgmmaTile<WG, BN>::THREADS)
 wgmma_mm_kernel(const __grid_constant__ CUtensorMap xmap,
                 const __grid_constant__ CUtensorMap wmap, int x_shared,
@@ -393,10 +397,16 @@ wgmma_mm_kernel(const __grid_constant__ CUtensorMap xmap,
         unsigned char* a = smem + s * T::STAGE;
         unsigned char* bt = a + T::A_BYTES;
         hopper::mbar_expect_tx(&full[s], T::STAGE);
-        if (x_shared)
+        if (X_T) {
+#pragma unroll
+          for (int c = 0; c < WG; ++c)
+            hopper::tma_load_3d(a + c * 64 * WBK * 2, &xmap, &full[s],
+                                m0 + 64 * c, kt * WBK, b);
+        } else if (x_shared) {
           hopper::tma_load_2d(a, &xmap, &full[s], kt * WBK, m0);
-        else
+        } else {
           hopper::tma_load_3d(a, &xmap, &full[s], kt * WBK, m0, b);
+        }
         if (W_NK) {
           hopper::tma_load_3d(bt, &wmap, &full[s], kt * WBK, n0, b);
         } else {
@@ -423,14 +433,18 @@ wgmma_mm_kernel(const __grid_constant__ CUtensorMap xmap,
     hopper::wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < WBK / 16; ++kk) {
-      // A: K-major, a k-step is 32 bytes along the swizzled row
-      const uint64_t da = hopper::make_desc(a + kk * 32, 16, 1024, 128);
+      // A: K-major, a k-step is 32 bytes along the swizzled row; X_T:
+      // MN-major like "kn" B, a k-step is 16 rows of 128 B (the warpgroup's
+      // 64 rows are one 64-column chunk)
+      const uint64_t da =
+          X_T ? hopper::make_desc(a + kk * 16 * 128, 64 * WBK * 2, 1024, 128)
+              : hopper::make_desc(a + kk * 32, 16, 1024, 128);
       // B: "nk" K-major like A; "kn" MN-major, a k-step is 16 rows of 128 B,
       // the 64-column chunks 64 * WBK * 2 bytes apart
       const uint64_t db =
           W_NK ? hopper::make_desc(bt + kk * 32, 16, 1024, 128)
                : hopper::make_desc(bt + kk * 16 * 128, 64 * WBK * 2, 1024, 128);
-      hopper::wgmma_ss<W_NK ? 0 : 1>(d, da, db);
+      hopper::wgmma_ss<W_NK ? 0 : 1, X_T>(d, da, db);
     }
     hopper::wgmma_commit();
     // the stage before this one is no longer read: hand it back
@@ -508,13 +522,13 @@ cudaError_t launch_product(const Operand& x, const Operand& w, int w_nk,
                                     accumulate, finish, stream);
 }
 
-template <typename Route, int WG, int BN, int W_NK>
+template <typename Route, int WG, int BN, int W_NK, int X_T = 0>
 cudaError_t launch_wgmma_tile(const CUtensorMap& xmap, const CUtensorMap& wmap,
                               int x_shared, float* acc, void* out, int batch,
                               int M, int N, int K, int accumulate, int finish,
                               cudaStream_t stream) {
   using T = WgmmaTile<WG, BN>;
-  auto kern = wgmma_mm_kernel<Route, WG, BN, W_NK>;
+  auto kern = wgmma_mm_kernel<Route, WG, BN, W_NK, X_T>;
   static int allowed[hopper::MAX_DEVICES] = {};   // this kernel's, by device
   cudaError_t err = hopper::allow_smem(kern, T::SMEM, allowed);
   if (err != cudaSuccess) return err;
@@ -568,6 +582,41 @@ cudaError_t launch_wgmma(const Operand& x, const Operand& w, int w_nk,
   WGMMA_TILE(1, 64)
   WGMMA_TILE(2, 128)
 #undef WGMMA_TILE
+  return cudaErrorInvalidValue;
+}
+
+// The wgmma route of a batch of bf16 products whose x is given transposed:
+// x.ptr holds x^T, (K, M) per product with row stride x.ld and batch stride
+// x.batch (not 0), M contiguous; w "kn" (K, N) on the device; the whole K
+// (no accumulate), output dense. Tiles and refusals as launch_wgmma's.
+template <typename Route>
+cudaError_t launch_wgmma_xt(const Operand& x, const Operand& w, void* out,
+                            int batch, int M, int N, int K, int block_m,
+                            int block_n, cudaStream_t stream) {
+  if (x.dtype != 1 || w.dtype != 1 || x.batch == 0 || batch < 1 ||
+      batch > 65535 || (M + block_m - 1) / block_m > 65535)
+    return cudaErrorInvalidValue;
+  CUtensorMap xmap, wmap;
+  const uint64_t xdims[3] = {static_cast<uint64_t>(M), static_cast<uint64_t>(K),
+                             static_cast<uint64_t>(batch)};
+  const uint64_t xstr[2] = {static_cast<uint64_t>(x.ld),
+                            static_cast<uint64_t>(x.batch)};
+  const uint32_t xbox[3] = {64, WBK, 1};
+  cudaError_t err = hopper::make_map(&xmap, x.ptr, 3, xdims, xstr, xbox);
+  if (err != cudaSuccess) return err;
+  const uint64_t wdims[3] = {static_cast<uint64_t>(N), static_cast<uint64_t>(K),
+                             static_cast<uint64_t>(batch)};
+  const uint64_t wstr[2] = {static_cast<uint64_t>(w.ld),
+                            static_cast<uint64_t>(w.batch)};
+  const uint32_t wbox[3] = {WBK, 64, 1};
+  if ((err = hopper::make_map(&wmap, w.ptr, 3, wdims, wstr, wbox)) != cudaSuccess)
+    return err;
+  if (block_m == 64 && block_n == 64)
+    return launch_wgmma_tile<Route, 1, 64, 0, 1>(xmap, wmap, 0, nullptr, out,
+                                                 batch, M, N, K, 0, 1, stream);
+  if (block_m == 128 && block_n == 128)
+    return launch_wgmma_tile<Route, 2, 128, 0, 1>(xmap, wmap, 0, nullptr, out,
+                                                  batch, M, N, K, 0, 1, stream);
   return cudaErrorInvalidValue;
 }
 

@@ -25,10 +25,15 @@ bf16 ``x`` the ``mma_sync`` route; fp32 ``x`` the ``fma`` route.
 
 CPU ``x`` with CPU ``w`` takes ``grouped_matmul_plain`` (with autograd).
 CUDA ``x`` with ``w`` on the same device or in pinned host memory launches
-the kernel; a pageable host ``w`` raises, and so does a gradient wanted
-through the kernel (it has no backward yet: ROADMAP queue A item 16).
-``grouped_matmul.launches`` counts calls that launched,
-``grouped_matmul.launches_by_route`` the same calls by route,
+the kernel; a pageable host ``w`` raises. A gradient wanted through a ``w``
+on the device takes ``grouped_matmul_autograd``, whose backward is two more
+launches of the same kernel, ``dx[e] = dy[e] @ w[e]^T`` (w's transposed view,
+"nk") and ``dw[e] = x[e]^T @ dy[e]`` (x's transposed view, read by the
+``wgmma`` route with A's transpose bit; fp32 or an unaligned x is copied
+dense first, counted in ``transpose_bytes``). Neither copies a bf16
+operand. A pinned ``w`` raises under autograd: training keeps
+every weight on the device. ``grouped_matmul.launches`` counts calls that
+launched, ``grouped_matmul.launches_by_route`` the same calls by route,
 ``grouped_matmul.h2d_bytes`` the bytes of ``w`` streamed.
 """
 from __future__ import annotations
@@ -47,7 +52,7 @@ from repro_torch.kernels.ref import gmm_ref
 # 2-expert ones (chip_smoke.py's grouped_matmul_panel_depths, PERF.md)
 BLOCK_K = 8192
 _p, _ll, _i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-_ARGTYPES = [_p, _ll, _ll, _i, _p, _ll, _ll, _i, _i, _i, _i, _i, _i,
+_ARGTYPES = [_p, _ll, _ll, _i, _i, _p, _ll, _ll, _i, _i, _i, _i, _i, _i,
              _p, _p, _p, _i, _i, _i, _i, _i, _i, _p]
 ROUTES = ("wgmma", "mma_sync", "fma")
 _ROUTE_CODE = {"wgmma": 1, "mma_sync": 0, "fma": 0}
@@ -93,7 +98,8 @@ class Plan(NamedTuple):
 @functools.lru_cache(maxsize=4096)
 def plan(E: int, M: int, K: int, N: int, x_dtype, w_dtype,
          x_strides: Tuple[int, int], w_strides: Tuple[int, int], w_nk: bool,
-         aligned: bool, on_host: bool, block_k: int) -> Plan:
+         aligned: bool, on_host: bool, block_k: int,
+         x_t: bool = False) -> Plan:
     """The route of a call, by shape and alignment, decided before launch
     (and remembered per call shape: a decode step repeats the same few
     shapes thousands of times, on a path bound by host time).
@@ -108,7 +114,18 @@ def plan(E: int, M: int, K: int, N: int, x_dtype, w_dtype,
     128 x 128 above (a prefill). A pinned ``w`` is read from the dense ring
     slot, whose row stride is ``N`` ("kn") or the panel's depth ("nk"), and
     x at offsets of ``panel_k`` columns. Anything else bf16 ->
-    ``mma_sync``."""
+    ``mma_sync``. ``x_t``: x given as its transpose (M contiguous, the
+    backward's ``x^T``), which only the ``wgmma`` route reads (A's transpose
+    bit): bf16 x and "kn" w on the card, TMA-aligned, x not shared; anything
+    else raises (``transposed_x`` copies such an x dense instead)."""
+    if x_t:
+        if not takes_transposed_x(x_dtype, w_dtype, x_strides, w_strides,
+                                  w_nk, aligned, on_host):
+            raise ValueError("a transposed x takes only the wgmma route: bf16 "
+                             "x and 'kn' w on the card, TMA-aligned, x not "
+                             "shared")
+        bm, bn = (64, 64) if M <= 64 else (128, 128)
+        return Plan("wgmma", bm, bn, 0, 0)
     pe, pk = panel_shape(E, K, block_k) if on_host else (0, 0)
     if x_dtype == torch.float32:
         return Plan("fma", 0, 0, pe, pk)
@@ -126,11 +143,44 @@ def plan(E: int, M: int, K: int, N: int, x_dtype, w_dtype,
     return Plan("wgmma", bm, bn, pe, pk)
 
 
+def takes_transposed_x(x_dtype, w_dtype, x_strides, w_strides, w_nk: bool,
+                       aligned: bool, on_host: bool) -> bool:
+    """Whether the kernel reads an x given as its transpose (``plan``)."""
+    return (x_dtype == torch.bfloat16 and w_dtype == torch.bfloat16
+            and aligned and not on_host and not w_nk and x_strides[0] != 0
+            and not any(s % 8 for s in tuple(x_strides) + tuple(w_strides)))
+
+
 def _x_layout(x):
-    if x.shape[2] > 1 and x.stride(2) != 1:
-        raise ValueError(f"x must have a unit stride in its last dim; "
-                         f"strides {x.stride()}")
-    return x.stride(0), (x.stride(1) if x.shape[1] > 1 else x.shape[2])
+    """(expert stride, row stride, x_t): x_t = 1 for x given as its
+    transpose, a unit stride along M (the row stride is then K's)."""
+    _, M, K = x.shape
+    if x.stride(2) == 1 or K == 1:
+        return x.stride(0), (x.stride(1) if M > 1 else K), 0
+    if x.stride(1) == 1 or M == 1:
+        return x.stride(0), x.stride(2), 1
+    raise ValueError(f"x must have a unit stride in one of its last two "
+                     f"dims; strides {x.stride()}")
+
+
+def transposed_x(x, w):
+    """``x.transpose(1, 2)`` as the kernel takes it for ``x^T @ w``: the
+    view itself where ``plan`` sends it to the ``wgmma`` route, else (fp32,
+    an unaligned buffer, a CPU tensor's plain product aside) a dense copy,
+    counted in ``grouped_matmul.transpose_bytes``."""
+    xt = x.transpose(1, 2)
+    if not xt.is_cuda:
+        return xt
+    sxe, ldx, x_t = _x_layout(xt)
+    w_nk, ldw = _w_layout(w)
+    if x_t and takes_transposed_x(
+            xt.dtype, w.dtype, (sxe, ldx), (w.stride(0), ldw), bool(w_nk),
+            xt.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0,
+            w.device.type == "cpu"):
+        return xt
+    xt = xt.contiguous()
+    grouped_matmul.transpose_bytes += xt.numel() * xt.element_size()
+    return xt
 
 
 def _w_layout(w):
@@ -145,6 +195,35 @@ def _w_layout(w):
                      f"dims; strides {w.stride()}")
 
 
+class _GroupedMatmul(torch.autograd.Function):
+    """out = ``product(x, w)``; the backward is ``product`` again on the
+    transposed operands."""
+
+    @staticmethod
+    def forward(ctx, product, x, w):
+        ctx.product = product
+        ctx.save_for_backward(x, w)
+        return product(x, w)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        dy = dy.contiguous()
+        dx = dw = None
+        if ctx.needs_input_grad[1]:
+            dx = ctx.product(dy, w.transpose(1, 2))
+        if ctx.needs_input_grad[2]:
+            dw = ctx.product(transposed_x(x, dy), dy)
+        return None, dx, dw
+
+
+def grouped_matmul_autograd(product, x, w):
+    """``product(x, w)`` (the kernel on the card, ``_launch``; any function
+    of ``grouped_matmul_plain``'s contract) as one autograd node whose
+    backward computes ``dx`` and ``dw`` by ``product`` too."""
+    return _GroupedMatmul.apply(product, x, w)
+
+
 def grouped_matmul(x, w):
     """x: (E, M, K) activations, any expert and row stride; w: (E, K, N)
     expert weights on x's device or in pinned host memory, streamed in
@@ -155,11 +234,19 @@ def grouped_matmul(x, w):
     if on_host is None:
         return grouped_matmul_plain(x, w)
     if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
-        raise RuntimeError(
-            "grouped_matmul's kernel has no backward yet (MoE training on the "
-            "card is ROADMAP queue A item 16); run the expert products without "
-            "autograd, or on the CPU")
-    sxe, ldx = _x_layout(x)
+        if on_host:
+            raise RuntimeError(
+                "grouped_matmul streams a pinned expert stack with no "
+                "backward; training keeps every weight on the device")
+        return grouped_matmul_autograd(_launch, x, w)
+    return _launch(x, w)
+
+
+def _launch(x, w):
+    """One launch of the kernel on ``grouped_matmul``'s arguments, checked
+    by the caller (a CPU ``w`` beside CUDA ``x`` is a pinned one)."""
+    on_host = w.device.type == "cpu"
+    sxe, ldx, x_t = _x_layout(x)
     w_nk, ldw = _w_layout(w)
     E, M, K = x.shape
     N = w.shape[2]
@@ -171,14 +258,14 @@ def grouped_matmul(x, w):
     xp, wp = x.data_ptr(), w.data_ptr()
     p = plan(E, M, K, N, x.dtype, w.dtype, (sxe, ldx), (w.stride(0), ldw),
              bool(w_nk), xp % 16 == 0 and (on_host or wp % 16 == 0), on_host,
-             BLOCK_K)
+             BLOCK_K, bool(x_t))
     ring, acc = _streamed.scratch(
         x, on_host, 2 * p.panel_experts * p.panel_k * N * w.element_size(),
         (M, N) if p.panel_k < K else None)
     code = _streamed.DTYPE_CODE
     _streamed.launch(
         "grouped_matmul", _streamed.kernel("grouped_matmul", _ARGTYPES), x,
-        (xp, sxe, ldx, code[x.dtype], wp, w.stride(0), ldw, code[w.dtype],
+        (xp, sxe, ldx, code[x.dtype], x_t, wp, w.stride(0), ldw, code[w.dtype],
          w_nk, int(on_host), _ROUTE_CODE[p.route], p.block_m, p.block_n,
          _streamed.ptr(ring), _streamed.ptr(acc), out.data_ptr(), E, M, N, K,
          p.panel_experts, p.panel_k),
@@ -195,3 +282,4 @@ def grouped_matmul(x, w):
 grouped_matmul.launches = 0
 grouped_matmul.launches_by_route = dict.fromkeys(ROUTES, 0)
 grouped_matmul.h2d_bytes = 0
+grouped_matmul.transpose_bytes = 0

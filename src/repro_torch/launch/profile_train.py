@@ -35,6 +35,9 @@ from repro_torch.train.train_step import (TrainStepConfig, make_train_step,
 GROUPS = (("flash_fwd", "flash forward (+lse)"),
           ("bwd_dkdv", "flash backward dk/dv"),
           ("bwd_dq", "flash backward dq"),
+          ("gmm_", "grouped_matmul"),
+          ("chunk_state", "ssd_scan"), ("state_pass", "ssd_scan"),
+          ("chunk_scan", "ssd_scan"),
           ("gemm", "matrix products"), ("nvjet", "matrix products"),
           ("xmma", "matrix products"), ("cutlass", "matrix products"),
           ("Memcpy", "copies"), ("Memset", "copies"))

@@ -103,8 +103,15 @@ def weight_matmul(x, w):
     through ``grouped_matmul``, whose wrapper routes by placement the same
     way: the plain version on the CPU, the kernel on the card for a weight
     on the device or in pinned host memory (streamed), a raise for pageable
-    host memory or a gradient wanted through the kernel."""
+    host memory or a gradient wanted through a pinned stack. A stack on x's
+    device is cast to x's dtype first, as the reference's einsum on
+    ``w.astype(x.dtype)``: fp32 training parameters meet bf16 activations
+    as one bf16 product (the ``wgmma`` route), and autograd carries the
+    gradient back through the cast. A pinned stack is never cast on the
+    host."""
     if w.dim() == 3:
+        if w.device == x.device:
+            w = w.to(x.dtype)
         return kops.grouped_matmul(x, w)
     if w.device == x.device:
         return x @ w.to(x.dtype)

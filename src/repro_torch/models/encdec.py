@@ -8,9 +8,8 @@ cross-attention over the encoder output, then the MLP. Each decoder layer's
 cross K/V are projected from the encoder output once, at the prefill, and
 kept in the cache beside the self-attention K/V:
 ``{"k", "v"}`` (L, B, max_seq, KV, hd) and ``{"cross_k", "cross_v"}``
-(L, B, encoder_seq, KV, hd). A pool holds the cross leaves whole only when
-its ``max_seq`` differs from ``encoder_seq`` (``KVPool`` cuts a sequence
-leaf whose dim 2 is ``max_seq``).
+(L, B, encoder_seq, KV, hd). A ``KVPool`` holds the cross leaves whole,
+whatever its ``max_seq`` (they are no sequence leaves of the pool).
 
 The reference scans over stacked layer parameters; here a Python loop
 indexes the same stacked tensors, and every product goes through

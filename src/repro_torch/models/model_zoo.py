@@ -57,6 +57,14 @@ class Model:
         logits, aux, _ = self._forward(params, batch)
         return softmax_xent(logits, batch["labels"]) + 0.01 * aux
 
+    def unread_params(self) -> Tuple[str, ...]:
+        """Top-level names of the parameters ``loss_fn`` never reads: the
+        VLM's token table when the head is untied (its inputs are
+        embeddings)."""
+        if self.cfg.family == VLM and not self.cfg.tie_embeddings:
+            return ("tok_embed",)
+        return ()
+
     @torch.no_grad()
     def decode(self, params, cache, batch):
         """Updates ``cache`` in place and returns it with the logits."""

@@ -8,10 +8,12 @@ shared across heads.
 The prefill SSD goes where the reference calls ``ssd_chunked`` and takes its
 route from the tensors' device, as ``weight_matmul`` does:
 
-* CPU tensors: ``ssd_chunked`` (plain torch ops);
-* CUDA tensors: the hand-written ``ssd_scan`` kernel (``kernels.ops.ssd``);
-* a gradient wanted, on any device: raise. The kernel has no backward, and
-  SSM training is ROADMAP queue A item 15.
+* CPU tensors: ``ssd_chunked`` (plain torch ops, differentiated by
+  autograd as the reference differentiates its XLA-level ``ssd_chunked``);
+* CUDA tensors: ``ssd_autograd`` with the hand-written ``ssd_scan`` kernel
+  (``kernels.ops.ssd``) as its forward. Its backward recomputes
+  ``ssd_chunked`` on the saved inputs under autograd: the reference has no
+  SSD backward kernel either.
 
 Decode is plain torch ops, as the reference's is plain XLA, and writes the
 layer's conv window and state **in place** into the cache it is given.
@@ -131,10 +133,14 @@ def ssd_chunked(x, dt, A, B_, C_, chunk: int,
     cum = torch.cumsum(dA, dim=2)                          # within-chunk
     seg_total = cum[:, :, -1, :]                           # (B,nc,nh)
 
-    # intra-chunk (matmul form): L[i,j] = exp(cum_i - cum_j) for i>=j
+    # intra-chunk (matmul form): L[i,j] = exp(cum_i - cum_j) for i>=j. The
+    # mask goes inside the exp: above the diagonal cum_i - cum_j > 0 can
+    # overflow, and exp-then-mask (the reference's order, the same values)
+    # gives 0 * inf = NaN in the gradient there
     diff = cum[:, :, :, None, :] - cum[:, :, None, :, :]   # (B,nc,Q,Q,nh)
     causal = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=x.device))
-    Lmat = torch.where(causal[None, None, :, :, None], torch.exp(diff), 0.0)
+    Lmat = torch.exp(torch.where(causal[None, None, :, :, None], diff,
+                                 float("-inf")))
     G = torch.einsum("bcqn,bckn->bcqk", Cf, Bf)            # (B,nc,Q,Q)
     M = G[..., None] * Lmat                                # (B,nc,Q,Q,nh)
     xdt = xf * dtf[..., None]                              # (B,nc,Q,nh,hp)
@@ -171,18 +177,57 @@ def ssd_decode_step(state, x_t, dt_t, A, B_t, C_t):
     return state, y.to(x_t.dtype)
 
 
+def ssd_kernel(x, dt, A, B_, C_, chunk: int, init_state=None):
+    """``ssd_chunked``'s contract on the hand-written ``ssd_scan`` kernel."""
+    return kops.ssd(x.contiguous(), dt.contiguous(), A.contiguous(),
+                    B_.contiguous(), C_.contiguous(), chunk=chunk,
+                    init_state=init_state, return_state=True)
+
+
+class _SSD(torch.autograd.Function):
+    """(y, final state) = ``forward_fn(x, dt, A, B_, C_, chunk,
+    init_state)``; the backward recomputes ``ssd_chunked`` on the saved
+    inputs under autograd and returns its gradients."""
+
+    @staticmethod
+    def forward(ctx, forward_fn, chunk, x, dt, A, B_, C_, init_state):
+        ctx.chunk = chunk
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(x, dt, A, B_, C_, init_state)
+        return forward_fn(x, dt, A, B_, C_, chunk, init_state)
+
+    @staticmethod
+    def backward(ctx, dy, dstate):
+        saved = ctx.saved_tensors
+        needs = ctx.needs_input_grad[2:]
+        ins = [None if t is None else t.detach().requires_grad_(n)
+               for t, n in zip(saved, needs)]
+        with torch.enable_grad():
+            y, state = ssd_chunked(*ins[:5], ctx.chunk, init_state=ins[5])
+        outs = [(o, g) for o, g in ((y, dy), (state, dstate)) if g is not None]
+        want = [t for t, n in zip(ins, needs) if n]
+        grads = iter(torch.autograd.grad([o for o, _ in outs],
+                                         want, [g for _, g in outs],
+                                         allow_unused=True)
+                     if outs and want else [None] * len(want))
+        return (None, None) + tuple(next(grads) if n else None for n in needs)
+
+
+def ssd_autograd(forward_fn, x, dt, A, B_, C_, chunk: int,
+                 init_state: Optional[torch.Tensor] = None):
+    """The SSD scan as one autograd node: ``forward_fn`` (the kernel on the
+    card, ``ssd_kernel``; any function with ``ssd_chunked``'s contract) makes
+    (y, final state), and the gradients of x, dt, A, B_, C_ and, where it
+    requires grad, ``init_state`` come from autograd through
+    ``ssd_chunked`` recomputed on the same inputs."""
+    return _SSD.apply(forward_fn, chunk, x, dt, A, B_, C_, init_state)
+
+
 def _ssd_prefill(cfg: ModelConfig, xh, dt, A, B_, C_, init_state):
     """The prefill SSD by the route the device gives (module docstring)."""
-    if torch.is_grad_enabled() and any(
-            t.requires_grad for t in (xh, dt, A, B_, C_)):
-        raise RuntimeError(
-            "the SSD scan of the port has no backward (the reference trains "
-            "through ssd_chunked and has no SSD backward kernel either); SSM "
-            "and hybrid training is ROADMAP queue A item 15")
     if xh.device.type == "cuda":
-        return kops.ssd(xh.contiguous(), dt, A, B_.contiguous(),
-                        C_.contiguous(), chunk=cfg.ssm_chunk,
-                        init_state=init_state, return_state=True)
+        return ssd_autograd(ssd_kernel, xh, dt, A, B_, C_, cfg.ssm_chunk,
+                            init_state)
     return ssd_chunked(xh, dt, A, B_, C_, cfg.ssm_chunk, init_state=init_state)
 
 

@@ -2,11 +2,10 @@
 
 The reference scans over stacked layer parameters; here a Python loop indexes
 the same stacked tensors (``layers/wq`` with a leading ``L`` dim). Under
-autograd each dense or MoE layer is wrapped by ``remat_wrap``
-(``cfg.remat``), as the reference wraps its scan body; the SSM and hybrid
-families serve only (their SSD scan raises under autograd,
-``models/ssm.py``). MoE: the dense block with ``models/moe.py``'s expert FFN
-in place of the MLP, and the load-balancing loss summed over the layers as
+autograd each layer is wrapped by ``remat_wrap`` (``cfg.remat``), as the
+reference wraps its scan body, and each hybrid group as a whole too. MoE:
+the dense block with ``models/moe.py``'s expert FFN in place of the MLP,
+and the load-balancing loss summed over the layers as
 the forward's aux output. Hybrid (Zamba2): groups of ``attn_every`` Mamba2
 layers, each group followed by one shared, unstacked attention + MLP block,
 then a tail of the remaining SSM layers. VLM (Qwen2-VL): the dense block
@@ -155,28 +154,54 @@ def _ssm_stack(cfg: ModelConfig, params, x, positions, *, caches=None,
     """The SSM / hybrid layer stack. Prefill (``caches`` None): returns
     (x, per-layer SSMCaches, per-group (k, v)) with the caches only when
     ``return_cache``. Decode: ``caches`` is the layer-stacked cache, each
-    layer's slice is updated in place."""
+    layer's slice is updated in place.
+
+    Under autograd the remat nesting is the reference's: every SSM layer is
+    wrapped by ``remat_wrap``, and for the hybrid each whole group too (its
+    ``attn_every`` SSM layers and the shared attention + MLP block, whose
+    residuals would otherwise be kept once per application); the tail layers
+    are wrapped one by one. Without autograd the wrappers do nothing."""
     lp_all = params["layers"]
     B = x.shape[0]
-    hybrid = cfg.family == HYBRID
-    ssm_caches, kvs = [], []
-    for i in range(cfg.num_layers):
-        if caches is not None:
-            c = ssm_mod.SSMCache(caches["ssm"].conv[i], caches["ssm"].state[i])
-        elif return_cache:
-            c = ssm_mod.init_ssm_cache(cfg, B, x.dtype, x.device)
-        else:
-            c = None
-        x, c = _ssm_layer(cfg, _layer_params(lp_all, i), x, c)
-        ssm_caches.append(c)
-        if hybrid and (i + 1) % cfg.attn_every == 0:   # end of a group
-            grp = (i + 1) // cfg.attn_every - 1
-            kv = (None if caches is None
-                  else (caches["k"][grp], caches["v"][grp]))
+    g = cfg.attn_every if cfg.family == HYBRID else cfg.num_layers
+    n_groups = cfg.num_layers // g if cfg.family == HYBRID else 0
+
+    def ssm_layer(i):
+        lp = _layer_params(lp_all, i)
+
+        def body(x):
+            if caches is not None:
+                c = ssm_mod.SSMCache(caches["ssm"].conv[i],
+                                     caches["ssm"].state[i])
+            elif return_cache:
+                c = ssm_mod.init_ssm_cache(cfg, B, x.dtype, x.device)
+            else:
+                c = None
+            return _ssm_layer(cfg, lp, x, c)
+        return remat_wrap(cfg, body)
+
+    def group(grp):
+        kv = None if caches is None else (caches["k"][grp], caches["v"][grp])
+
+        def body(x):
+            cs = []
+            for i in range(grp * g, (grp + 1) * g):
+                x, c = ssm_layer(i)(x)
+                cs.append(c)
             # the shared block is the dense layer body on unstacked weights
-            x, kv, _ = _attn_mlp_layer(cfg, params["shared"], x, positions,
-                                       kv, cache_pos)
-            kvs.append(kv)
+            x, new_kv, _ = _attn_mlp_layer(cfg, params["shared"], x,
+                                           positions, kv, cache_pos)
+            return x, cs, new_kv
+        return remat_wrap(cfg, body)
+
+    ssm_caches, kvs = [], []
+    for grp in range(n_groups):
+        x, cs, kv = group(grp)(x)
+        ssm_caches += cs
+        kvs.append(kv)
+    for i in range(n_groups * g, cfg.num_layers):
+        x, c = ssm_layer(i)(x)
+        ssm_caches.append(c)
     return x, ssm_caches, kvs
 
 
@@ -226,8 +251,7 @@ def forward_decoder_only(cfg: ModelConfig, params, batch, *,
     aux_loss is the MoE load-balancing loss summed over the layers (zero for
     the other families); the dense and MoE cache is ``{"k", "v"}`` of shape
     (L, B, S, KV, hd), the SSM and hybrid caches as ``_stacked_cache`` gives
-    them. Differentiable for the dense family, and for MoE on the CPU (the
-    expert kernel has no backward yet): serving calls it under
+    them. Differentiable for every family: serving calls it under
     ``torch.no_grad()`` (``Model.forward``), training with autograd on
     (``Model.loss_fn``)."""
     _require_decoder_only(cfg)

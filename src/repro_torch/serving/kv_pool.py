@@ -21,10 +21,12 @@ request's bytes.
 SSM caches (``SSMCache``: the conv window in the pool's dtype, the state in
 fp32) have no sequence axis: a spilled one lives whole in the tier the
 majority of its bytes were planned for, and ``paste`` overwrites the slot.
-Sequence leaves are known by their path (``k``, ``v``, ``cross_k``,
-``cross_v``), not by their shape alone: the reference also takes any leaf
-whose dim 2 equals ``max_seq`` for one, so an SSM state with as many heads
-as ``max_seq`` would be pasted only in part there.
+Sequence leaves are known by their path (``k``, ``v``), not by their shape
+alone: the reference takes any leaf whose dim 2 equals ``max_seq`` for one,
+so an SSM state with as many heads as ``max_seq``, or an enc-dec cross K/V
+(``cross_k``, ``cross_v``: ``encoder_seq`` frames) when ``max_seq`` equals
+``encoder_seq``, would be pasted only in part there. Here the cross leaves
+are placed and pasted whole, like an SSM cache, whatever ``max_seq`` is.
 
 When the engine runs on the CPU (the tests), both tiers are plain CPU memory
 and the split changes nothing physically; every placement path still runs.
@@ -44,7 +46,7 @@ from repro_torch.models.common import to_dtype, tree_unflatten
 PyTree = Any
 
 SEQ_AXIS = 2  # layer-stacked caches: (L, slots, seq, heads, head_dim)
-SEQ_LEAVES = ("k", "v", "cross_k", "cross_v")   # the leaves that have one
+SEQ_LEAVES = ("k", "v")   # the leaves that have one (not the cross K/V)
 
 
 def _has_seq_axis(path: str, leaf, max_seq: int) -> bool:

@@ -167,6 +167,29 @@ def test_loss_matches_reference_and_reaches_the_encoder():
         assert leaf.grad is not None and float(leaf.grad.abs().sum()) > 0
 
 
+def test_loss_and_grads_match_reference():
+    """Model.loss_fn and every gradient leaf, encoder, cross attention and
+    decoder, against jax.value_and_grad (fp32, 1e-4 of each leaf's largest
+    value plus 1e-6, the atol of the key biases whose gradient is zero in
+    exact arithmetic)."""
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.train.train_step import _accumulate_grads
+    rm, rp, pm, pp = model_pair(ARCH, dtype="float32", seed=6)
+    batch = _batch(rm.cfg, 7)
+    batch["labels"] = np.random.default_rng(8).integers(
+        0, rm.cfg.vocab_size, size=(B, S))
+    want_loss, want = jax.value_and_grad(rm.loss_fn)(rp, _ref(batch))
+    loss, grads = _accumulate_grads(pm, pp, _port(batch), 1)
+    assert abs(float(loss) - float(want_loss)) <= 1e-5 * abs(float(want_loss))
+    want_leaves = jax.tree_util.tree_leaves(want)
+    got_leaves = list(tree_leaves(grads))
+    assert len(got_leaves) == len(want_leaves)
+    for g, w in zip(got_leaves, want_leaves):
+        g, w = to_np(g), to_np(w)
+        assert g.shape == w.shape
+        assert np.max(np.abs(g - w)) <= 1e-4 * np.max(np.abs(w)) + 1e-6
+
+
 # ---------------------------------------------------------------------------
 # the pool and the init tree
 # ---------------------------------------------------------------------------
@@ -207,6 +230,37 @@ def test_kv_pool_pastes_cross_leaves_whole():
         "tokens": to_torch(toks), "pos": torch.as_tensor(pool.positions)})
     for s in range(2):
         assert rel_err(to_np(logits[s]), to_np(by_slot[s][1][0])) < 1e-5
+
+
+def test_kv_pool_keeps_cross_leaves_whole_when_max_seq_is_encoder_seq():
+    """A pool whose ``max_seq`` equals ``encoder_seq`` still takes only the
+    self K/V for sequence leaves: every cross frame survives ``paste``, and
+    the first decode step equals the one from a pool of another ``max_seq``
+    (1e-5, fp32)."""
+    from repro_torch.serving.kv_pool import KVPool
+    _, _, pm, pp = model_pair(ARCH, dtype="float32", seed=12)
+    cfg = pm.cfg
+    n = 5
+    batch = _batch(cfg, 13, S=n + 1, B=1)
+    _, _, pc = pm.forward(pp, _port({"frames": batch["frames"],
+                                     "tokens": batch["tokens"][:, :n]}),
+                          return_cache=True)
+    firsts = []
+    for max_seq in (cfg.encoder_seq, cfg.encoder_seq + 16):
+        pool = KVPool(pm, 2, max_seq, dtype=torch.float32)
+        assert dict(zip(pool._paths, pool._seq)) == {
+            "cross_k": False, "cross_v": False, "k": True, "v": True}
+        slot = pool.alloc_slot()
+        pool.paste(slot, pc, n)
+        cache = pool.materialize()
+        for name in ("cross_k", "cross_v"):
+            assert cache[name].shape[2] == cfg.encoder_seq
+            assert torch.equal(cache[name][:, slot:slot + 1], pc[name])
+        tok = np.repeat(batch["tokens"][:, n:n + 1], 2, axis=0)
+        logits, _ = pm.decode(pp, cache, {"tokens": to_torch(tok),
+                                          "pos": torch.as_tensor(pool.positions)})
+        firsts.append(to_np(logits[slot]))
+    assert rel_err(firsts[0], firsts[1]) < 1e-5
 
 
 def test_init_tree_matches_reference():

@@ -701,18 +701,133 @@ def test_grouped_matmul_never_reaches_a_library_product(monkeypatch, where):
 
 
 @pytest.mark.gpu
-def test_grouped_matmul_raises_under_autograd_and_on_pageable_w():
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_grouped_matmul_raises_under_autograd_and_on_pageable_w(dtype):
+    """Under autograd a stack on the device goes through the kernel's
+    Function: out, dx and dw (each one more launch, by the route the plan
+    gives bf16 or fp32) equal autograd through the plain version. A pinned
+    stack still raises under autograd, a pageable one always."""
     from repro_torch.kernels import grouped_matmul as gmm
     dev = _cuda()
-    x, w = _gmm_inputs(dev, 2, 8, 32, 16, False, torch.float32)
-    with pytest.raises(RuntimeError, match="queue A item 16"):
-        gmm.grouped_matmul(x.requires_grad_(), w)
-    with pytest.raises(RuntimeError, match="queue A item 16"):
-        gmm.grouped_matmul(x.detach(), w.requires_grad_())
+    x0, w0 = _gmm_inputs(dev, 4, 320, 256, 128, False, dtype)
+    dy = torch.randn(4, 320, 128, device=dev,
+                     generator=torch.Generator(device=dev).manual_seed(5)).to(dtype)
+    res = []
+    for fn in (gmm.grouped_matmul, gmm.grouped_matmul_plain):
+        x, w = x0.clone().requires_grad_(), w0.clone().requires_grad_()
+        before = gmm.grouped_matmul.launches
+        out = fn(x, w)
+        dx, dw = torch.autograd.grad(out, [x, w], dy)
+        torch.cuda.synchronize()
+        res.append((out.detach(), dx, dw, gmm.grouped_matmul.launches - before))
+    assert res[0][3] == 3 and res[1][3] == 0
+    for got, want in zip(res[0][:3], res[1][:3]):
+        assert got.dtype == dtype and _rel(got, want) < TOL[dtype]
+    with pytest.raises(RuntimeError, match="pinned"):
+        gmm.grouped_matmul(x0.clone().requires_grad_(), _pinned(w0))
     with torch.no_grad():
-        assert gmm.grouped_matmul(x, w).shape == (2, 8, 16)
+        assert gmm.grouped_matmul(x0, _pinned(w0)).shape == (4, 320, 128)
     with pytest.raises(ValueError, match="pageable"):
-        gmm.grouped_matmul(x.detach(), w.detach().cpu())
+        gmm.grouped_matmul(x0, w0.cpu())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("E,C,d,f", [(32, 320, 1024, 512), (4, 77, 200, 96),
+                                     (2, 64, 64, 64), (3, 40, 72, 24),
+                                     (1, 130, 136, 8)])
+def test_grouped_matmul_transposed_x_matches_plain(E, C, d, f, dtype):
+    """dw[e] = x[e]^T dy[e] as the backward runs it: bf16 reads x's
+    transposed view (the wgmma kernel's transposed A, 64 x 64 tiles up to 64
+    rows, 128 x 128 above, ragged edges), copying nothing; fp32 copies it
+    dense (counted) for the FMA kernel. Both against the plain product."""
+    from repro_torch.kernels import grouped_matmul as gmm
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(E + C + d)
+    x = torch.randn(E, C, d, device=dev, generator=g).to(dtype)
+    dy = torch.randn(E, C, f, device=dev, generator=g).to(dtype)
+    before = (gmm.grouped_matmul.transpose_bytes,
+              dict(gmm.grouped_matmul.launches_by_route))
+    xt = gmm.transposed_x(x, dy)
+    got = gmm._launch(xt, dy)
+    want = gmm.grouped_matmul_plain(x.transpose(1, 2), dy)
+    torch.cuda.synchronize()
+    copied = gmm.grouped_matmul.transpose_bytes - before[0]
+    routes = {r: n - before[1][r]
+              for r, n in gmm.grouped_matmul.launches_by_route.items()}
+    assert got.shape == (E, d, f) and _rel(got, want) < TOL[dtype]
+    if dtype == torch.bfloat16:
+        assert copied == 0 and xt.stride(1) == 1
+        assert routes == {"wgmma": 1, "mma_sync": 0, "fma": 0}
+    else:
+        assert copied == x.numel() * 4 and xt.is_contiguous()
+        assert routes == {"wgmma": 0, "mma_sync": 0, "fma": 1}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,S,nh,hp,N", [(2, 256, 24, 64, 128),
+                                         (1, 300, 64, 64, 64)])
+def test_ssd_autograd_on_card(B, S, nh, hp, N):
+    """The SSD Function with the kernel as its forward (one launch) against
+    autograd through the plain ``ssd_chunked`` on the card (fp32, 1e-4)."""
+    from repro_torch.kernels import ssd_scan as ssd
+    from repro_torch.models import ssm
+    dev = _cuda()
+    ins = _ssd_inputs(dev, torch.float32, B, S, nh, hp, N, 7)[:5]
+    dy = torch.randn(B, S, nh, hp, device=dev)
+    res = []
+    for fn in ("kernel", "plain"):
+        leaves = [t.clone().requires_grad_() for t in ins]
+        before = ssd.ssd_scan.launches
+        y, _ = (ssm.ssd_autograd(ssm.ssd_kernel, *leaves, 128) if fn == "kernel"
+                else ssm.ssd_chunked(*leaves, 128))
+        grads = torch.autograd.grad(y, leaves, dy)
+        torch.cuda.synchronize()
+        res.append(((y,) + grads, ssd.ssd_scan.launches - before))
+    assert res[0][1] == 1 and res[1][1] == 0
+    for got, want in zip(res[0][0], res[1][0]):
+        assert _rel(got, want) < 1e-4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["mamba2-130m", "zamba2-1.2b",
+                                  "granite-moe-1b-a400m", "whisper-large-v3",
+                                  "qwen2-vl-72b"])
+def test_family_loss_and_grads_through_kernels_equal_cpu(arch):
+    """One loss and gradient of a reduced model on the card through the
+    kernels (the SSD Function, the grouped matmul Function, the flash
+    forward and backward by ``xla_cv``), fp32, remat "layer", against the
+    same weights and batch on the CPU (plain versions there): loss 1e-5,
+    each gradient leaf 1e-4 of its largest value plus 1e-6 (the key biases,
+    zero in exact arithmetic)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.common import tree_leaves, tree_unflatten
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.train.train_step import _accumulate_grads
+    dev = _cuda()
+    cfg = get_config(arch).reduced().with_(attn_impl="xla_cv", remat="layer",
+                                           dtype="float32")
+    model = build_model(cfg, dev)
+    params, _ = model.init(torch.Generator(device=dev).manual_seed(0))
+    g = torch.Generator(device=dev).manual_seed(1)
+    toks = torch.randint(0, cfg.vocab_size, (2, 97), generator=g, device=dev)
+    batch = {"labels": toks[:, 1:]}
+    if cfg.family == "vlm":
+        batch["embeds"] = 0.02 * torch.randn(2, 96, cfg.d_model, generator=g,
+                                             device=dev)
+        batch["positions"] = torch.arange(96, device=dev).expand(3, 2, 96)
+    else:
+        batch["tokens"] = toks[:, :-1]
+    if cfg.family == "encdec":
+        batch["frames"] = 0.02 * torch.randn(2, cfg.encoder_seq, cfg.d_model,
+                                             generator=g, device=dev)
+    loss_g, grads_g = _accumulate_grads(model, params, batch, 1)
+    cpu = build_model(cfg, "cpu")
+    to_cpu = lambda tree: tree_unflatten(tree, [t.cpu() for t in tree_leaves(tree)])
+    loss_c, grads_c = _accumulate_grads(cpu, to_cpu(params), to_cpu(batch), 1)
+    assert abs(float(loss_g) - float(loss_c)) <= 1e-5 * abs(float(loss_c))
+    for a, b in zip(tree_leaves(grads_g), tree_leaves(grads_c)):
+        assert float((a.cpu() - b).abs().max()) <= 1e-4 * float(b.abs().max()) + 1e-6
 
 
 @pytest.mark.gpu

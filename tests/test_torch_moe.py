@@ -170,6 +170,55 @@ def test_plan_routes_by_shape_and_alignment(case, want):
             c["E"], c["K"], c["block_k"])
 
 
+@pytest.mark.parametrize("case,want", [
+    # granite-moe's dw at 8 x 1024 tokens: x^T of the (32, 2560, 1024) buffer
+    (dict(M=1024, K=2560, N=512, xs=(2621440, 1024), ws=(1310720, 512)),
+     ("wgmma", 128, 128, 0, 0)),
+    (dict(M=64, K=77, N=96, xs=(4928, 64), ws=(7392, 96)),
+     ("wgmma", 64, 64, 0, 0)),
+    # what the transposed A cannot take: fp32, "nk" w, a shared x, strides
+    # that are not multiples of 8, a misaligned base, a pinned w
+    (dict(M=64, K=64, N=64, xs=(4096, 64), ws=(4096, 64), xdt=_F32), None),
+    (dict(M=64, K=64, N=64, xs=(4096, 64), ws=(4096, 64), nk=True), None),
+    (dict(M=64, K=64, N=64, xs=(0, 64), ws=(4096, 64)), None),
+    (dict(M=64, K=77, N=96, xs=(4928, 77), ws=(7392, 96)), None),
+    (dict(M=64, K=64, N=64, xs=(4096, 64), ws=(4096, 64), aligned=False), None),
+    (dict(M=64, K=64, N=64, xs=(4096, 64), ws=(7, 9), host=True), None),
+])
+def test_plan_routes_transposed_x(case, want):
+    """An x given as its transpose (the backward's x^T, M contiguous) takes
+    the wgmma route with A's transpose bit, on the usual tiles, when the
+    operands are bf16, w is "kn" on the card and TMA can describe both;
+    ``plan`` raises otherwise, and ``takes_transposed_x`` says so before
+    (``transposed_x`` then copies x dense)."""
+    c = {**dict(E=4, nk=False, aligned=True, host=False, xdt=_BF, wdt=_BF),
+         **case}
+    args = (c["xdt"], c["wdt"], c["xs"], c["ws"], c["nk"], c["aligned"],
+            c["host"])
+    assert port_gmm.takes_transposed_x(*args) == (want is not None)
+    call = lambda: port_gmm.plan(c["E"], c["M"], c["K"], c["N"], c["xdt"],
+                                 c["wdt"], c["xs"], c["ws"], c["nk"],
+                                 c["aligned"], c["host"], port_gmm.BLOCK_K,
+                                 x_t=True)
+    if want is None:
+        with pytest.raises(ValueError, match="transposed x"):
+            call()
+    else:
+        assert tuple(call()) == want
+
+
+def test_x_layout_and_transposed_x_on_cpu():
+    """x's layout by strides: a unit last-dim stride, or (x_t) a unit stride
+    along M; on the CPU ``transposed_x`` is the view, for the plain
+    product."""
+    x = torch.randn(3, 5, 8)
+    assert port_gmm._x_layout(x) == (40, 8, 0)
+    xt = port_gmm.transposed_x(x, torch.randn(3, 5, 2))
+    assert xt.data_ptr() == x.data_ptr() and port_gmm._x_layout(xt) == (40, 8, 1)
+    with pytest.raises(ValueError, match="unit stride"):
+        port_gmm._x_layout(torch.randn(3, 8, 10)[:, ::2, ::2])
+
+
 # ---------------------------------------------------------------------------
 # routing and dispatch
 # ---------------------------------------------------------------------------

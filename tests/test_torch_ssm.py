@@ -232,16 +232,30 @@ def test_apply_ssm_prefill_and_decode_on_reference_weights():
 
 
 def test_ssd_route_raises_under_autograd():
-    """The prefill SSD has no backward: a gradient wanted raises on any
-    device, naming the ROADMAP item that brings SSM training."""
-    _, _, pm, pp = _pair("mamba2-130m")
-    pl = {k: v[0].clone().requires_grad_() for k, v in pp["layers"].items()}
-    u = torch.randn(1, 8, pm.cfg.d_model)
-    with pytest.raises(RuntimeError, match="queue A item 15"):
-        port_ssm.apply_ssm(pm.cfg, pl, u)
-    with torch.no_grad():
-        y, _ = port_ssm.apply_ssm(pm.cfg, pl, u)
-    assert y.shape == u.shape
+    """The prefill SSD under autograd (it raised before SSM training was
+    ported): one Mamba2 layer's gradients, of its weights and its input,
+    equal the reference's ``jax.grad`` through its ``ssd_chunked`` (fp32,
+    1e-4 of each leaf's largest value)."""
+    rm, rp, pm, pp = _pair("mamba2-130m")
+    cfg = rm.cfg
+    rl = jax.tree_util.tree_map(lambda a: a[0], rp["layers"])
+    rng = np.random.default_rng(6)
+    u = rng.standard_normal((2, 40, cfg.d_model)).astype(np.float32)
+    r = rng.standard_normal((2, 40, cfg.d_model)).astype(np.float32)
+
+    def ref_loss(lp, u):
+        return jnp.sum(ref_ssm.apply_ssm(cfg, lp, u)[0] * to_jax(r))
+    want_p, want_u = jax.grad(ref_loss, argnums=(0, 1))(rl, to_jax(u))
+    # the layer's own weights (the block's pre-norm is the stack's)
+    pl = {k: v[0].clone().requires_grad_() for k, v in pp["layers"].items()
+          if k != "norm1_scale"}
+    ut = to_torch(u).requires_grad_()
+    y, _ = port_ssm.apply_ssm(pm.cfg, pl, ut)
+    names = sorted(pl)
+    grads = torch.autograd.grad((y * to_torch(r)).sum(), [ut] + [pl[n] for n in names])
+    for got, want in zip(grads, [want_u] + [want_p[n] for n in names]):
+        got, want = to_np(got), to_np(want)
+        assert np.max(np.abs(got - want)) <= 1e-4 * np.max(np.abs(want)) + 1e-6
 
 
 # ---------------------------------------------------------------------------

@@ -49,7 +49,8 @@ from repro_torch.models.model_zoo import build_model
 from repro_torch.optim import adamw as port_adamw
 from repro_torch.train import checkpoint as port_ckpt
 from repro_torch.train.train_step import (TrainStepConfig, _accumulate_grads,
-                                          make_eval_step, make_train_step)
+                                          _value_and_grad, make_eval_step,
+                                          make_train_step)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -202,6 +203,23 @@ def test_streamed_weight_raises_under_autograd():
     assert weight_matmul(x, w).requires_grad          # same device: plain x @ w
 
 
+def test_unread_parameter_raises_unless_declared():
+    """A parameter the loss does not read is a wiring fault and raises; only
+    one the model declares unread (``Model.unread_params``: the VLM's token
+    table) gets a zero gradient."""
+    params = {"a": torch.randn(3), "b": torch.randn(2, 2)}
+    loss_fn = lambda p, batch: (p["a"] * batch["x"]).sum()
+    batch = {"x": torch.randn(3)}
+    with pytest.raises(RuntimeError, match="not read by the loss"):
+        _value_and_grad(loss_fn, params, batch)
+    loss, grads = _value_and_grad(loss_fn, params, batch, [params["b"]])
+    torch.testing.assert_close(grads["a"], batch["x"])
+    assert torch.equal(grads["b"], torch.zeros(2, 2))
+    vlm = build_model(get_config("qwen2-vl-72b").reduced(), "cpu")
+    assert vlm.unread_params() == ("tok_embed",)
+    assert build_model(get_config("gpt2-124m").reduced(), "cpu").unread_params() == ()
+
+
 # ---------------------------------------------------------------------------
 # loss and gradients of whole models
 # ---------------------------------------------------------------------------
@@ -351,8 +369,9 @@ def test_remat_routes_give_equal_loss_and_grads(arch):
 
 def test_train_step_and_eval_step():
     """make_train_step updates in place and lowers the loss on a fixed
-    batch; make_eval_step gives the loss without autograd; gradient
-    compression raises naming its ROADMAP item."""
+    batch; make_eval_step gives the loss without autograd; with gradient
+    compression on one device (no group of pods) the step is the plain one,
+    as the reference's is without a "pod" axis: the same parameters."""
     cfg = get_config("gpt2-124m").reduced().with_(attn_impl="xla_cv")
     model = build_model(cfg, "cpu")
     params, _ = model.init(torch.Generator().manual_seed(0))
@@ -367,8 +386,17 @@ def test_train_step_and_eval_step():
     assert set(met) == {"loss", "grad_norm", "lr"} and int(opt.step) == 5
     assert float(evaluate(params, batch)) < first - 0.5
     assert not evaluate(params, batch).requires_grad
-    with pytest.raises(NotImplementedError, match="item 12"):
-        make_train_step(model, TrainStepConfig(grad_compression=True))
+    outs = []
+    for compress in (False, True):
+        p, _ = model.init(torch.Generator().manual_seed(1))
+        o = port_adamw.init(p)
+        step = make_train_step(model, TrainStepConfig(
+            grad_compression=compress,
+            opt=port_adamw.AdamWConfig(lr=1e-2, warmup_steps=1)))
+        p, o, _ = step(p, o, batch)
+        outs.append(_flat(p))
+    for name in outs[0]:
+        assert torch.equal(outs[0][name], outs[1][name]), name
 
 
 # ---------------------------------------------------------------------------
@@ -538,6 +566,11 @@ def test_fault_runner_restarts_and_repartitions(tmp_path):
      "--ckpt-every", "5", "--inject-failure-at", "12", "--log-every", "0"],
     ["-m", "repro_torch.examples.train_gpt2", "--tiny", "--device", "cpu",
      "--steps", "25", "--batch", "4", "--seq", "32"],
+] + [
+    ["-m", "repro_torch.launch.train", "--arch", arch, "--device", "cpu",
+     "--steps", "25", "--batch", "4", "--seq", "32", "--lr", "1e-2",
+     "--attn-impl", "xla_cv", "--ckpt-every", "5", "--log-every", "0"]
+    for arch in ("mamba2-130m", "zamba2-1.2b", "granite-moe-1b-a400m")
 ])
 def test_train_cli_on_cpu_loss_falls(argv):
     env = {"PYTHONPATH": os.path.join(ROOT, "src"), "PATH": os.environ.get("PATH", ""),

@@ -124,3 +124,27 @@ def test_loss_matches_reference():
     want = float(rm.loss_fn(rp, {k: to_jax(v) for k, v in batch.items()}))
     got = pm.loss_fn(pp, {k: to_torch(v) for k, v in batch.items()})
     assert abs(float(got) - want) <= 1e-4 * abs(want)
+
+
+def test_loss_and_grads_match_reference():
+    """Model.loss_fn and every gradient leaf against jax.value_and_grad
+    (fp32, 1e-4 of each leaf's largest value plus 1e-6, the atol of the key
+    bias whose gradient is zero in exact arithmetic)."""
+    import jax
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.train.train_step import _accumulate_grads
+    rm, rp, pm, pp = model_pair(ARCH, dtype="float32", seed=3)
+    batch = _batch(rm.cfg, 4)
+    batch["labels"] = np.random.default_rng(5).integers(
+        0, rm.cfg.vocab_size, size=batch["embeds"].shape[:2])
+    want_loss, want = jax.value_and_grad(rm.loss_fn)(
+        rp, {k: to_jax(v) for k, v in batch.items()})
+    loss, grads = _accumulate_grads(pm, pp, {k: to_torch(v) for k, v in batch.items()}, 1)
+    assert abs(float(loss) - float(want_loss)) <= 1e-5 * abs(float(want_loss))
+    want_leaves = jax.tree_util.tree_leaves(want)
+    got_leaves = list(tree_leaves(grads))
+    assert len(got_leaves) == len(want_leaves)
+    for g, w in zip(got_leaves, want_leaves):
+        g, w = to_np(g), to_np(w)
+        assert g.shape == w.shape
+        assert np.max(np.abs(g - w)) <= 1e-4 * np.max(np.abs(w)) + 1e-6
