@@ -15,7 +15,9 @@ JSON line per phase; any failure is a non-zero exit:
            the flash forward (serving), the forward with its lse output and
            the two backward kernels (training; the port's whole backward in
            one call beside the library's; the serving forward also at
-           whisper's and qwen2-vl's decoder-prefill shapes), stream_matmul
+           whisper's and qwen2-vl's decoder-prefill shapes; forward, forward
+           with lse and both backward kernels at phi3-mini's head dim 96,
+           (32, 1024, 96), bf16 and fp32), stream_matmul
            (each case's route; a pinned w's rate as a share of the 1 GiB
            pinned copy's, link_memcpy_gb_per_s; the ring at several panel
            depths beside the library), ssd_scan (no single PyTorch call computes the SSD:
@@ -103,6 +105,18 @@ JSON line per phase; any failure is a non-zero exit:
            embeddings, text) with three M-RoPE position streams, whose
            positions fall below the cache index after the image; the same
            pool, launch and logit checks and profiles as encdec
+  cluster  the port's ClusterScheduler (frag_repack, one modelled pod)
+           driving a crafted trace with its serving jobs executed as live
+           SliceRuntime tenants on the card at full width and depth
+           (attn_impl "pallas"): gpt2-124m, phi3-mini-3.8b (head dim 96) and
+           llama3-8b together beside a modelled mamba2-130m batch job, then
+           qwen3-32b (65.5 GB) alone; the timeline's sha against the same
+           trace run here by the port on the CPU with reduced tenants, every
+           serving job's tokens (requests x max_new) and finite first-decode
+           logits, the flash launches (counts set to 0 just before, read just
+           after: requests x layers a tenant, all wgmma), every tenant freed
+           (chips, and device memory back within 64 MiB); per tenant
+           add_tenant and drain seconds, tok/s, and the peak device memory
 
 Then a line {"kernels": [...]} with every kernel's figures, the card's name
 and power limit, and last {"ok": true, "device": {...}}.
@@ -129,6 +143,7 @@ pinned -> device copy reaches between CUDA events is printed beside it.
 from __future__ import annotations
 
 import gc
+import hashlib
 import json
 import os
 import statistics
@@ -400,6 +415,14 @@ def main() -> None:
              flash_case(20, 224, 64, "bfloat16", True),     # whisper's decoder prefill
              flash_case(64, 1048, 128, "bfloat16", True)]   # qwen2-vl's prefill
     encdec_case, vlm_case = cases[-2], cases[-1]
+    hd96_cases = [flash_case(32, 1024, 96, "bfloat16", True),  # phi3-mini's head dim
+                  flash_case(32, 1024, 96, "float32", True)]
+    # the cluster phase's prefills: one request of 4-8 tokens, heads after
+    # expand_kv, so a single ragged tile (gpt2, phi3-mini, llama3-8b, qwen3-32b)
+    cluster_cases = [flash_case(BH, S, hd, "bfloat16", True)
+                     for BH, hd in ((12, 64), (32, 96), (32, 128), (64, 128))
+                     for S in (4, 8)]
+    cases += hd96_cases + cluster_cases
 
     def flash_train_case(BH, S, hd, dtype_name, causal):
         """The forward with lse and the two backward kernels against their
@@ -514,6 +537,9 @@ def main() -> None:
                    flash_train_case(4, 256, 64, "float32", True),      # the reference's
                    flash_train_case(4, 256, 64, "float32", False),
                    flash_train_case(12, 1000, 64, "bfloat16", True)]   # ragged S
+    hd96_train_cases = [flash_train_case(32, 1024, 96, "bfloat16", True),  # phi3-mini
+                        flash_train_case(32, 1024, 96, "float32", True)]
+    train_cases += hd96_train_cases
 
     def host_us(fn, calls=200):
         """Host time of one wrapper call, µs: ``calls`` calls issued back to
@@ -2528,6 +2554,214 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
 
+    # -------------------------------------------------------------- cluster
+    # The port's ClusterScheduler places a crafted trace on one modelled pod
+    # and executes its serving jobs as live SliceRuntime tenants on the card
+    # at full width, causal prefills through the flash kernel: gpt2-124m,
+    # phi3-mini-3.8b (head dim 96) and llama3-8b together (~24 GB of bf16
+    # weights) beside a modelled batch job, then qwen3-32b (65.5 GB) alone
+    # once they are gone. The timeline must be the one the same script gets
+    # from the port on the CPU with the default (reduced) tenants.
+    from repro_torch.cluster import ClusterScheduler, Job
+    from repro_torch.configs import tenant_config
+
+    def cluster_trace():
+        return [Job(0, "serving", "gpt2-124m", "decode_32k", 0.0, 50,
+                    requests=2, duration_s=100.0),
+                Job(1, "serving", "phi3-mini-3.8b", "decode_32k", 5.0, 50,
+                    requests=2, duration_s=100.0),
+                Job(2, "batch", "mamba2-130m", "decode_32k", 5.0, 50,
+                    u_compute=0.1),
+                Job(3, "serving", "llama3-8b", "decode_32k", 10.0, 50,
+                    requests=2, duration_s=100.0),
+                Job(4, "serving", "qwen3-32b", "decode_32k", 500.0, 50,
+                    requests=2, duration_s=100.0)]
+
+    def timeline_sha(records):
+        return hashlib.sha256(repr([(r.job.job_id, r.place_s, r.finish_s)
+                                    for r in records]).encode()).hexdigest()
+
+    def full_width(arch):
+        return tenant_config(arch, full_size=True, attn_impl="pallas")
+
+    t0 = time.perf_counter()
+    cpu_sched = ClusterScheduler(n_pods=1, policy="frag_repack",
+                                 execute_serving=True, device="cpu")
+    cpu_records, _ = cpu_sched.run(cluster_trace())
+    cpu_seconds = time.perf_counter() - t0
+    cpu_sha = timeline_sha(cpu_records)
+
+    # per tenant: add_tenant and drain seconds, whether the first decode's
+    # logits are finite, who else was on the card, memory after the add
+    from repro_torch.models.model_zoo import Model
+    tenant_log, current = {}, {}
+    real_add, real_start = SliceRuntime.add_tenant, ClusterScheduler._start_tenant
+    real_decode = Model.decode
+
+    def logged_decode(model, params, cache, batch):
+        logits, cache = real_decode(model, params, cache, batch)
+        entry = current.get("entry")
+        if entry is not None and "first_logits_finite" not in entry:
+            entry["first_logits_finite"] = bool(torch.isfinite(logits.float()).all())
+        return logits, cache
+
+    def logged_add(runtime, spec):
+        entry = {"co_tenants": sorted(runtime.tenants),
+                 "memory_allocated_before_add": torch.cuda.memory_allocated()}
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        tenant = real_add(runtime, spec)
+        torch.cuda.synchronize()
+        entry["add_tenant_s"] = time.perf_counter() - t
+        entry["memory_allocated_after_add"] = torch.cuda.memory_allocated()
+        tenant_log[spec.name] = current["entry"] = entry
+        return tenant
+
+    def logged_start(sched, rec, pod, cand):
+        before = (fa.flash_attention_fwd.launches,
+                  dict(fa.flash_attention_fwd.launches_by_route))
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        slice_id = real_start(sched, rec, pod, cand)
+        torch.cuda.synchronize()
+        entry = tenant_log[rec.job.tag]
+        entry["drain_s"] = time.perf_counter() - t - entry["add_tenant_s"]
+        current.clear()
+        cfg = pod.runtime.tenants[rec.job.tag].spec.cfg
+        entry.update(
+            arch=cfg.name, layers=cfg.num_layers, d_model=cfg.d_model,
+            head_dim=cfg.head_dim, params=cfg.param_count(),
+            param_dtype=cfg.param_dtype, profile=cand.profile.name,
+            tokens_out=rec.tokens_out,
+            smoke_tok_per_s=rec.tokens_out / entry["drain_s"],
+            flash_launches=fa.flash_attention_fwd.launches - before[0],
+            flash_launches_by_route={
+                r: n - before[1][r]
+                for r, n in fa.flash_attention_fwd.launches_by_route.items()})
+        # the first request's prompt, drawn as _start_tenant draws it, through
+        # the tenant's own model (prefill through the flash kernel) and an
+        # eager one on the same weights; these launches are a comparison and
+        # are taken back out of the path's counts
+        saved = ({n: w.launches for n, w in kernel_wrappers.items()},
+                 route_counts())
+        rng = np.random.default_rng(1000 + rec.job.job_id)
+        prompt = rng.integers(0, cfg.vocab_size, size=int(rng.integers(4, 9)))
+        toks = torch.as_tensor(prompt[None], device=dev)
+        tenant = pod.runtime.tenants[rec.job.tag]
+        logits_k, _, _ = tenant.model.forward(tenant.params, {"tokens": toks})
+        check_routes = {r: n - saved[1]["flash_attention_fwd"][r]
+                        for r, n in fa.flash_attention_fwd.launches_by_route.items()}
+        logits_e, _, _ = build_model(cfg.with_(attn_impl="xla"), dev).forward(
+            tenant.params, {"tokens": toks})
+        torch.cuda.synchronize()
+        for n, w in kernel_wrappers.items():
+            w.launches = saved[0][n]
+        for n, w in routed.items():
+            w.launches_by_route = dict(saved[1][n])
+        if (tuple(logits_k.shape) != (1, len(prompt), cfg.vocab_size)
+                or not torch.isfinite(logits_k.float()).all()):
+            fail(f"cluster: {rec.job.tag}'s logits: shape "
+                 f"{tuple(logits_k.shape)} or non-finite values")
+        if check_routes != {"wgmma": cfg.num_layers, "fma": 0}:
+            fail(f"cluster: {rec.job.tag}'s checked forward launched the flash "
+                 f"kernel {check_routes}, not {cfg.num_layers} x wgmma")
+        entry.update(
+            check_prompt_tokens=len(prompt),
+            kernel_vs_eager_rel=rel_err(logits_k, logits_e),
+            argmax_agree=float((logits_k.argmax(-1) == logits_e.argmax(-1))
+                               .float().mean()))
+        del tenant, logits_k, logits_e
+        if entry["kernel_vs_eager_rel"] >= MODEL_TOL:
+            fail(f"cluster: {rec.job.tag}'s logits, kernel vs eager "
+                 f"{entry['kernel_vs_eager_rel']:.3e} >= {MODEL_TOL}")
+        return slice_id
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    c_before = torch.cuda.memory_allocated()
+    SliceRuntime.add_tenant = logged_add
+    ClusterScheduler._start_tenant = logged_start
+    Model.decode = logged_decode
+    sched = ClusterScheduler(n_pods=1, policy="frag_repack",
+                             execute_serving=True, device="cuda",
+                             serving_config=full_width)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()                                   # main path starts here
+    t0 = time.perf_counter()
+    c_records, c_metrics = sched.run(cluster_trace())
+    torch.cuda.synchronize()
+    c_wall = time.perf_counter() - t0
+    cluster_launches = {n: w.launches for n, w in kernel_wrappers.items()}
+    cluster_routes = route_counts()
+    SliceRuntime.add_tenant, ClusterScheduler._start_tenant = real_add, real_start
+    Model.decode = real_decode
+    c_peak = torch.cuda.max_memory_allocated()
+    gc.collect()
+    c_after = torch.cuda.memory_allocated()
+    c_sha = timeline_sha(c_records)
+    if c_sha != cpu_sha:
+        fail(f"cluster: the card's timeline {c_sha} != the CPU run's {cpu_sha}")
+    serving = [r for r in c_records if r.job.kind == "serving"]
+    by_id = {r.job.job_id: r for r in c_records}
+    for r in serving:
+        entry = tenant_log.get(r.job.tag)
+        if not r.executed or entry is None:
+            fail(f"cluster: serving job {r.job.tag} was not executed")
+        if r.tokens_out != r.job.requests * sched.serving_max_new:
+            fail(f"cluster: {r.job.tag} decoded {r.tokens_out} tokens, not "
+                 f"requests x max_new = {r.job.requests * sched.serving_max_new}")
+        if not entry.get("first_logits_finite"):
+            fail(f"cluster: {r.job.tag}'s first decode gave non-finite logits")
+        cfg = full_width(r.job.arch)
+        if (entry["layers"], entry["d_model"]) != (cfg.num_layers, cfg.d_model):
+            fail(f"cluster: {r.job.tag} did not run at full width and depth")
+        want = r.job.requests * cfg.num_layers
+        if entry["flash_launches_by_route"] != {"wgmma": want, "fma": 0}:
+            fail(f"cluster: {r.job.tag} flash launches "
+                 f"{entry['flash_launches_by_route']} != requests x layers = "
+                 f"{want}, all wgmma")
+    if any(r.executed for r in c_records if r.job.kind != "serving"):
+        fail("cluster: a modelled (non-serving) job was executed")
+    qwen = by_id[4]
+    if max(by_id[i].finish_s for i in (0, 1, 3)) > qwen.place_s:
+        fail("cluster: qwen3-32b was placed before the first three finished")
+    if tenant_log[qwen.job.tag]["co_tenants"]:
+        fail(f"cluster: qwen3-32b shared the card with "
+             f"{tenant_log[qwen.job.tag]['co_tenants']}")
+    want_flash = sum(r.job.requests * full_width(r.job.arch).num_layers
+                     for r in serving)
+    check_launches("cluster", cluster_launches, {
+        **{n: 0 for n in kernel_wrappers}, "flash_attention_fwd": want_flash})
+    check_launches("cluster routes", cluster_routes["flash_attention_fwd"],
+                   {"wgmma": want_flash, "fma": 0})
+    pod = sched.pods[0]
+    if pod.runtime.tenants or pod.partitioner.free_chips() != sched.pod_spec.n_chips:
+        fail(f"cluster: tenants left {sorted(pod.runtime.tenants)}, free chips "
+             f"{pod.partitioner.free_chips()} of {sched.pod_spec.n_chips}")
+    if abs(c_after - c_before) > 64 << 20:
+        fail(f"cluster: device memory {c_after} bytes after the run, "
+             f"{c_before} before (more than 64 MiB apart)")
+    emit("cluster", card=card_line, policy="frag_repack", pods=1,
+         pod_chips=sched.pod_spec.n_chips, serving_slots=sched.serving_slots,
+         serving_max_seq=sched.serving_max_seq,
+         serving_max_new=sched.serving_max_new, timeline_sha=c_sha,
+         cpu_timeline_sha=cpu_sha, cpu_seconds=cpu_seconds,
+         jobs=[{"job": r.job.job_id, "kind": r.job.kind, "arch": r.job.arch,
+                "profile": r.profile_name, "place_s": r.place_s,
+                "finish_s": r.finish_s, "executed": r.executed,
+                "tokens_out": r.tokens_out} for r in c_records],
+         tenants=tenant_log, completed=c_metrics.completed,
+         makespan_s=c_metrics.makespan_s, wall_seconds=c_wall,
+         launches=cluster_launches, launches_by_route=cluster_routes,
+         launches_formula="sum over serving jobs of requests x layers",
+         tol=MODEL_TOL,
+         hd96_launches=tenant_log[by_id[1].job.tag]["flash_launches"],
+         max_memory_allocated=c_peak, memory_allocated_before=c_before,
+         memory_allocated_after=c_after)
+    del sched, c_records, cpu_sched, cpu_records, tenant_log
+    gc.collect()
+    torch.cuda.empty_cache()
+
     # ------------------------------------------------------------- summary
     head, shead, ssd_head = cases[0], stream_cases[0], ssd_cases[0]
     gmm_head, gmm_prefill, gmm_pinned = gmm_cases[0], gmm_cases[2], gmm_cases[3]
@@ -2544,10 +2778,18 @@ def main() -> None:
         "library_ms": head["library_ms"],
         "launches_encdec": encdec_launches["flash_attention_fwd"],
         "launches_vlm": vlm_launches["flash_attention_fwd"],
+        "launches_cluster": cluster_launches["flash_attention_fwd"],
+        "launches_by_route_cluster": cluster_routes["flash_attention_fwd"],
         **{f"{name}_prefill": {k: case[k] for k in (
             "shape", "dtype", "ms", "cold_ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms")}
            for name, case in (("encdec", encdec_case), ("vlm", vlm_case))},
+        **{key: [{k: case[k] for k in (
+            "shape", "dtype", "route", "max_abs_err", "rel_err", "tol", "ms",
+            "cold_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+                 for case in group]
+           for key, group in (("hd96", hd96_cases),
+                              ("cluster_prefill", cluster_cases))},
     }, {
         "name": "stream_matmul", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/stream_matmul.cu",
@@ -2582,6 +2824,15 @@ def main() -> None:
         "library_ms": train_cases[0][lib],
         "launches_train_hybrid": thyb_launches[name],
         "launches_train_moe": tmoe_launches[name],
+        "hd96": [{
+            "shape": c["shape"], "dtype": c["dtype"],
+            "route": c["fwd_stats_route" if key == "fwd_stats" else "bwd_route"],
+            "max_abs_err": max(c["errors"][e]["max_abs_err"] for e in errs),
+            "tol": max(c["errors"][e]["tol"] for e in errs),
+            "ms": c[f"{key}_ms"], "cold_ms": c[f"{key}_cold_ms"],
+            "plain_ms": c[f"{key}_plain_ms"], "bound_ms": c[f"{key}_bound_ms"],
+            "bound_by": c[f"{key}_bound_by"], "library_ms": c[lib]}
+            for c in hd96_train_cases],
     } for name, source, replaces, key, errs, lib in (
         ("flash_attention_fwd_stats",
          "src/repro_torch/kernels/csrc/flash_attention_fwd.cu",

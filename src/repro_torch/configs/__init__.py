@@ -7,7 +7,7 @@ llama.cpp — paper Table III).
 from __future__ import annotations
 
 import importlib
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.configs import shapes  # noqa: F401  (re-export)
@@ -46,6 +46,20 @@ def get_config(arch: str) -> ModelConfig:
     return _cache[arch]
 
 
+def tenant_config(arch: str, *, full_size: bool = False,
+                  attn_impl: Optional[str] = None) -> ModelConfig:
+    """The config a served tenant runs: the published widths and depth in
+    bf16 weights, or the reduced same-family config; no remat."""
+    cfg = get_config(arch)
+    if full_size:
+        cfg = cfg.with_(remat="none", param_dtype="bfloat16")
+    else:
+        cfg = cfg.reduced().with_(remat="none")
+    if attn_impl:
+        cfg = cfg.with_(attn_impl=attn_impl)
+    return cfg
+
+
 def all_cells(archs=None, include_skipped: bool = False):
     """Yield (config, shape, skip_reason) for the assigned 10×4 grid."""
     for arch in archs or ASSIGNED_ARCHS:
@@ -58,5 +72,6 @@ def all_cells(archs=None, include_skipped: bool = False):
 
 __all__ = [
     "ModelConfig", "ShapeSuite", "SHAPES", "get_config", "get_shape",
+    "tenant_config",
     "applicable", "all_cells", "ASSIGNED_ARCHS", "PAPER_ARCHS", "ALL_ARCHS",
 ]

@@ -62,8 +62,11 @@
 //
 // Every bf16 input the wrapper takes (contiguous, 16-byte aligned, rows of
 // hd * 2 >= 32 bytes) is one a TMA descriptor takes, so bf16 has no other
-// route. Inputs fp32 or bf16, head dim 16, 32, 64 or 128, outputs in the
-// input type.
+// route. Inputs fp32 or bf16, head dim 16, 32, 64, 96 or 128, outputs in
+// the input type. At head dim 96 (phi3-mini) the tiles are three 64-byte-
+// swizzled chunks a row (hopper::swizzle_bytes) and dV, dK and dQ take
+// m64n96k16 wgmmas; the accumulators are 96 registers a thread in dkdv,
+// fewer than at 128.
 #include "flash_common.cuh"
 #include "hopper.cuh"
 
@@ -354,8 +357,8 @@ __device__ __forceinline__ float exp2_ftz(float x) {
 
 template <int HD>
 struct BwdTile {
-  static constexpr int SW = HD * 2 >= 128 ? 128 : HD * 2;  // swizzle: bytes a row of a chunk
-  static constexpr int CH = HD * 2 / SW;                    // 128-byte column chunks
+  static constexpr int SW = hopper::swizzle_bytes(HD * 2);  // swizzle: bytes a row of a chunk
+  static constexpr int CH = HD * 2 / SW;                     // column chunks
   static constexpr int BOX = SW / 2;                        // elements a TMA box row
   static constexpr int BYTES = TILE * HD * 2;               // one tile
   // the block's two tiles and a ring of two a stage, 1 KB of alignment slack
@@ -805,6 +808,7 @@ cudaError_t dispatch(int hd, int dtype, const Args& a, cudaStream_t stream) {
     BWD_CASE(16)
     BWD_CASE(32)
     BWD_CASE(64)
+    BWD_CASE(96)
     BWD_CASE(128)
     default: return cudaErrorInvalidValue;
   }

@@ -43,7 +43,12 @@
 //
 // Both schedule the heaviest (last) query tiles first.
 //
-// Inputs fp32 or bf16, head dim 16, 32, 64 or 128, output in the input type.
+// Inputs fp32 or bf16, head dim 16, 32, 64, 96 or 128, output in the input
+// type. Head dim 96 (phi3-mini) is a case of both kernels: the fp32 one keeps
+// six output columns a thread, the bf16 one stores each 192-byte row as
+// three 64-byte-swizzled chunks (hopper::swizzle_bytes), so QK^T takes six
+// 32-byte k-steps and P V one m64n96k16 wgmma a k-step, V's three chunks
+// spanned by one MN-major descriptor.
 #include "flash_common.cuh"
 #include "hopper.cuh"
 
@@ -282,8 +287,8 @@ constexpr float LN2 = 0.6931471805599453f;
 
 template <int HD>
 struct FwdTile {
-  static constexpr int SW = HD * 2 >= 128 ? 128 : HD * 2;  // swizzle: bytes a row of a chunk
-  static constexpr int CH = HD * 2 / SW;                    // 128-byte column chunks
+  static constexpr int SW = hopper::swizzle_bytes(HD * 2);  // swizzle: bytes a row of a chunk
+  static constexpr int CH = HD * 2 / SW;                     // column chunks
   static constexpr int BOX = SW / 2;                        // elements a TMA box row
   static constexpr int Q_BYTES = WQ * HD * 2;
   static constexpr int KV_BYTES = WKV * HD * 2;             // one K or one V tile
@@ -522,6 +527,7 @@ cudaError_t dispatch_hd(int hd, const void* q, const void* k, const void* v,
     FLASH_CASE(16)
     FLASH_CASE(32)
     FLASH_CASE(64)
+    FLASH_CASE(96)
     FLASH_CASE(128)
     default: return cudaErrorInvalidValue;
   }

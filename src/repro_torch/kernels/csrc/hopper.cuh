@@ -16,9 +16,10 @@
 // Shared-memory tiles use the TMA's swizzled layouts, which are the layouts
 // wgmma reads: rows of SW bytes (SW = 32, 64 or 128), 16-byte chunks XORed
 // with the row index modulo 8, the pattern repeating every 8 rows. A tile
-// wider than 128 bytes is stored as column chunks of 128 bytes, one TMA box
-// each. Every tile starts on a 1024-byte boundary, so each descriptor's base
-// offset is 0.
+// wider than 128 bytes is stored as column chunks, one TMA box each: of 128
+// bytes where they divide the row, else of 64 (a 192-byte row of head dim 96
+// is three; swizzle_bytes). Every tile starts on a 1024-byte boundary, so
+// each descriptor's base offset is 0.
 //
 // The TMA descriptor is encoded by the driver's cuTensorMapEncodeTiled,
 // fetched through cudaGetDriverEntryPoint: the libraries link only the CUDA
@@ -115,10 +116,12 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
 // ---------------------------------------------------------------------------
 // wgmma
 // ---------------------------------------------------------------------------
-// The swizzle of a tile whose rows are `row_bytes` wide (32, 64, or 128 and
-// more), as the descriptor's layout field encodes it.
+// The swizzle of a tile whose rows are `row_bytes` wide, stored as equal
+// column chunks: the widest of 128, 64 and 32 bytes that divides the row (a
+// row of 192 bytes takes three chunks of 64: one swizzle mode for the whole
+// tile, so an MN-major operand spans its chunks with one descriptor).
 __host__ __device__ constexpr int swizzle_bytes(int row_bytes) {
-  return row_bytes >= 128 ? 128 : row_bytes;
+  return row_bytes % 128 == 0 ? 128 : (row_bytes % 64 == 0 ? 64 : 32);
 }
 __host__ __device__ constexpr uint64_t layout_code(int sw) {
   return sw == 128 ? 1 : (sw == 64 ? 2 : 3);
@@ -246,6 +249,23 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1), "n"(TB));
+}
+
+template <int TB>
+__device__ __forceinline__ void wgmma_rs(float (&d)[48], const uint32_t (&a)[4],
+                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47}, {%48, %49, %50, %51}, %52, p, 1, 1, %54;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1), "n"(TB));
 }
 

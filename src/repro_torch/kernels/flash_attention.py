@@ -45,7 +45,7 @@ import torch
 from repro_torch.kernels import _build
 
 NEG_INF = -1e30
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 96, 128)
 # the forward kernel by input type: bf16 on wgmma (TMA ring), fp32 on FMA
 FWD_ROUTES = {torch.bfloat16: "wgmma", torch.float32: "fma"}
 # the backward kernels (dk/dv and dq) by input type, the same two routes

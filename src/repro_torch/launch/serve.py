@@ -36,24 +36,14 @@ import time
 import numpy as np
 import torch
 
-from repro_torch.configs import get_config
+from repro_torch.configs import tenant_config
 from repro_torch.models.model_zoo import build_model
 from repro_torch.serving import Request, ServingEngine, SliceRuntime, TenantSpec
 
 
-def _config(arch: str, args):
-    cfg = get_config(arch)
-    if args.full_size:
-        cfg = cfg.with_(remat="none", param_dtype="bfloat16")
-    else:
-        cfg = cfg.reduced().with_(remat="none")
-    if args.attn_impl:
-        cfg = cfg.with_(attn_impl=args.attn_impl)
-    return cfg
-
-
 def run_single(args) -> None:
-    cfg = _config(args.arch, args)
+    cfg = tenant_config(args.arch, full_size=args.full_size,
+                        attn_impl=args.attn_impl)
     model = build_model(cfg, args.device)
     gen = torch.Generator(device=model.device).manual_seed(0)
     params, _ = model.init(gen)
@@ -85,7 +75,8 @@ def run_multi(args) -> None:
     names = set()
     for i, entry in enumerate(args.tenants.split(",")):
         arch, _, prof = entry.partition(":")
-        cfg = _config(arch, args)
+        cfg = tenant_config(arch, full_size=args.full_size,
+                            attn_impl=args.attn_impl)
         budget = args.hbm_budget if i == 0 and args.hbm_budget else None
         name = arch if arch not in names else f"{arch}-{i}"
         names.add(name)

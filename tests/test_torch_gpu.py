@@ -374,6 +374,92 @@ def test_flash_bwd_kernels_match_plain_on_card(dtype):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernels_at_phi3_mini_head_dim_on_card(dtype):
+    """Head dim 96 (phi3-mini) at its serving shape (32, 1024, 96), causal:
+    the forward, the forward with lse and both backward kernels against their
+    plain versions (fp32 2e-5 forward, 1e-4 backward; bf16 2e-2), each launch
+    on its route in the kernel itself (bf16 wgmma, fp32 fma)."""
+    from repro_torch.kernels import flash_attention as fa
+    dev = _cuda()
+    fwd_tol = {torch.float32: 2e-5, torch.bfloat16: 2e-2}[dtype]
+    bwd_tol = {torch.float32: 1e-4, torch.bfloat16: 2e-2}[dtype]
+    q, k, v, do = _flash_inputs(dev, dtype, 32, 1024, 1024, 96, 96)
+    wrappers = (fa.flash_attention_fwd, fa.flash_attention_fwd_stats,
+                fa.flash_attention_bwd_dkdv, fa.flash_attention_bwd_dq)
+    route = fa.FWD_ROUTES[dtype]
+    assert route == fa.BWD_ROUTES[dtype]
+    before = [(w.launches, w.launches_by_route[route]) for w in wrappers]
+    out = fa.flash_attention_fwd(q, k, v)
+    out_s, lse = fa.flash_attention_fwd_stats(q, k, v)
+    want_out, want_lse = fa.flash_attention_fwd_stats_plain(q, k, v)
+    delta = fa.bwd_delta(want_out, do)
+    dk, dv = fa.flash_attention_bwd_dkdv(q, k, v, do, want_lse, delta)
+    dq = fa.flash_attention_bwd_dq(q, k, v, do, want_lse, delta)
+    want_dk, want_dv = fa.flash_attention_bwd_dkdv_plain(q, k, v, do, want_lse,
+                                                         delta)
+    want_dq = fa.flash_attention_bwd_dq_plain(q, k, v, do, want_lse, delta)
+    torch.cuda.synchronize()
+    assert [(w.launches, w.launches_by_route[route]) for w in wrappers] == [
+        (n + 1, r + 1) for n, r in before]
+    assert _rel(out, want_out) < fwd_tol and _rel(out_s, want_out) < fwd_tol
+    assert _rel(lse, want_lse) < 2e-5
+    for name, got, want in (("dq", dq, want_dq), ("dk", dk, want_dk),
+                            ("dv", dv, want_dv)):
+        assert got.shape == want.shape == (32, 1024, 96)
+        assert _close(got, want, bwd_tol), name
+
+
+@pytest.mark.gpu
+def test_phi3_mini_prefill_at_head_dim_96_on_card():
+    """phi3-mini at a reduced width and depth with its head dim kept at 96,
+    bf16: the prefill through the flash kernel (one launch a layer, all
+    wgmma) against the same model through the eager chunked attention."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models.model_zoo import build_model
+    dev = _cuda()
+    cfg = get_config("phi3-mini-3.8b").reduced().with_(
+        remat="none", num_layers=3, head_dim=96, num_heads=8, num_kv_heads=8,
+        param_dtype="bfloat16")
+    model = build_model(cfg.with_(attn_impl="pallas"), dev)
+    eager = build_model(cfg.with_(attn_impl="xla"), dev)
+    params, _ = model.init(torch.Generator(device=dev).manual_seed(3))
+    toks = torch.randint(0, cfg.vocab_size, (2, 200), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(4))
+    before = (fa.flash_attention_fwd.launches,
+              fa.flash_attention_fwd.launches_by_route["wgmma"])
+    got = model.forward(params, {"tokens": toks})[0]
+    torch.cuda.synchronize()
+    assert (fa.flash_attention_fwd.launches,
+            fa.flash_attention_fwd.launches_by_route["wgmma"]) == (
+        before[0] + 3, before[1] + 3)
+    want = eager.forward(params, {"tokens": toks})[0]
+    assert torch.isfinite(got.float()).all()
+    assert _rel(got, want) < 5e-2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("S", [4, 5, 7, 8])
+@pytest.mark.parametrize("BH,hd", [(12, 64), (32, 96), (32, 128), (64, 128)])
+def test_flash_fwd_at_cluster_prefill_shapes_on_card(BH, hd, S):
+    """The cluster scheduler's live prefills (one request of 4-8 tokens, the
+    heads of gpt2-124m, phi3-mini-3.8b, llama3-8b and qwen3-32b after
+    expand_kv): one ragged tile, causal, bf16 on the wgmma route, against
+    the plain version under 2e-2."""
+    from repro_torch.kernels import flash_attention as fa
+    dev = _cuda()
+    q, k, v, _ = _flash_inputs(dev, torch.bfloat16, BH, S, S, hd, BH + S + hd)
+    before = fa.flash_attention_fwd.launches_by_route["wgmma"]
+    got = fa.flash_attention_fwd(q, k, v, causal=True)
+    want = fa.flash_attention_fwd_plain(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_fwd.launches_by_route["wgmma"] == before + 1
+    assert torch.isfinite(got.float()).all()
+    assert _rel(got, want) < 2e-2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_cv_autograd_on_card(dtype):
     """flash_attention_cv (kernel forward and backward under autograd, heads
     folded from (B, S, H, hd), a non-contiguous dout) against autograd of

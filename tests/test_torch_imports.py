@@ -24,7 +24,10 @@ def test_port_sources_exist():
             "workload.py", "slice_runtime_demo.py", "adamw.py",
             "train_step.py", "checkpoint.py", "fault.py", "pipeline.py",
             "train.py", "train_gpt2.py", "ssm.py", "ssd_scan.py", "moe.py",
-            "grouped_matmul.py"} <= names
+            "grouped_matmul.py", "scheduler.py", "actions.py", "placement.py",
+            "trace.py", "cosched.py", "reward.py", "utilization.py",
+            "autoscale.py", "loadgen.py", "planner.py", "metrics.py",
+            "cluster.py"} <= names
     assert all(p.exists() for p in _port_sources())
 
 

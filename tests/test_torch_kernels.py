@@ -122,3 +122,60 @@ def test_kernel_sources_and_build_key():
     assert "sm_90a" in " ".join(_build.NVCC_FLAGS)
     assert not _build._libs
 
+
+
+# ---------------------------------------------------------------------------
+# head dim 96 (phi3-mini-3.8b): the kernels take it natively
+# ---------------------------------------------------------------------------
+HD96 = [(1, 128, 3, 64, 64), (2, 256, 2, 128, 128)]   # (B, S, H, bq, bk)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("B,S,H,bq,bk", HD96)
+def test_flash_forward_at_head_dim_96_matches_reference(B, S, H, bq, bk,
+                                                        causal, dtype):
+    """The port's forward at phi3-mini's head dim against the reference's
+    Pallas kernel in interpret mode (its blocks span the whole head dim)."""
+    jdt, tdt, tol = DTYPES[dtype]
+    q, k, v = _qkv((B, S, H, 96), seed=96)
+    got = port_ops.flash_attention(*(to_torch(t, tdt) for t in (q, k, v)),
+                                   causal=causal)
+    want = ref_ops.flash_attention(*(to_jax(t, jdt) for t in (q, k, v)),
+                                   causal=causal, block_q=bq, block_k=bk)
+    assert got.shape == (B, S, H, 96)
+    assert rel_err(to_np(got), to_np(want)) < tol
+
+
+@pytest.mark.parametrize("causal,bq,bk", [(True, 64, 64), (True, 128, 64),
+                                          (False, 64, 128)])
+def test_flash_stats_and_backward_at_head_dim_96_match_reference(causal, bq, bk):
+    """Forward with lse (2e-5) and dq, dk, dv (1e-4) at head dim 96 against
+    the reference's three pallas_calls in interpret mode, fp32."""
+    from repro.kernels import flash_attention as ref_fa
+    rng = np.random.default_rng(96)
+    q, k, v, do = (rng.standard_normal((4, 256, 96)).astype(np.float32)
+                   for _ in range(4))
+    jq, jk, jv, jdo = map(to_jax, (q, k, v, do))
+    r_out, r_lse = ref_fa.flash_attention_fwd_stats(
+        jq, jk, jv, causal=causal, block_q=bq, block_k=bk, interpret=True)
+    r_dq, r_dk, r_dv = ref_fa.flash_attention_bwd(
+        jq, jk, jv, r_out, r_lse, jdo, causal=causal, block_q=bq, block_k=bk,
+        interpret=True)
+    tq, tk, tv, tdo = map(to_torch, (q, k, v, do))
+    out, lse = port_fa.flash_attention_fwd_stats(tq, tk, tv, causal=causal)
+    dq, dk, dv = port_fa.flash_attention_bwd(tq, tk, tv, out, lse, tdo,
+                                             causal=causal)
+    assert rel_err(to_np(out), to_np(r_out)) < 2e-5
+    assert rel_err(to_np(lse), to_np(r_lse)) < 2e-5
+    for name, a, b in (("dq", dq, r_dq), ("dk", dk, r_dk), ("dv", dv, r_dv)):
+        assert rel_err(to_np(a), to_np(b)) < 1e-4, name
+
+
+def test_head_dim_96_is_a_kernel_head_dim():
+    """96 is taken by the kernels themselves; a head dim no kernel is built
+    for still raises before any launch."""
+    assert 96 in port_fa.HEAD_DIMS
+    port_fa._check_launch((), 96, torch.bfloat16)
+    with pytest.raises(ValueError, match="head dim"):
+        port_fa._check_launch((), 80, torch.bfloat16)

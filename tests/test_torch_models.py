@@ -230,6 +230,35 @@ def test_model_logits_and_prefill_cache(arch, attn_impl, dtype):
     assert rel_err(to_np(last[:, 0]), to_np(want[:, -1])) < tol
 
 
+@pytest.mark.parametrize("dtype", list(DT))
+def test_phi3_mini_layer_at_head_dim_96_through_the_flash_route(dtype,
+                                                                monkeypatch):
+    """One phi3-mini layer at a reduced width with its head dim kept at 96
+    (the only arch that has it), ``attn_impl="pallas"``: logits and the
+    prefill cache against the reference's, whose Pallas kernel runs in
+    interpret mode; every causal prefill goes through the port's flash
+    wrapper (its plain version on the CPU, the kernel on the card)."""
+    from repro_torch.kernels import ops as kops
+    tol = 1e-4 if dtype == "float32" else 2e-2
+    rm, rp, pm, pp = model_pair("phi3-mini-3.8b", dtype=dtype,
+                                attn_impl="pallas", num_layers=1, head_dim=96)
+    assert pm.cfg.head_dim == 96 and pm.cfg.num_layers == 1
+    calls = []
+    real = kops.flash_attention
+    monkeypatch.setattr(kops, "flash_attention",
+                        lambda q, k, v, **kw: calls.append(q.shape[-1])
+                        or real(q, k, v, **kw))
+    toks = _rng(96).integers(0, rm.cfg.vocab_size, size=(2, 128))
+    want, _, wcache = rm.forward(rp, {"tokens": to_jax(toks)}, return_cache=True)
+    got, _, gcache = pm.forward(pp, {"tokens": to_torch(toks)}, return_cache=True)
+    assert calls == [96]
+    assert torch.isfinite(got).all()
+    assert rel_err(to_np(got), to_np(want)) < tol
+    for name in ("k", "v"):
+        assert tuple(gcache[name].shape)[-1] == 96
+        assert rel_err(to_np(gcache[name]), to_np(wcache[name])) < tol
+
+
 S_P, S_MAX, B = 96, 128, 2
 
 
