@@ -117,6 +117,28 @@ JSON line per phase; any failure is a non-zero exit:
            after: requests x layers a tenant, all wgmma), every tenant freed
            (chips, and device memory back within 64 MiB); per tenant
            add_tenant and drain seconds, tok/s, and the peak device memory
+  dryrun   launch/dryrun.py's measured dry run at full size into a temporary
+           directory: gpt2-124m and granite-moe-1b-a400m train_4k, llama3-8b
+           prefill_32k and decode_32k, mamba2-130m prefill_32k and long_500k;
+           each cell runs, counts (core.step_analysis) and times one part of
+           its global batch; checked: the count's kernel launches equal the
+           wrappers' counts in the counted pass (and the cell's launches are
+           that times its passes), the kernels each cell must reach and no
+           other, every bf16 flash and grouped_matmul launch on wgmma, finite
+           records, a finite training loss (gpt2-124m's NaN where its 4,096
+           positions pass its 1,024 learned ones, as the reference's, and
+           the record says so), PerfModel.from_artifacts loading every cell
+           and scoring it calibrated; per cell the counted TFLOP, HBM GB and
+           host GB, useful_flops_ratio, the calibration ratios against the
+           analytic WorkloadEstimate, k, step ms, tokens/s, MFU (against the
+           H100 datasheet's dense bf16 peak) and peak device bytes. Then the
+           kernels at the shapes the cells' parts gave them, on finite inputs
+           against their plain versions with their route checks: the flash
+           training kernels at each train_4k part (heads x 4,096 tokens),
+           grouped_matmul forward, dx and dw at granite-moe's capacity rows,
+           ssd_scan at the mamba2 prefill_32k part. The kernels phase holds
+           the flash forward at (2, 32768, 128) bf16 causal and ssd_scan at
+           32,768-token rows against their plain versions
 
 Then a line {"kernels": [...]} with every kernel's figures, the card's name
 and power limit, and last {"ok": true, "device": {...}}.
@@ -146,6 +168,7 @@ import gc
 import hashlib
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -248,6 +271,7 @@ def main() -> None:
     from repro_torch.kernels import ssd_scan as ssd
     from repro_torch.kernels import stream_matmul as sm
     from repro_torch.data.pipeline import DataPipeline, SyntheticSource, to_device
+    from repro_torch.launch import dryrun
     from repro_torch.launch.profile_serve import device_summary
     from repro_torch.launch.train import build_config, train as run_training
     from repro_torch.core.offload import _flatten_with_paths
@@ -423,6 +447,10 @@ def main() -> None:
                      for BH, hd in ((12, 64), (32, 96), (32, 128), (64, 128))
                      for S in (4, 8)]
     cases += hd96_cases + cluster_cases
+    # the dryrun phase's llama3-8b prefill_32k: rows of 32,768 tokens (two
+    # heads here, so that the plain version's scores fit)
+    long_flash_case = flash_case(2, 32768, 128, "bfloat16", True)
+    cases.append(long_flash_case)
 
     def flash_train_case(BH, S, hd, dtype_name, causal):
         """The forward with lse and the two backward kernels against their
@@ -433,12 +461,22 @@ def main() -> None:
         q, k, v, do = (torch.randn(BH, S, hd, device=dev, generator=g).to(dtype)
                        for _ in range(4))
         scale = hd ** -0.5
+        want_routes = {"flash_attention_fwd_stats": [fa.FWD_ROUTES[dtype]],
+                       "flash_attention_bwd_dkdv": [fa.BWD_ROUTES[dtype]],
+                       "flash_attention_bwd_dq": [fa.BWD_ROUTES[dtype]]}
+        routes_before = {n: dict(routed[n].launches_by_route) for n in want_routes}
         out, lse = fa.flash_attention_fwd_stats(q, k, v, causal=causal)
         p_out, p_lse = fa.flash_attention_fwd_stats_plain(q, k, v, causal=causal)
         delta = fa.bwd_delta(p_out, do)
         bwd_args = (q, k, v, do, p_lse, delta)
         dk, dv = fa.flash_attention_bwd_dkdv(*bwd_args, causal=causal)
         dq = fa.flash_attention_bwd_dq(*bwd_args, causal=causal)
+        launched_routes = {
+            n: sorted(r for r, c in routed[n].launches_by_route.items()
+                      if c != routes_before[n][r]) for n in want_routes}
+        if launched_routes != want_routes:
+            fail(f"flash training kernels at {(BH, S, hd)} {dtype_name} took "
+                 f"{launched_routes}, not {want_routes}")
         p_dk, p_dv = fa.flash_attention_bwd_dkdv_plain(*bwd_args, causal=causal)
         p_dq = fa.flash_attention_bwd_dq_plain(*bwd_args, causal=causal)
         torch.cuda.synchronize()
@@ -491,7 +529,7 @@ def main() -> None:
             ql, kl, vl, is_causal=causal, scale=scale)
         row = {
             "shape": [BH, S, hd], "dtype": dtype_name, "causal": causal,
-            "errors": errors,
+            "errors": errors, "launched_routes": launched_routes,
             "fwd_stats_route": fa.FWD_ROUTES[dtype],
             "fwd_stats_ms": time_ms(lambda: fa.flash_attention_fwd_stats(
                 q, k, v, causal=causal)),
@@ -748,6 +786,18 @@ def main() -> None:
                  ssd_case(2, 256, 8, 32, 64, "float32"),
                  ssd_case(1, 128, 2, 64, 128, "float32"),
                  ssd_case(1, 4096, 24, 64, 128, "bfloat16")]   # 64 chunks
+    # the dryrun phase's mamba2-130m prefill_32k part: 32,768-token rows, as
+    # many as the dry run's estimate gives a part on this card now (the
+    # dryrun phase holds the record's own part again where it differs)
+    from repro_torch.configs import get_shape
+    d_shape = get_shape("prefill_32k")
+    d_model = build_model(dryrun.cell_config("mamba2-130m", d_shape), dev)
+    ssd_long_rows = 32 // dryrun.choose_parts(
+        32, dryrun.part_bytes_per_sequence(d_model, d_shape),
+        dryrun.free_device_bytes(dev))
+    del d_model
+    ssd_long_case = ssd_case(ssd_long_rows, 32768, 24, 64, 128, "bfloat16")
+    ssd_cases.append(ssd_long_case)
     def gmm_case(E, M, K, N, dtype_name, where, shared=False):
         """grouped_matmul against its plain version; x (E, M, K) (with
         ``shared`` one (M, K) buffer read by every expert, expert stride 0,
@@ -2762,7 +2812,170 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
 
+    # --------------------------------------------------------------- dryrun
+    # launch/dryrun.py's cells at full size, run, counted and timed on the
+    # card into a temporary directory: B3/B4 (gpt2 training), B6 forward and
+    # backward with B3/B4 (granite-moe training), B1 at 32,768 tokens (llama3
+    # prefill), the plain decode over a 32k cache, B5 at 32,768 tokens
+    # (mamba2 prefill), the state decode (mamba2 long_500k)
+    from repro_torch.core.perfmodel import PerfModel
+    from repro_torch.core.slices import PROFILES
+    dry_cells = {("gpt2-124m", "train_4k"): {
+                     "flash_attention_fwd_stats", "flash_attention_bwd_dkdv",
+                     "flash_attention_bwd_dq"},
+                 ("granite-moe-1b-a400m", "train_4k"): {
+                     "flash_attention_fwd_stats", "flash_attention_bwd_dkdv",
+                     "flash_attention_bwd_dq", "grouped_matmul"},
+                 ("llama3-8b", "prefill_32k"): {"flash_attention_fwd"},
+                 ("llama3-8b", "decode_32k"): set(),
+                 ("mamba2-130m", "prefill_32k"): {"ssd_scan"},
+                 ("mamba2-130m", "long_500k"): set()}
+    gc.collect()
+    torch.cuda.empty_cache()
+    dry_dir = tempfile.mkdtemp(prefix="chip_smoke_dryrun_")
+    dry_recs, dry_seconds = {}, {}
+    reset_counts()
+    for (arch, shape_name), want_kernels in dry_cells.items():
+        before = {n: w.launches for n, w in kernel_wrappers.items()}
+        t0 = time.time()
+        rec = dryrun.run_cell(arch, shape_name, os.path.join(dry_dir, "single"),
+                              device="cuda")
+        dry_seconds[(arch, shape_name)] = time.time() - t0
+        if rec.get("error") or rec.get("skipped"):
+            fail(f"dryrun {arch} {shape_name}: "
+                 f"{rec.get('error') or rec.get('skipped')}\n{rec.get('trace', '')}")
+        delta = {n: w.launches - before[n] for n, w in kernel_wrappers.items()
+                 if w.launches != before[n]}
+        counted = rec["kernels"]["counted_pass"]
+        if counted["count"] != counted["wrappers"]:
+            fail(f"dryrun {arch} {shape_name}: counted launches "
+                 f"{counted['count']} != the wrappers' {counted['wrappers']}")
+        if set(counted["count"]) != want_kernels:
+            fail(f"dryrun {arch} {shape_name}: kernels {sorted(counted['count'])}"
+                 f", expected {sorted(want_kernels)}")
+        passes = 1 + rec["measured"]["warmup"] + rec["measured"]["calls"]
+        if delta != {n: c * passes for n, c in counted["count"].items()}:
+            fail(f"dryrun {arch} {shape_name}: the cell launched {delta}, not "
+                 f"{passes} x the counted pass {counted['count']}")
+        for name, routes in counted["routes"].items():
+            if name in routed and set(routes) != {"wgmma"}:
+                fail(f"dryrun {arch} {shape_name}: {name} routes {routes}, "
+                     f"not all wgmma (bf16)")
+        if get_shape(shape_name).kind == "train":
+            # gpt2-124m's 4,096 positions run past its 1,024 learned ones,
+            # whose rows read NaN as the reference's jnp.take reads them
+            by_design = "loss_note" in rec
+            if bool(np.isfinite(rec["loss"])) == by_design:
+                fail(f"dryrun {arch} {shape_name}: loss {rec['loss']}, "
+                     f"{rec.get('loss_note', 'expected finite')}")
+        numbers = [v for v in rec["roofline"].values()
+                   if isinstance(v, (int, float))]
+        numbers += [v for v in rec["measured"].values()
+                    if isinstance(v, (int, float))]
+        if not all(np.isfinite(numbers)):
+            fail(f"dryrun {arch} {shape_name}: non-finite figures in the record")
+        dry_recs[(arch, shape_name)] = rec
+    dry_launches = {n: w.launches for n, w in kernel_wrappers.items()}
+    dry_routes = route_counts()
+
+    # the kernels at the shapes the cells' parts gave them, each held to its
+    # plain version on finite inputs (gpt2's own step carries NaN rows):
+    # the flash training kernels at each train_4k part's heads x 4,096
+    # tokens, grouped_matmul forward and backward at granite-moe's capacity
+    # rows, the SSD scan at mamba2-130m's prefill_32k part
+    def part_sequences(arch, shape_name):
+        return dry_recs[(arch, shape_name)]["measured"]["part_sequences"]
+
+    train_s = get_shape("train_4k").seq_len
+    path_flash = []
+    for arch in ("gpt2-124m", "granite-moe-1b-a400m"):
+        cfg = get_config(arch)
+        path_flash.append(dict(flash_train_case(
+            part_sequences(arch, "train_4k") * cfg.num_heads, train_s,
+            cfg.head_dim, "bfloat16", True), arch=arch))
+    gcfg = get_config("granite-moe-1b-a400m")
+    # moe.apply_moe's groups: one a sequence, split past moe_group_size
+    gs = gcfg.moe_group_size
+    groups, group_tokens = part_sequences("granite-moe-1b-a400m", "train_4k"), train_s
+    if train_s > gs and train_s % gs == 0:
+        groups, group_tokens = groups * (train_s // gs), gs
+    g_rows = groups * mmoe.capacity(gcfg, group_tokens)
+    g_dims = ((gcfg.d_model, gcfg.d_ff), (gcfg.d_ff, gcfg.d_model))
+    path_gmm = [gmm_case(gcfg.num_experts, g_rows, K, N, "bfloat16", "device")
+                for K, N in g_dims]
+    if [c["route"] for c in path_gmm] != ["wgmma"] * len(path_gmm):
+        fail(f"grouped_matmul at granite-moe's train_4k rows took "
+             f"{[c['route'] for c in path_gmm]}, not wgmma")
+    path_gmm_bwd = [gmm_bwd_case(which, gcfg.num_experts, g_rows, K, N)
+                    for K, N in g_dims for which in ("dx", "dw")]
+    scfg = get_config("mamba2-130m")
+    s_rows = part_sequences("mamba2-130m", "prefill_32k")
+    path_ssd = (ssd_long_case if s_rows == ssd_long_rows else ssd_case(
+        s_rows, get_shape("prefill_32k").seq_len, scfg.ssm_heads,
+        scfg.ssm_head_dim, scfg.ssm_state, "bfloat16"))
+    perf = PerfModel.from_artifacts(dry_dir)
+    dry_rows = []
+    for (arch, shape_name), rec in dry_recs.items():
+        a = perf.anchors.get((arch, shape_name))
+        if a is None:
+            fail(f"dryrun: PerfModel.from_artifacts did not load {arch} {shape_name}")
+        cfg, shp = get_config(arch), get_shape(shape_name)
+        score = next((sc for sc in (perf.score(cfg, shp, p) for p in PROFILES)
+                      if sc is not None), None)
+        if score is None or not score.calibrated:
+            fail(f"dryrun: {arch} {shape_name} scored "
+                 f"{'on no profile' if score is None else 'uncalibrated'}")
+        wl = perf.workload(cfg, shp)
+        r, m = rec["roofline"], rec["measured"]
+        dry_rows.append({
+            "arch": arch, "shape": shape_name, "k": m["k"],
+            "part_sequences": m["part_sequences"],
+            "counted_tflop": r["hlo_flops_per_chip"] / 1e12,
+            "hbm_gb": r["hlo_bytes_per_chip"] / 1e9,
+            "host_gb": rec["host_bytes"] / 1e9,
+            "kernel_tflop": rec["kernels"]["flops"] / 1e12,
+            "useful_flops_ratio": r["useful_flops_ratio"],
+            "calibration_flops": a.flops_global / wl.flops(),
+            "calibration_bytes": a.bytes_global / wl.hbm_bytes(),
+            "calibrated_on": score.profile.name,
+            "part_ms": [m["part_ms_median"], m["part_ms_min"], m["part_ms_max"]],
+            "update_ms": m["update_ms"], "step_ms": m["step_ms"],
+            "tokens_per_s": m["tokens_per_s"], "mfu": m["mfu"],
+            "peak_device_bytes": m["peak_device_bytes"],
+            "part_estimate_gib": rec["memory"]["part_estimate_gib"],
+            "loss": rec.get("loss"), "loss_note": rec.get("loss_note"),
+            "launches_counted_pass": rec["kernels"]["counted_pass"]["count"],
+            "launches_step": rec["kernels"]["launches"],
+            "roofline_model_dominant": r["dominant"],
+            "setup_s": rec["setup_s"], "count_s": rec["count_s"],
+            "seconds": dry_seconds[(arch, shape_name)]})
+    emit("dryrun", card=card_line, cells=dry_rows, launches=dry_launches,
+         launches_by_route=dry_routes,
+         path_kernels={"flash_attention_train": path_flash,
+                       "grouped_matmul": path_gmm,
+                       "grouped_matmul_backward": path_gmm_bwd,
+                       "ssd_scan": path_ssd},
+         mfu_peak=f"{dryrun.H100_BF16_PEAK_FLOPS:.4g} FLOP/s, "
+                  "NVIDIA H100 SXM datasheet, dense BF16",
+         roofline_model="the reference's modelled chip (core.hw.V5E): a "
+                        "model, not the card's figures")
+    shutil.rmtree(dry_dir, ignore_errors=True)
+    del dry_recs, perf
+    gc.collect()
+    torch.cuda.empty_cache()
+
     # ------------------------------------------------------------- summary
+    def train_summary(c, key, errs, lib):
+        """One kernel's figures from a flash_train_case row."""
+        return {
+            "shape": c["shape"], "dtype": c["dtype"],
+            "route": c["fwd_stats_route" if key == "fwd_stats" else "bwd_route"],
+            "max_abs_err": max(c["errors"][e]["max_abs_err"] for e in errs),
+            "tol": max(c["errors"][e]["tol"] for e in errs),
+            "ms": c[f"{key}_ms"], "cold_ms": c[f"{key}_cold_ms"],
+            "plain_ms": c[f"{key}_plain_ms"], "bound_ms": c[f"{key}_bound_ms"],
+            "bound_by": c[f"{key}_bound_by"], "library_ms": c[lib]}
+
     head, shead, ssd_head = cases[0], stream_cases[0], ssd_cases[0]
     gmm_head, gmm_prefill, gmm_pinned = gmm_cases[0], gmm_cases[2], gmm_cases[3]
     print(json.dumps({"kernels": [{
@@ -2780,6 +2993,11 @@ def main() -> None:
         "launches_vlm": vlm_launches["flash_attention_fwd"],
         "launches_cluster": cluster_launches["flash_attention_fwd"],
         "launches_by_route_cluster": cluster_routes["flash_attention_fwd"],
+        "launches_dryrun": dry_launches["flash_attention_fwd"],
+        "launches_by_route_dryrun": dry_routes["flash_attention_fwd"],
+        "dryrun_prefill_32k": {k: long_flash_case[k] for k in (
+            "shape", "dtype", "route", "max_abs_err", "rel_err", "tol", "ms",
+            "cold_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
         **{f"{name}_prefill": {k: case[k] for k in (
             "shape", "dtype", "ms", "cold_ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms")}
@@ -2808,6 +3026,7 @@ def main() -> None:
         "host_link_peak_gb_per_s": HOST_LINK_BYTES_PER_S / 1e9,
         "host_link_measured_gb_per_s": link_bytes_per_s / 1e9,
         "link_memcpy_gb_per_s": link_bytes_per_s / 1e9,
+        "launches_dryrun": dry_launches["stream_matmul"],
     }] + [{
         "name": name, "route": "cuda", "source": source, "replaces": replaces,
         "launches": train_launches[name],
@@ -2824,15 +3043,11 @@ def main() -> None:
         "library_ms": train_cases[0][lib],
         "launches_train_hybrid": thyb_launches[name],
         "launches_train_moe": tmoe_launches[name],
-        "hd96": [{
-            "shape": c["shape"], "dtype": c["dtype"],
-            "route": c["fwd_stats_route" if key == "fwd_stats" else "bwd_route"],
-            "max_abs_err": max(c["errors"][e]["max_abs_err"] for e in errs),
-            "tol": max(c["errors"][e]["tol"] for e in errs),
-            "ms": c[f"{key}_ms"], "cold_ms": c[f"{key}_cold_ms"],
-            "plain_ms": c[f"{key}_plain_ms"], "bound_ms": c[f"{key}_bound_ms"],
-            "bound_by": c[f"{key}_bound_by"], "library_ms": c[lib]}
-            for c in hd96_train_cases],
+        "launches_dryrun": dry_launches[name],
+        "launches_by_route_dryrun": dry_routes[name],
+        "hd96": [train_summary(c, key, errs, lib) for c in hd96_train_cases],
+        "dryrun_train_4k": [dict(train_summary(c, key, errs, lib), arch=c["arch"])
+                            for c in path_flash],
     } for name, source, replaces, key, errs, lib in (
         ("flash_attention_fwd_stats",
          "src/repro_torch/kernels/csrc/flash_attention_fwd.cu",
@@ -2861,6 +3076,11 @@ def main() -> None:
         "library": "none: no single PyTorch call computes the SSD scan",
         "launches_train_ssm": tssm_launches["ssd_scan"],
         "launches_train_hybrid": thyb_launches["ssd_scan"],
+        "launches_dryrun": dry_launches["ssd_scan"],
+        "dryrun_prefill_32k": {k: path_ssd[k] for k in (
+            "shape", "N", "dtype", "max_abs_err", "rel_err", "tol",
+            "state_rel_err", "ms", "cold_ms", "plain_ms", "bound_ms",
+            "bound_by")},
         "function_backward": ssd_bwd_cases,
     }, {
         "name": "grouped_matmul", "route": "cuda",
@@ -2885,7 +3105,13 @@ def main() -> None:
             "bound_by", "library_ms")},
         "launches_train_moe": tmoe_launches["grouped_matmul"],
         "launches_by_route_train_moe": tmoe_routes["grouped_matmul"],
+        "launches_dryrun": dry_launches["grouped_matmul"],
+        "launches_by_route_dryrun": dry_routes["grouped_matmul"],
         "backward": gmm_bwd_cases,
+        "dryrun_train_4k": [{k: c[k] for k in (
+            "shape", "route", "max_abs_err", "rel_err", "tol", "ms", "cold_ms",
+            "plain_ms", "bound_ms", "bound_by", "library_ms")} for c in path_gmm],
+        "dryrun_train_4k_backward": path_gmm_bwd,
     }]}), flush=True)
     print(card_line, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -5,7 +5,8 @@
 - slices: static slice profiles
 - partitioner: StaticPartitioner over the modelled pod's chip grid
 - offload: fine-grained host-offload planner and its placement on two tiers
-- roofline: three-term roofline terms (``analyze`` waits for measured anchors)
+- roofline: three-term roofline terms (``analyze`` of a counted step)
+- step_analysis: counted FLOPs / bytes / collectives of one eager step
 - workload: analytic per-step estimates
 - power: shared-power-cap throttling model
 - reward: the paper's R-metric and config selector

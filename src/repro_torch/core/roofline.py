@@ -1,5 +1,9 @@
 """Three-term roofline analysis (the reference's, for the modelled chips).
 
+The port's ``analyze`` takes a counted eager step
+(``core.step_analysis.count_step``) where the reference's reads a compiled
+module; the text below is the reference's account of its sources.
+
     compute term    = HLO_FLOPs / (chips × peak_FLOP/s)
     memory term     = HLO_bytes / (chips × HBM_bw)
     collective term = collective_bytes / (chips × link_bw)
@@ -171,18 +175,40 @@ class RooflineTerms:
         }
 
 
-def analyze(cost_analysis: Dict[str, float], hlo_text: str, n_chips: int,
-            model_flops: float, *, loop_trip_count: int = 1,
-            host_bytes_per_step: float = 0.0, chip: ChipSpec = V5E
-            ) -> RooflineTerms:
-    """Roofline terms from a compiled XLA module — the reference reads them
-    from XLA HLO text through its loop-aware HLO analyzer. The port compiles
-    no XLA modules; its counterpart (terms from timed steps on the card,
-    written as the same anchor records ``perfmodel.load_anchors`` reads)
-    is ROADMAP queue A item 14."""
-    raise NotImplementedError(
-        "roofline.analyze reads compiled XLA HLO, which the port does not "
-        "produce; measured anchors are ROADMAP queue A item 14")
+def analyze(cost, n_chips: int, model_flops: float, *,
+            loop_trip_count: int = 1, host_bytes_per_step: float = 0.0,
+            chip: ChipSpec = V5E) -> RooflineTerms:
+    """Roofline terms from a counted step (``core.step_analysis.StepCost``,
+    from ``count_step``), filled as the reference fills them from its
+    loop-aware HLO analysis: the same fields and the same divisions on the
+    modelled ``chip``, ``hlo_cost`` set to ``cost``.
+
+    The reference's first arguments are a compiled module's
+    ``cost_analysis()`` and HLO text; the port runs its step eagerly and
+    counts it, so it takes the count in their place. ``loop_trip_count`` is
+    accepted for the reference's signature and ignored: an eager step runs
+    every pass of its loops, so the count needs no trip-count correction
+    and no computation is scaled. ``xla_cost_analysis`` stays None (no XLA
+    module exists)."""
+    del loop_trip_count
+    flops = float(cost.flops)
+    nbytes = float(cost.bytes_accessed)
+    coll_bytes = float(cost.total_collective_bytes)
+    coll = CollectiveStats(
+        bytes_by_op={k: int(v) for k, v in cost.collective_bytes.items()},
+        count_by_op=dict(cost.collective_counts))
+    host_per_chip = host_bytes_per_step / n_chips if n_chips else 0.0
+    terms = RooflineTerms(
+        t_compute=flops / chip.peak_flops_bf16,
+        t_memory=nbytes / chip.hbm_bw,
+        t_collective=coll_bytes / chip.ici_bw,
+        t_host=host_per_chip / chip.host_link_bw_per_chip,
+        hlo_flops=flops, hlo_bytes=nbytes, collective_bytes=coll_bytes,
+        host_bytes=host_per_chip, model_flops=model_flops, n_chips=n_chips,
+        collectives=coll,
+    )
+    terms.hlo_cost = cost
+    return terms
 
 
 def model_flops_for(cfg, shape) -> float:

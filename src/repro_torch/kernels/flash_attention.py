@@ -32,7 +32,9 @@ computes it outside any Pallas call.
 A tensor on the CPU takes the plain version beside each wrapper. A CUDA
 tensor launches the kernel or raises; nothing falls back. Each wrapper counts
 its launches in ``<wrapper>.launches``, and by kernel route in
-``<wrapper>.launches_by_route`` (``FWD_ROUTES``, ``BWD_ROUTES``).
+``<wrapper>.launches_by_route`` (``FWD_ROUTES``, ``BWD_ROUTES``), and reports
+each launch's work (``kernel_cost``) to a running step counter
+(``core.step_analysis``).
 """
 from __future__ import annotations
 
@@ -42,7 +44,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, _counter
 
 NEG_INF = -1e30
 HEAD_DIMS = (16, 32, 64, 96, 128)
@@ -145,6 +147,52 @@ def _scale(scale, hd) -> float:
     return float(scale) if scale is not None else 1.0 / math.sqrt(hd)
 
 
+def attended_pairs(Sq: int, Sk: int, causal: bool) -> int:
+    """(query, key) pairs a kernel attends: all ``Sq * Sk``, or under the
+    causal mask (row ``r`` sees keys ``0..r``) ``sum_r min(r + 1, Sk)``, about
+    half of ``Sq * Sk`` at ``Sq == Sk``."""
+    if not causal:
+        return Sq * Sk
+    m = min(Sq, Sk)
+    return m * (m + 1) // 2 + (Sq - m) * Sk
+
+
+def kernel_cost(name: str, q, k, causal: bool):
+    """(flops, bytes) of one launch of kernel ``name`` on q (BH, Sq, hd) and
+    k (BH, Sk, hd): the products over the attended pairs (``attended_pairs``;
+    a causal kernel skips the tiles above the diagonal, so it does about half
+    the full ``Sq x Sk`` work) and each input read once, each output written
+    once.
+
+    * ``flash_attention_fwd``: ``S = Q K^T`` and ``P V``, 4 hd a pair; reads
+      q, k, v, writes out. ``flash_attention_fwd_stats`` also writes the fp32
+      lse.
+    * ``flash_attention_bwd_dkdv``: ``S``, ``dP = dO V^T``, ``dV += P^T dO``,
+      ``dK += dS^T Q``, 8 hd a pair; reads q, k, v, dO, lse, delta, writes
+      dk, dv.
+    * ``flash_attention_bwd_dq``: ``S``, ``dP``, ``dQ += dS K``, 6 hd a pair;
+      reads the same six, writes dq.
+
+    Non-causal, the products equal those of the plain version (a ``bmm`` a
+    product a kv block). Causal, the plain version multiplies every row of a
+    kv block that reaches the diagonal, so it counts more than the kernel:
+    the rows above the diagonal in each such block."""
+    BH, Sq, hd = q.shape
+    Sk = k.shape[1]
+    pairs = attended_pairs(Sq, Sk, causal)
+    it = q.element_size()
+    qb, kb, stats = BH * Sq * hd * it, BH * Sk * hd * it, BH * Sq * 4
+    if name == "flash_attention_fwd":
+        return 4.0 * BH * pairs * hd, 2 * qb + 2 * kb
+    if name == "flash_attention_fwd_stats":
+        return 4.0 * BH * pairs * hd, 2 * qb + 2 * kb + stats
+    if name == "flash_attention_bwd_dkdv":
+        return 8.0 * BH * pairs * hd, 2 * qb + 4 * kb + 2 * stats
+    if name == "flash_attention_bwd_dq":
+        return 6.0 * BH * pairs * hd, 3 * qb + 2 * kb + 2 * stats
+    raise ValueError(f"no kernel {name!r}")
+
+
 # ---------------------------------------------------------------------------
 # forward
 # ---------------------------------------------------------------------------
@@ -205,6 +253,9 @@ def _fwd_kernel(q, k, v, causal, scale, with_lse: bool, wrapper):
                 int(bool(causal)), _scale(scale, hd))
         wrapper.launches += 1
         wrapper.launches_by_route[FWD_ROUTES[q.dtype]] += 1
+        if _counter.active is not None:
+            _counter.record_kernel(wrapper.__name__, FWD_ROUTES[q.dtype],
+                                   *kernel_cost(wrapper.__name__, q, k, causal))
     return out, lse
 
 
@@ -335,6 +386,10 @@ def flash_attention_bwd_dkdv(q, k, v, dout, lse, delta, *,
                 hd, code, int(bool(causal)), sc)
         flash_attention_bwd_dkdv.launches += 1
         flash_attention_bwd_dkdv.launches_by_route[BWD_ROUTES[q.dtype]] += 1
+        if _counter.active is not None:
+            _counter.record_kernel(
+                "flash_attention_bwd_dkdv", BWD_ROUTES[q.dtype],
+                *kernel_cost("flash_attention_bwd_dkdv", q, k, causal))
     return dk, dv
 
 
@@ -355,6 +410,10 @@ def flash_attention_bwd_dq(q, k, v, dout, lse, delta, *, causal: bool = True,
                 int(bool(causal)), sc)
         flash_attention_bwd_dq.launches += 1
         flash_attention_bwd_dq.launches_by_route[BWD_ROUTES[q.dtype]] += 1
+        if _counter.active is not None:
+            _counter.record_kernel(
+                "flash_attention_bwd_dq", BWD_ROUTES[q.dtype],
+                *kernel_cost("flash_attention_bwd_dq", q, k, causal))
     return dq
 
 

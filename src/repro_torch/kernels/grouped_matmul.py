@@ -34,7 +34,8 @@ dense first, counted in ``transpose_bytes``). Neither copies a bf16
 operand. A pinned ``w`` raises under autograd: training keeps
 every weight on the device. ``grouped_matmul.launches`` counts calls that
 launched, ``grouped_matmul.launches_by_route`` the same calls by route,
-``grouped_matmul.h2d_bytes`` the bytes of ``w`` streamed.
+``grouped_matmul.h2d_bytes`` the bytes of ``w`` streamed; each launch's work
+(``kernel_cost``) goes to a running step counter (``core.step_analysis``).
 """
 from __future__ import annotations
 
@@ -44,7 +45,7 @@ from typing import NamedTuple, Tuple
 
 import torch
 
-from repro_torch.kernels import _streamed
+from repro_torch.kernels import _counter, _streamed
 from repro_torch.kernels.ref import gmm_ref
 
 # K rows of one streamed panel (whole experts if K fits): 8 of granite-moe's
@@ -66,6 +67,20 @@ def _check(x, w):
         raise ValueError(f"x {tuple(x.shape)} and w {tuple(w.shape)} differ "
                          f"in experts or inner dim")
     _streamed.check_dtypes(x, w)
+
+
+def kernel_cost(x, w, on_host: bool):
+    """(flops, bytes, host_bytes) of one launch: ``2 E M K N`` product
+    operations (those of the plain version's ``bmm``), x read once (a shared
+    x, expert stride 0, once for all experts), the output written once, and
+    w read once: from device memory, or for a pinned w over the host link
+    (then its panels are written to and read from the device ring)."""
+    E, M, K = x.shape
+    N = w.shape[2]
+    wb = _counter.tensor_bytes(w)
+    out = E * M * N * x.element_size()
+    nbytes = _counter.tensor_bytes(x) + out + (2 * wb if on_host else wb)
+    return 2.0 * E * M * K * N, nbytes, wb if on_host else 0
 
 
 def grouped_matmul_plain(x, w):
@@ -274,6 +289,9 @@ def _launch(x, w):
         f"{p}")
     grouped_matmul.launches += 1
     grouped_matmul.launches_by_route[p.route] += 1
+    if _counter.active is not None:
+        _counter.record_kernel("grouped_matmul", p.route,
+                               *kernel_cost(x, w, on_host))
     if on_host:
         grouped_matmul.h2d_bytes += E * K * N * w.element_size()
     return out

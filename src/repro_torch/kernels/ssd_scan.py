@@ -27,7 +27,9 @@ kept for its signature; the kernels choose their own tiles.
 
 CPU tensors take ``ssd_scan_plain``. CUDA tensors launch the kernels on the
 current stream or raise; nothing falls back. ``ssd_scan.launches`` counts the
-calls that launched them.
+calls that launched them, and each call's work (``kernel_cost``) goes to a
+running step counter (``core.step_analysis``) under the route ``mma_sync``
+(the kernels' products are ``mma.sync``; they have no other route).
 """
 from __future__ import annotations
 
@@ -36,7 +38,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, _counter
 
 CHUNK = 64            # the kernels' chunk length
 MAX_STATE = 256       # largest N the kernels' shared memory takes
@@ -146,6 +148,30 @@ def ssd_scan_plain(x, dt, A, B_, C_, *, chunk: int = CHUNK,
     return (y, state) if return_state else y
 
 
+def kernel_cost(x, B_, with_init: bool, with_state: bool):
+    """(flops, bytes) of one call (three launches) at the kernels' chunk:
+    ``C B^T`` once a (batch, chunk) over the pairs of each chunk's causal
+    triangle (``2 N`` a pair), then per head the decay-weighted intra-chunk
+    product (``2 hp`` a pair), each chunk's state and the carried state's
+    output (``2 hp N`` a token each). Bytes: x, dt, A, B_, C_ (and an initial
+    state) read once, y (and the final state) written once, and the scratch
+    the launches hand on, written once and read once: the fp32 chunk states,
+    the state entering each chunk (x's dtype), the chunks' decays."""
+    Bb, S, nh, hp = x.shape
+    N = B_.shape[2]
+    Q = CHUNK
+    pairs = sum(v * (v + 1) // 2 for v in (min(Q, S - c) for c in range(0, S, Q)))
+    flops = 2.0 * Bb * pairs * N + 2.0 * Bb * nh * (pairs * hp + 2 * S * hp * N)
+    nc = -(-S // Q)
+    it = x.element_size()
+    state = Bb * nh * hp * N * 4
+    n_state = Bb * nc * nh * hp * N
+    nbytes = (2 * x.numel() * it + 4 * Bb * S * nh + 4 * nh + 2 * B_.numel() * it
+              + state * (int(with_init) + int(with_state))
+              + 2 * n_state * (4 + it) + 2 * 4 * Bb * nc * nh)
+    return flops, nbytes
+
+
 def _check_launch(tensors, x, B_):
     if x.dtype not in _DTYPE_CODE:
         raise TypeError(f"kernel takes x in float32 or bfloat16, got {x.dtype}")
@@ -223,6 +249,9 @@ def ssd_scan(x, dt, A, B_, C_, *, chunk: int = 128,
             f"({err_str(code).decode()}) for x {tuple(x.shape)} {x.dtype}, "
             f"N {N}")
     ssd_scan.launches += 1
+    if _counter.active is not None:
+        _counter.record_kernel("ssd_scan", "mma_sync", *kernel_cost(
+            x, B_, init_state is not None, return_state))
     return (y, state) if return_state else y
 
 

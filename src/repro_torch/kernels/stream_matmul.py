@@ -33,7 +33,9 @@ on the same device or in pinned host memory launches the kernel; an
 unpinned host ``w`` raises (no silent pageable copy), and so does anything
 else the kernel cannot take. ``stream_matmul.launches`` counts calls that
 launched, ``stream_matmul.launches_by_route`` the same calls by route,
-``stream_matmul.h2d_bytes`` the bytes of ``w`` streamed.
+``stream_matmul.h2d_bytes`` the bytes of ``w`` streamed; each launch's work
+(``kernel_cost``) goes to a running step counter (``core.step_analysis``)
+under the same route.
 """
 from __future__ import annotations
 
@@ -43,7 +45,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from repro_torch.kernels import _streamed
+from repro_torch.kernels import _counter, _streamed
 
 # bytes of w in one ring panel: each panel costs host work to issue and a
 # drain of the copy engine between copies, so a decode (products next to
@@ -71,6 +73,18 @@ def stream_matmul_plain(x, w):
     """The same function in plain PyTorch: fp32 product, cast to x's dtype."""
     _check(x, w)
     return (x.float() @ w.float()).to(x.dtype)
+
+
+def kernel_cost(x, w, on_host: bool):
+    """(flops, bytes, host_bytes) of one launch: ``2 M K N`` product
+    operations (the plain version's ``mm``), x read and the output written
+    once, w read once from device memory, or for a pinned w over the host
+    link (then its panels are written to and read from the device ring)."""
+    M, K = x.shape
+    N = w.shape[1]
+    wb = K * N * w.element_size()
+    nbytes = (M * K + M * N) * x.element_size() + (2 * wb if on_host else wb)
+    return 2.0 * M * K * N, nbytes, wb if on_host else 0
 
 
 def _w_layout(w):
@@ -184,6 +198,9 @@ def stream_matmul(x, w, *, block_k: Optional[int] = None):
         f"on {w.device}, {p}")
     stream_matmul.launches += 1
     stream_matmul.launches_by_route[p.route] += 1
+    if _counter.active is not None:
+        _counter.record_kernel("stream_matmul", p.route,
+                               *kernel_cost(x, w, on_host))
     if on_host:
         stream_matmul.h2d_bytes += K * N * w.element_size()
     return out

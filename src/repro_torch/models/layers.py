@@ -115,6 +115,17 @@ def init_mlp(b: ParamBuilder, stacked: bool = False):
         b.add("b_out", L + (cfg.d_model,), lr + ("none",), init="zeros")
 
 
+def silu(x):
+    """``jax.nn.silu`` as the reference computes it: for bf16 and fp16 inputs
+    ``x * (1 / (1 + exp(-x)))`` with every step rounded to the input's dtype
+    (XLA's low-precision logistic, then the product), which ``F.silu``
+    (rounded once) misses in about a third of bf16 values. fp32 keeps
+    ``F.silu``."""
+    if x.dtype in (torch.bfloat16, torch.float16):
+        return x * (1 / (1 + torch.exp(-x)))
+    return F.silu(x)
+
+
 def _act(cfg: ModelConfig, x):
     # the reference's gelu is the tanh approximation (jax.nn.gelu's default)
     return F.gelu(x, approximate="tanh") if cfg.act == "gelu" else F.silu(x)
@@ -166,6 +177,18 @@ def gather_rows(table, idx):
 gather_rows.h2d_bytes = 0
 
 
+def take_rows(table, idx):
+    """``jnp.take(table, idx, axis=0)`` as the reference calls it (JAX's
+    default "fill" mode): an index past the table's rows reads a row of NaN
+    (gpt2-124m's 1024 learned positions at a 4096-token step), where
+    ``table[idx]`` would raise."""
+    n = table.shape[0]
+    rows = gather_rows(table, idx.clamp(max=n - 1))
+    return torch.where((idx < n)[..., None], rows,
+                       torch.full((), float("nan"), dtype=rows.dtype,
+                                  device=rows.device))
+
+
 def embed_tokens(cfg: ModelConfig, p, tokens,
                  positions: Optional[torch.Tensor] = None):
     """Rows are gathered in the parameter dtype, then cast."""
@@ -174,7 +197,7 @@ def embed_tokens(cfg: ModelConfig, p, tokens,
         if positions is None:
             positions = torch.arange(tokens.shape[-1],
                                      device=tokens.device)[None, :]
-        x = x + gather_rows(p["pos_embed"], positions).to(x.dtype)
+        x = x + take_rows(p["pos_embed"], positions).to(x.dtype)
     return x
 
 

@@ -31,7 +31,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops as kops
 from repro_torch.models.common import ParamBuilder, to_dtype, weight_matmul
-from repro_torch.models.layers import rms_norm_vec
+from repro_torch.models.layers import rms_norm_vec, silu
 
 
 # ---------------------------------------------------------------------------
@@ -99,7 +99,7 @@ def _causal_conv(cfg: ModelConfig, p, xbc, cache: Optional[torch.Tensor] = None)
         pad = cache.to(xbc.dtype)
     full = torch.cat([pad, xbc], dim=1)
     out = sum(full[:, i:i + xbc.shape[1], :] * kern[i] for i in range(W))
-    return F.silu(out), full[:, -(W - 1):, :]
+    return silu(out), full[:, -(W - 1):, :]
 
 
 # ---------------------------------------------------------------------------

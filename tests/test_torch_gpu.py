@@ -1042,3 +1042,65 @@ def test_vlm_prefill_through_the_flash_kernel():
                     torch.randint(lo, lo + 40, (2, 40), generator=g, device=dev)
                     for lo in (0, 100, 1000)])}
     _flash_prefill_vs_eager("qwen2-vl-72b", batch)
+
+
+@pytest.mark.gpu
+def test_flash_fwd_at_llama3_prefill_32k_on_card():
+    """The dry run's llama3-8b prefill_32k cell sends 32,768-token rows
+    through the forward kernel; two heads here (the plain scores of a few
+    heads fit), bf16 causal, against the plain version under 2e-2."""
+    from repro_torch.kernels import flash_attention as fa
+    dev = _cuda()
+    q, k, v, _ = _flash_inputs(dev, torch.bfloat16, 2, 32768, 32768, 128, 5)
+    got = fa.flash_attention_fwd(q, k, v, causal=True)
+    want = fa.flash_attention_fwd_plain(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got.float()).all()
+    assert _rel(got, want) < 2e-2
+
+
+@pytest.mark.gpu
+def test_count_step_launches_equal_the_wrappers_counts_on_card():
+    """``count_step`` over a reduced bf16 training step of granite-moe (flash
+    forward with lse, both backward kernels, grouped_matmul forward and
+    backward) and a mamba2 prefill (ssd_scan): the count's launches by kernel
+    equal the wrappers' launch deltas, and every bf16 flash and grouped_matmul
+    launch takes wgmma. An H2D copy goes to host_bytes."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.step_analysis import count_step
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import grouped_matmul as gmm
+    from repro_torch.kernels import ssd_scan as ssd
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.train.train_step import _accumulate_grads
+    dev = _cuda()
+    wrappers = {"flash_attention_fwd": fa.flash_attention_fwd,
+                "flash_attention_fwd_stats": fa.flash_attention_fwd_stats,
+                "flash_attention_bwd_dkdv": fa.flash_attention_bwd_dkdv,
+                "flash_attention_bwd_dq": fa.flash_attention_bwd_dq,
+                "ssd_scan": ssd.ssd_scan, "grouped_matmul": gmm.grouped_matmul}
+    g = torch.Generator(device=dev).manual_seed(0)
+    moe = build_model(get_config("granite-moe-1b-a400m").reduced()
+                      .with_(attn_impl="xla_cv"), dev)
+    mp, _ = moe.init(g)
+    toks = torch.randint(0, moe.cfg.vocab_size, (2, 64), generator=g, device=dev)
+    ssm = build_model(get_config("mamba2-130m").reduced()
+                      .with_(param_dtype="bfloat16"), dev)
+    sp, _ = ssm.init(g)
+    steps = (lambda: _accumulate_grads(moe, mp, {"tokens": toks,
+                                                 "labels": toks}, 1),
+             lambda: ssm.forward(sp, {"tokens": toks}, last_token_only=True))
+    for step in steps:
+        before = {n: w.launches for n, w in wrappers.items()}
+        _, cost = count_step(step)
+        torch.cuda.synchronize()
+        deltas = {n: w.launches - before[n] for n, w in wrappers.items()
+                  if w.launches != before[n]}
+        assert deltas and cost.kernel_launches == deltas
+        for name, routes in cost.kernel_launches_by_route.items():
+            if name != "ssd_scan":
+                assert set(routes) == {"wgmma"}, (name, routes)
+        assert cost.kernel_flops > 0 and cost.flops > cost.kernel_flops
+    x = torch.ones(1024, 256)
+    _, cost = count_step(lambda: x.to(dev))
+    assert cost.host_bytes == 1024 * 256 * 4 and cost.bytes_accessed == 0

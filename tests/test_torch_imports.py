@@ -27,7 +27,9 @@ def test_port_sources_exist():
             "grouped_matmul.py", "scheduler.py", "actions.py", "placement.py",
             "trace.py", "cosched.py", "reward.py", "utilization.py",
             "autoscale.py", "loadgen.py", "planner.py", "metrics.py",
-            "cluster.py"} <= names
+            "cluster.py", "step_analysis.py", "dryrun.py", "quickstart.py",
+            "offload_serving.py", "multi_tenant_sharing.py", "cluster_sim.py",
+            "autoscale_demo.py"} <= names
     assert all(p.exists() for p in _port_sources())
 
 

@@ -356,15 +356,11 @@ def test_prefill_decode_matches_forward(arch):
     assert rel_err(to_np(pdec), to_np(rdec)) < 1e-4
 
 
-# zamba2-1.2b is left out: its reduced bf16 decode is 2.22e-2 from the
-# reference's. The cause is the SSM conv's bf16 silu: ``jax.nn.silu`` rounds
-# inside (XLA's bf16 logistic, then the product), torch's ``F.silu`` once,
-# 5.5e-3 apart on one layer's conv output. Both are right; with the
-# reference's silu put in the port's conv the gap falls to 1.68e-2. mamba2
-# runs the same layer and holds 2e-2; zamba2's shared attention carries the
-# difference further. The fp32 check of test_prefill_decode_matches_forward
-# covers zamba2 at 1e-4.
-BF16_DECODE_ARCHS = [a for a in CACHE_ARCHS if a != "zamba2-1.2b"]
+# Every arch of CACHE_ARCHS, zamba2-1.2b included: its SSM conv takes the
+# reference's bf16 silu (``layers.silu``, held to ``jax.nn.silu`` bit for bit
+# by test_silu_matches_jax_bit_for_bit); with ``F.silu`` there its decode was
+# 2.22e-2 apart.
+BF16_DECODE_ARCHS = list(CACHE_ARCHS)
 
 
 @pytest.mark.parametrize("arch", BF16_DECODE_ARCHS)
@@ -377,6 +373,38 @@ def test_bf16_prefill_decode_matches_reference(arch):
     rdec = _ref_prefill_decode(rm, rp, full, jnp.bfloat16)
     pdec, _ = _port_prefill_decode(pm, pp, full, torch.bfloat16)
     assert rel_err(to_np(pdec), to_np(rdec)) < 2e-2
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16", "float32"])
+def test_silu_matches_jax_bit_for_bit(dtype):
+    """``layers.silu`` equals ``jax.nn.silu`` bit for bit on a seeded grid of
+    200,000 values (N(0, 4)) in bf16 and fp16 (every step rounded to the
+    input's dtype, as XLA does); fp32 keeps ``F.silu``, within 1 ulp
+    (a relative 2.5e-7)."""
+    v = _rng(5).normal(0.0, 2.0, size=200_000).astype(np.float32)
+    xt = torch.from_numpy(v).to(getattr(torch, dtype))
+    want = np.asarray(jax.nn.silu(jnp.asarray(xt.float().numpy()).astype(dtype))
+                      .astype(jnp.float32))
+    got = port_layers.silu(xt).float().numpy()
+    if dtype == "float32":
+        np.testing.assert_allclose(got, want, rtol=2.5e-7, atol=1e-30)
+    else:
+        assert np.array_equal(got, want)
+
+
+def test_learned_positions_past_the_table_read_nan_as_the_reference():
+    """gpt2's learned positions at a step longer than its table (1024 rows at
+    full size; 8 here): the reference's ``jnp.take`` reads NaN rows past the
+    table (JAX's "fill" mode) and the port's ``take_rows`` the same, where
+    ``table[idx]`` raised (on the card a device-side assert)."""
+    rm, rp, pm, pp = model_pair("gpt2-124m", seed=2, dtype="float32",
+                                max_position=8)
+    toks = _rng(4).integers(0, rm.cfg.vocab_size, size=(2, 12)).astype(np.int32)
+    want = to_np(ref_layers.embed_tokens(rm.cfg, rp, to_jax(toks)))
+    got = to_np(port_layers.embed_tokens(pm.cfg, pp, to_torch(toks)))
+    assert np.isnan(want[:, 8:]).all() and np.isnan(got[:, 8:]).all()
+    assert not np.isnan(got[:, :8]).any()
+    assert rel_err(got[:, :8], want[:, :8]) < 1e-6
 
 
 def test_ragged_decode_matches_reference_and_scalar_decode():

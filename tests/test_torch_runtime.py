@@ -98,8 +98,25 @@ def test_model_flops_and_analyze():
         for shape in SHAPES:
             assert port_roofline.model_flops_for(get_config(arch), shape) == \
                 ref_model_flops(_ref_cfg(get_config(arch)), _ref_shape(shape))
-    with pytest.raises(NotImplementedError, match="queue A item 14"):
-        port_roofline.analyze({}, "", 1, 0.0)
+    # analyze: the reference's terms from its HLO analysis of a compiled
+    # program, the port's from a StepCost holding the same counts
+    import jax.numpy as jnp
+    from repro.core.hlo_analysis import analyze_hlo
+    from repro.core.roofline import analyze as ref_analyze
+    from repro_torch.core.step_analysis import StepCost
+    hlo = jax.jit(lambda a, b: jnp.tanh(a @ b)).lower(
+        jnp.zeros((64, 128)), jnp.zeros((128, 256))).compile().as_text()
+    hc = analyze_hlo(hlo)
+    cost = StepCost(flops=hc.flops, bytes_accessed=hc.bytes_accessed,
+                    collective_bytes=dict(hc.collective_bytes),
+                    collective_counts=dict(hc.collective_counts))
+    assert hc.trip_counts == {}      # no loop: nothing for the port to scale
+    for n_chips, host in ((1, 0.0), (16, 3e9)):
+        want = ref_analyze({}, hlo, n_chips, 1e12, host_bytes_per_step=host)
+        got = port_roofline.analyze(cost, n_chips, 1e12,
+                                    host_bytes_per_step=host)
+        assert got.as_dict() == want.as_dict()
+        assert got.hlo_cost is cost
 
 
 @pytest.mark.parametrize("archs", [("llama3-8b", "gpt2-124m"),
