@@ -17,7 +17,10 @@ JSON line per phase; any failure is a non-zero exit:
            one call beside the library's; the serving forward also at
            whisper's and qwen2-vl's decoder-prefill shapes; forward, forward
            with lse and both backward kernels at phi3-mini's head dim 96,
-           (32, 1024, 96), bf16 and fp32), stream_matmul
+           (32, 1024, 96), bf16 and fp32; the forward at starcoder2-7b's
+           and command-r-35b's 1,024-token prefills, (36|64, 1024, 128), and
+           the training kernels at train_phi3's (8 x 32, 1024, 96),
+           bf16), stream_matmul
            (each case's route; a pinned w's rate as a share of the 1 GiB
            pinned copy's, link_memcpy_gb_per_s; the ring at several panel
            depths beside the library), ssd_scan (no single PyTorch call computes the SSD:
@@ -45,6 +48,14 @@ JSON line per phase; any failure is a non-zero exit:
            hybrid and moe_runtime)
   gpt2     gpt2-124m at full size (layernorm, learned positions, tanh-GELU,
            biases, tied embeddings)
+  serve_starcoder2, serve_command_r
+           starcoder2-7b (GQA groups of 9, biased GELU MLP) and command-r-35b
+           (60.6 GB of bf16 weights, GQA groups of 8, rope theta 8e6, the
+           256,000-wide unembedding through its tied token table) at full
+           size, each alone on the card, driven as the serve phase drives
+           llama3-8b: every prefill's flash launch (admitted x layers, all
+           wgmma), then the check phase's logit checks on the same parameter
+           tensors; the model freed, device memory back within 64 MiB
   train    gpt2-124m at full size trained through launch/train.py's path
            (FaultTolerantRunner, StaticPartitioner, checkpoints): 30 AdamW
            steps of 8 x 1024 tokens, attention through the flash forward and
@@ -55,10 +66,11 @@ JSON line per phase; any failure is a non-zero exit:
   grads    one step's loss and gradients of full gpt2-124m through the kernels
            against the eager attention, and the remat routes none / offload
            against layer (equal), with the offload route's host bytes
-  train_ssm, train_hybrid, train_moe
-           mamba2-130m, zamba2-1.2b and granite-moe-1b-a400m at full size
-           trained through launch/train.py's path: 8, 12 and 8 AdamW steps of
-           8 x 1024 tokens, remat "layer", attention through the flash kernels,
+  train_ssm, train_hybrid, train_moe, train_phi3
+           mamba2-130m, zamba2-1.2b, granite-moe-1b-a400m and phi3-mini-3.8b
+           (head dim 96) at full size trained through launch/train.py's
+           path: 8, 12, 8 and 8 AdamW steps of 8 x 1024 tokens, remat
+           "layer", attention through the flash kernels,
            every prefill SSD through ssd_scan (the SSD Function's backward
            is plain torch) and every expert product, forward and backward,
            through grouped_matmul; the counts are set to 0 just before and
@@ -197,6 +209,9 @@ MODEL_TOL = 5e-2
 # routes whose products sum in different orders (bf16's roundings move a
 # random-init SSM model's logits ~100x their own size: PERF.md)
 FP32_MODEL_TOL = 1e-3
+# the training phases: gpt2's steps, every phase's batch of T_SEQ-token
+# sequences, gpt2's injected failure and checkpoint interval
+T_STEPS, T_BATCH, T_SEQ, FAIL_AT, CKPT_EVERY = 30, 8, 1024, 12, 10
 # PCIe transfer rate per lane in GT/s, by generation
 PCIE_GT_PER_S = {1: 2.5, 2: 5.0, 3: 8.0, 4: 16.0, 5: 32.0}
 
@@ -322,10 +337,14 @@ def main() -> None:
     if smi.returncode != 0 or not smi.stdout.strip():
         fail(f"nvidia-smi failed: {smi.stderr.strip()}")
     card_line = smi.stdout.strip().splitlines()[0].strip()
+    # the training phases' final checkpoints go to the temporary directory
+    # (train_phi3's: ~46 GB of parameters and moments)
+    tmp_disk = shutil.disk_usage(tempfile.gettempdir())
     emit("env", python=sys.version.split()[0], torch=torch.__version__,
          cuda=torch.version.cuda, device=torch.cuda.get_device_name(0),
          device_count=torch.cuda.device_count(), card=card_line,
-         host_memory=host_memory())
+         host_memory=host_memory(), tmp_dir=tempfile.gettempdir(),
+         tmp_free_bytes=tmp_disk.free, tmp_total_bytes=tmp_disk.total)
 
     # ---------------------------------------------------------------- build
     t0 = time.time()
@@ -451,6 +470,11 @@ def main() -> None:
     # heads here, so that the plain version's scores fit)
     long_flash_case = flash_case(2, 32768, 128, "bfloat16", True)
     cases.append(long_flash_case)
+    # serve_starcoder2's and serve_command_r's 1,024-token prefills: 36 and
+    # 64 query heads after expand_kv (GQA groups of 9 and 8)
+    full_arch_cases = [flash_case(36, 1024, 128, "bfloat16", True),
+                       flash_case(64, 1024, 128, "bfloat16", True)]
+    cases += full_arch_cases
 
     def flash_train_case(BH, S, hd, dtype_name, causal):
         """The forward with lse and the two backward kernels against their
@@ -578,6 +602,10 @@ def main() -> None:
     hd96_train_cases = [flash_train_case(32, 1024, 96, "bfloat16", True),  # phi3-mini
                         flash_train_case(32, 1024, 96, "float32", True)]
     train_cases += hd96_train_cases
+    # train_phi3's shape: T_BATCH sequences x 32 heads of T_SEQ tokens
+    phi3_train_case = flash_train_case(T_BATCH * 32, T_SEQ, 96, "bfloat16",
+                                       True)
+    train_cases.append(phi3_train_case)
 
     def host_us(fn, calls=200):
         """Host time of one wrapper call, µs: ``calls`` calls issued back to
@@ -1099,81 +1127,127 @@ def main() -> None:
         torch.cuda.synchronize()
         return out, time.perf_counter() - t
 
-    cfg = get_config("llama3-8b").with_(attn_impl="pallas", remat="none",
-                                        param_dtype="bfloat16")
-    model = build_model(cfg, dev)
-    t0 = time.time()
-    params, _ = model.init(torch.Generator(device=dev).manual_seed(SEED))
-    torch.cuda.synchronize()
-    n_params = sum(t.numel() for t in params["layers"].values()) + sum(
-        t.numel() for k, t in params.items() if k != "layers")
-    if n_params != cfg.param_count():
-        fail(f"parameter count {n_params} != config's {cfg.param_count()}")
-    init_s = time.time() - t0
-
     LENS = [16, 100, 128, 300, 512, 777, 1000, 1024]
     SLOTS, MAX_SEQ, MAX_NEW = 4, 2048, 16
-    torch.cuda.reset_peak_memory_stats()
-    # warm-up: the same prompts once, so that first-use costs (library
-    # handles, kernels loaded per shape) are not timed as serving
-    run_engine(ServingEngine(model, params, slots=SLOTS, max_seq=MAX_SEQ),
-               make_requests(cfg, LENS, 2))
-    engine = timed_engine(ServingEngine(model, params, slots=SLOTS, max_seq=MAX_SEQ))
-    reqs = make_requests(cfg, LENS, MAX_NEW)
-    reset_counts()                                   # main path starts here
-    out, wall = run_engine(engine, reqs)
-    main_path_launches = {n: w.launches for n, w in kernel_wrappers.items()}
-    main_path_routes = route_counts()
-    check_outputs(out, reqs, cfg, MAX_NEW)
-    want_launches = engine.stats.admitted * cfg.num_layers
-    if main_path_launches["flash_attention_fwd"] != want_launches:
-        fail(f"flash_attention_fwd launched {main_path_launches['flash_attention_fwd']} "
-             f"times, expected admitted x layers = {want_launches}")
-    tokens = sum(len(v) for v in out.values())
-    base_tokens = out
-    emit("serve", arch=cfg.name, layers=cfg.num_layers, d_model=cfg.d_model,
-         params=n_params, param_dtype=cfg.param_dtype, init_seconds=round(init_s, 2),
-         requests=len(out), prompt_lens=LENS, slots=SLOTS, max_seq=MAX_SEQ,
-         tokens=tokens, ticks=engine.ticks, admitted=engine.stats.admitted,
-         wall_seconds=wall, tok_per_s=tokens / wall,
-         prefill_ms={str(n): s * 1e3 for n, s in engine.prefill_s},
-         prefill_ms_median=statistics.median(s for _, s in engine.prefill_s) * 1e3,
-         tick_ms_median=statistics.median(engine.tick_s) * 1e3,
-         tick_ms_max=max(engine.tick_s) * 1e3,
-         kv_pool_bytes=model.cache_bytes(SLOTS, MAX_SEQ),
-         flash_attention_fwd_launches=main_path_launches["flash_attention_fwd"],
-         max_memory_allocated=torch.cuda.max_memory_allocated())
-    del engine
+
+    def dense_param_count(cfg):
+        """The config's analytic count (the reference's formula) counts a
+        layernorm's scale alone; both packages' init also create its bias:
+        two norms a layer and the final one."""
+        biases = (2 * cfg.num_layers + 1) * cfg.d_model
+        return cfg.param_count() + (biases if cfg.norm == "layernorm" else 0)
+
+    def serve_full_size(phase, arch):
+        """``arch`` at full width and depth (random bf16 weights from a seed)
+        through ServingEngine.run after a warm-up, the counts set to 0 just
+        before and read just after: every prefill's flash launch (admitted x
+        layers, all wgmma), the parameter count and the outputs checked.
+        Returns (model, params, cfg, row, outputs, launches, routes); the
+        caller emits ``row``."""
+        gc.collect()
+        torch.cuda.empty_cache()
+        mem_before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        cfg = get_config(arch).with_(attn_impl="pallas", remat="none",
+                                     param_dtype="bfloat16")
+        model = build_model(cfg, dev)
+        t0 = time.time()
+        params, _ = model.init(torch.Generator(device=dev).manual_seed(SEED))
+        torch.cuda.synchronize()
+        init_s = time.time() - t0
+        leaves = list(tree_leaves(params))
+        n_params = sum(t.numel() for t in leaves)
+        if n_params != dense_param_count(cfg):
+            fail(f"{phase}: parameter count {n_params} != the config's "
+                 f"{cfg.param_count()} + layernorm biases")
+        weight_bytes = sum(t.numel() * t.element_size() for t in leaves)
+        # warm-up: the same prompts once, so that first-use costs (library
+        # handles, kernels loaded per shape) are not timed as serving
+        run_engine(ServingEngine(model, params, slots=SLOTS, max_seq=MAX_SEQ),
+                   make_requests(cfg, LENS, 2))
+        engine = timed_engine(ServingEngine(model, params, slots=SLOTS,
+                                            max_seq=MAX_SEQ))
+        reqs = make_requests(cfg, LENS, MAX_NEW)
+        reset_counts()                               # main path starts here
+        out, wall = run_engine(engine, reqs)
+        launches = {n: w.launches for n, w in kernel_wrappers.items()}
+        routes = route_counts()
+        check_outputs(out, reqs, cfg, MAX_NEW)
+        want = engine.stats.admitted * cfg.num_layers
+        check_launches(phase, launches, {**{n: 0 for n in kernel_wrappers},
+                                         "flash_attention_fwd": want})
+        check_launches(f"{phase} routes", routes["flash_attention_fwd"],
+                       {"wgmma": want, "fma": 0})
+        tokens = sum(len(v) for v in out.values())
+        row = dict(
+            arch=cfg.name, card=card_line, layers=cfg.num_layers,
+            d_model=cfg.d_model, heads=cfg.num_heads,
+            kv_heads=cfg.num_kv_heads, gqa_group=cfg.num_heads // cfg.num_kv_heads,
+            vocab=cfg.vocab_size, tied_embeddings=cfg.tie_embeddings,
+            rope_theta=cfg.rope_theta, params=n_params,
+            param_count_analytic=cfg.param_count(), param_dtype=cfg.param_dtype,
+            weight_bytes=weight_bytes, init_seconds=init_s,
+            requests=len(out), prompt_lens=LENS, slots=SLOTS, max_seq=MAX_SEQ,
+            tokens=tokens, ticks=engine.ticks, admitted=engine.stats.admitted,
+            wall_seconds=wall, tok_per_s=tokens / wall,
+            prefill_ms={str(n): s * 1e3 for n, s in engine.prefill_s},
+            prefill_ms_median=statistics.median(
+                s for _, s in engine.prefill_s) * 1e3,
+            tick_ms_median=statistics.median(engine.tick_s) * 1e3,
+            tick_ms_max=max(engine.tick_s) * 1e3,
+            kv_pool_bytes=model.cache_bytes(SLOTS, MAX_SEQ),
+            flash_attention_fwd_launches=launches["flash_attention_fwd"],
+            launches_formula="admitted x layers",
+            launches_by_route=routes["flash_attention_fwd"],
+            max_memory_allocated=torch.cuda.max_memory_allocated(),
+            memory_allocated_before=mem_before)
+        return model, params, cfg, row, out, launches, routes
+
+    (model, params, cfg, serve_row, base_tokens, main_path_launches,
+     main_path_routes) = serve_full_size("serve", "llama3-8b")
+    emit("serve", **serve_row)
 
     # ---------------------------------------------------------------- check
-    rng = np.random.default_rng(SEED + 1)
-    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, size=(1, 301)), device=dev)
-    logits_k, _, _ = model.forward(params, {"tokens": toks})
-    eager = build_model(cfg.with_(attn_impl="xla"), dev)
-    logits_e, _, _ = eager.forward(params, {"tokens": toks})
-    if tuple(logits_k.shape) != (1, 301, cfg.vocab_size):
-        fail(f"logits shape {tuple(logits_k.shape)}")
-    if not torch.isfinite(logits_k.float()).all():
-        fail("non-finite logits")
-    kernel_vs_eager = rel_err(logits_k, logits_e)
-    # prefill 300 tokens, decode the 301st: equals the full forward's last row
-    _, _, pc = model.forward(params, {"tokens": toks[:, :300]}, return_cache=True)
-    cache = model.init_cache(1, 512)
-    for name in cache:
-        cache[name][:, :, :300] = pc[name].to(cache[name].dtype)
-    dec, _ = model.decode(params, cache, {"tokens": toks[:, 300:301],
-                                          "pos": torch.tensor(300, device=dev)})
-    decode_vs_forward = rel_err(dec[0], logits_k[0, -1])
-    torch.cuda.synchronize()
-    if not torch.isfinite(dec.float()).all():
-        fail("non-finite decode logits")
-    if kernel_vs_eager >= MODEL_TOL or decode_vs_forward >= MODEL_TOL:
-        fail(f"full-width logits disagree: kernel vs eager {kernel_vs_eager:.3e}, "
-             f"decode vs forward {decode_vs_forward:.3e} (limit {MODEL_TOL})")
+    def logit_checks(phase, model, params, cfg):
+        """301 tokens' logits through the flash kernel against an eager model
+        on the same parameter tensors (no second copy of the weights), and
+        prefill 300 tokens -> decode the 301st against the full forward's
+        last row. Returns (kernel_vs_eager, decode_vs_forward, argmax_agree)."""
+        rng = np.random.default_rng(SEED + 1)
+        toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, size=(1, 301)),
+                               device=dev)
+        logits_k, _, _ = model.forward(params, {"tokens": toks})
+        eager = build_model(cfg.with_(attn_impl="xla"), dev)
+        logits_e, _, _ = eager.forward(params, {"tokens": toks})
+        if tuple(logits_k.shape) != (1, 301, cfg.vocab_size):
+            fail(f"{phase}: logits shape {tuple(logits_k.shape)}")
+        if not torch.isfinite(logits_k.float()).all():
+            fail(f"{phase}: non-finite logits")
+        kernel_vs_eager = rel_err(logits_k, logits_e)
+        argmax_agree = float((logits_k.argmax(-1) == logits_e.argmax(-1))
+                             .float().mean())
+        _, _, pc = model.forward(params, {"tokens": toks[:, :300]},
+                                 return_cache=True)
+        cache = model.init_cache(1, 512)
+        for name in cache:
+            cache[name][:, :, :300] = pc[name].to(cache[name].dtype)
+        dec, _ = model.decode(params, cache, {"tokens": toks[:, 300:301],
+                                              "pos": torch.tensor(300, device=dev)})
+        decode_vs_forward = rel_err(dec[0], logits_k[0, -1])
+        torch.cuda.synchronize()
+        if not torch.isfinite(dec.float()).all():
+            fail(f"{phase}: non-finite decode logits")
+        if kernel_vs_eager >= MODEL_TOL or decode_vs_forward >= MODEL_TOL:
+            fail(f"{phase}: full-width logits disagree: kernel vs eager "
+                 f"{kernel_vs_eager:.3e}, decode vs forward "
+                 f"{decode_vs_forward:.3e} (limit {MODEL_TOL})")
+        return kernel_vs_eager, decode_vs_forward, argmax_agree
+
+    kernel_vs_eager, decode_vs_forward, argmax_agree = logit_checks(
+        "check", model, params, cfg)
     emit("check", kernel_vs_eager_rel=kernel_vs_eager,
          decode_vs_forward_rel=decode_vs_forward, tol=MODEL_TOL,
-         argmax_agree=float((logits_k.argmax(-1) == logits_e.argmax(-1)).float().mean()))
-    del logits_k, logits_e, pc, cache, dec
+         argmax_agree=argmax_agree)
 
     # -------------------------------------------------------------- offload
     inventory = model.serving_inventory(params, model.cache_shapes(SLOTS, MAX_SEQ))
@@ -1226,7 +1300,7 @@ def main() -> None:
             "device_bytes": pool.device_bytes, "host_bytes": pool.host_bytes,
             "split_leaves": pool.split_leaves,
             "memory_kinds": sorted(pool.memory_kinds()),
-            "wall_seconds": o_wall, "tok_per_s": tokens / o_wall,
+            "wall_seconds": o_wall, "tok_per_s": serve_row["tokens"] / o_wall,
             "tick_ms_median": statistics.median(eng.tick_s) * 1e3,
             "prefill_ms_median": statistics.median(s for _, s in eng.prefill_s) * 1e3,
             "h2d_bytes_per_tick": pool.h2d_bytes / max(eng.ticks, 1),
@@ -1241,7 +1315,7 @@ def main() -> None:
          plan_applied_to="kv pool (parameters stay on the device)",
          place_tree_kinds=placed_kinds,
          tokens_equal=True, **rows)
-    del params, model, eager
+    del params, model
     gc.collect()              # the engines' timing wrappers form cycles
     torch.cuda.empty_cache()
 
@@ -1444,10 +1518,37 @@ def main() -> None:
     del gmodel, gparams, geng, geager
     torch.cuda.empty_cache()
 
+    # ------------------------------------- serve_starcoder2, serve_command_r
+    def serve_and_free(phase, arch):
+        """The serve phase's path at ``arch``, then the check phase's logit
+        checks on the same parameter tensors; the model is freed and device
+        memory must come back within 64 MiB of where it was before."""
+        model, params, cfg, row, _, launches, routes = serve_full_size(phase, arch)
+        kernel_vs_eager, decode_vs_forward, argmax_agree = logit_checks(
+            phase, model, params, cfg)
+        peak = torch.cuda.max_memory_allocated()     # serving and the checks
+        del model, params
+        gc.collect()          # the engines' timing wrappers form cycles
+        torch.cuda.empty_cache()
+        mem_after = torch.cuda.memory_allocated()
+        if abs(mem_after - row["memory_allocated_before"]) > 64 << 20:
+            fail(f"{phase}: device memory {mem_after} bytes after the phase, "
+                 f"{row['memory_allocated_before']} before (more than 64 MiB "
+                 f"apart)")
+        emit(phase, **row, kernel_vs_eager_rel=kernel_vs_eager,
+             decode_vs_forward_rel=decode_vs_forward, tol=MODEL_TOL,
+             argmax_agree=argmax_agree, max_memory_allocated_with_checks=peak,
+             memory_allocated_after=mem_after)
+        return launches, routes
+
+    starcoder2_launches, starcoder2_routes = serve_and_free(
+        "serve_starcoder2", "starcoder2-7b")
+    command_r_launches, command_r_routes = serve_and_free(
+        "serve_command_r", "command-r-35b")
+
     # ---------------------------------------------------------------- train
     tcfg = build_config("gpt2-124m", full_size=True, attn_impl="xla_cv",
                         remat="layer")
-    T_STEPS, T_BATCH, T_SEQ, FAIL_AT, CKPT_EVERY = 30, 8, 1024, 12, 10
     L = tcfg.num_layers
     gc.collect()              # the engines' timing wrappers form cycles
     torch.cuda.empty_cache()
@@ -1669,11 +1770,12 @@ def main() -> None:
         out["ok"] = checked["ok"] and full["full_depth_ok"]
         return out
 
-    def train_family(phase, arch, steps, formula, check_layers=None):
+    def train_family(phase, arch, steps, formula, check_layers=None, lr=3e-3):
         """``arch`` at full size trained through launch/train.py's path
         (FaultTolerantRunner, checkpoints; no failure injected): ``steps``
-        AdamW steps of T_BATCH x T_SEQ tokens, bf16 activations, fp32
-        parameters, attention through the flash kernels, remat "layer". The
+        AdamW steps of T_BATCH x T_SEQ tokens (peak lr ``lr``), bf16
+        activations, fp32 parameters, attention through the flash kernels,
+        remat "layer". The
         counts are set to 0 just before and read just after, and must equal
         ``formula(cfg)`` (per step) times the steps; every bf16 launch of a
         routed kernel takes the wgmma route."""
@@ -1687,7 +1789,7 @@ def main() -> None:
             reset_counts()                           # main path starts here
             t0 = time.perf_counter()
             st = run_training(cfg, steps=steps, batch=T_BATCH, seq=T_SEQ,
-                              lr=3e-3, device=dev, ckpt_dir=ckpt_dir,
+                              lr=lr, device=dev, ckpt_dir=ckpt_dir,
                               ckpt_every=steps + 1, seed=SEED)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
@@ -1719,13 +1821,13 @@ def main() -> None:
         emit(phase, arch=cfg.name, layers=cfg.num_layers, d_model=cfg.d_model,
              vocab=cfg.vocab_size, params=cfg.param_count(),
              param_dtype=cfg.param_dtype, dtype=cfg.dtype,
-             attn_impl=cfg.attn_impl, remat=cfg.remat, batch=T_BATCH,
+             attn_impl=cfg.attn_impl, remat=cfg.remat, batch=T_BATCH, lr=lr,
              seq=T_SEQ, tokens_per_step=T_BATCH * T_SEQ, steps=steps,
              loss_first=first, loss_last5_mean=last5, losses=st.losses,
              step_ms_median=step_ms,
              step_ms_min=min(st.step_seconds) * 1e3,
              step_ms_max=max(st.step_seconds) * 1e3,
-             tokens_per_s=T_BATCH * T_SEQ / (step_ms * 1e-3),
+             tokens_per_s=T_BATCH * T_SEQ / (step_ms * 1e-3), card=card_line,
              wall_seconds=wall, memory_allocated_before=base,
              max_memory_allocated=peak, peak_memory_of_training=peak - base,
              launches={n: {"count": launches[n], "formula": f, "expected": c}
@@ -1759,6 +1861,14 @@ def main() -> None:
             flash_attention_bwd_dkdv=("groups a step", n_groups),
             flash_attention_bwd_dq=("groups a step", n_groups))
 
+    def dense_formula(cfg):
+        # per layer: the forward, the backward's recompute, one backward
+        L = cfg.num_layers
+        return no_launch(
+            flash_attention_fwd_stats=("2 x layers a step", 2 * L),
+            flash_attention_bwd_dkdv=("layers a step", L),
+            flash_attention_bwd_dq=("layers a step", L))
+
     def moe_formula(cfg):
         # per layer: 3 expert products forward, 3 recomputed, and dx, dw of
         # each in the backward
@@ -1779,6 +1889,18 @@ def main() -> None:
                                     hybrid_formula, check_layers=8)
     tmoe_launches, tmoe_routes = train_family("train_moe", "granite-moe-1b-a400m",
                                               8, moe_formula)
+    # phi3-mini-3.8b: the flash forward+lse and backward kernels at head dim
+    # 96 on a training path; the gradient check at full depth (its two fp32
+    # routes agree to ~1e-6 there). Its fp32 parameters, gradients and AdamW
+    # moments take 61.1 GB before any activation; at T_BATCH x T_SEQ the
+    # step peaks under the card's memory (PERF.md §6). The runner warms the
+    # lr up linearly over 20 steps, so these 8 steps run at 1/20 to 8/20 of
+    # the peak: 1.5e-6 to 1.2e-5 at this peak of 3e-5. A sweep of peaks
+    # through launch/train.py on the card (PERF.md §6) reads the loss rising
+    # at 3e-3 and 1e-3, falling less than the 0.5-nat gate at 3e-4, and
+    # passing it at 1e-4 and 3e-5
+    tphi_launches, tphi_routes = train_family(
+        "train_phi3", "phi3-mini-3.8b", 8, dense_formula, lr=3e-5)
     torch.cuda.empty_cache()
 
     # ------------------------------------------------------------------ ssm
@@ -2995,6 +3117,12 @@ def main() -> None:
         "launches_by_route_cluster": cluster_routes["flash_attention_fwd"],
         "launches_dryrun": dry_launches["flash_attention_fwd"],
         "launches_by_route_dryrun": dry_routes["flash_attention_fwd"],
+        "launches_serve_starcoder2": starcoder2_launches["flash_attention_fwd"],
+        "launches_by_route_serve_starcoder2":
+            starcoder2_routes["flash_attention_fwd"],
+        "launches_serve_command_r": command_r_launches["flash_attention_fwd"],
+        "launches_by_route_serve_command_r":
+            command_r_routes["flash_attention_fwd"],
         "dryrun_prefill_32k": {k: long_flash_case[k] for k in (
             "shape", "dtype", "route", "max_abs_err", "rel_err", "tol", "ms",
             "cold_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
@@ -3007,7 +3135,8 @@ def main() -> None:
             "cold_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
                  for case in group]
            for key, group in (("hd96", hd96_cases),
-                              ("cluster_prefill", cluster_cases))},
+                              ("cluster_prefill", cluster_cases),
+                              ("serve_full_arch_prefill", full_arch_cases))},
     }, {
         "name": "stream_matmul", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/stream_matmul.cu",
@@ -3045,7 +3174,10 @@ def main() -> None:
         "launches_train_moe": tmoe_launches[name],
         "launches_dryrun": dry_launches[name],
         "launches_by_route_dryrun": dry_routes[name],
+        "launches_train_phi3": tphi_launches[name],
+        "launches_by_route_train_phi3": tphi_routes[name],
         "hd96": [train_summary(c, key, errs, lib) for c in hd96_train_cases],
+        "train_phi3": train_summary(phi3_train_case, key, errs, lib),
         "dryrun_train_4k": [dict(train_summary(c, key, errs, lib), arch=c["arch"])
                             for c in path_flash],
     } for name, source, replaces, key, errs, lib in (

@@ -223,13 +223,22 @@ def test_unread_parameter_raises_unless_declared():
 # ---------------------------------------------------------------------------
 # loss and gradients of whole models
 # ---------------------------------------------------------------------------
+# phi3-mini keeps its head dim of 96 (the width follows: 4 heads x 96), so
+# that the flash forward+lse and backward routes run at the head dim its
+# full-size training on the card gives them
+GRAD_WIDTHS = {"phi3-mini-3.8b": dict(head_dim=96, d_model=384)}
+
+
 @pytest.mark.parametrize("attn_impl", ["xla", "xla_cv"])
-@pytest.mark.parametrize("arch", ["gpt2-124m", "llama3-8b"])
+@pytest.mark.parametrize("arch", ["gpt2-124m", "llama3-8b", "phi3-mini-3.8b"])
 def test_loss_and_grads_match_reference(arch, attn_impl):
     """Model.loss_fn and every gradient leaf, reduced config in fp32 (GQA in
-    llama3-8b), the reference's init carried across."""
+    llama3-8b; head dim 96 in phi3-mini), the reference's init carried
+    across."""
     rmodel, rparams, pmodel, pparams = model_pair(arch, dtype="float32",
-                                                  attn_impl=attn_impl)
+                                                  attn_impl=attn_impl,
+                                                  **GRAD_WIDTHS.get(arch, {}))
+    assert pmodel.cfg.head_dim == GRAD_WIDTHS.get(arch, {}).get("head_dim", 16)
     b = _batch(rmodel.cfg.vocab_size, 2, 128, 11)
     r_loss, r_grads = jax.value_and_grad(rmodel.loss_fn)(rparams, _ref_batch(b))
     loss, grads = _accumulate_grads(pmodel, pparams, _port_batch(b), 1)
