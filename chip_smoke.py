@@ -21,8 +21,10 @@ JSON line per phase; any failure is a non-zero exit:
            and command-r-35b's 1,024-token prefills, (36|64, 1024, 128), and
            the training kernels at train_phi3's (8 x 32, 1024, 96),
            bf16), stream_matmul
-           (each case's route; a pinned w's rate as a share of the 1 GiB
-           pinned copy's, link_memcpy_gb_per_s; the ring at several panel
+           (each case's route, qwen2-vl's pinned layer at its decode and
+           prefill shapes among them; a pinned w's rate as a share of the
+           1 GiB copy's from a host-tier buffer, link_memcpy_gb_per_s, with
+           the caching host allocator's beside it; the ring at several panel
            depths beside the library), ssd_scan (no single PyTorch call computes the SSD:
            no library time) and its autograd Function (gradients against
            autograd through ssd_chunked, the plain backward's time at the
@@ -111,12 +113,24 @@ JSON line per phase; any failure is a non-zero exit:
            the full forward of its prompt and one token; then 4 more ticks
            and the longest prompt's prefill under torch.profiler (device-busy
            ms, idle share, the top device ops)
-  vlm      qwen2-vl-72b at full width, 32 of its 80 layers (all 80 would not
-           fit the card), alone on the card: 4 requests laid out as Qwen2-VL
-           lays out one image (text, a gh x gw block of stubbed vision
-           embeddings, text) with three M-RoPE position streams, whose
-           positions fall below the cache index after the image; the same
-           pool, launch and logit checks and profiles as encdec
+  vlm      qwen2-vl-72b at full width and all 80 layers (145.4 GB of bf16
+           weights), alone on the card: plan_offload against the card's free
+           memory and the host's MemAvailable puts the token table, the KV
+           pool and the gate and input MLP stacks (82,686,509,056 bytes) in
+           pinned host memory, failing before any allocation if the plan or
+           the host cannot hold it; each parameter drawn straight into its
+           tier (every leaf checked in its tier, the host bytes taken read
+           from MemAvailable within 2% of the plan's, the init's
+           device peak at most the resident bytes and one host leaf); 4
+           requests laid out as Qwen2-VL lays out one image (text, a gh x gw
+           block of stubbed vision embeddings, text) with three M-RoPE
+           position streams, whose positions fall below the cache index
+           after the image, served through a KVPool placed by the plan; the
+           counts set to 0 just before and read just after: flash launches
+           = prefills x 80 (all wgmma), stream_matmul launches = passes x
+           160 (all ring) and its bytes = passes x 77,510,737,920, the
+           table rows' bytes; the encdec phase's logit checks and profiles;
+           device memory back within 64 MiB and MemAvailable within 2 GiB
   cluster  the port's ClusterScheduler (frag_repack, one modelled pod)
            driving a crafted trace with its serving jobs executed as live
            SliceRuntime tenants on the card at full width and depth
@@ -267,6 +281,35 @@ def host_memory() -> dict:
     return out
 
 
+def _meminfo_bytes(path: str, key: str) -> int:
+    with open(path) as f:
+        for line in f:
+            if line.startswith(key + ":"):
+                return int(line.split()[1]) * 1024
+    raise RuntimeError(f"no {key} in {path}")
+
+
+def mem_available_bytes() -> int:
+    return _meminfo_bytes("/proc/meminfo", "MemAvailable")
+
+
+def settled_mem_available(limit_s: float = 120.0) -> int:
+    """MemAvailable once it holds still: the pages of a freed pinned buffer
+    of tens of GB reach the host's free memory over seconds after its
+    unregister and unmap return, so read until two readings a second
+    apart differ by under 64 MiB."""
+    last, t0 = mem_available_bytes(), time.time()
+    while True:
+        time.sleep(1.0)
+        now = mem_available_bytes()
+        if abs(now - last) < (64 << 20):
+            return now
+        if time.time() - t0 > limit_s:
+            fail(f"MemAvailable still moving after {limit_s} s "
+                 f"({last} -> {now} bytes)")
+        last = now
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -278,7 +321,9 @@ def main() -> None:
     sys.path.insert(0, os.path.join(root, "src"))
     import numpy as np
     from repro_torch.configs import get_config
-    from repro_torch.core.offload import memory_kind_of, place_tree, plan_offload
+    from repro_torch.core.offload import (empty_host, memory_kind_of,
+                                          param_placement, place_tree,
+                                          plan_offload, to_host)
     from repro_torch.kernels import _build
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import grouped_matmul as gmm
@@ -623,12 +668,19 @@ def main() -> None:
         return float((a.float() - b.float()).abs().max()
                      / (b.float().abs().max() + 1e-9))
 
-    # the host link's rate: one 1 GiB pinned -> device copy between events
-    host_buf = torch.empty(1 << 30, dtype=torch.uint8, pin_memory=True)
+    # the host link's rate: one 1 GiB pinned -> device copy between events,
+    # from the host tier's own buffers (core.offload.empty_host: pages
+    # registered with CUDA) and, beside it, from the caching host
+    # allocator's (pin_memory=True)
     dev_buf = torch.empty(1 << 30, dtype=torch.uint8, device=dev)
+    host_buf = empty_host((1 << 30,), torch.uint8, dev)
     link_ms = time_ms(lambda: dev_buf.copy_(host_buf, non_blocking=True),
                       warmup=1, iters=5)
+    host_buf = torch.empty(1 << 30, dtype=torch.uint8, pin_memory=True)
+    link_alloc_ms = time_ms(lambda: dev_buf.copy_(host_buf, non_blocking=True),
+                            warmup=1, iters=5)
     link_bytes_per_s = (1 << 30) / (link_ms * 1e-3)
+    link_alloc_bytes_per_s = (1 << 30) / (link_alloc_ms * 1e-3)
     del host_buf, dev_buf
     # a bound is never above what was reached
     link_bound_rate = max(HOST_LINK_BYTES_PER_S, link_bytes_per_s)
@@ -639,7 +691,8 @@ def main() -> None:
 
     def stream_case(M, K, N, xdt, wdt, where, transposed=False):
         """x (M, K) on the card; w (K, N) on the card or in pinned host
-        memory, or the transposed view of an (N, K) table. A pinned case's
+        memory (a host-tier buffer, ``to_host``, as the main path places
+        it), or the transposed view of an (N, K) table. A pinned case's
         rate is given as a share of the 1 GiB pinned copy's (``link_share``
         for the kernel alone, cold; ``link_share_idle`` from an idle card)."""
         g = torch.Generator(device=dev).manual_seed(SEED + M + K + N)
@@ -647,7 +700,7 @@ def main() -> None:
         shape = (N, K) if transposed else (K, N)
         w_dev = (torch.randn(*shape, device=dev, generator=g)
                  * K ** -0.5).to(getattr(torch, wdt))
-        w = w_dev if where == "device" else w_dev.cpu().pin_memory()
+        w = w_dev if where == "device" else to_host(w_dev, dev)
         if transposed:
             w_dev, w = w_dev.T, w.T
         before = sm.stream_matmul.h2d_bytes
@@ -718,6 +771,12 @@ def main() -> None:
         stream_case(4, 4096, 14336, "bfloat16", "bfloat16", "device"),
         stream_case(1024, 4096, 14336, "bfloat16", "bfloat16", "device"),
     ]
+    # the vlm phase's streamed stacks: one layer of qwen2-vl-72b's w_in or
+    # w_gate (484 MB), at a 4-slot decode tick and at its longest prefill
+    vlm_stream_cases = [
+        stream_case(4, 8192, 29568, "bfloat16", "bfloat16", "pinned"),
+        stream_case(1048, 8192, 29568, "bfloat16", "bfloat16", "pinned")]
+    stream_cases += vlm_stream_cases
 
     def ring_depths(M, K, N):
         """The ring at several panel depths (``block_k`` rows; "plan": the
@@ -726,8 +785,8 @@ def main() -> None:
         uses can be checked against the others on this card."""
         g = torch.Generator(device=dev).manual_seed(SEED)
         x = torch.randn(M, K, device=dev, generator=g).to(torch.bfloat16)
-        w = (torch.randn(K, N, device=dev, generator=g) * K ** -0.5).to(
-            torch.bfloat16).cpu().pin_memory()
+        w = to_host((torch.randn(K, N, device=dev, generator=g)
+                     * K ** -0.5).to(torch.bfloat16), dev)
         out = {"shape": [M, K, N],
                "plan_rows": sm.panel_rows(K, N, w.element_size()),
                "library_host_w_ms": time_ms(lambda: x @ w.to(dev, non_blocking=True)),
@@ -1069,6 +1128,7 @@ def main() -> None:
     emit("kernels", flash_attention_fwd=cases, flash_attention_train=train_cases,
          stream_matmul=stream_cases, stream_matmul_ring_depths=stream_ring_depths,
          link_memcpy_gb_per_s=link_bytes_per_s / 1e9,
+         link_memcpy_caching_allocator_gb_per_s=link_alloc_bytes_per_s / 1e9,
          ssd_scan=ssd_cases, ssd_function_backward=ssd_bwd_cases,
          grouped_matmul=gmm_cases, grouped_matmul_backward=gmm_bwd_cases,
          grouped_matmul_panel_depths=panel_depths(32, 4, 1024, 512),
@@ -1077,7 +1137,9 @@ def main() -> None:
          host_link={"peak_gb_per_s": HOST_LINK_BYTES_PER_S / 1e9,
                     "bound_gb_per_s": link_bound_rate / 1e9,
                     "measured_ms_per_gib": link_ms,
-                    "measured_gb_per_s": link_bytes_per_s / 1e9})
+                    "measured_gb_per_s": link_bytes_per_s / 1e9,
+                    "measured_caching_allocator_gb_per_s":
+                        link_alloc_bytes_per_s / 1e9})
 
     # ---------------------------------------------------------------- serve
     def timed_engine(engine):
@@ -2432,17 +2494,19 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     # ------------------------------------------------------- encdec and vlm
-    def pool_serve(model, params, prompts, step_inputs, max_new, slots, max_seq):
+    def pool_serve(model, params, prompts, step_inputs, max_new, slots,
+                   max_seq, plan=None):
         """Serve ``prompts`` (batches of one request each) through a KVPool
-        of ``slots`` x ``max_seq`` on the card: each request prefilled alone
+        of ``slots`` x ``max_seq`` placed by ``plan`` (on the card when
+        None): each request prefilled alone
         (``Model.forward(return_cache=True, last_token_only=True)``) and
         pasted into its slot, then all slots decoded together, greedy, with
         per-row ``pos`` (the pool's lengths). ``step_inputs(rows, tokens)``
         gives a decode step's inputs for the requests in ``rows`` (one a
         slot) and their last tokens. Returns the tokens by request, the
         prefill and tick seconds, the first tick's logits by request, the
-        wall time, and a function that runs one more tick (the pool kept)."""
-        pool = KVPool(model, slots, max_seq)
+        wall time, a function that runs one more tick, and the pool."""
+        pool = KVPool(model, slots, max_seq, plan=plan)
         rows, out, prefill_s, tick_s = [None] * slots, {}, [], []
         torch.cuda.synchronize()
         t_wall = time.perf_counter()
@@ -2479,7 +2543,7 @@ def main() -> None:
             torch.cuda.synchronize()
             tick_s.append(time.perf_counter() - t)
         wall = time.perf_counter() - t_wall
-        return out, prefill_s, tick_s, first, wall, tick
+        return out, prefill_s, tick_s, first, wall, tick, pool
 
     def device_profile(fn, calls, unit):
         """``calls`` calls of ``fn`` under torch.profiler: per call the wall
@@ -2540,7 +2604,7 @@ def main() -> None:
     mencdec.encode = timed_encode
     reset_counts()                                   # main path starts here
     try:
-        wout, w_pre, w_ticks, w_first, w_wall, w_tick = pool_serve(
+        wout, w_pre, w_ticks, w_first, w_wall, w_tick, _ = pool_serve(
             wmodel, wparams, w_prompts, w_step, W_NEW, W_SLOTS, W_MAX_SEQ)
     finally:
         mencdec.encode = enc_fn
@@ -2607,19 +2671,98 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     # ------------------------------------------------------------------ vlm
-    # full width, 32 of the 80 layers: 80 would not fit the card (145 GB of
-    # bf16 weights); nothing else is resident while it runs
-    qfull = get_config("qwen2-vl-72b")
-    qcfg = qfull.with_(num_layers=32, attn_impl="pallas", remat="none",
-                       param_dtype="bfloat16")
-    q_before = torch.cuda.memory_allocated()
+    # qwen2-vl-72b at full width and all 80 layers: 145.4 GB of bf16 weights
+    # on an 80 GB card. The reference's planner (plan_offload) puts the
+    # token table, the KV pool and the gate and input MLP stacks, 82.7 GB,
+    # in pinned host memory; each parameter is drawn straight into its tier
+    # (Model.init with the plan's placement), and the two stacks stream
+    # through stream_matmul on every prefill and tick. Nothing else is
+    # resident while it runs.
+    qcfg = get_config("qwen2-vl-72b").with_(attn_impl="pallas", remat="none",
+                                            param_dtype="bfloat16")
+    GRIDS, PREFIX, SUFFIX = [(16, 16), (24, 32), (32, 32), (8, 8)], 8, 16
+    Q_NEW, Q_SLOTS, Q_MAX_SEQ = 8, 4, 2048
+    Q_HOST = ("params/tok_embed", "kv/k", "kv/v", "params/layers/w_gate",
+              "params/layers/w_in")
+    Q_HOST_BYTES = 82_686_509_056
+    Q_STREAMED = ("w_gate", "w_in")
+    # the card's budget is its free memory less what the phase holds beside
+    # the resident bytes: the KV pool materialised for a tick, and a
+    # 1,048-token prefill's working set (its cache, 343 MB; activations;
+    # stream_matmul's two panels and fp32 accumulator; the logit checks'
+    # full-length logits in fp32), under 4 GiB
+    Q_PREFILL_HEADROOM = 4 << 30
+    # the host's budget is MemAvailable less room for a second KV pool while
+    # the first one's pages return (2.7 GB) and the process's own growth
+    Q_HOST_MARGIN = 4 << 30
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch._C._host_emptyCache()     # free blocks of the caching host allocator
+    q_dev_before = torch.cuda.memory_allocated()
+    q_host_before = settled_mem_available()
     qmodel = build_model(qcfg, dev)
+    q_shapes, _ = qmodel.init(abstract=True)
+    q_kv_bytes = qmodel.cache_bytes(Q_SLOTS, Q_MAX_SEQ)
+    q_inv = qmodel.serving_inventory(q_shapes,
+                                     qmodel.cache_shapes(Q_SLOTS, Q_MAX_SEQ))
+    q_card_free, _ = torch.cuda.mem_get_info()
+    q_hbm_budget = q_card_free - q_kv_bytes - Q_PREFILL_HEADROOM
+    q_host_budget = q_host_before - Q_HOST_MARGIN
+    q_plan = plan_offload(q_inv, q_hbm_budget, host_budget=q_host_budget)
+    q_plan_row = {"offloaded": list(q_plan.offloaded),
+                  "partial": list(q_plan.partial),
+                  "resident_bytes": q_plan.resident_bytes,
+                  "host_bytes": q_plan.host_bytes}
+    # before anything is drawn: a plan that does not fit the card or the
+    # host fails here with its numbers; the depth is never cut at run time
+    if not q_plan.fits or q_plan.host_bytes > q_host_budget:
+        fail(f"qwen2-vl-72b at {qcfg.num_layers} layers does not fit: "
+             f"{q_plan.resident_bytes} resident bytes for a card budget of "
+             f"{q_hbm_budget} (free {q_card_free}), {q_plan.host_bytes} host "
+             f"bytes for a host budget of {q_host_budget} (MemAvailable "
+             f"{q_host_before})")
+    if (sorted(q_plan.offloaded) != sorted(Q_HOST) or q_plan.partial
+            or q_plan.host_bytes != Q_HOST_BYTES):
+        fail(f"qwen2-vl-72b's plan is not the table, the KV pool and the "
+             f"gate and input stacks: {q_plan_row}")
+    q_placement = param_placement(q_shapes, q_plan, dev)
+    q_sizes = {p: t.numel() * t.element_size()
+               for p, t in _flatten_with_paths(q_shapes)}
+    q_resident = sum(b for p, b in q_sizes.items()
+                     if q_placement[p] == "device")
+    q_largest_host = max(b for p, b in q_sizes.items()
+                         if q_placement[p] == "pinned_host")
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.time()
-    qparams, _ = qmodel.init(torch.Generator(device=dev).manual_seed(SEED))
+    qparams, _ = qmodel.init(torch.Generator(device=dev).manual_seed(SEED),
+                             placement=q_placement)
     torch.cuda.synchronize()
     q_init = time.time() - t0
-    GRIDS, PREFIX, SUFFIX = [(16, 16), (24, 32), (32, 32), (8, 8)], 8, 16
-    Q_NEW, Q_SLOTS, Q_MAX_SEQ = 16, 4, 2048
+    q_init_peak = torch.cuda.max_memory_allocated() - q_dev_before
+    # the pool's host leaves are the rest of the plan's host bytes
+    q_pool = KVPool(qmodel, Q_SLOTS, Q_MAX_SEQ, plan=q_plan)
+    q_pool_kinds = q_pool.memory_kinds()
+    q_host_taken = q_host_before - mem_available_bytes()
+    del q_pool
+    q_kinds = {p: memory_kind_of(t) for p, t in _flatten_with_paths(qparams)}
+    if q_kinds != q_placement:
+        fail(f"qwen2-vl-72b leaves outside their planned tiers: "
+             f"{ {p: k for p, k in q_kinds.items() if k != q_placement[p]} }")
+    for name in Q_STREAMED:
+        if not (qparams["layers"][name].is_pinned()
+                and qparams["layers"][name][0].is_pinned()):
+            fail(f"layers/{name} or its layer 0 is not pinned")
+    if q_pool_kinds != {"pinned_host"}:
+        fail(f"qwen2-vl-72b's KV pool is in {q_pool_kinds}, not pinned host")
+    if abs(q_host_taken - Q_HOST_BYTES) > 0.02 * Q_HOST_BYTES:
+        fail(f"placement took {q_host_taken} bytes of host memory by "
+             f"MemAvailable, not within 2% of the plan's {Q_HOST_BYTES}")
+    # the device allocator hands out a cached block unsplit when under 1 MiB
+    # would be left over
+    rounding = (1 << 20) * len(q_sizes)
+    if q_init_peak > q_resident + q_largest_host + rounding:
+        fail(f"placed init peaked at {q_init_peak} device bytes, above the "
+             f"resident {q_resident} and one host leaf {q_largest_host}")
     g = torch.Generator(device=dev).manual_seed(SEED + 6)
     rng = np.random.default_rng(SEED + 6)
 
@@ -2662,21 +2805,49 @@ def main() -> None:
         return {"embeds": text_embeds(last),
                 "positions": mpos.view(1, -1, 1).expand(3, -1, 1)}
 
-    pool_serve(qmodel, qparams, q_prompts, q_step, 2, Q_SLOTS, Q_MAX_SEQ)  # warm-up
+    # warm-up: one request in a one-slot pool, one tick (every pass streams
+    # 77.5 GB)
+    pool_serve(qmodel, qparams, q_prompts[:1], q_step, 2, 1, Q_MAX_SEQ,
+               plan=q_plan)
     q_steps.clear()
     torch.cuda.reset_peak_memory_stats()
     reset_counts()                                   # main path starts here
-    qout, q_pre, q_ticks, q_first, q_wall, q_tick = pool_serve(
-        qmodel, qparams, q_prompts, q_step, Q_NEW, Q_SLOTS, Q_MAX_SEQ)
+    qout, q_pre, q_ticks, q_first, q_wall, q_tick, q_pool = pool_serve(
+        qmodel, qparams, q_prompts, q_step, Q_NEW, Q_SLOTS, Q_MAX_SEQ,
+        plan=q_plan)
     vlm_launches = {n: w.launches for n, w in kernel_wrappers.items()}
     vlm_routes = route_counts()
+    vlm_stream_routes = dict(sm.stream_matmul.launches_by_route)
+    q_weight_h2d = sm.stream_matmul.h2d_bytes
+    q_rows_h2d = mlayers.gather_rows.h2d_bytes
     q_peak = torch.cuda.max_memory_allocated()
+    q_passes = len(q_pre) + len(q_ticks)
+    q_stream_calls = q_passes * qcfg.num_layers * len(Q_STREAMED)
+    q_layer_bytes = sum(qparams["layers"][n][0].numel()
+                        * qparams["layers"][n].element_size() for n in Q_STREAMED)
+    q_pass_bytes = q_layer_bytes * qcfg.num_layers
     check_pool_outputs("vlm", qout, len(GRIDS), Q_NEW, qcfg.vocab_size)
     check_launches("vlm", vlm_launches, {
         **{n: 0 for n in kernel_wrappers},
-        "flash_attention_fwd": len(GRIDS) * qcfg.num_layers})
+        "flash_attention_fwd": len(GRIDS) * qcfg.num_layers,
+        "stream_matmul": q_stream_calls})
     check_launches("vlm routes", vlm_routes["flash_attention_fwd"],
                    {"wgmma": len(GRIDS) * qcfg.num_layers, "fma": 0})
+    check_launches("vlm stream_matmul routes", vlm_stream_routes,
+                   {"ring": q_stream_calls, "resident": 0})
+    if q_pass_bytes != 77_510_737_920 or q_weight_h2d != q_passes * q_pass_bytes:
+        fail(f"stream_matmul streamed {q_weight_h2d} bytes in {q_passes} "
+             f"passes, expected {q_pass_bytes} a pass")
+    q_row_bytes = qcfg.d_model * qparams["tok_embed"].element_size()
+    if q_rows_h2d != len(q_ticks) * Q_SLOTS * q_row_bytes:
+        fail(f"table rows moved {q_rows_h2d} bytes, expected {len(q_ticks)} "
+             f"ticks x {Q_SLOTS} rows x {q_row_bytes}")
+    q_kv_row = {"host_bytes": q_pool.host_bytes,
+                "device_bytes": q_pool.device_bytes,
+                "h2d_bytes_per_tick": q_pool.h2d_bytes / len(q_ticks),
+                "d2h_bytes_per_tick": q_pool.d2h_bytes / len(q_ticks),
+                "paste_host_bytes": q_pool.paste_host_bytes}
+    del q_pool
     big = q_prompts[q_lens.index(max(q_lens))]
     q_k, _, _ = qmodel.forward(qparams, big)
     q_e, _, _ = build_model(qcfg.with_(attn_impl="xla"), dev).forward(qparams, big)
@@ -2698,33 +2869,56 @@ def main() -> None:
     if q_kernel_vs_eager >= MODEL_TOL or max(q_dec_vs_fwd) >= MODEL_TOL:
         fail(f"qwen2-vl: kernel vs eager {q_kernel_vs_eager:.3e}, decode vs "
              f"forward {q_dec_vs_fwd} (limit {MODEL_TOL})")
-    q_tick_prof = device_profile(q_tick, 4, "tick")
+    q_tick_prof = device_profile(q_tick, 2, "tick")
     del q_tick
     q_prefill_prof = device_profile(lambda: qmodel.forward(
         qparams, big, return_cache=True, last_token_only=True), 1, "prefill")
     q_tokens = sum(map(len, qout.values()))
-    emit("vlm", arch=qcfg.name, layers=qcfg.num_layers,
-         reduced={"num_layers": [qfull.num_layers, qcfg.num_layers]},
-         d_model=qcfg.d_model, heads=qcfg.num_heads, kv_heads=qcfg.num_kv_heads,
-         head_dim=qcfg.head_dim, d_ff=qcfg.d_ff, vocab=qcfg.vocab_size,
-         params=param_count(qparams), param_dtype=qcfg.param_dtype,
-         attn_impl=qcfg.attn_impl, memory_allocated_before_init=q_before,
-         init_seconds=q_init, requests=len(GRIDS), image_grids=GRIDS,
-         prompt_lens=q_lens, next_mrope_positions=list(q_next), max_new=Q_NEW,
-         slots=Q_SLOTS, max_seq=Q_MAX_SEQ, tokens=q_tokens, ticks=len(q_ticks),
-         wall_seconds=q_wall, tok_per_s=q_tokens / q_wall,
-         prefill_ms={str(n): t * 1e3 for n, t in q_pre},
-         tick_ms_median=statistics.median(q_ticks) * 1e3,
-         tick_ms_max=max(q_ticks) * 1e3,
-         kv_pool_bytes=qmodel.cache_bytes(Q_SLOTS, Q_MAX_SEQ),
-         launches=vlm_launches, launches_by_route=vlm_routes,
-         kernel_vs_eager_rel=q_kernel_vs_eager, argmax_agree=q_argmax,
-         decode_vs_forward_rel=q_dec_vs_fwd, tol=MODEL_TOL,
-         max_memory_allocated=q_peak, tick_profile=q_tick_prof,
-         prefill_profile=q_prefill_prof)
-    del qmodel, qparams, q_prompts, q_first
+    q_row = dict(
+        arch=qcfg.name, card=card_line, layers=qcfg.num_layers,
+        d_model=qcfg.d_model, heads=qcfg.num_heads, kv_heads=qcfg.num_kv_heads,
+        head_dim=qcfg.head_dim, d_ff=qcfg.d_ff, vocab=qcfg.vocab_size,
+        params=param_count(qparams), param_dtype=qcfg.param_dtype,
+        attn_impl=qcfg.attn_impl, card_free_bytes=q_card_free,
+        hbm_budget=q_hbm_budget, prefill_headroom_bytes=Q_PREFILL_HEADROOM,
+        host_mem_available_before=q_host_before, host_budget=q_host_budget,
+        host_margin_bytes=Q_HOST_MARGIN, plan=q_plan_row,
+        host_bytes_taken={"mem_available": q_host_taken, "plan": Q_HOST_BYTES},
+        init_seconds=q_init, init_peak_device_bytes=q_init_peak,
+        resident_param_bytes=q_resident, largest_host_leaf_bytes=q_largest_host,
+        memory_allocated_before_init=q_dev_before,
+        requests=len(GRIDS), image_grids=GRIDS,
+        prompt_lens=q_lens, next_mrope_positions=list(q_next), max_new=Q_NEW,
+        slots=Q_SLOTS, max_seq=Q_MAX_SEQ, tokens=q_tokens, prefills=len(q_pre),
+        ticks=len(q_ticks), wall_seconds=q_wall, tok_per_s=q_tokens / q_wall,
+        prefill_ms={str(n): t * 1e3 for n, t in q_pre},
+        prefill_ms_median=statistics.median(t for _, t in q_pre) * 1e3,
+        tick_ms_median=statistics.median(q_ticks) * 1e3,
+        tick_ms_max=max(q_ticks) * 1e3,
+        kv_pool_bytes=q_kv_bytes, kv=q_kv_row,
+        launches=vlm_launches, launches_by_route=vlm_routes,
+        stream_matmul_launches_by_route=vlm_stream_routes,
+        stream_matmul_h2d_bytes=q_weight_h2d,
+        weight_h2d_bytes_per_pass=q_pass_bytes,
+        weight_gb_per_s_over_tick=q_pass_bytes / statistics.median(q_ticks) / 1e9,
+        table_rows_h2d_bytes=q_rows_h2d,
+        kernel_vs_eager_rel=q_kernel_vs_eager, argmax_agree=q_argmax,
+        decode_vs_forward_rel=q_dec_vs_fwd, tol=MODEL_TOL,
+        max_memory_allocated=q_peak, tick_profile=q_tick_prof,
+        prefill_profile=q_prefill_prof)
+    del qmodel, qparams, q_prompts, q_first, big, batch, longer, full
     gc.collect()
     torch.cuda.empty_cache()
+    q_dev_after = torch.cuda.memory_allocated()
+    q_host_after = settled_mem_available()
+    emit("vlm", **q_row, memory_allocated_after=q_dev_after,
+         host_mem_available_after=q_host_after)
+    if abs(q_dev_after - q_dev_before) > (64 << 20):
+        fail(f"vlm: device memory {q_dev_after} after the phase, "
+             f"{q_dev_before} before")
+    if abs(q_host_after - q_host_before) > (2 << 30):
+        fail(f"vlm: MemAvailable {q_host_after} after the phase, "
+             f"{q_host_before} before")
 
     # -------------------------------------------------------------- cluster
     # The port's ClusterScheduler places a crafted trace on one modelled pod
@@ -3155,7 +3349,15 @@ def main() -> None:
         "host_link_peak_gb_per_s": HOST_LINK_BYTES_PER_S / 1e9,
         "host_link_measured_gb_per_s": link_bytes_per_s / 1e9,
         "link_memcpy_gb_per_s": link_bytes_per_s / 1e9,
+        "link_memcpy_caching_allocator_gb_per_s": link_alloc_bytes_per_s / 1e9,
         "launches_dryrun": dry_launches["stream_matmul"],
+        "launches_vlm": vlm_launches["stream_matmul"],
+        "launches_by_route_vlm": vlm_stream_routes,
+        **{f"vlm_{name}": {k: case[k] for k in (
+            "shape", "route", "max_abs_err", "rel_err", "tol", "kernel_ms",
+            "cold_ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "link_share", "h2d_gb_per_s")}
+           for name, case in zip(("decode", "prefill"), vlm_stream_cases)},
     }] + [{
         "name": name, "route": "cuda", "source": source, "replaces": replaces,
         "launches": train_launches[name],

@@ -16,9 +16,12 @@ are the same memory.
 """
 from __future__ import annotations
 
+import ctypes
+import math
+import mmap
 import re
 from dataclasses import dataclass, replace
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -390,10 +393,48 @@ def memory_kind_of(t: torch.Tensor) -> str:
     return PINNED_HOST_KIND if t.is_pinned() else UNPINNED_HOST_KIND
 
 
+def _mapped(nbytes: int, on_free: Callable[[int], None]) -> torch.Tensor:
+    """A uint8 CPU tensor over ``nbytes`` of fresh page-aligned anonymous
+    memory. ``on_free(address)`` runs when the last tensor viewing the
+    memory is freed, before the memory is unmapped."""
+    mem = mmap.mmap(-1, nbytes)
+    probe = ctypes.c_char.from_buffer(mem)
+    address = ctypes.addressof(probe)
+    del probe
+
+    class Region(ctypes.c_char * nbytes):
+        # torch.frombuffer keeps the exporting object alive while any view
+        # of the storage lives, so this runs after the last one is gone
+        def __del__(self):
+            on_free(address)
+            mem.close()
+
+    return torch.frombuffer(Region.from_address(address), dtype=torch.uint8)
+
+
+def _registered(nbytes: int) -> torch.Tensor:
+    """``nbytes`` of host memory page-locked by ``cudaHostRegister``: what
+    ``pin_memory=True`` gives, but the caching host allocator would round
+    the request up to a power of two (a 36.1 GiB stack reserving 64 GiB);
+    this reserves the bytes themselves, rounded to pages."""
+    cudart = torch.cuda.cudart()
+    buf = _mapped(nbytes, cudart.cudaHostUnregister)
+    err = cudart.cudaHostRegister(buf.data_ptr(), nbytes, 0)
+    if int(err) != 0:
+        raise RuntimeError(f"cudaHostRegister of {nbytes} bytes failed: "
+                           f"CUDA error {int(err)}")
+    return buf
+
+
 def empty_host(shape, dtype, device) -> torch.Tensor:
-    """An uninitialised host-tier buffer for an engine on ``device``."""
-    pin = torch.device(device).type == "cuda"
-    return torch.empty(shape, dtype=dtype, device="cpu", pin_memory=pin)
+    """An uninitialised host-tier buffer for an engine on ``device``: beside
+    a CUDA device, page-locked memory of exactly the tensor's bytes (rounded
+    to pages), released when the last view of it is freed; plain CPU memory
+    when the caller runs on the CPU."""
+    if torch.device(device).type != "cuda":
+        return torch.empty(shape, dtype=dtype, device="cpu")
+    nbytes = math.prod(shape) * torch.empty((), dtype=dtype).element_size()
+    return _registered(nbytes).view(dtype).view(shape)
 
 
 def to_host(t: torch.Tensor, device) -> torch.Tensor:
@@ -422,6 +463,16 @@ def kinds_with_offload(tree: PyTree, plan: OffloadPlan, device, *,
                 kind = host_kind
         kinds[path] = kind
     return kinds
+
+
+def param_placement(params: PyTree, plan: OffloadPlan, device, *,
+                    prefix: str = "params") -> Dict[str, str]:
+    """Parameter path -> memory kind for ``Model.init(placement=...)``: the
+    tiers ``place_tree`` would move ``params`` to (abstract meta tensors
+    do), with the plan's names read under ``prefix`` as the serving
+    inventory writes them (``params/layers/w_gate`` -> ``layers/w_gate``)."""
+    kinds = kinds_with_offload({prefix: params}, plan, device)
+    return {path[len(prefix) + 1:]: kind for path, kind in kinds.items()}
 
 
 def place_tree(value_tree: PyTree, plan: OffloadPlan, device, *,

@@ -13,8 +13,9 @@ its own offload plan, and drive them round-robin:
 
 ``--hbm-budget BYTES`` pins the *first* tenant's plan budget below its
 footprint so the offload path engages (with a 4096-byte spill granule, as
-the reference does); on the card, parameters the plan spills live in pinned
-host memory and are streamed through the ``stream_matmul`` kernel (an MoE
+the reference does); on the card, parameters the plan spills are drawn
+straight into pinned host memory (a tenant larger than the card is never on
+it whole) and are streamed through the ``stream_matmul`` kernel (an MoE
 expert stack through ``grouped_matmul``).
 
 MoE (granite-moe-1b-a400m, phi3.5-moe-42b-a6.6b) serves like any other

@@ -46,39 +46,67 @@ def resolve_device(device) -> torch.device:
 # ---------------------------------------------------------------------------
 class ParamBuilder:
     """Builds parallel (params, specs) nested dicts. ``specs`` holds each
-    leaf's dim-role tuple as metadata; nothing is sharded."""
+    leaf's dim-role tuple as metadata; nothing is sharded.
+
+    ``placement`` (leaf path -> memory kind, as ``core.offload.
+    param_placement`` gives it from an offload plan) draws each leaf
+    straight into its tier on a CUDA device: a host leaf is drawn by the
+    same generator call on the device, copied into a pinned host buffer and
+    its device copy freed before the next leaf, and a zeros / ones leaf is
+    filled where it lives. Leaves come in the same order from the same
+    generator calls, so the result is bit for bit an unplaced build moved
+    by ``place_tree``, and the device holds at most the resident leaves and
+    one host leaf in flight. On the CPU both tiers are one memory and the
+    placement changes nothing."""
 
     def __init__(self, cfg: ModelConfig, generator: Optional[torch.Generator],
-                 device: torch.device, *, abstract: bool = False):
+                 device: torch.device, *, abstract: bool = False,
+                 placement: Optional[Dict[str, str]] = None,
+                 prefix: str = ""):
         self.cfg = cfg
         self.generator = generator
         self.device = torch.device("meta") if abstract else device
         self.abstract = abstract
+        self.placement = placement
+        self.prefix = prefix
         self.params: Dict[str, Any] = {}
         self.specs: Dict[str, Any] = {}
+
+    def _on_host(self, name: str) -> bool:
+        if self.placement is None:
+            return False
+        from repro_torch.core.offload import PINNED_HOST_KIND
+        kind = self.placement[self.prefix + name]
+        return self.device.type == "cuda" and kind == PINNED_HOST_KIND
 
     def add(self, name: str, shape: Tuple[int, ...], roles: Tuple[str, ...],
             *, scale: Optional[float] = None, init: str = "normal"):
         assert len(shape) == len(roles), (name, shape, roles)
         dtype = to_dtype(self.cfg.param_dtype)
+        host = not self.abstract and self._on_host(name)
+        if host:
+            from repro_torch.core.offload import empty_host, to_host
         if self.abstract:
             arr = torch.empty(shape, dtype=dtype, device="meta")
-        elif init == "zeros":
-            arr = torch.zeros(shape, dtype=dtype, device=self.device)
-        elif init == "ones":
-            arr = torch.ones(shape, dtype=dtype, device=self.device)
+        elif init in ("zeros", "ones"):
+            arr = (empty_host(shape, dtype, self.device) if host else
+                   torch.empty(shape, dtype=dtype, device=self.device))
+            arr.fill_(0 if init == "zeros" else 1)
         else:
             if scale is None:
                 fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
                 scale = 1.0 / math.sqrt(max(fan_in, 1))
             arr = torch.empty(shape, dtype=dtype, device=self.device)
             arr.normal_(0.0, scale, generator=self.generator)
+            if host:
+                arr = to_host(arr, self.device)
         self.params[name] = arr
         self.specs[name] = tuple(roles)
 
     def child(self, name: str) -> "ParamBuilder":
         sub = ParamBuilder(self.cfg, self.generator, self.device,
-                           abstract=self.abstract)
+                           abstract=self.abstract, placement=self.placement,
+                           prefix=f"{self.prefix}{name}/")
         self.params[name] = sub.params
         self.specs[name] = sub.specs
         return sub
@@ -173,14 +201,17 @@ def tree_unflatten(like: PyTree, leaves) -> PyTree:
     """The inverse of ``tree_leaves``: ``like``'s structure (dicts, lists,
     tuples, NamedTuples; None stays None) with ``leaves`` taken in
     ``tree_leaves`` order. Dicts keep ``like``'s key order."""
-    it = iter(leaves)
+    return _unflatten(like, iter(leaves))
 
-    def build(t):
-        items = tree_items(t)
-        if items is None:
-            return None if t is None else next(it)
-        return rebuild(t, (build(child) for _, child in items))
-    return build(like)
+
+def _unflatten(like: PyTree, it) -> PyTree:
+    # a module-level recursion: a nested function that calls itself is a
+    # reference cycle, which would keep ``leaves`` (a decode tick's
+    # materialized KV cache) alive until the garbage collector runs
+    items = tree_items(like)
+    if items is None:
+        return None if like is None else next(it)
+    return rebuild(like, (_unflatten(child, it) for _, child in items))
 
 
 def cast_tree(tree: PyTree, dtype) -> PyTree:

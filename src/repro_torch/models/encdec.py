@@ -21,7 +21,7 @@ and is not ported.
 """
 from __future__ import annotations
 
-from typing import Any, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
@@ -36,14 +36,16 @@ PyTree = Any
 
 
 def init_encdec(cfg: ModelConfig, generator: Optional[torch.Generator],
-                device: torch.device, *, abstract: bool = False
+                device: torch.device, *, abstract: bool = False,
+                placement: Optional[Dict[str, str]] = None
                 ) -> Tuple[PyTree, PyTree]:
     """(params, roles): the token table and unembedding, ``enc_pos_embed``
     (encoder_seq, d_model), and the ``encoder`` (stacked over
     ``encoder_layers``, plus the unstacked ``enc_final`` norm) and
     ``decoder`` (stacked over ``num_layers``, with ``cross_*`` attention)
     children."""
-    b = ParamBuilder(cfg, generator, device, abstract=abstract)
+    b = ParamBuilder(cfg, generator, device, abstract=abstract,
+                     placement=placement)
     nn.init_embeddings(b)
     b.add("enc_pos_embed", (cfg.encoder_seq, cfg.d_model), ("none", "d_fsdp"),
           scale=0.02)

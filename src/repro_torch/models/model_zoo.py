@@ -30,12 +30,19 @@ class Model:
 
     # ------------------------------------------------------------------
     def init(self, generator: Optional[torch.Generator] = None, *,
-             abstract: bool = False) -> Tuple[PyTree, PyTree]:
+             abstract: bool = False,
+             placement: Optional[Dict[str, str]] = None
+             ) -> Tuple[PyTree, PyTree]:
         """Returns (params, role tree). ``generator`` must live on the
-        model's device; ``abstract=True`` gives meta tensors (no memory)."""
+        model's device; ``abstract=True`` gives meta tensors (no memory).
+        ``placement`` (parameter path -> memory kind, from
+        ``core.offload.param_placement`` on the abstract tree) draws each
+        leaf straight into its tier: bit for bit ``init`` followed by
+        ``place_tree``, without the whole tree on the device first."""
         init = (encdec_mod.init_encdec if self.cfg.family == ENCDEC
                 else tfm.init_decoder_only)
-        return init(self.cfg, generator, self.device, abstract=abstract)
+        return init(self.cfg, generator, self.device, abstract=abstract,
+                    placement=placement)
 
     # ------------------------------------------------------------------
     def _forward(self, params, batch, *, return_cache: bool = False,

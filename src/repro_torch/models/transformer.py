@@ -16,7 +16,7 @@ an image the first is smaller than the second. The encoder-decoder family is
 """
 from __future__ import annotations
 
-from typing import Any, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -88,10 +88,12 @@ def remat_wrap(cfg: ModelConfig, fn):
 # init
 # ---------------------------------------------------------------------------
 def init_decoder_only(cfg: ModelConfig, generator: Optional[torch.Generator],
-                      device: torch.device, *, abstract: bool = False
+                      device: torch.device, *, abstract: bool = False,
+                      placement: Optional[Dict[str, str]] = None
                       ) -> Tuple[PyTree, PyTree]:
     _require_decoder_only(cfg)
-    b = ParamBuilder(cfg, generator, device, abstract=abstract)
+    b = ParamBuilder(cfg, generator, device, abstract=abstract,
+                     placement=placement)
     nn.init_embeddings(b)
     lb = b.child("layers")
     if cfg.family in _ATTN_STACK:

@@ -5,11 +5,13 @@ The paper's system put together end to end on the real engine:
 1. **Place** — each tenant asks for a slice profile; ``StaticPartitioner``
    packs the rectangles onto the modelled pod's grid and fails loudly when
    they don't fit (§IV/§V-A).
-2. **Plan** — the tenant's *measured* inventory (its actual params and KV
-   pool, via ``Model.serving_inventory``) goes through ``plan_offload``
-   against the slice's HBM; an overhang spills to pinned host memory: whole
-   parameter leaves by ``place_tree``, partial KV spills as a physically
-   split cold tail in the tenant's ``KVPool`` (§VI-A). A product with a
+2. **Plan** — the tenant's inventory (its parameters as ``Model.init``
+   would draw them, sizes only, and its KV pool, via
+   ``Model.serving_inventory``) goes through ``plan_offload`` against the
+   slice's HBM; an overhang spills to pinned host memory: whole parameter
+   leaves, each drawn straight into its tier (so a tenant larger than the
+   card never sits on it whole), partial KV spills as a physically split
+   cold tail in the tenant's ``KVPool`` (§VI-A). A product with a
    host-placed weight streams it over the host link through the
    ``stream_matmul`` kernel, or ``grouped_matmul`` for an MoE expert stack
    (``models.common.weight_matmul``).
@@ -23,7 +25,7 @@ The paper's system put together end to end on the real engine:
 
 The slices are logical: every tenant computes on the runtime's one
 ``device``. Parameters are placed by the plan when that device is CUDA; on
-the CPU both tiers are the same memory and placement is skipped, as the
+the CPU both tiers are the same memory and placement changes nothing, as the
 reference skips it without a mesh.
 """
 from __future__ import annotations
@@ -37,7 +39,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.configs.shapes import get_shape
 from repro_torch.core.hw import PodSpec, V5E_POD
-from repro_torch.core.offload import OffloadPlan, place_tree, plan_offload
+from repro_torch.core.offload import OffloadPlan, param_placement, plan_offload
 from repro_torch.core.partitioner import SliceAllocation, StaticPartitioner
 from repro_torch.core.perfmodel import InstanceLoad, PerfModel, get_model
 from repro_torch.core.slices import SliceProfile, get_profile, smallest_fitting
@@ -128,9 +130,9 @@ class SliceRuntime:
         if spec.name in self.tenants:
             raise ValueError(f"duplicate tenant {spec.name!r}")
         model = build_model(spec.cfg, self.device)
-        gen = torch.Generator(device=self.device).manual_seed(spec.seed)
-        params, _ = model.init(gen)
-        footprint = (tree_bytes(params)
+        # sizes only: the parameters are drawn once the plan names their tiers
+        shapes, _ = model.init(abstract=True)
+        footprint = (tree_bytes(shapes)
                      + model.cache_bytes(spec.slots, spec.max_seq))
 
         profile = self._resolve_profile(spec, footprint)
@@ -138,7 +140,7 @@ class SliceRuntime:
                                           origin=spec.origin)
         try:
             tenant = self._plan_and_build(spec, profile, alloc, model,
-                                          params, footprint)
+                                          shapes, footprint)
         except Exception:
             self.partitioner.release(alloc.slice_id)
             raise
@@ -147,8 +149,8 @@ class SliceRuntime:
 
     def _plan(self, spec: TenantSpec, profile: SliceProfile, model,
               params) -> OffloadPlan:
-        """The tenant's offload plan on ``profile``, cut from its measured
-        inventory (the KV pool as meta tensors: sizes only)."""
+        """The tenant's offload plan on ``profile``, cut from its inventory
+        (``params`` and the KV pool may be meta tensors: sizes only)."""
         chip = self.pod.chip
         inventory = model.serving_inventory(
             params, model.cache_shapes(spec.slots, spec.max_seq))
@@ -166,12 +168,14 @@ class SliceRuntime:
                 f"even after spilling {plan.host_bytes} to host")
         return plan
 
-    def _plan_and_build(self, spec, profile, alloc, model, params,
+    def _plan_and_build(self, spec, profile, alloc, model, shapes,
                         footprint) -> Tenant:
-        plan = self._plan(spec, profile, model, params)
-        if self.device.type == "cuda":
-            params = place_tree({"params": params}, plan,
-                                self.device)["params"]
+        """Plans on the abstract parameters ``shapes``, then draws each
+        parameter into the tier the plan names."""
+        plan = self._plan(spec, profile, model, shapes)
+        gen = torch.Generator(device=self.device).manual_seed(spec.seed)
+        params, _ = model.init(
+            gen, placement=param_placement(shapes, plan, self.device))
         engine = TenantEngine(
             model, params, slots=spec.slots, max_seq=spec.max_seq,
             plan=plan, max_queue=spec.max_queue, name=spec.name)

@@ -55,3 +55,26 @@ def test_fails_alone_in_a_directory(tmp_path):
                          env=env, capture_output=True, text=True, timeout=300)
     assert run.returncode != 0
     assert '"ok": true' not in run.stdout
+
+
+def test_host_memory_readings():
+    """The vlm phase's reading of the host: MemAvailable in bytes."""
+    mod = _chip_smoke()
+    total = mod._meminfo_bytes("/proc/meminfo", "MemTotal")
+    assert 0 < mod.mem_available_bytes() <= total
+    with pytest.raises(RuntimeError, match="NoSuchKey"):
+        mod._meminfo_bytes("/proc/meminfo", "NoSuchKey")
+
+
+def test_settled_mem_available_waits_for_returning_pages(monkeypatch):
+    """MemAvailable is read until two readings a second apart differ by
+    under 64 MiB; readings that keep moving past the limit fail the run."""
+    mod = _chip_smoke()
+    monkeypatch.setattr(mod.time, "sleep", lambda s: None)
+    readings = iter([10 << 30, 15 << 30, 18 << 30, (18 << 30) + (1 << 20)])
+    monkeypatch.setattr(mod, "mem_available_bytes", lambda: next(readings))
+    assert mod.settled_mem_available() == (18 << 30) + (1 << 20)
+    moving = iter(range(0, 100 << 30, 1 << 30))
+    monkeypatch.setattr(mod, "mem_available_bytes", lambda: next(moving))
+    with pytest.raises(SystemExit):
+        mod.settled_mem_available(limit_s=0.0)

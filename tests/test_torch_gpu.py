@@ -11,6 +11,8 @@ Tolerances: fp32 1e-5 relative (the reference's, tests/test_kernels.py; the
 kernel multiplies in true fp32, the plain version through cuBLAS without
 TF32), bf16 2e-2 (one bf16 rounding of the output, sums in another order).
 """
+import gc
+
 import numpy as np
 import pytest
 import torch
@@ -1104,3 +1106,135 @@ def test_count_step_launches_equal_the_wrappers_counts_on_card():
     x = torch.ones(1024, 256)
     _, cost = count_step(lambda: x.to(dev))
     assert cost.host_bytes == 1024 * 256 * 4 and cost.bytes_accessed == 0
+
+
+def _mem_available_bytes() -> int:
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith("MemAvailable:"):
+                return int(line.split()[1]) * 1024
+    raise RuntimeError("no MemAvailable in /proc/meminfo")
+
+
+def _settled_mem_available() -> int:
+    """MemAvailable once two readings a second apart differ by under
+    64 MiB: a freed pinned buffer's pages come back over seconds."""
+    import time
+    last = _mem_available_bytes()
+    for _ in range(120):
+        time.sleep(1.0)
+        now = _mem_available_bytes()
+        if abs(now - last) < (64 << 20):
+            return now
+        last = now
+    raise AssertionError("MemAvailable did not settle in 120 s")
+
+
+PLACED_ARCHS = ["qwen2-vl-72b", "llama3-8b", "granite-moe-1b-a400m",
+                "zamba2-1.2b", "whisper-large-v3"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", PLACED_ARCHS)
+def test_placed_init_equals_init_then_place_tree(arch):
+    """Full width, 2 layers, bf16 weights, a budget of half the footprint:
+    the placed draw equals ``init`` followed by ``place_tree`` bit for bit;
+    every host leaf, and each layer view of a host stack, is pinned; the
+    device held at most the resident bytes and the largest host leaf."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ENCDEC
+    from repro_torch.core.offload import (PINNED_HOST_KIND, _flatten_with_paths,
+                                          memory_kind_of, param_placement,
+                                          place_tree, plan_offload)
+    from repro_torch.models.model_zoo import build_model
+    dev = _cuda()
+    cfg = get_config(arch).with_(num_layers=2, param_dtype="bfloat16",
+                                 remat="none")
+    if cfg.family == ENCDEC:
+        cfg = cfg.with_(encoder_layers=2)
+    model = build_model(cfg, dev)
+    shapes, _ = model.init(abstract=True)
+    inv = model.serving_inventory(shapes, model.cache_shapes(2, 64))
+    plan = plan_offload(inv, sum(t.bytes for t in inv) // 2)
+    placement = param_placement(shapes, plan, dev)
+    sizes = {p: t.numel() * t.element_size()
+             for p, t in _flatten_with_paths(shapes)}
+    host = {p for p, kind in placement.items() if kind == PINNED_HOST_KIND}
+    assert host, plan
+    gc.collect()                      # earlier tests' tensors, freed first
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    placed, _ = model.init(torch.Generator(device=dev).manual_seed(3),
+                           placement=placement)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    resident = sum(b for p, b in sizes.items() if p not in host)
+    # the device allocator hands out a cached block unsplit when under
+    # 1 MiB would be left over
+    rounding = (1 << 20) * len(sizes)
+    assert peak <= resident + max(sizes[p] for p in host) + rounding
+    want = place_tree({"params": model.init(
+        torch.Generator(device=dev).manual_seed(3))[0]}, plan, dev)["params"]
+    got_leaves, want_leaves = (_flatten_with_paths(placed),
+                               _flatten_with_paths(want))
+    assert [p for p, _ in got_leaves] == [p for p, _ in want_leaves]
+    for (path, got), (_, ref) in zip(got_leaves, want_leaves):
+        assert memory_kind_of(got) == memory_kind_of(ref) == placement[path]
+        assert got.dtype == ref.dtype and got.shape == ref.shape, path
+        assert torch.equal(got.view(torch.uint8).cpu(),
+                           ref.view(torch.uint8).cpu()), path
+        if path in host:
+            assert got.is_pinned() and (got.dim() < 3 or got[1].is_pinned())
+
+
+@pytest.mark.gpu
+def test_empty_host_reserves_its_own_bytes():
+    """A pinned buffer of 3 GiB + 1 MiB + 6 bytes takes that much of the
+    host's memory (the caching host allocator would reserve 4 GiB) and gives
+    it back when its last view is freed; a layer view of it is pinned and
+    copies both ways."""
+    from repro_torch.core.offload import empty_host
+    dev = _cuda()
+    nbytes = (3 << 30) + (1 << 20) + 6
+    gc.collect()             # buffers of earlier tests, freed before reading
+    before = _settled_mem_available()
+    buf = empty_host((nbytes // 2,), torch.bfloat16, dev)
+    buf.fill_(1)
+    taken = before - _mem_available_bytes()
+    assert buf.is_pinned() and buf.numel() == nbytes // 2
+    assert abs(taken - nbytes) <= 0.02 * nbytes, (taken, nbytes)
+    rows = buf[: (1 << 20)].view(1024, 1024)
+    assert rows[3].is_pinned()
+    on_card = rows.to(dev, non_blocking=True) * 2
+    rows.copy_(on_card)
+    assert float(rows.float().mean()) == 2.0
+    del buf, rows, on_card
+    gc.collect()
+    assert before - _settled_mem_available() <= 0.02 * nbytes
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M", [4, 300])
+def test_stream_matmul_on_a_registered_host_stack(M):
+    """w: one layer of a bf16 (3, K, N) stack in ``empty_host`` memory (page
+    registered, not from the caching allocator): the ring route, every byte
+    streamed once, and the plain version's result."""
+    from repro_torch.core.offload import to_host
+    dev = _cuda()
+    K, N = 1536, 2300
+    rng = np.random.default_rng(M)
+    stack = torch.from_numpy(rng.standard_normal((3, K, N)).astype(np.float32)
+                             ).to(torch.bfloat16)
+    host = to_host(stack, dev)
+    assert host.is_pinned() and host[1].is_pinned()
+    x = torch.from_numpy(rng.standard_normal((M, K)).astype(np.float32)
+                         ).to(torch.bfloat16).to(dev)
+    before = (dict(sm.stream_matmul.launches_by_route), sm.stream_matmul.h2d_bytes)
+    got = sm.stream_matmul(x, host[1])
+    want = sm.stream_matmul_plain(x, stack[1].to(dev))
+    torch.cuda.synchronize()
+    assert _rel(got, want) < TOL[torch.bfloat16]
+    assert sm.stream_matmul.launches_by_route["ring"] - before[0]["ring"] == 1
+    assert sm.stream_matmul.h2d_bytes - before[1] == K * N * 2

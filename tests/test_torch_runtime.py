@@ -414,8 +414,14 @@ def test_runtime_device_defaults_to_cuda():
 @pytest.fixture
 def reference_weights(monkeypatch):
     """Make the port's ``Model.init`` return the reference's init for the
-    generator's seed (the weights a reference tenant gets)."""
-    def init(self, generator=None, *, abstract=False):
+    generator's seed (the weights a reference tenant gets). The abstract
+    tree the runtime plans on stays the port's (the same shapes); a
+    placement is a no-op on the CPU these tests run on."""
+    port_init = port_zoo.Model.init
+
+    def init(self, generator=None, *, abstract=False, placement=None):
+        if abstract:
+            return port_init(self, abstract=True)
         rmodel = ref_build_model(_ref_cfg(self.cfg), ENV)
         rparams, rspecs = rmodel.init(jax.random.PRNGKey(generator.initial_seed()))
         return (params_from_numpy(np_tree(rparams), device=self.device,

@@ -244,3 +244,41 @@ def test_pool_paste_materialize_update_roundtrip():
             assert torch.equal(tree[n], trees[0][n])
     assert torch.equal(trees[0]["v"][:, 1, :plen], pref["v"][:, 0].bfloat16())
     assert float(trees[0]["k"][:, 1, plen].float().sum()) == trees[0]["k"][:, 1, plen].numel()
+
+
+def test_a_ticks_materialized_cache_dies_with_the_tick(monkeypatch):
+    """With the garbage collector off, the device copies ``materialize``
+    makes of host-tier leaves are freed as soon as the tick drops them: no
+    reference cycle holds them (on the card each leaked tick kept the whole
+    KV pool, 2.7 GB for qwen2-vl-72b, until a collection)."""
+    import gc
+    import weakref
+    from repro_torch.configs import get_config
+    from repro_torch.models.common import tree_unflatten
+    from repro_torch.models.model_zoo import build_model
+    model = build_model(get_config("llama3-8b").reduced(), "cpu")
+    pool = KVPool(model, 2, 16, offload_all=True)
+    copies = []
+
+    def to_device(host):          # a distinct tensor, as on the card
+        t = host.clone()
+        copies.append(weakref.ref(t))
+        return t
+
+    monkeypatch.setattr(pool, "_to_device", to_device)
+    leaf = torch.zeros(3)
+    ref = weakref.ref(leaf)
+    was_enabled = gc.isenabled()
+    gc.disable()
+    try:
+        cache = pool.materialize()
+        assert len(copies) == 2 and all(c() is not None for c in copies)
+        pool.update(cache)
+        del cache
+        assert all(c() is None for c in copies)
+        tree = tree_unflatten({"a": None, "b": [0]}, [leaf])
+        del tree, leaf
+        assert ref() is None
+    finally:
+        if was_enabled:
+            gc.enable()
