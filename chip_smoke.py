@@ -31,8 +31,10 @@ JSON line per phase; any failure is a non-zero exit:
            training shapes), grouped_matmul (library: torch.bmm) with w on
            the card and in pinned host memory, its two backward products at
            granite-moe's training shapes, the pinned decode at four panel
-           depths, and the host time of one wrapper call beside its library
-           call's
+           depths (granite-moe's and phi3.5-moe's), phi3.5-moe's path shapes
+           (decode and 1,024-token prefill, w_gate from a host-tier buffer,
+           w_in and w_out on the card), and the host time of one wrapper
+           call beside its library call's
   serve    llama3-8b at full width and depth (random bf16 weights from a
            seed) through ServingEngine.run; the kernel launch counts are set
            to 0 just before and read just after
@@ -131,6 +133,27 @@ JSON line per phase; any failure is a non-zero exit:
            160 (all ring) and its bytes = passes x 77,510,737,920, the
            table rows' bytes; the encdec phase's logit checks and profiles;
            device memory back within 64 MiB and MemAvailable within 2 GiB
+  moe_full phi3.5-moe-42b-a6.6b at full width and all 32 layers (83.7 GB of
+           bf16 weights, 16 experts, top-2), alone on the card, through
+           SliceRuntime.add_tenant with the HBM budget the vlm phase reckons
+           (the card's free memory less the KV pool and a prefill's
+           headroom): the plan, checked first against MemAvailable, puts the
+           token table, the KV pool and the gate expert stack
+           (28,179,955,712 bytes) in pinned host memory, each parameter
+           drawn straight into its tier (every leaf checked in its tier, the
+           host bytes taken within 2% of the plan's, the init's device peak
+           the resident bytes within 64 MiB); the moe phase's 8 requests
+           through SliceRuntime.run, the counts set to 0 just before and
+           read just after: flash launches = prefills x 32, grouped_matmul
+           launches = passes x 96 (all wgmma), its streamed bytes = passes x
+           26,843,545,600, no stream_matmul launch, the table rows' bytes;
+           the 1,024-token prompt's dropped share at capacity 160 and its
+           logits through the kernels against the eager attention, each
+           request's first decode step against the full forward at the
+           no-drop capacity factor, both in fp32 activations on the same
+           bf16 tensors (the bf16 figures printed beside them: a rounding
+           that flips a near-tied routing decision moves the drops); device
+           memory back within 64 MiB and MemAvailable within 2 GiB
   cluster  the port's ClusterScheduler (frag_repack, one modelled pod)
            driving a crafted trace with its serving jobs executed as live
            SliceRuntime tenants on the card at full width and depth
@@ -885,20 +908,31 @@ def main() -> None:
     del d_model
     ssd_long_case = ssd_case(ssd_long_rows, 32768, 24, 64, 128, "bfloat16")
     ssd_cases.append(ssd_long_case)
-    def gmm_case(E, M, K, N, dtype_name, where, shared=False):
+    def gmm_case(E, M, K, N, dtype_name, where, shared=False,
+                 host="pin_memory"):
         """grouped_matmul against its plain version; x (E, M, K) (with
         ``shared`` one (M, K) buffer read by every expert, expert stride 0,
         as the MoE decode passes it); w (E, K, N) on the card or in pinned
-        host memory. Bound: x read once (once in all when shared), w read
-        once, the output written once; 2*E*M*K*N operations; a pinned w's
-        bytes also cross the host link. Library: one torch.bmm on the same
-        inputs (with a pinned w, after copying it over)."""
+        host memory: a block of the caching host allocator
+        (``host="pin_memory"``) or a host-tier buffer of registered pages
+        (``host="empty_host"``, as the runtime places a spilled stack).
+        Bound: x read once (once in all when shared), w read once, the
+        output written once; 2*E*M*K*N operations; a pinned w's bytes also
+        cross the host link. Library: one torch.bmm on the same inputs
+        (with a pinned w, after copying it over). A pinned case's rate is
+        also given as a share of the 1 GiB copy's from a host-tier buffer
+        (``link_share``: the kernel alone, cold)."""
         dtype = getattr(torch, dtype_name)
         g = torch.Generator(device=dev).manual_seed(SEED + E + M + K + N)
         x = torch.randn(1 if shared else E, M, K, device=dev, generator=g).to(dtype)
         x = x.expand(E, M, K) if shared else x
         w_dev = (torch.randn(E, K, N, device=dev, generator=g) * K ** -0.5).to(dtype)
-        w = w_dev if where == "device" else w_dev.cpu().pin_memory()
+        if where == "device":
+            w = w_dev
+        elif host == "empty_host":
+            w = to_host(w_dev, dev)
+        else:
+            w = w_dev.cpu().pin_memory()
         before = gmm.grouped_matmul.h2d_bytes
         routes = dict(gmm.grouped_matmul.launches_by_route)
         got = gmm.grouped_matmul(x, w)
@@ -927,14 +961,18 @@ def main() -> None:
         t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
         t_link = w_bytes / link_bound_rate * 1e3 if where == "pinned" else 0.0
         ms = time_ms(lambda: gmm.grouped_matmul(x, w))
+        cold = time_ms(lambda: gmm.grouped_matmul(x, w), cold=True)
         lib_dev = time_ms(lambda: torch.bmm(x, w_dev))
         lib_host = (time_ms(lambda: torch.bmm(x, w.to(dev, non_blocking=True)))
                     if where == "pinned" else None)
         return {
             "shape": [E, M, K, N], "dtype": dtype_name, "where": where,
+            "host_buffer": host if where == "pinned" else None,
             "route": route[0], "x_expert_stride": x.stride(0),
             "max_abs_err": abs_err, "rel_err": rel, "tol": tol, "ms": ms,
-            "cold_ms": time_ms(lambda: gmm.grouped_matmul(x, w), cold=True),
+            "cold_ms": cold,
+            "link_share": (w_bytes / (cold * 1e-3) / link_bytes_per_s
+                           if where == "pinned" else None),
             "plain_ms": time_ms(lambda: gmm.grouped_matmul_plain(x, w_dev), iters=5),
             "library_ms": lib_host if lib_host is not None else lib_dev,
             "library_device_w_ms": lib_dev, "library_host_w_ms": lib_host,
@@ -962,31 +1000,52 @@ def main() -> None:
         # granite-moe training, 8 x 1024 tokens: 8 groups x capacity 320
         gmm_case(32, 2560, 1024, 512, "bfloat16", "device"),    # w_in, w_gate
         gmm_case(32, 2560, 512, 1024, "bfloat16", "device")]    # w_out
-    want_routes = ["wgmma"] * 6 + ["fma"] * 5 + ["mma_sync"] + ["wgmma"] * 2
+    # phi3.5-moe-42b-a6.6b's path (moe_full): w_in and w_gate (4096 -> 6400)
+    # at a 4-slot decode (one shared x) and a 1,024-token prefill (capacity
+    # 160), w_gate streamed from a host-tier buffer as the runtime places
+    # it; w_out (6400 -> 4096) on the card at both
+    phi35_gmm_cases = [
+        gmm_case(16, 4, 4096, 6400, "bfloat16", "device", shared=True),
+        gmm_case(16, 4, 4096, 6400, "bfloat16", "pinned", shared=True,
+                 host="empty_host"),
+        gmm_case(16, 160, 4096, 6400, "bfloat16", "device"),
+        gmm_case(16, 160, 4096, 6400, "bfloat16", "pinned", host="empty_host"),
+        gmm_case(16, 4, 6400, 4096, "bfloat16", "device"),
+        gmm_case(16, 160, 6400, 4096, "bfloat16", "device")]
+    gmm_cases += phi35_gmm_cases
+    want_routes = (["wgmma"] * 6 + ["fma"] * 5 + ["mma_sync"] + ["wgmma"] * 2
+                   + ["wgmma"] * len(phi35_gmm_cases))
     got_routes = [c["route"] for c in gmm_cases]
     if got_routes != want_routes:
         fail(f"grouped_matmul routes {got_routes} != {want_routes}")
     for c in cases:
         if c["route"] != fa.FWD_ROUTES[getattr(torch, c["dtype"])]:
             fail(f"flash_attention_fwd took {c['route']} for {c['dtype']}")
-    def panel_depths(E, M, K, N):
+    def panel_depths(E, M, K, N, host="pin_memory"):
         """The pinned decode (one shared x) at several panel depths
         (``grouped_matmul.BLOCK_K``): cold ms, the kernel and the link
         alone, so the depth the wrapper uses can be checked against the
-        others on this card."""
+        others on this card; w from the caching host allocator or a
+        host-tier buffer (``host``, as in ``gmm_case``), each depth's panel
+        (experts x K rows) and its rate as a share of the 1 GiB copy's."""
         g = torch.Generator(device=dev).manual_seed(SEED)
         x = torch.randn(1, M, K, device=dev, generator=g).to(torch.bfloat16)
         x = x.expand(E, M, K)
         w = (torch.randn(E, K, N, device=dev, generator=g) * K ** -0.5).to(
-            torch.bfloat16).cpu().pin_memory()
-        kept, out = gmm.BLOCK_K, {}
+            torch.bfloat16)
+        w = to_host(w, dev) if host == "empty_host" else w.cpu().pin_memory()
+        w_bytes = w.numel() * w.element_size()
+        kept, out, share = gmm.BLOCK_K, {}, {}
         try:
             for block_k in (2048, 4096, 8192, 16384):
                 gmm.BLOCK_K = block_k
                 out[block_k] = time_ms(lambda: gmm.grouped_matmul(x, w), cold=True)
+                share[block_k] = w_bytes / (out[block_k] * 1e-3) / link_bytes_per_s
         finally:
             gmm.BLOCK_K = kept
-        return {"shape": [E, M, K, N], "used": kept, "cold_ms": out}
+        return {"shape": [E, M, K, N], "host_buffer": host, "used": kept,
+                "panels": {bk: gmm.panel_shape(E, K, bk) for bk in out},
+                "cold_ms": out, "link_share": share}
 
     def gmm_bwd_case(which, E, M, K, N):
         """One product of grouped_matmul's backward at granite-moe's training
@@ -1111,6 +1170,9 @@ def main() -> None:
     ssd_bwd_cases = [ssd_bwd_case(8, 1024, 24, 64, 128),   # mamba2-130m training
                      ssd_bwd_case(8, 1024, 64, 64, 64)]    # zamba2-1.2b training
 
+    # phi3.5-moe's streamed decode: 2-expert panels of 105 MB by default
+    gmm_phi35_depths = panel_depths(16, 4, 4096, 6400, host="empty_host")
+
     hq, hk, hv = (torch.randn(32, 1024, 128, device=dev).to(torch.bfloat16)
                   for _ in range(3))
     hx = torch.randn(1, 4, 1024, device=dev).to(torch.bfloat16).expand(32, 4, 1024)
@@ -1132,6 +1194,7 @@ def main() -> None:
          ssd_scan=ssd_cases, ssd_function_backward=ssd_bwd_cases,
          grouped_matmul=gmm_cases, grouped_matmul_backward=gmm_bwd_cases,
          grouped_matmul_panel_depths=panel_depths(32, 4, 1024, 512),
+         grouped_matmul_panel_depths_phi35=gmm_phi35_depths,
          wrapper_host_us=wrapper_host_us,
          ssd_scan_library="none: no single PyTorch call computes the SSD scan",
          host_link={"peak_gb_per_s": HOST_LINK_BYTES_PER_S / 1e9,
@@ -2495,10 +2558,10 @@ def main() -> None:
 
     # ------------------------------------------------------- encdec and vlm
     def pool_serve(model, params, prompts, step_inputs, max_new, slots,
-                   max_seq, plan=None):
+                   max_seq, plan=None, dtype=torch.bfloat16):
         """Serve ``prompts`` (batches of one request each) through a KVPool
-        of ``slots`` x ``max_seq`` placed by ``plan`` (on the card when
-        None): each request prefilled alone
+        of ``slots`` x ``max_seq`` in ``dtype`` placed by ``plan`` (on the
+        card when None): each request prefilled alone
         (``Model.forward(return_cache=True, last_token_only=True)``) and
         pasted into its slot, then all slots decoded together, greedy, with
         per-row ``pos`` (the pool's lengths). ``step_inputs(rows, tokens)``
@@ -2506,7 +2569,7 @@ def main() -> None:
         slot) and their last tokens. Returns the tokens by request, the
         prefill and tick seconds, the first tick's logits by request, the
         wall time, a function that runs one more tick, and the pool."""
-        pool = KVPool(model, slots, max_seq, plan=plan)
+        pool = KVPool(model, slots, max_seq, plan=plan, dtype=dtype)
         rows, out, prefill_s, tick_s = [None] * slots, {}, [], []
         torch.cuda.synchronize()
         t_wall = time.perf_counter()
@@ -2670,6 +2733,56 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
 
+    # a model alone on the card: its budget is the card's free memory less
+    # what a phase holds beside the resident bytes (the KV pool materialised
+    # for a tick, and a prefill's working set: its cache, activations, a
+    # streamed product's panels, the logit checks' full-length fp32 logits),
+    # under 4 GiB; the host's is MemAvailable less room for a second KV pool
+    # while the first one's pages return and the process's own growth
+    PREFILL_HEADROOM = HOST_MARGIN = 4 << 30
+
+    def plan_alone(model, slots, max_seq, host_leaves, host_bytes):
+        """The offload plan of ``model`` served alone on the card at
+        ``slots`` x ``max_seq``, cut from ``Model.init(abstract=True)``
+        against the card's free memory and the host's settled MemAvailable
+        (caches emptied first). Fails before anything is drawn if the plan
+        does not fit the card or the host (the depth is never cut at run
+        time), or does not spill exactly ``host_leaves`` (``host_bytes``).
+        Returns (the abstract parameters, the plan, the row's fields, the
+        device's allocated bytes and MemAvailable before)."""
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch._C._host_emptyCache()  # free blocks of the caching host allocator
+        dev_before = torch.cuda.memory_allocated()
+        host_before = settled_mem_available()
+        shapes, _ = model.init(abstract=True)
+        inv = model.serving_inventory(shapes, model.cache_shapes(slots, max_seq))
+        card_free, _ = torch.cuda.mem_get_info()
+        hbm_budget = (card_free - model.cache_bytes(slots, max_seq)
+                      - PREFILL_HEADROOM)
+        host_budget = host_before - HOST_MARGIN
+        plan = plan_offload(inv, hbm_budget, host_budget=host_budget)
+        plan_row = {"offloaded": list(plan.offloaded),
+                    "partial": list(plan.partial),
+                    "resident_bytes": plan.resident_bytes,
+                    "host_bytes": plan.host_bytes}
+        name = f"{model.cfg.name} at {model.cfg.num_layers} layers"
+        if not plan.fits or plan.host_bytes > host_budget:
+            fail(f"{name} does not fit: {plan.resident_bytes} resident bytes "
+                 f"for a card budget of {hbm_budget} (free {card_free}), "
+                 f"{plan.host_bytes} host bytes for a host budget of "
+                 f"{host_budget} (MemAvailable {host_before})")
+        if (sorted(plan.offloaded) != sorted(host_leaves) or plan.partial
+                or plan.host_bytes != host_bytes):
+            fail(f"{name}'s plan is {plan_row}, not {sorted(host_leaves)} "
+                 f"({host_bytes} bytes) on the host")
+        fields = dict(card_free_bytes=card_free, hbm_budget=hbm_budget,
+                      prefill_headroom_bytes=PREFILL_HEADROOM,
+                      host_mem_available_before=host_before,
+                      host_budget=host_budget, host_margin_bytes=HOST_MARGIN,
+                      plan=plan_row)
+        return shapes, plan, fields, dev_before, host_before
+
     # ------------------------------------------------------------------ vlm
     # qwen2-vl-72b at full width and all 80 layers: 145.4 GB of bf16 weights
     # on an 80 GB card. The reference's planner (plan_offload) puts the
@@ -2686,45 +2799,9 @@ def main() -> None:
               "params/layers/w_in")
     Q_HOST_BYTES = 82_686_509_056
     Q_STREAMED = ("w_gate", "w_in")
-    # the card's budget is its free memory less what the phase holds beside
-    # the resident bytes: the KV pool materialised for a tick, and a
-    # 1,048-token prefill's working set (its cache, 343 MB; activations;
-    # stream_matmul's two panels and fp32 accumulator; the logit checks'
-    # full-length logits in fp32), under 4 GiB
-    Q_PREFILL_HEADROOM = 4 << 30
-    # the host's budget is MemAvailable less room for a second KV pool while
-    # the first one's pages return (2.7 GB) and the process's own growth
-    Q_HOST_MARGIN = 4 << 30
-    gc.collect()
-    torch.cuda.empty_cache()
-    torch._C._host_emptyCache()     # free blocks of the caching host allocator
-    q_dev_before = torch.cuda.memory_allocated()
-    q_host_before = settled_mem_available()
     qmodel = build_model(qcfg, dev)
-    q_shapes, _ = qmodel.init(abstract=True)
-    q_kv_bytes = qmodel.cache_bytes(Q_SLOTS, Q_MAX_SEQ)
-    q_inv = qmodel.serving_inventory(q_shapes,
-                                     qmodel.cache_shapes(Q_SLOTS, Q_MAX_SEQ))
-    q_card_free, _ = torch.cuda.mem_get_info()
-    q_hbm_budget = q_card_free - q_kv_bytes - Q_PREFILL_HEADROOM
-    q_host_budget = q_host_before - Q_HOST_MARGIN
-    q_plan = plan_offload(q_inv, q_hbm_budget, host_budget=q_host_budget)
-    q_plan_row = {"offloaded": list(q_plan.offloaded),
-                  "partial": list(q_plan.partial),
-                  "resident_bytes": q_plan.resident_bytes,
-                  "host_bytes": q_plan.host_bytes}
-    # before anything is drawn: a plan that does not fit the card or the
-    # host fails here with its numbers; the depth is never cut at run time
-    if not q_plan.fits or q_plan.host_bytes > q_host_budget:
-        fail(f"qwen2-vl-72b at {qcfg.num_layers} layers does not fit: "
-             f"{q_plan.resident_bytes} resident bytes for a card budget of "
-             f"{q_hbm_budget} (free {q_card_free}), {q_plan.host_bytes} host "
-             f"bytes for a host budget of {q_host_budget} (MemAvailable "
-             f"{q_host_before})")
-    if (sorted(q_plan.offloaded) != sorted(Q_HOST) or q_plan.partial
-            or q_plan.host_bytes != Q_HOST_BYTES):
-        fail(f"qwen2-vl-72b's plan is not the table, the KV pool and the "
-             f"gate and input stacks: {q_plan_row}")
+    q_shapes, q_plan, q_fields, q_dev_before, q_host_before = plan_alone(
+        qmodel, Q_SLOTS, Q_MAX_SEQ, Q_HOST, Q_HOST_BYTES)
     q_placement = param_placement(q_shapes, q_plan, dev)
     q_sizes = {p: t.numel() * t.element_size()
                for p, t in _flatten_with_paths(q_shapes)}
@@ -2879,10 +2956,7 @@ def main() -> None:
         d_model=qcfg.d_model, heads=qcfg.num_heads, kv_heads=qcfg.num_kv_heads,
         head_dim=qcfg.head_dim, d_ff=qcfg.d_ff, vocab=qcfg.vocab_size,
         params=param_count(qparams), param_dtype=qcfg.param_dtype,
-        attn_impl=qcfg.attn_impl, card_free_bytes=q_card_free,
-        hbm_budget=q_hbm_budget, prefill_headroom_bytes=Q_PREFILL_HEADROOM,
-        host_mem_available_before=q_host_before, host_budget=q_host_budget,
-        host_margin_bytes=Q_HOST_MARGIN, plan=q_plan_row,
+        attn_impl=qcfg.attn_impl, **q_fields,
         host_bytes_taken={"mem_available": q_host_taken, "plan": Q_HOST_BYTES},
         init_seconds=q_init, init_peak_device_bytes=q_init_peak,
         resident_param_bytes=q_resident, largest_host_leaf_bytes=q_largest_host,
@@ -2895,7 +2969,7 @@ def main() -> None:
         prefill_ms_median=statistics.median(t for _, t in q_pre) * 1e3,
         tick_ms_median=statistics.median(q_ticks) * 1e3,
         tick_ms_max=max(q_ticks) * 1e3,
-        kv_pool_bytes=q_kv_bytes, kv=q_kv_row,
+        kv_pool_bytes=qmodel.cache_bytes(Q_SLOTS, Q_MAX_SEQ), kv=q_kv_row,
         launches=vlm_launches, launches_by_route=vlm_routes,
         stream_matmul_launches_by_route=vlm_stream_routes,
         stream_matmul_h2d_bytes=q_weight_h2d,
@@ -2919,6 +2993,254 @@ def main() -> None:
     if abs(q_host_after - q_host_before) > (2 << 30):
         fail(f"vlm: MemAvailable {q_host_after} after the phase, "
              f"{q_host_before} before")
+
+    # ------------------------------------------------------------- moe_full
+    # phi3.5-moe-42b-a6.6b at full width and all 32 layers: 83.7 GB of bf16
+    # weights and a 1.07 GB KV pool on an 80 GB card, served through
+    # SliceRuntime.add_tenant. plan_offload puts the token table, the KV pool
+    # and the gate expert stack (28,179,955,712 bytes) in pinned host memory,
+    # each parameter drawn straight into its tier; every prefill and tick
+    # streams the stack's 32 layer slices (838,860,800 bytes each) through
+    # grouped_matmul from those pages. Nothing else is resident while it runs.
+    P_HOST = ("params/tok_embed", "kv/k", "kv/v", "params/layers/w_gate")
+    P_HOST_BYTES = 28_179_955_712
+    P_PASS_BYTES = 26_843_545_600          # w_gate's 32 layer slices
+
+    def moe_full():
+        """The phase; returns its row, launches, routes and the memory
+        readings before it. Its tensors die with its frame."""
+        t_phase = time.time()
+        pcfg = get_config("phi3.5-moe-42b-a6.6b").with_(
+            attn_impl="pallas", remat="none", param_dtype="bfloat16")
+        E, TOPK = pcfg.num_experts, pcfg.experts_per_token
+        meta = build_model(pcfg, dev)
+        shapes, plan, plan_fields, dev_before, host_before = plan_alone(
+            meta, SLOTS, MAX_SEQ, P_HOST, P_HOST_BYTES)
+        placement = param_placement(shapes, plan, dev)
+        resident = sum(t.numel() * t.element_size()
+                       for p, t in _flatten_with_paths(shapes)
+                       if placement[p] == "device")
+        rt = SliceRuntime(device=dev)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        tenant = rt.add_tenant(TenantSpec(
+            "phi35", pcfg, profile="1s.16c", slots=SLOTS, max_seq=MAX_SEQ,
+            hbm_budget=plan_fields["hbm_budget"], seed=SEED))
+        torch.cuda.synchronize()
+        init_s = time.time() - t0
+        init_peak = torch.cuda.max_memory_allocated() - dev_before
+        host_taken = host_before - mem_available_bytes()
+        model, params, eng = tenant.model, tenant.params, tenant.engine
+        if tenant.plan != plan:
+            fail(f"add_tenant planned {tenant.plan}, not {plan_fields['plan']}")
+        kinds = {p: memory_kind_of(t) for p, t in _flatten_with_paths(params)}
+        if kinds != placement:
+            fail(f"phi3.5-moe leaves outside their planned tiers: "
+                 f"{ {p: k for p, k in kinds.items() if k != placement[p]} }")
+        w_gate = params["layers"]["w_gate"]
+        if not (w_gate.is_pinned() and w_gate[0].is_pinned()):
+            fail("layers/w_gate or its layer 0 is not pinned")
+        if eng.pool.memory_kinds() != {"pinned_host"}:
+            fail(f"phi3.5-moe's KV pool is in {eng.pool.memory_kinds()}")
+        if abs(host_taken - P_HOST_BYTES) > 0.02 * P_HOST_BYTES:
+            fail(f"add_tenant took {host_taken} bytes of host memory by "
+                 f"MemAvailable, not within 2% of the plan's {P_HOST_BYTES}")
+        # w_gate is drawn after w_in and before w_out, its equal, so the
+        # draw holds at most the resident bytes
+        if abs(init_peak - resident) > (64 << 20):
+            fail(f"placed init peaked at {init_peak} device bytes, not the "
+                 f"resident {resident} within 64 MiB")
+        if param_count(params) != pcfg.param_count():
+            fail(f"phi3.5-moe: parameter count {param_count(params)} != "
+                 f"{pcfg.param_count()}")
+        # warm-up: one request, 2 new tokens (every pass streams 26.8 GB)
+        rt.submit("phi35", make_requests(pcfg, LENS[:1], 2))
+        rt.run()
+        timed_engine(eng)
+        admitted0, ticks0 = eng.stats.admitted, eng.stats.ticks
+        reqs = [Request(r.rid + 1, r.prompt, r.max_new_tokens)
+                for r in make_requests(pcfg, LENS, MAX_NEW)]
+        rt.submit("phi35", reqs)
+        torch.cuda.reset_peak_memory_stats()
+        h2d0, d2h0 = eng.pool.h2d_bytes, eng.pool.d2h_bytes
+        reset_counts()                               # main path starts here
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        report = rt.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {n: w.launches for n, w in kernel_wrappers.items()}
+        routes = route_counts()
+        stream_routes = dict(sm.stream_matmul.launches_by_route)
+        weight_h2d = gmm.grouped_matmul.h2d_bytes
+        rows_h2d = mlayers.gather_rows.h2d_bytes
+        peak = torch.cuda.max_memory_allocated()
+        out = {rid: toks for rid, toks in eng.outputs.items() if rid}  # 0: warm-up
+        check_outputs(out, reqs, pcfg, MAX_NEW)
+        prefills = eng.stats.admitted - admitted0
+        ticks = eng.stats.ticks - ticks0
+        passes = prefills + ticks
+        check_launches("moe_full", launches, {
+            **{n: 0 for n in kernel_wrappers},
+            "flash_attention_fwd": prefills * pcfg.num_layers,
+            "grouped_matmul": 3 * passes * pcfg.num_layers})
+        check_launches("moe_full routes", routes, {
+            "flash_attention_fwd": {"wgmma": prefills * pcfg.num_layers,
+                                    "fma": 0},
+            "flash_attention_fwd_stats": {"wgmma": 0, "fma": 0},
+            "flash_attention_bwd_dkdv": {"wgmma": 0, "fma": 0},
+            "flash_attention_bwd_dq": {"wgmma": 0, "fma": 0},
+            "grouped_matmul": {"wgmma": 3 * passes * pcfg.num_layers,
+                               "mma_sync": 0, "fma": 0}})
+        check_launches("moe_full stream_matmul routes", stream_routes,
+                       {"ring": 0, "resident": 0})
+        pass_bytes = pcfg.num_layers * w_gate[0].numel() * w_gate.element_size()
+        if pass_bytes != P_PASS_BYTES or weight_h2d != passes * pass_bytes:
+            fail(f"grouped_matmul streamed {weight_h2d} bytes in {passes} "
+                 f"passes, expected {P_PASS_BYTES} a pass")
+        # the table's rows: every prompt token at its prefill, then one row
+        # a slot each tick (an idle slot reads row 0)
+        row_bytes = pcfg.d_model * params["tok_embed"].element_size()
+        want_rows = (sum(LENS) + ticks * SLOTS) * row_bytes
+        if rows_h2d != want_rows:
+            fail(f"table rows moved {rows_h2d} bytes, expected (prompt "
+                 f"tokens + {ticks} ticks x {SLOTS} slots) x {row_bytes}")
+        kv_row = {"host_bytes": eng.pool.host_bytes,
+                  "device_bytes": eng.pool.device_bytes,
+                  "h2d_bytes_per_tick": (eng.pool.h2d_bytes - h2d0) / ticks,
+                  "d2h_bytes_per_tick": (eng.pool.d2h_bytes - d2h0) / ticks}
+        tokens = sum(map(len, out.values()))
+        tick_med = statistics.median(eng.tick_s)
+
+        # the dropped share of the longest prompt's top-k assignments per
+        # layer at the served capacity, and its logits through the kernels
+        # against the eager attention on the same parameter tensors. With
+        # random weights most tokens crowd a few experts (the share is
+        # large), so a bf16 rounding that flips one near-tied routing
+        # decision moves which tokens later find their expert full: the
+        # bf16 figures are printed, and the checks hold fp32 activations
+        # (the same bf16 tensors) under FP32_MODEL_TOL, as the moe phase
+        # holds its decode
+        t_checks = time.time()
+        longest = torch.as_tensor(
+            np.asarray(reqs[LENS.index(max(LENS))].prompt, np.int64),
+            device=dev)[None]
+        dropped, slots_fn = [], mmoe._slots
+
+        def counting_slots(cfg, top_w, top_e, C):
+            slot_token, keep_w, slot = slots_fn(cfg, top_w, top_e, C)
+            dropped.append(float((slot == cfg.num_experts * C).float().mean()))
+            return slot_token, keep_w, slot
+
+        mmoe._slots = counting_slots
+        try:
+            logits_k, _, _ = model.forward(params, {"tokens": longest})
+        finally:
+            mmoe._slots = slots_fn
+        logits_e, _, _ = build_model(pcfg.with_(attn_impl="xla"), dev).forward(
+            params, {"tokens": longest})
+        if (tuple(logits_k.shape) != (1, max(LENS), pcfg.vocab_size)
+                or not torch.isfinite(logits_k.float()).all()):
+            fail(f"phi3.5-moe logits: shape {tuple(logits_k.shape)} or "
+                 f"non-finite values")
+        bf16_kernel_vs_eager = rel_err(logits_k, logits_e)
+        bf16_argmax = float((logits_k.argmax(-1) == logits_e.argmax(-1))
+                            .float().mean())
+        del logits_k, logits_e
+        f32 = pcfg.with_(dtype="float32")
+        logits_k, _, _ = build_model(f32, dev).forward(params, {"tokens": longest})
+        logits_e, _, _ = build_model(f32.with_(attn_impl="xla"), dev).forward(
+            params, {"tokens": longest})
+        if not torch.isfinite(logits_k).all():
+            fail("phi3.5-moe: non-finite fp32 logits")
+        kernel_vs_eager = rel_err(logits_k, logits_e)
+        argmax = float((logits_k.argmax(-1) == logits_e.argmax(-1))
+                       .float().mean())
+        del logits_k, logits_e
+        # each request's first decode step against the full forward of its
+        # prompt and one token. The decode computes every expert densely and
+        # drops nothing, so these run at the least capacity factor that
+        # drops nothing (C >= S: experts / top-k), fp32, on the same
+        # tensors: the 8 requests prefilled alone into an 8-slot fp32 pool,
+        # decoded together with per-row pos
+        no_drop = build_model(f32.with_(capacity_factor=E / TOPK), dev)
+        prompts = [{"tokens": torch.as_tensor(np.asarray(r.prompt, np.int64),
+                                              device=dev)[None]} for r in reqs]
+        nd_out, _, _, first, _, _, _ = pool_serve(
+            no_drop, params, prompts, lambda rows, last: {"tokens": last}, 2,
+            len(prompts), MAX_SEQ, dtype=torch.float32)
+        check_pool_outputs("moe_full no-drop", nd_out, len(prompts), 2,
+                           pcfg.vocab_size)
+        dec_vs_fwd = []
+        for rid, batch in enumerate(prompts):
+            longer = {"tokens": torch.cat([batch["tokens"], torch.tensor(
+                [[nd_out[rid][0]]], device=dev)], dim=1)}
+            full, _, _ = no_drop.forward(params, longer, last_token_only=True)
+            dec_vs_fwd.append(rel_err(first[rid], full[0, -1]))
+        torch.cuda.synchronize()
+        row = dict(
+            arch=pcfg.name, card=card_line, layers=pcfg.num_layers,
+            d_model=pcfg.d_model, heads=pcfg.num_heads,
+            kv_heads=pcfg.num_kv_heads, experts=E, top_k=TOPK,
+            d_ff=pcfg.d_ff, vocab=pcfg.vocab_size, params=param_count(params),
+            param_dtype=pcfg.param_dtype, attn_impl=pcfg.attn_impl,
+            profile=report["tenants"]["phi35"]["profile"], **plan_fields,
+            host_bytes_taken={"mem_available": host_taken,
+                              "plan": P_HOST_BYTES},
+            init_seconds=init_s, init_peak_device_bytes=init_peak,
+            resident_param_bytes=resident,
+            memory_allocated_before_init=dev_before,
+            requests=len(reqs), prompt_lens=LENS, slots=SLOTS,
+            max_seq=MAX_SEQ, max_new=MAX_NEW, tokens=tokens,
+            prefills=prefills, ticks=ticks, wall_seconds=wall,
+            tok_per_s=tokens / wall,
+            prefill_ms={str(n): t * 1e3 for n, t in eng.prefill_s},
+            prefill_ms_median=statistics.median(
+                t for _, t in eng.prefill_s) * 1e3,
+            prefill_ms_1024=max(t for n, t in eng.prefill_s
+                                if n == max(LENS)) * 1e3,
+            tick_ms_median=tick_med * 1e3,
+            tick_ms_max=max(eng.tick_s) * 1e3,
+            kv_pool_bytes=meta.cache_bytes(SLOTS, MAX_SEQ), kv=kv_row,
+            launches=launches, launches_by_route=routes,
+            stream_matmul_launches_by_route=stream_routes,
+            grouped_matmul_h2d_bytes=weight_h2d,
+            weight_h2d_bytes_per_pass=pass_bytes,
+            weight_gb_per_s_over_tick=pass_bytes / tick_med / 1e9,
+            table_rows_h2d_bytes=rows_h2d,
+            capacity_factor=pcfg.capacity_factor,
+            capacity_1024=mmoe.capacity(pcfg, max(LENS)),
+            dropped_share_1024_by_layer=dropped,
+            dropped_share_1024_mean=statistics.mean(dropped),
+            kernel_vs_eager_fp32_rel=kernel_vs_eager, argmax_agree_fp32=argmax,
+            no_drop_capacity_factor=E / TOPK,
+            decode_vs_forward_fp32_rel=dec_vs_fwd, tol=FP32_MODEL_TOL,
+            kernel_vs_eager_bf16_rel=bf16_kernel_vs_eager,
+            argmax_agree_bf16=bf16_argmax, max_memory_allocated=peak,
+            checks_seconds=time.time() - t_checks,
+            phase_seconds=time.time() - t_phase)
+        rt.remove_tenant("phi35")
+        return row, launches, routes, dev_before, host_before
+
+    p_row, moe_full_launches, moe_full_routes, p_dev_before, p_host_before = \
+        moe_full()
+    gc.collect()
+    torch.cuda.empty_cache()
+    p_dev_after = torch.cuda.memory_allocated()
+    p_host_after = settled_mem_available()
+    emit("moe_full", **p_row, memory_allocated_after=p_dev_after,
+         host_mem_available_after=p_host_after)
+    if not (p_row["kernel_vs_eager_fp32_rel"] < FP32_MODEL_TOL
+            and max(p_row["decode_vs_forward_fp32_rel"]) < FP32_MODEL_TOL):
+        fail(f"phi3.5-moe (fp32): kernel vs eager "
+             f"{p_row['kernel_vs_eager_fp32_rel']:.3e}, decode vs forward "
+             f"{p_row['decode_vs_forward_fp32_rel']} (limit {FP32_MODEL_TOL})")
+    if abs(p_dev_after - p_dev_before) > (64 << 20):
+        fail(f"moe_full: device memory {p_dev_after} after the phase, "
+             f"{p_dev_before} before")
+    if abs(p_host_after - p_host_before) > (2 << 30):
+        fail(f"moe_full: MemAvailable {p_host_after} after the phase, "
+             f"{p_host_before} before")
 
     # -------------------------------------------------------------- cluster
     # The port's ClusterScheduler places a crafted trace on one modelled pod
@@ -3317,6 +3639,8 @@ def main() -> None:
         "launches_serve_command_r": command_r_launches["flash_attention_fwd"],
         "launches_by_route_serve_command_r":
             command_r_routes["flash_attention_fwd"],
+        "launches_moe_full": moe_full_launches["flash_attention_fwd"],
+        "launches_by_route_moe_full": moe_full_routes["flash_attention_fwd"],
         "dryrun_prefill_32k": {k: long_flash_case[k] for k in (
             "shape", "dtype", "route", "max_abs_err", "rel_err", "tol", "ms",
             "cold_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
@@ -3441,6 +3765,14 @@ def main() -> None:
         "launches_by_route_train_moe": tmoe_routes["grouped_matmul"],
         "launches_dryrun": dry_launches["grouped_matmul"],
         "launches_by_route_dryrun": dry_routes["grouped_matmul"],
+        "launches_moe_full": moe_full_launches["grouped_matmul"],
+        "launches_by_route_moe_full": moe_full_routes["grouped_matmul"],
+        "moe_full_shapes": [{k: c[k] for k in (
+            "shape", "where", "host_buffer", "x_expert_stride", "route",
+            "max_abs_err", "rel_err", "tol", "ms", "cold_ms", "plain_ms",
+            "bound_ms", "bound_by", "library_ms", "h2d_gb_per_s",
+            "link_share")} for c in phi35_gmm_cases],
+        "moe_full_panel_depths": gmm_phi35_depths,
         "backward": gmm_bwd_cases,
         "dryrun_train_4k": [{k: c[k] for k in (
             "shape", "route", "max_abs_err", "rel_err", "tol", "ms", "cold_ms",

@@ -641,6 +641,8 @@ GMM_CASES = [  # (E, M, K, N, x expert stride 0, bf16 takes the wgmma route)
     (3, 33, 70, 50, True, False),           # ragged everywhere, shared x
     (4, 8, 100, 64, False, False),          # x's rows not 16-byte multiples
     (16, 1, 4096, 6400, True, True),        # phi3.5-moe's widths, one row
+    (16, 160, 4096, 6400, False, True),     # its prefill at 1024 tokens (C 160)
+    (16, 4, 6400, 4096, False, True),       # its decode w_out
 ]
 
 
@@ -697,6 +699,30 @@ def test_grouped_matmul_matches_plain(E, M, K, N, shared, tma, dtype, where,
         assert got.dtype == dtype and tuple(got.shape) == (E, M, N)
         assert torch.isfinite(got.float()).all()
         assert _rel(got, want) < TOL[dtype], block_k
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M,shared", [(4, True), (160, False)])
+def test_grouped_matmul_streams_a_host_tier_stack(M, shared):
+    """phi3.5-moe's gate stack at its decode (one shared x) and 1024-token
+    prefill rows, w in the host tier's own memory (``core.offload.
+    empty_host``: registered pages of exactly its bytes, as the runtime
+    places a spilled stack): every byte streamed once, on the wgmma route,
+    equal to the plain version on the card's copy."""
+    from repro_torch.core.offload import to_host
+    from repro_torch.kernels import grouped_matmul as gmm
+    dev = _cuda()
+    x, w = _gmm_inputs(dev, 16, M, 4096, 6400, shared, torch.bfloat16, seed=M)
+    host = to_host(w, dev)
+    assert host.is_pinned() and host[0].is_pinned()
+    before = (gmm.grouped_matmul.h2d_bytes,
+              gmm.grouped_matmul.launches_by_route["wgmma"])
+    got = gmm.grouped_matmul(x, host)
+    torch.cuda.synchronize()
+    assert gmm.grouped_matmul.h2d_bytes - before[0] == w.numel() * 2
+    assert gmm.grouped_matmul.launches_by_route["wgmma"] == before[1] + 1
+    assert torch.isfinite(got.float()).all()
+    assert _rel(got, gmm.grouped_matmul_plain(x, w)) < TOL[torch.bfloat16]
 
 
 @pytest.mark.gpu
@@ -953,27 +979,50 @@ def test_moe_model_launches_the_kernel_and_equals_cpu():
     assert abs(float(aux) - float(want_aux)) <= 1e-5 * float(want_aux)
 
 
+def _gate_spilling_budget(cfg, slots, max_seq):
+    """The budget of ``cfg``'s resident bytes once the table, the KV pool
+    and ``layers/w_gate`` are on the host (the moe_full phase's plan)."""
+    from repro_torch.models.model_zoo import build_model
+    model = build_model(cfg, "cpu")
+    inv = model.serving_inventory(model.init(abstract=True)[0],
+                                  model.cache_shapes(slots, max_seq))
+    return sum(t.bytes for t in inv if t.name not in (
+        "params/tok_embed", "kv/k", "kv/v", "params/layers/w_gate"))
+
+
 @pytest.mark.gpu
-def test_runtime_streams_offloaded_experts():
-    """A reduced granite-moe tenant whose budget spills an expert stack: the
-    stack lives in pinned memory (so do its per-layer slices), every prefill
-    and tick streams it once a layer through grouped_matmul, and the tokens
+@pytest.mark.parametrize("arch", ["granite-moe-reduced", "phi3.5-moe-2-layers"])
+def test_runtime_streams_offloaded_experts(arch):
+    """A MoE tenant whose budget spills an expert stack: reduced granite-moe,
+    and phi3.5-moe at full width and 2 of its 32 layers with the table, the
+    KV pool and ``layers/w_gate`` spilled (its full-size plan). The stack
+    lives in pinned memory (so do its per-layer slices), every prefill and
+    tick streams it once a layer through grouped_matmul, and the tokens
     equal a lone engine's with every weight on the device (fp32)."""
     from repro_torch.configs import get_config
     from repro_torch.core.offload import memory_kind_of
     from repro_torch.kernels import grouped_matmul as gmm
     from repro_torch.serving import Request, SliceRuntime, TenantEngine, TenantSpec
     dev = _cuda()
-    cfg = get_config("granite-moe-1b-a400m").reduced().with_(remat="none",
-                                                            dtype="float32")
+    if arch == "granite-moe-reduced":
+        cfg = get_config("granite-moe-1b-a400m").reduced().with_(
+            remat="none", dtype="float32")
+        budget = dict(hbm_budget=300_000, spill_granule=4096)
+    else:
+        cfg = get_config("phi3.5-moe-42b-a6.6b").with_(
+            num_layers=2, remat="none", dtype="float32")
+        budget = dict(hbm_budget=_gate_spilling_budget(cfg, 2, 48))
     rt = SliceRuntime(device=dev)
     t = rt.add_tenant(TenantSpec("moe", cfg, profile="1s.16c", slots=2,
-                                 max_seq=48, hbm_budget=300_000,
-                                 spill_granule=4096))
+                                 max_seq=48, **budget))
     spilled = [n for n in t.plan.offloaded
                if n in ("params/layers/w_gate", "params/layers/w_in",
                         "params/layers/w_out")]
     assert spilled, t.plan.offloaded
+    if arch != "granite-moe-reduced":
+        assert sorted(t.plan.offloaded) == sorted(
+            ("params/tok_embed", "kv/k", "kv/v", "params/layers/w_gate"))
+        assert t.engine.pool.memory_kinds() == {"pinned_host"}
     stacks = [t.params["layers"][n.split("/")[-1]] for n in spilled]
     for s in stacks:
         assert memory_kind_of(s) == "pinned_host" and s.is_pinned()

@@ -9,7 +9,10 @@ Tolerances: the reference's own (tests/test_kernels.py, tests/test_train.py)
 — grouped matmul fp32 1e-5, whole models and gradients 1e-4 relative to the
 largest value. Dispatch decisions (expert ids, slots, the token of each
 capacity slot) must match exactly; the inputs are seeded draws with no
-near-ties among the router's top-k."""
+near-ties among the router's top-k. A ``SliceRuntime`` tenant of reduced
+phi3.5-moe whose plan spills the table, the KV pool and the gate expert
+stack (the plan the card's ``moe_full`` phase serves at full size) gives
+the reference engine's tokens."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -30,8 +33,9 @@ from repro_torch.kernels import ops as port_ops
 from repro_torch.kernels import ref as port_ref
 from repro_torch.models import moe as port_moe
 from repro_torch.models.common import weight_matmul
+from repro_torch.models import model_zoo as port_zoo
 from repro_torch.models.convert import cache_from_numpy
-from repro_torch.serving import Request, TenantEngine
+from repro_torch.serving import Request, SliceRuntime, TenantEngine, TenantSpec
 from repro_torch.train.train_step import _accumulate_grads
 
 ARCHS = ["granite-moe-1b-a400m", "phi3.5-moe-42b-a6.6b"]
@@ -384,6 +388,38 @@ def test_engine_tokens_equal_reference_engine(arch):
     assert eng.run(_requests(Request, pm.cfg, lens, 3)) == want
     assert eng.ticks == ref_eng.ticks
     assert eng.stats.e2e_ticks == ref_eng.stats.e2e_ticks
+
+
+def test_runtime_tenant_spilling_the_gate_stack_equals_reference_engine(
+        monkeypatch):
+    """Reduced phi3.5-moe through ``SliceRuntime.add_tenant`` (fp32, the
+    reference's weights) under a budget of its resident bytes: the plan is
+    the full-size one's, the table, the KV pool and ``layers/w_gate`` on the
+    host, and the tokens and ticks are the reference ``ServingEngine``'s."""
+    rm, rp, pm, pp = _pair("phi3.5-moe-42b-a6.6b")
+    port_init = port_zoo.Model.init
+
+    def init(self, generator=None, *, abstract=False, placement=None):
+        if abstract:
+            return port_init(self, abstract=True)
+        return pp, {}
+    monkeypatch.setattr(port_zoo.Model, "init", init)
+    slots, max_seq, lens = 2, 40, (12, 12, 12)
+    inv = pm.serving_inventory(pp, pm.cache_shapes(slots, max_seq))
+    sizes = {t.name: t.bytes for t in inv}
+    host = ("params/tok_embed", "kv/k", "kv/v", "params/layers/w_gate")
+    rt = SliceRuntime(device="cpu")
+    tenant = rt.add_tenant(TenantSpec(
+        "moe", pm.cfg, profile="1s.16c", slots=slots, max_seq=max_seq,
+        hbm_budget=sum(sizes.values()) - sum(sizes[n] for n in host)))
+    assert set(tenant.plan.offloaded) == set(host) and tenant.plan.partial == ()
+    assert tenant.params is pp
+    rt.submit("moe", _requests(Request, pm.cfg, lens, 3))
+    rt.run()
+    ref_eng = RefServingEngine(rm, rp, slots=slots, max_seq=max_seq)
+    assert tenant.engine.outputs == ref_eng.run(
+        _requests(RefRequest, rm.cfg, lens, 3))
+    assert tenant.engine.ticks == ref_eng.ticks
 
 
 @pytest.mark.parametrize("arch", ARCHS)

@@ -11,7 +11,9 @@ plans on ``Model.init(abstract=True)`` and then draws. Held here:
   reference's own abstract inventory, field by field, and qwen2-vl-72b's is
   the 80-layer plan ``chip_smoke.py``'s ``vlm`` phase serves: the table, the
   KV pool and the two gate/input MLP stacks on the host, 82,686,509,056
-  bytes;
+  bytes; phi3.5-moe-42b-a6.6b's is the plan of the ``moe_full`` phase: the
+  table, the KV pool and the gate expert stack, 28,179,955,712 bytes, drawn
+  in an order whose device bytes never pass the resident bytes;
 * ``init`` with a placement equals ``init`` bit for bit for every family
   (on the CPU both tiers are one memory: the placement changes nothing;
   the card's host route is held by ``test_torch_gpu.py``);
@@ -47,6 +49,7 @@ SLOTS, MAX_SEQ = 2, 32
 FULL_SLOTS, FULL_MAX_SEQ, FULL_BUDGET = 4, 2048, 72_000_000_000
 QWEN_HOST = ("params/tok_embed", "kv/k", "kv/v", "params/layers/w_gate",
              "params/layers/w_in")
+PHI35_HOST = ("params/tok_embed", "kv/k", "kv/v", "params/layers/w_gate")
 
 
 def _reduced(arch):
@@ -128,6 +131,57 @@ def test_qwen2_vl_full_plan_is_the_vlm_phase_plan():
     for budget in (plan.resident_bytes, 80_000_000_000,
                    plan.resident_bytes + sizes["params/layers/w_in"] - 1):
         assert plan_offload(inv, budget).offloaded == plan.offloaded
+
+
+def _in_init_order(tree, prefix=""):
+    """(path, leaf) in the order ``init`` draws them: the builder's dicts
+    keep the order their leaves were added in."""
+    for name, leaf in tree.items():
+        if isinstance(leaf, dict):
+            yield from _in_init_order(leaf, f"{prefix}{name}/")
+        else:
+            yield prefix + name, leaf
+
+
+def test_phi35_moe_full_plan_is_the_moe_full_phase_plan():
+    plan, inv = _port_full_plan("phi3.5-moe-42b-a6.6b")
+    sizes = {t.name: t.bytes for t in inv}
+    assert sum(sizes.values()) == 84_818_796_544
+    stack = 32 * 16 * 4096 * 6400 * 2
+    assert sizes["params/layers/w_gate"] == sizes["params/layers/w_in"] \
+        == sizes["params/layers/w_out"] == stack
+    assert plan.fits and plan.partial == ()
+    assert set(plan.offloaded) == set(PHI35_HOST)
+    assert plan.host_bytes == sum(sizes[n] for n in PHI35_HOST) == 28_179_955_712
+    assert plan.resident_bytes == 56_638_840_832
+    # the same plan at any budget from the resident bytes to where the
+    # stack would stay on the card, the card's ~76 GB among them
+    for budget in (plan.resident_bytes, 80_000_000_000,
+                   plan.resident_bytes + stack - 1):
+        again = plan_offload(inv, budget)
+        assert (again.offloaded, again.partial, again.host_bytes) == (
+            plan.offloaded, (), plan.host_bytes), budget
+    assert plan_offload(inv, plan.resident_bytes + stack).offloaded == \
+        ("params/tok_embed", "kv/k", "kv/v")
+    # drawn in init's order, a host leaf on the card until it is copied
+    # out: w_gate is drawn after w_in and before w_out, its equal, so the
+    # device holds at most the resident bytes
+    model = build_model(get_config("phi3.5-moe-42b-a6.6b").with_(
+        param_dtype="bfloat16"), "cpu")
+    shapes, _ = model.init(abstract=True)
+    placement = param_placement(shapes, plan, "cuda")
+    order = [p for p, _ in _in_init_order(shapes)]
+    assert order.index("layers/w_in") < order.index("layers/w_gate") \
+        < order.index("layers/w_out")
+    held = peak = 0
+    for path, leaf in _in_init_order(shapes):
+        nbytes = leaf.numel() * leaf.element_size()
+        if placement[path] == PINNED_HOST_KIND:
+            peak = max(peak, held + nbytes)
+        else:
+            held += nbytes
+            peak = max(peak, held)
+    assert held == peak == plan.resident_bytes
 
 
 @pytest.mark.parametrize("family", sorted(FAMILY_ARCHS))
