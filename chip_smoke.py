@@ -188,6 +188,21 @@ JSON line per phase; any failure is a non-zero exit:
            ssd_scan at the mamba2 prefill_32k part. The kernels phase holds
            the flash forward at (2, 32768, 128) bf16 causal and ssd_scan at
            32,768-token rows against their plain versions
+  mesh     the reference's sharded step on its production meshes, in a
+           child process (python3 chip_smoke.py --mesh-child DIR) so its
+           fake process group never touches the other phases: llama3-8b
+           train_4k and prefill_32k on 16x16, gpt2-124m train_4k on
+           2x16x16 (fsdp_only, grad_compression over "pod") and decode_32k
+           on 16x16 (the cache split by sequence), each at full width and
+           depth as one device's shard through launch/dryrun.py (rank 0 of
+           a fake world: collectives counted, not run; values undefined);
+           the flash counts set to 0 just before each cell and read just
+           after, equal to the passes x the counted pass, all wgmma, at the
+           local shapes (B_part x local heads); per cell part and step ms,
+           per-device TFLOP, HBM GB and collective GB by op, and the FLOP
+           ratio to the reference's committed per-chip anchor, printed not
+           gated; then B1 / B3 / B4 at those local shapes against their
+           plain versions (mesh_local in the kernels line)
 
 Then a line {"kernels": [...]} with every kernel's figures, the card's name
 and power limit, and last {"ok": true, "device": {...}}.
@@ -333,6 +348,65 @@ def settled_mem_available(limit_s: float = 120.0) -> int:
         last = now
 
 
+# the mesh phase's cells: (arch, shape, mesh, overrides), each one device's
+# shard of the reference's dry-run cell; the kernels each must reach
+MESH_CELLS = (("llama3-8b", "train_4k", "pod", {}),
+              ("llama3-8b", "prefill_32k", "pod", {}),
+              ("gpt2-124m", "train_4k", "multi", {"grad_compression": True}),
+              ("gpt2-124m", "decode_32k", "pod", {}))
+MESH_TRAIN_KERNELS = {"flash_attention_fwd_stats", "flash_attention_bwd_dkdv",
+                      "flash_attention_bwd_dq"}
+# the reference's committed per-chip anchors (its "single" is the port's
+# "pod" mesh)
+ANCHOR_DIRS = {"pod": "single", "multi": "multi"}
+
+
+def mesh_child(out_dir: str) -> None:
+    """The mesh phase's child process: each cell of ``MESH_CELLS`` through
+    ``launch/dryrun.py`` as rank 0 of a fake world (the fake process group
+    lives and dies in this process, away from the other phases). The flash
+    wrappers' launch counts are set to 0 just before each cell and read just
+    after; ``kernel_cost`` is watched to record the shapes each kernel was
+    launched at in the counted pass. Writes ``mesh.json``."""
+    import torch
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import dryrun
+    _build.build_all()
+    wrappers = {"flash_attention_fwd": fa.flash_attention_fwd,
+                "flash_attention_fwd_stats": fa.flash_attention_fwd_stats,
+                "flash_attention_bwd_dkdv": fa.flash_attention_bwd_dkdv,
+                "flash_attention_bwd_dq": fa.flash_attention_bwd_dq}
+    shapes = {}
+    cost = fa.kernel_cost
+
+    def watched(name, q, k, causal):
+        shapes.setdefault(name, set()).add(tuple(q.shape))
+        return cost(name, q, k, causal)
+    fa.kernel_cost = watched
+    cells = []
+    for arch, shape, mesh, over in MESH_CELLS:
+        for w in wrappers.values():
+            w.launches = 0
+            w.launches_by_route = dict.fromkeys(w.launches_by_route, 0)
+        shapes.clear()
+        t0 = time.time()
+        rec = dryrun.run_cell(arch, shape, os.path.join(out_dir, mesh),
+                              device="cuda", mesh=mesh,
+                              overrides=dict(over) or None)
+        seconds = time.time() - t0
+        cells.append({
+            "arch": arch, "shape": shape, "mesh_kind": mesh, "record": rec,
+            "seconds": seconds,
+            "launches": {n: w.launches for n, w in wrappers.items()},
+            "launches_by_route": {n: dict(w.launches_by_route)
+                                  for n, w in wrappers.items()},
+            "kernel_shapes": {n: sorted(v) for n, v in shapes.items()}})
+        torch.cuda.empty_cache()
+    with open(os.path.join(out_dir, "mesh.json"), "w") as f:
+        json.dump(cells, f)
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -342,6 +416,9 @@ def main() -> None:
 
     root = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, os.path.join(root, "src"))
+    if sys.argv[1:2] == ["--mesh-child"]:
+        mesh_child(sys.argv[2])
+        return
     import numpy as np
     from repro_torch.configs import get_config
     from repro_torch.core.offload import (empty_host, memory_kind_of,
@@ -3602,6 +3679,125 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
 
+    # ----------------------------------------------------------------- mesh
+    # the reference's sharded step on its production meshes: each cell one
+    # device's shard (rank 0 of a fake world of 256 / 512 ranks) run on the
+    # card in a child process at full width and depth; the counts set to 0
+    # just before each cell and read just after, in the child
+    t_mesh = time.time()
+    mesh_dir = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    child = subprocess.run([sys.executable, os.path.abspath(__file__),
+                            "--mesh-child", mesh_dir], capture_output=True,
+                           text=True, timeout=600)
+    if child.returncode != 0:
+        fail(f"mesh: the child process failed ({child.returncode}):\n"
+             f"{child.stderr[-3000:]}")
+    with open(os.path.join(mesh_dir, "mesh.json")) as f:
+        mesh_cells = json.load(f)
+    mesh_launches = dict.fromkeys(routed, 0)
+    mesh_routes = {n: {} for n in routed}
+    mesh_rows = []
+    for cell in mesh_cells:
+        rec, arch, shape_name = cell["record"], cell["arch"], cell["shape"]
+        tag = f"mesh {arch} {shape_name} on {cell['mesh_kind']}"
+        if rec.get("error") or rec.get("skipped"):
+            fail(f"{tag}: {rec.get('error') or rec.get('skipped')}\n"
+                 f"{rec.get('trace', '')}")
+        kind = get_shape(shape_name).kind
+        want = {"train": MESH_TRAIN_KERNELS, "prefill": {"flash_attention_fwd"},
+                "decode": set()}[kind]
+        counted = rec["kernels"]["counted_pass"]
+        if set(counted["count"]) != want or counted["count"] != counted["wrappers"]:
+            fail(f"{tag}: counted launches {counted['count']} (the wrappers' "
+                 f"{counted['wrappers']}), expected kernels {sorted(want)}")
+        launched = {n: c for n, c in cell["launches"].items() if c}
+        passes = 1 + rec["measured"]["warmup"] + rec["measured"]["calls"]
+        if launched != {n: c * passes for n, c in counted["count"].items()}:
+            fail(f"{tag}: launched {launched}, not {passes} x the counted "
+                 f"pass {counted['count']}")
+        for n, routes in cell["launches_by_route"].items():
+            if any(c for r, c in routes.items() if r != "wgmma"):
+                fail(f"{tag}: {n} routes {routes}, not all wgmma (bf16)")
+            mesh_launches[n] += cell["launches"][n]
+            for r, c in routes.items():
+                mesh_routes[n][r] = mesh_routes[n].get(r, 0) + c
+        # local heads: B_part x num_heads / the model axis' size (tp), or
+        # the whole heads (fsdp_only)
+        cfg = get_config(arch)
+        pol = rec["policy"]
+        heads = cfg.num_heads // (16 if pol["head_sharded"] else 1)
+        bh = rec["measured"]["part_sequences"] * heads
+        S = get_shape(shape_name).seq_len
+        for n, shapes_seen in cell["kernel_shapes"].items():
+            if shapes_seen != [[bh, S, cfg.head_dim]]:
+                fail(f"{tag}: {n} launched at {shapes_seen}, not the local "
+                     f"({bh}, {S}, {cfg.head_dim})")
+        r, m = rec["roofline"], rec["measured"]
+        numbers = [v for v in r.values() if isinstance(v, (int, float))]
+        numbers += [v for v in m.values() if isinstance(v, (int, float))]
+        if not all(np.isfinite(numbers)) or r["collective_bytes_per_chip"] <= 0:
+            fail(f"{tag}: non-finite figures or no collectives in the record")
+        anchor_path = os.path.join(root, "benchmarks", "artifacts", "dryrun",
+                                   ANCHOR_DIRS[cell["mesh_kind"]],
+                                   f"{arch}__{shape_name}.json")
+        anchor = None
+        if os.path.exists(anchor_path):
+            with open(anchor_path) as f:
+                anchor = json.load(f)["roofline"]
+        row = {
+            "arch": arch, "shape": shape_name, "mesh": rec["mesh"],
+            "n_devices": rec["n_devices"], "profile": pol["profile"],
+            "k": m["k"], "part_sequences": m["part_sequences"],
+            "part_ms": [m["part_ms_median"], m["part_ms_min"], m["part_ms_max"]],
+            "update_ms": m["update_ms"], "step_ms": m["step_ms"],
+            "counted_tflop_per_device": r["hlo_flops_per_chip"] / 1e12,
+            "hbm_gb_per_device": r["hlo_bytes_per_chip"] / 1e9,
+            "collective_gb_per_device": r["collective_bytes_per_chip"] / 1e9,
+            "collective_gb_by_op": {k: v / 1e9 for k, v in
+                                    rec["collectives"]["bytes_by_op"].items()},
+            "collective_count_by_op": rec["collectives"]["count_by_op"],
+            "flash_launches_by_route": {n: rs for n, rs in
+                                        cell["launches_by_route"].items()
+                                        if any(rs.values())},
+            "flash_local_shapes": cell["kernel_shapes"],
+            "peak_device_bytes": m["peak_device_bytes"],
+            "grad_compression": rec.get("grad_compression"),
+            "reference_flops_per_chip": anchor and anchor["hlo_flops_per_chip"],
+            "flops_ratio_to_reference": anchor and (
+                r["hlo_flops_per_chip"] / anchor["hlo_flops_per_chip"]),
+            "reference_collective_gb_per_chip": (
+                anchor.get("collective_bytes_per_chip", 0) / 1e9
+                if anchor and "collective_bytes_per_chip" in anchor else None),
+            "count_s": rec["count_s"], "seconds": cell["seconds"]}
+        emit("mesh_cell", **row)
+        mesh_rows.append(row)
+    for n in routed:
+        if n in MESH_TRAIN_KERNELS | {"flash_attention_fwd"} and not mesh_launches[n]:
+            fail(f"mesh: {n} was launched no time on the mesh path")
+    shutil.rmtree(mesh_dir, ignore_errors=True)
+    # B1 / B3 / B4 at the local shapes the mesh gave them, against their
+    # plain versions: llama3-8b's 2 of 32 heads a device (prefill rows 2,
+    # training parts of 2 sequences), gpt2-124m's whole 12 heads of 8
+    # sequences
+    mesh_flash = [flash_case(4, 32768, 128, "bfloat16", True)]
+    mesh_flash_train = [dict(flash_train_case(bh, 4096, hd, "bfloat16", True),
+                             arch=arch)
+                        for arch, bh, hd in (("llama3-8b", 4, 128),
+                                             ("gpt2-124m", 96, 64))]
+    emit("mesh", card=card_line, cells=len(mesh_rows),
+         seconds=time.time() - t_mesh, launches=mesh_launches,
+         launches_by_route=mesh_routes,
+         note="one device's shard under a fake world: collectives counted "
+              "by the bytes each device's would move, not run; FLOP ratios "
+              "to the reference's committed anchors are printed, not gated "
+              "(an eager count against compiled HLO)",
+         kernels_at_local_shapes={
+             "flash_attention_fwd": [{k: c[k] for k in (
+                 "shape", "dtype", "route", "max_abs_err", "rel_err", "tol",
+                 "ms", "cold_ms", "plain_ms", "bound_ms", "bound_by",
+                 "library_ms")} for c in mesh_flash],
+             "flash_attention_train": mesh_flash_train})
+
     # ------------------------------------------------------------- summary
     def train_summary(c, key, errs, lib):
         """One kernel's figures from a flash_train_case row."""
@@ -3623,7 +3819,7 @@ def main() -> None:
         "launches": main_path_launches["flash_attention_fwd"],
         "launches_by_route": main_path_routes["flash_attention_fwd"],
         "shape": head["shape"], "dtype": head["dtype"],
-        "max_abs_err": max(c["max_abs_err"] for c in cases),
+        "max_abs_err": max(c["max_abs_err"] for c in cases + mesh_flash),
         "ms": head["ms"], "cold_ms": head["cold_ms"], "plain_ms": head["plain_ms"],
         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
         "library_ms": head["library_ms"],
@@ -3641,6 +3837,12 @@ def main() -> None:
             command_r_routes["flash_attention_fwd"],
         "launches_moe_full": moe_full_launches["flash_attention_fwd"],
         "launches_by_route_moe_full": moe_full_routes["flash_attention_fwd"],
+        "launches_mesh": mesh_launches["flash_attention_fwd"],
+        "launches_by_route_mesh": mesh_routes["flash_attention_fwd"],
+        "mesh_local": [{k: c[k] for k in (
+            "shape", "dtype", "route", "max_abs_err", "rel_err", "tol", "ms",
+            "cold_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+            for c in mesh_flash],
         "dryrun_prefill_32k": {k: long_flash_case[k] for k in (
             "shape", "dtype", "route", "max_abs_err", "rel_err", "tol", "ms",
             "cold_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
@@ -3689,7 +3891,8 @@ def main() -> None:
            else {}),
         "shape": train_cases[0]["shape"], "dtype": train_cases[0]["dtype"],
         "max_abs_err": max(c["errors"][e]["max_abs_err"]
-                           for c in train_cases for e in errs),
+                           for c in train_cases + mesh_flash_train
+                           for e in errs),
         "ms": train_cases[0][f"{key}_ms"],
         "cold_ms": train_cases[0][f"{key}_cold_ms"],
         "plain_ms": train_cases[0][f"{key}_plain_ms"],
@@ -3706,6 +3909,10 @@ def main() -> None:
         "train_phi3": train_summary(phi3_train_case, key, errs, lib),
         "dryrun_train_4k": [dict(train_summary(c, key, errs, lib), arch=c["arch"])
                             for c in path_flash],
+        "launches_mesh": mesh_launches[name],
+        "launches_by_route_mesh": mesh_routes[name],
+        "mesh_local": [dict(train_summary(c, key, errs, lib), arch=c["arch"])
+                       for c in mesh_flash_train],
     } for name, source, replaces, key, errs, lib in (
         ("flash_attention_fwd_stats",
          "src/repro_torch/kernels/csrc/flash_attention_fwd.cu",

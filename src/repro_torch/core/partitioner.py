@@ -39,6 +39,16 @@ class SliceAllocation:
         r, c = self.origin
         return (r, c, r + self.profile.rows, c + self.profile.cols)
 
+    def mesh(self, axis_names: Tuple[str, str] = ("data", "model"), *,
+             device_type: str = "cuda"):
+        """A ``DeviceMesh`` over this slice's rectangle (rows x cols ranks
+        of the caller's process group, one device each), the reference's
+        ``Mesh(self.devices, axis_names)``."""
+        from repro_torch.launch.mesh import make_slice_mesh
+        assert self.devices is not None, "logical allocation has no devices"
+        return make_slice_mesh((self.profile.rows, self.profile.cols),
+                               axis_names, device_type=device_type)
+
     def device(self) -> torch.device:
         """The device this slice's tenant computes on: the first of its
         rectangle (one GPU holds every slice of the modelled pod)."""

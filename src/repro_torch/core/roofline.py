@@ -189,8 +189,13 @@ def analyze(cost, n_chips: int, model_flops: float, *,
     accepted for the reference's signature and ignored: an eager step runs
     every pass of its loops, so the count needs no trip-count correction
     and no computation is scaled. ``xla_cost_analysis`` stays None (no XLA
-    module exists)."""
+    module exists). ``n_chips`` may be the ``DeviceMesh`` the step ran on
+    (its size); ``cost`` is then one device's count, its collective bytes
+    that device's (``core.step_analysis``'s per-chip convention), which the
+    collective term divides by the modelled link."""
     del loop_trip_count
+    if hasattr(n_chips, "mesh_dim_names"):
+        n_chips = n_chips.size()
     flops = float(cost.flops)
     nbytes = float(cost.bytes_accessed)
     coll_bytes = float(cost.total_collective_bytes)

@@ -22,7 +22,15 @@ ops' ``op_name`` metadata. The port runs eager, so ``count_step(fn, *args,
   only, and a copy reads its source and writes its destination.
 * A copy between the host and the card goes to ``host_bytes``, not to HBM.
 * ``c10d`` ops count as collectives, under the reference's five names, by
-  the bytes they write.
+  the bytes they write: the reference's per-chip convention (an HLO
+  collective's result bytes), so an all-gather counts the gathered tensor,
+  a reduce-scatter the shard it leaves, an all-reduce the whole tensor.
+  The functional collectives ``DTensor`` issues on a mesh
+  (``_c10d_functional.all_gather_into_tensor``, ``reduce_scatter_tensor``,
+  ``all_reduce``) count the same way.
+* On a mesh an op may reach the counter with ``DTensor`` operands (a
+  parameter's layer slice, the accumulation of its gradient): it is counted
+  at the local shards' sizes, the work of this rank.
 * A **site** is the innermost frame under ``src/repro_torch/``
   (``models/attention.py:NNN attention_core``), the counterpart of HLO
   ``op_name`` metadata; an op of autograd's own backward formulas is named
@@ -47,7 +55,7 @@ from typing import Dict, List, Tuple
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
-from torch.utils._pytree import tree_leaves
+from torch.utils._pytree import tree_leaves, tree_map
 from torch.utils.flop_counter import flop_registry
 
 from repro_torch.kernels import _counter
@@ -77,6 +85,9 @@ _WRITES_ONLY = {"fill_", "zero_", "normal_", "uniform_", "random_",
                 "bernoulli_", "exponential_"}
 _COPIES = {"copy_", "_to_copy", "_copy_from", "_copy_from_and_resize"}
 _C10D = {"allreduce_": "all-reduce", "all_reduce": "all-reduce",
+         "all_reduce_coalesced": "all-reduce",
+         "all_gather_into_tensor_coalesced": "all-gather",
+         "reduce_scatter_tensor_coalesced": "reduce-scatter",
          "all_reduce_": "all-reduce", "allreduce_coalesced_": "all-reduce",
          "allgather_": "all-gather", "_allgather_base_": "all-gather",
          "allgather_into_tensor_coalesced_": "all-gather",
@@ -189,6 +200,11 @@ class StepCost:
                                        other.top_collective_sites))
 
 
+def _local_of(x):
+    """A ``DTensor``'s local shard; anything else as it is."""
+    return getattr(x, "_local_tensor", x) if isinstance(x, torch.Tensor) else x
+
+
 def _tensors(tree) -> List[torch.Tensor]:
     return [x for x in tree_leaves(tree) if isinstance(x, torch.Tensor)]
 
@@ -237,6 +253,9 @@ class _Counter(TorchDispatchMode):
         return out
 
     def _account(self, func, args, kwargs, out) -> None:
+        if any(type(t) is not torch.Tensor and hasattr(t, "_local_tensor")
+               for t in tree_leaves((args, kwargs, out))):
+            args, kwargs, out = tree_map(_local_of, (args, kwargs, out))
         name = func._overloadpacket.__name__
         if func.namespace in ("c10d", "_c10d_functional", "c10d_functional"):
             kind = _C10D.get(name)

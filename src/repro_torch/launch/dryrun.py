@@ -4,8 +4,10 @@ reads.
 
 The counterpart of the reference's ``launch/dryrun.py``, which lowers and
 compiles each cell on 256- and 512-chip meshes and reads the compiled HLO.
-The port has one card and no compiler, so it **runs** one step of the cell
-instead:
+The port has no compiler, so it **runs** one step of the cell instead, on
+one card (``--mesh single``) or, for the reference's meshes, as one
+device's shard of it (``--mesh pod``: 16 x 16, the reference's ``single``;
+``--mesh multi``: 2 x 16 x 16; ``--mesh both``: the two). On one card:
 
 * The global batch runs as ``k`` identical parts: gradient accumulation for
   ``train_*`` (``TrainStepConfig(microbatches)``), row splits for prefill and
@@ -46,15 +48,31 @@ sequence runs past a learned position table (gpt2-124m at ``train_4k``).
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch gpt2-124m \\
         --shape train_4k --reduced --device cpu --out /tmp/dryrun
 
-``--mesh multi`` (and ``both``) has no single-card counterpart and exits
-non-zero.
+On a mesh (``measure_mesh_cell``) the cell runs as rank 0 of a fake process
+group of 256 or 512 ranks (``launch.mesh.fake_world``): the model is built on
+the mesh and holds rank 0's shards only, the training step splits the local
+batch by the reference's ``_auto_microbatches`` and counts one part, and
+each collective is counted by the bytes a device's would move but not run,
+so the loss is not checked. Records go to ``<out>/pod/`` and
+``<out>/multi/`` with ``mesh`` "16x16" / "2x16x16", ``n_devices`` and
+``roofline.n_chips`` the mesh's size, per-device FLOPs, bytes and collective
+bytes, and a ``note`` saying the collectives were counted, not run. A cell
+whose policy needs a part not yet ported on a mesh (sequence-parallel
+attention, expert parallelism, SSM heads, enc-dec and VLM) is an ``error``
+record naming its ROADMAP item.
+
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --arch gpt2-124m \
+        --shape train_4k --mesh multi --reduced --device cpu --out /tmp/dryrun
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import functools
 import gc
 import json
+import logging
+import math
 import os
 import statistics
 import subprocess
@@ -75,9 +93,12 @@ from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import grouped_matmul as gmm
 from repro_torch.kernels import ssd_scan as ssd
 from repro_torch.kernels import stream_matmul as sm
-from repro_torch.models.common import resolve_device, tree_leaves
+from repro_torch.launch.mesh import (MULTI_POD_SHAPE, POD_SHAPE, fake_world,
+                                     make_production_mesh)
+from repro_torch.models import transformer as tfm
+from repro_torch.models.common import local, resolve_device, tree_leaves
 from repro_torch.models.model_zoo import build_model
-from repro_torch.optim import adamw
+from repro_torch.optim import adamw, compression
 from repro_torch.train.train_step import _accumulate_grads
 
 # ``build/`` is git-ignored; the reference's committed anchors live under
@@ -89,6 +110,13 @@ WARMUP, ITERS = 1, 3
 PART_SHARE = 0.6
 # NVIDIA H100 SXM5 datasheet: dense BF16 tensor-core peak
 H100_BF16_PEAK_FLOPS = 989e12
+
+# the production meshes by the port's names: "pod" is the reference's
+# "single" (16 x 16), "multi" the same (2 x 16 x 16); the port's "single" is
+# one card
+MESHES = {"pod": POD_SHAPE, "multi": MULTI_POD_SHAPE}
+MESH_KINDS = {"single": ["single"], "pod": ["pod"], "multi": ["multi"],
+              "both": ["pod", "multi"]}
 
 WRAPPERS = {"flash_attention_fwd": fa.flash_attention_fwd,
             "flash_attention_fwd_stats": fa.flash_attention_fwd_stats,
@@ -235,15 +263,57 @@ def _sites(sites, n):
             for s in sites[:n]]
 
 
+def _auto_microbatches(model, shape: ShapeSuite, mesh,
+                       budget_bytes: float = 3 * GiB) -> int:
+    """The reference's split of a mesh cell's batch, so that per-device
+    layer-boundary activations fit: saved activations ~ L x B_local x S x D
+    x 2 bytes (bf16, replicated over the model axis), with family factors
+    for the extra live state of MoE capacity buffers and SSD intra-chunk
+    tensors. Grows in powers of two while the local batch stays
+    divisible."""
+    cfg = model.cfg
+    axes = dict(zip(mesh.mesh_dim_names, mesh.shape))
+    data_shards = axes.get("data", 1) * axes.get("pod", 1)
+    if model.pol.profile == "fsdp_only":  # the batch on the joint axes
+        data_shards *= axes.get("model", 1)
+    b_local = max(1, shape.global_batch // data_shards)
+    factor = {"moe": 2.0, "ssm": 3.0, "hybrid": 3.0}.get(cfg.family, 1.0)
+    act = cfg.num_layers * b_local * shape.seq_len * cfg.d_model * 2 * factor
+    mb = 1
+    while act / mb > budget_bytes and b_local % (2 * mb) == 0:
+        mb *= 2
+    return mb
+
+
+def _local_bytes(tree) -> int:
+    return sum(local(x).numel() * local(x).element_size()
+               for x in tree_leaves(tree))
+
+
+def _first_part(batch, k: int):
+    """The first of ``k`` microbatches of each rank's local batch."""
+    if k == 1:
+        return batch
+    from repro_torch.train.train_step import _split_local
+    return {n: _split_local(x, 1 if n == "positions" else 0, k)[0]
+            for n, x in batch.items()}
+
+
 def measure_cell(arch: str, shape_name: str, *, device="cuda",
                  reduced: bool = False, remat: Optional[str] = None,
                  overrides: Optional[Dict] = None,
                  budget_bytes: Optional[int] = None,
-                 iters: int = ITERS) -> Dict:
+                 iters: int = ITERS, mesh: str = "single") -> Dict:
     """Run, count and time one cell; returns its record. ``budget_bytes``:
     the device memory the resident state must fit (default: the card's
     total; none on the CPU). ``iters``: the timed calls, fewer only to keep
-    the CPU tests short. Weights and batch come from seed 0."""
+    the CPU tests short. Weights and batch come from seed 0. ``mesh``:
+    ``"single"`` (one card) or a production mesh (``MESHES``), run as rank
+    0's shard under a fake world (``measure_mesh_cell``)."""
+    if mesh != "single":
+        return measure_mesh_cell(arch, shape_name, mesh, device=device,
+                                 reduced=reduced, remat=remat,
+                                 overrides=overrides, iters=iters)
     device = resolve_device(device)
     shape = get_shape(shape_name)
     overrides = dict(overrides or {})
@@ -296,7 +366,128 @@ def measure_cell(arch: str, shape_name: str, *, device="cuda",
                                   device=device)
         part_fn = lambda: model.decode(params, cache, batch)
     rec["setup_s"] = round(time.time() - t0, 3)
+    update = None
+    if run_shape.kind == TRAIN:
+        opt_cfg = adamw.AdamWConfig()
+        update = lambda grads: adamw.update(opt_cfg, grads, opt, params)
+    _measure(rec, model, run_shape, part_fn, update, k, device, iters,
+             n_chips=1, part_sequences=part.global_batch,
+             part_estimate_bytes=per_seq * part.global_batch)
+    return rec
 
+
+class _OnceAWorld(logging.Filter):
+    """DTensor warns, once per redistribution, that a change on several
+    mesh axes at once (a dim split over ("data", "model"), a sum over every
+    axis) takes one collective an axis: the counted collectives say so
+    already."""
+
+    def filter(self, record):
+        return "sequential all_" not in record.getMessage()
+
+
+def measure_mesh_cell(arch: str, shape_name: str, mesh_kind: str, *,
+                      device="cuda", reduced: bool = False,
+                      remat: Optional[str] = None,
+                      overrides: Optional[Dict] = None,
+                      iters: int = ITERS) -> Dict:
+    """One device's shard of a cell on a production mesh (``"pod"``: the
+    reference's 16 x 16 ``single``; ``"multi"``: 2 x 16 x 16), run on this
+    device as rank 0 of a fake world of the mesh's size
+    (``launch.mesh.fake_world``): the model built on the mesh, parameters,
+    batch and cache drawn as rank 0's local shards, the step counted and
+    timed. Collectives are counted by the bytes each device's would move,
+    not performed, so the values (the loss among them) are undefined. A
+    training cell splits the local batch into the reference's
+    ``_auto_microbatches`` parts (``--set microbatches=N`` forces it) and
+    counts one; ``grad_compression`` syncs over "pod" after the parts, as
+    the reference's step. A cell whose policy needs a part the mesh does
+    not run yet raises, naming its ROADMAP item."""
+    device = resolve_device(device)
+    shape = get_shape(shape_name)
+    overrides = dict(overrides or {})
+    forced_k = overrides.pop("microbatches", None)
+    grad_compression = bool(overrides.pop("grad_compression", False))
+    run_shape = reduced_shape(shape) if reduced else shape
+    cfg = cell_config(arch, run_shape, reduced=reduced, remat=remat,
+                      overrides=overrides)
+    ok, reason = applicable(cfg, shape)
+    if not ok:
+        return {"arch": arch, "shape": shape_name, "skipped": reason}
+    multi = mesh_kind == "multi"
+    logging.getLogger("torch.distributed.tensor._redistribute").addFilter(
+        _OnceAWorld())
+    with fake_world(math.prod(MESHES[mesh_kind])):
+        dmesh = make_production_mesh(multi_pod=multi, device_type=device.type)
+        model = build_model(cfg, dmesh)
+        tfm.require_on_mesh(cfg, model.pol)
+        rec = {"arch": arch, "shape": shape_name,
+               "mesh": "x".join(map(str, dmesh.shape)),
+               "n_devices": dmesh.size(), "device": device.type,
+               "reduced": reduced, "seq_len": run_shape.seq_len,
+               "global_batch": run_shape.global_batch,
+               "attn_impl": cfg.attn_impl, "remat": cfg.remat,
+               "param_dtype": cfg.param_dtype,
+               "policy": dataclasses.asdict(model.pol),
+               "note": (f"rank 0's shard of the step on the "
+                        f"{'x'.join(map(str, dmesh.shape))} mesh, run on one "
+                        f"device under a fake process group of "
+                        f"{dmesh.size()} ranks: collectives were counted by "
+                        f"the bytes each device's would move, not run, so "
+                        f"every value they feed is undefined")}
+        t0 = time.time()
+        gen = torch.Generator(device=device).manual_seed(0)
+        params, _ = model.init(gen)
+        batch = model.synthetic_batch(run_shape, gen)
+        k, update = 1, None
+        if run_shape.kind == TRAIN:
+            k = int(forced_k) if forced_k else _auto_microbatches(
+                model, run_shape, dmesh)
+            b_local = local(batch["tokens"]).shape[0]
+            if b_local % k:
+                raise ValueError(f"local batch {b_local} does not split into "
+                                 f"{k} parts")
+            part_batch = _first_part(batch, k)
+            opt = adamw.init(params)
+            opt_cfg = adamw.AdamWConfig()
+            part_fn = lambda: _accumulate_grads(model, params, part_batch, 1)
+            err = (compression.init_error_feedback(params)
+                   if grad_compression and multi else None)
+
+            def update(grads):
+                if err is not None:
+                    grads, _ = compression.cross_pod_sync(grads, err, dmesh,
+                                                          compress=True)
+                return adamw.update(opt_cfg, grads, opt, params)
+            rec["grad_compression"] = (
+                "int8 + error feedback over the pod axis, after the "
+                "gradients' reduction over it (the reference's build)"
+                if err is not None else ("no pod axis: the plain step"
+                                         if grad_compression else None))
+            rec["loss_note"] = ("not checked: a fake world's collectives "
+                                "leave their outputs undefined")
+        elif run_shape.kind == PREFILL:
+            part_fn = lambda: model.forward(params, batch, return_cache=True,
+                                            last_token_only=True)
+        else:
+            cache = model.init_cache(run_shape.global_batch, run_shape.seq_len)
+            local(batch["pos"]).fill_(run_shape.seq_len - 1)
+            part_fn = lambda: model.decode(params, cache, batch)
+        rec["resident_bytes"] = {"params_local": _local_bytes(params)}
+        rec["setup_s"] = round(time.time() - t0, 3)
+        _measure(rec, model, run_shape, part_fn, update, k, device, iters,
+                 n_chips=dmesh.size(),
+                 part_sequences=local(batch["tokens"]).shape[0] // k,
+                 part_estimate_bytes=None)
+    return rec
+
+
+def _measure(rec: Dict, model, run_shape: ShapeSuite, part_fn, update, k: int,
+             device: torch.device, iters: int, *, n_chips: int,
+             part_sequences: int, part_estimate_bytes) -> None:
+    """Counts and times ``part_fn`` (and ``update`` of its gradients for a
+    training cell) and fills ``rec`` with the step of ``k`` parts."""
+    cfg = model.cfg
     if device.type == "cuda":
         torch.cuda.synchronize(device)
         torch.cuda.reset_peak_memory_stats(device)
@@ -308,28 +499,27 @@ def measure_cell(arch: str, shape_name: str, *, device="cuda",
                         if w.launches != before[n]}
     cost = part_cost.scaled(k)
     update_ms = None
-    if run_shape.kind == TRAIN:
-        rec["loss"] = float(out[0])
-        if cfg.learned_pos and run_shape.seq_len > cfg.max_position:
-            rec["loss_note"] = (
-                f"NaN by design: positions past the {cfg.max_position} learned "
-                f"ones read NaN rows, as the reference's jnp.take; the step's "
-                f"times are not a trained step's")
+    if update is not None:
+        if "loss_note" not in rec:
+            rec["loss"] = float(out[0])
+            if cfg.learned_pos and run_shape.seq_len > cfg.max_position:
+                rec["loss_note"] = (
+                    f"NaN by design: positions past the {cfg.max_position} "
+                    f"learned ones read NaN rows, as the reference's "
+                    f"jnp.take; the step's times are not a trained step's")
         grads = out[1]
-        opt_cfg = adamw.AdamWConfig()
-        _, update_cost = count_step(adamw.update, opt_cfg, grads, opt, params)
+        _, update_cost = count_step(update, grads)
         cost = cost + update_cost
-        update_ms = _time_ms(lambda: adamw.update(opt_cfg, grads, opt, params),
-                             device, iters)
+        update_ms = _time_ms(lambda: update(grads), device, iters)
         del grads
     del out
     part_ms = _time_ms(part_fn, device, iters)
     peak = (torch.cuda.max_memory_allocated(device)
             if device.type == "cuda" else None)
 
-    terms = analyze(cost, 1, model_flops_for(cfg, run_shape),
+    terms = analyze(cost, n_chips, model_flops_for(cfg, run_shape),
                     loop_trip_count=cfg.num_layers,
-                    host_bytes_per_step=cost.host_bytes)
+                    host_bytes_per_step=cost.host_bytes * n_chips)
     rec["microbatches"] = k
     rec["roofline"] = terms.as_dict()
     rec["collectives"] = {"bytes_by_op": terms.collectives.bytes_by_op,
@@ -349,22 +539,25 @@ def measure_cell(arch: str, shape_name: str, *, device="cuda",
                          "routes": part_cost.kernel_launches_by_route,
                          "wrappers": wrapper_launches}}
     rec["ops"] = cost.ops
-    rec["memory"] = {"resident_gib": resident["total"] / GiB,
-                     "part_estimate_gib": per_seq * part.global_batch / GiB,
+    resident = rec.get("resident_bytes", {})
+    rec["memory"] = {"resident_gib": resident.get(
+                         "total", resident.get("params_local", 0)) / GiB,
+                     "part_estimate_gib": (None if part_estimate_bytes is None
+                                           else part_estimate_bytes / GiB),
                      "per_device_gib": (peak / GiB if peak is not None
                                         else None)}
     part_med = statistics.median(part_ms)
     upd = statistics.median(update_ms) if update_ms else 0.0
     step_ms = k * part_med + upd
-    tokens = run_shape.tokens_per_step
-    model_flops = model_flops_for(cfg, run_shape)
+    tokens = run_shape.tokens_per_step / n_chips
+    model_flops = model_flops_for(cfg, run_shape) / n_chips
     rec["measured"] = {
         "device": (torch.cuda.get_device_name(device)
                    if device.type == "cuda" else "cpu"),
         "card": card_line() if device.type == "cuda" else None,
         "timer": "CUDA events" if device.type == "cuda" else "host clock",
         "calls": iters, "warmup": WARMUP,
-        "part_sequences": part.global_batch, "k": k,
+        "part_sequences": part_sequences, "k": k,
         "part_ms_median": part_med, "part_ms_min": min(part_ms),
         "part_ms_max": max(part_ms),
         "update_ms": upd if update_ms else None,
@@ -376,8 +569,11 @@ def measure_cell(arch: str, shape_name: str, *, device="cuda",
         "mfu_peak_flops": H100_BF16_PEAK_FLOPS,
         "mfu_peak": "NVIDIA H100 SXM datasheet, dense BF16 tensor cores",
     }
+    if n_chips > 1:
+        rec["measured"]["per_device"] = (
+            "this device's shard: tokens_per_s and mfu are the global step's "
+            "divided by the mesh's devices")
     rec["ran"] = True
-    return rec
 
 
 def run_cell(arch: str, shape_name: str, out_dir: str, *,
@@ -389,7 +585,10 @@ def run_cell(arch: str, shape_name: str, out_dir: str, *,
         rec = measure_cell(arch, shape_name, remat=remat, overrides=overrides,
                            **kwargs)
     except Exception as e:  # noqa: BLE001 - report, don't crash the sweep
-        rec = {"arch": arch, "shape": shape_name, "mesh": "1",
+        mesh = kwargs.get("mesh", "single")
+        rec = {"arch": arch, "shape": shape_name,
+               "mesh": "x".join(map(str, MESHES[mesh])) if mesh in MESHES
+               else "1",
                "error": f"{type(e).__name__}: {e}",
                "trace": traceback.format_exc()[-2000:]}
     gc.collect()
@@ -445,7 +644,9 @@ def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--arch", default=None)
     ap.add_argument("--shape", default=None)
-    ap.add_argument("--mesh", default="single", choices=["single", "multi", "both"])
+    ap.add_argument("--mesh", default="single", choices=sorted(MESH_KINDS),
+                    help="single: one card; pod: 16x16 (the reference's "
+                         "single); multi: 2x16x16; both: pod and multi")
     ap.add_argument("--all", action="store_true",
                     help="sweep all assigned (arch x shape) cells")
     ap.add_argument("--include-paper-archs", action="store_true")
@@ -458,12 +659,6 @@ def main(argv=None) -> None:
     ap.add_argument("--reduced", action="store_true",
                     help="the reduced config and shape (CPU runs)")
     args = ap.parse_args(argv)
-    if args.mesh != "single":
-        print("dryrun: --mesh multi has no single-GPU counterpart: the port "
-              "runs each cell on one card (the reference's 512-chip mesh is "
-              "an XLA lowering, not a device this package drives)",
-              file=sys.stderr)
-        sys.exit(2)
     if args.all:
         archs = ALL_ARCHS if args.include_paper_archs else ASSIGNED_ARCHS
         cells = [(a, s.name) for a in archs for s in SHAPES]
@@ -471,15 +666,17 @@ def main(argv=None) -> None:
         if not (args.arch and args.shape):
             ap.error("--arch/--shape or --all")
         cells = [(args.arch, args.shape)]
-    out_dir = os.path.join(args.out, "single")
     overrides = parse_overrides(args.set)
     failures = 0
-    for arch, shape in cells:
-        rec = run_cell(arch, shape, out_dir, remat=args.remat,
-                       overrides=overrides or None, tag=args.tag,
-                       device=args.device, reduced=args.reduced)
-        print(summarize(rec), flush=True)
-        failures += 1 if rec.get("error") else 0
+    for mesh in MESH_KINDS[args.mesh]:
+        out_dir = os.path.join(args.out, mesh)
+        for arch, shape in cells:
+            rec = run_cell(arch, shape, out_dir, remat=args.remat,
+                           overrides=overrides or None, tag=args.tag,
+                           device=args.device, reduced=args.reduced,
+                           mesh=mesh)
+            print(summarize(rec), flush=True)
+            failures += 1 if rec.get("error") else 0
     sys.exit(1 if failures else 0)
 
 

@@ -13,6 +13,13 @@ the reference's values:
     ``repro_torch.kernels.ops.flash_attention`` (causal prefill). It has no
     backward, as in the reference, and raises under autograd.
 
+On a mesh each rank attends with its local query heads on its local
+tensors: the flash kernels launch at the local shape (``expand_kv``'s
+``group`` / ``head_offset`` pick the KV heads of the local query heads when
+the KV heads are whole on every rank), and ``decode_attention`` reads the
+rank's part of a sequence-split cache, the parts' softmax stats combined
+over the model axis (``model_group``).
+
 GQA is handled by gather-expanding K/V head-wise. ``cross_attention`` (the
 encoder-decoder's) is not causal, so like the encoder's self-attention it
 takes the eager flash whatever ``attn_impl`` says, as in the reference, whose
@@ -95,20 +102,33 @@ def kv_proj(cfg: ModelConfig, p, x, positions, *, prefix: str = "",
     return k, v
 
 
-def out_proj(cfg: ModelConfig, p, attn, *, prefix: str = ""):
+def out_proj(cfg: ModelConfig, p, attn, *, prefix: str = "",
+             bias: bool = True):
+    """``bias=False`` leaves ``bo`` out: on a mesh each model rank's product
+    is a partial sum, and the bias is added once after their all-reduce."""
     B, S = attn.shape[:2]
     out = weight_matmul(attn.reshape(B, S, -1), p[prefix + "wo"])
-    if cfg.use_bias:
+    if cfg.use_bias and bias:
         out = out + p[prefix + "bo"].to(attn.device, attn.dtype)
     return out
 
 
-def expand_kv(k, num_heads: int):
-    """Gather-expand GQA KV heads to ``num_heads``."""
+def expand_kv(k, num_heads: int, *, group: Optional[int] = None,
+              head_offset: int = 0):
+    """Gather-expand GQA KV heads to ``num_heads``: query head ``j`` reads
+    KV head ``j // group`` (``group`` = heads / KV heads by default).
+
+    On a mesh whose model axis does not divide the KV heads, the KV heads
+    stay whole on every rank (replicated) while the query heads are split:
+    local head ``j`` of model rank ``r`` is global head ``head_offset + j``
+    (``head_offset = r x local heads``), and reads global KV head
+    ``(head_offset + j) // group``, not the first local ones."""
     KV = k.shape[2]
-    if KV == num_heads:
-        return k
-    mapping = torch.arange(num_heads, device=k.device) // (num_heads // KV)
+    if group is None:
+        if KV == num_heads:
+            return k
+        group = num_heads // KV
+    mapping = (head_offset + torch.arange(num_heads, device=k.device)) // group
     return k[:, :, mapping, :]
 
 
@@ -174,7 +194,8 @@ def flash_attention(q, k, v, *, causal: bool, q_offset=0, kv_len=None,
     return out.permute(0, 2, 1, 3).to(q.dtype)               # (B,Sq,H,hd)
 
 
-def decode_attention(q, k, v, *, kv_len=None, scale: Optional[float] = None):
+def decode_attention(q, k, v, *, kv_len=None, scale: Optional[float] = None,
+                     k_offset: int = 0, model_group=None):
     """Single-pass attention for Sq == 1 over the whole cache.
 
     q: (B,Sq,H,hd); k, v: (B,Sk,KV,hd) with KV dividing H — GQA groups are
@@ -183,6 +204,14 @@ def decode_attention(q, k, v, *, kv_len=None, scale: Optional[float] = None):
     is bf16 (the pool's dtype): the scaled query is rounded to ``q.dtype``
     and the probabilities to ``v.dtype``, as the reference's mixed-precision
     products see them, and both products are taken in fp32.
+
+    On a mesh whose model axis splits the cache's sequence
+    (``model_group``), ``k`` and ``v`` are this rank's part, whose first
+    entry is global position ``k_offset`` (``kv_len`` counts global
+    positions), and ``q`` holds the heads of every rank: each rank takes its
+    softmax max and weighted sum over its positions and the ranks combine
+    them (all-reduce of the max, then of the rescaled sums), as the
+    reference's GSPMD reduces an S-sharded single-pass decode.
     """
     B, Sq, H, hd = q.shape
     Sk, KV = k.shape[1], k.shape[2]
@@ -192,10 +221,21 @@ def decode_attention(q, k, v, *, kv_len=None, scale: Optional[float] = None):
     qg = qs.float().reshape(B, Sq, KV, G, hd)
     s = torch.einsum("bqkgd,bskd->bkgqs", qg, k.float())     # (B,KV,G,Sq,Sk)
     if kv_len is not None:
-        mask = _kv_len_mask(kv_len, torch.arange(Sk, device=q.device))
+        mask = _kv_len_mask(kv_len,
+                            k_offset + torch.arange(Sk, device=q.device))
         s = s.masked_fill(~mask[:, :, None], float("-inf"))
-    p = torch.softmax(s, dim=-1).to(v.dtype)
-    out = torch.einsum("bkgqs,bskd->bqkgd", p.float(), v.float())
+    if model_group is None:
+        p = torch.softmax(s, dim=-1).to(v.dtype)
+        out = torch.einsum("bkgqs,bskd->bqkgd", p.float(), v.float())
+        return out.reshape(B, Sq, H, hd).to(q.dtype)
+    from torch.distributed import _functional_collectives as funcol
+    m = funcol.all_reduce(s.amax(dim=-1), "max", model_group)
+    m_safe = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+    p = torch.exp(s - m_safe[..., None])
+    l = funcol.all_reduce(p.sum(dim=-1), "sum", model_group)
+    acc = torch.einsum("bkgqs,bskd->bqkgd", p.to(v.dtype).float(), v.float())
+    acc = funcol.all_reduce(acc, "sum", model_group)
+    out = acc / l.permute(0, 3, 1, 2).clamp_min(1e-30)[..., None]
     return out.reshape(B, Sq, H, hd).to(q.dtype)
 
 
@@ -251,13 +291,15 @@ def flash_attention_cv(q, k, v, causal: bool, chunk: int, scale: float):
 
 
 def attention_core(cfg: ModelConfig, q, k, v, *, causal: bool, q_offset=0,
-                   kv_len=None):
+                   kv_len=None, kv_group: Optional[int] = None,
+                   head_offset: int = 0):
     """Dispatch on ``cfg.attn_impl``; GQA heads are expanded for the flash
-    paths and contracted in groups by ``decode_attention``."""
+    paths and contracted in groups by ``decode_attention``. ``kv_group`` and
+    ``head_offset``: ``expand_kv``'s, for local heads on a mesh."""
     if q.shape[1] == 1 and not causal:
         return decode_attention(q, k, v, kv_len=kv_len)
-    k = expand_kv(k, cfg.num_heads)
-    v = expand_kv(v, cfg.num_heads)
+    k = expand_kv(k, q.shape[2], group=kv_group, head_offset=head_offset)
+    v = expand_kv(v, q.shape[2], group=kv_group, head_offset=head_offset)
     if cfg.attn_impl == "pallas" and causal and q.shape[1] == k.shape[1]:
         if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                         or v.requires_grad):
@@ -297,18 +339,27 @@ def decode_self_attention(cfg: ModelConfig, p, x, cache_k, cache_v, cache_pos,
     """
     q = q_proj(cfg, p, x, positions, prefix=prefix)
     k_new, v_new = kv_proj(cfg, p, x, positions, prefix=prefix)
-    pos = torch.as_tensor(cache_pos, device=x.device).long()
+    attn = cache_attend(cfg, q, k_new, v_new, cache_k, cache_v, cache_pos)
+    return out_proj(cfg, p, attn, prefix=prefix), cache_k, cache_v
+
+
+def cache_attend(cfg: ModelConfig, q, k_new, v_new, cache_k, cache_v,
+                 cache_pos):
+    """Writes ``k_new`` / ``v_new`` into the cache **in place** at
+    ``cache_pos`` (a scalar, or a (B,) vector with Sq == 1) and attends
+    ``q`` over the cache's valid entries."""
+    Sq = q.shape[1]
+    pos = torch.as_tensor(cache_pos, device=q.device).long()
     if pos.dim() == 0:
-        idx = pos + torch.arange(x.shape[1], device=x.device)
+        idx = pos + torch.arange(Sq, device=q.device)
         cache_k.index_copy_(1, idx, k_new.to(cache_k.dtype))
         cache_v.index_copy_(1, idx, v_new.to(cache_v.dtype))
     else:  # per-row scatter (Sq == 1)
-        rows = torch.arange(cache_k.shape[0], device=x.device)
+        rows = torch.arange(cache_k.shape[0], device=q.device)
         cache_k[rows, pos] = k_new[:, 0].to(cache_k.dtype)
         cache_v[rows, pos] = v_new[:, 0].to(cache_v.dtype)
-    attn = attention_core(cfg, q, cache_k, cache_v, causal=False,
-                          kv_len=pos + x.shape[1])
-    return out_proj(cfg, p, attn, prefix=prefix), cache_k, cache_v
+    return attention_core(cfg, q, cache_k, cache_v, causal=False,
+                          kv_len=pos + Sq)
 
 
 def cross_attention(cfg: ModelConfig, p, x, enc_k, enc_v, *,

@@ -1,15 +1,38 @@
-"""Parameter construction and tree helpers.
+"""Sharding policy, axis environment, parameter construction and tree
+helpers: the counterpart of ``repro/models/common.py``.
 
-One device holds everything in the port, so of the reference's mesh machinery
-(``AxisEnv``, ``ShardingPolicy``, ``role_axis``) nothing is needed: an explicit
-``device`` takes the place of the mesh. ``ParamBuilder`` still keeps each
-parameter's dim roles beside its shape (the ``specs`` tree) as inert
-metadata for a later multi-device slice. Names, shapes, stacking and init
-scales are the reference's.
+Design (the reference's, DESIGN.md §5):
+  * mesh axes: ``("data", "model")`` for a pod, ``("pod", "data", "model")``
+    across pods. Parameters never shard over "pod"; the batch shards over
+    ("pod", "data").
+  * parameters are FSDP-sharded over "data" on their d_model-sized dim and
+    tensor-sharded over "model" on their heads / ffn / experts / vocab dim.
+    ZeRO-3: a layer's weights are gathered over "data" just before the layer
+    uses them and their gradients reduce-scattered back
+    (``gather_param``).
+  * archs whose head counts the model axis does not divide (starcoder2: 36,
+    whisper: 20) go sequence-parallel; the tiny archs (mamba2-130m,
+    gpt2-124m) take the "fsdp_only" profile, with the model axis a batch
+    axis or computing replicated.
+
+A spec is a tuple with one entry a tensor dim: None, an axis name, or a
+tuple of axis names, normalised as jax's ``PartitionSpec`` (a tuple of one
+name is that name), so that a spec tree compares equal, leaf by leaf, to the
+reference's. ``placements`` turns a spec into ``DTensor`` placements on a
+``DeviceMesh``.
+
+On one device (``AxisEnv`` without a mesh, the default) nothing is sharded:
+``ParamBuilder`` draws plain tensors on ``device`` and keeps each leaf's
+spec beside it. With a mesh (``AxisEnv.from_mesh``) each parameter is a
+``DTensor``; on a real process group the full tensor is drawn and
+distributed, so a sharded model holds the same values as an unsharded one of
+the same seed; on the dry run's fake world each rank draws only its own
+shard. Names, shapes, stacking and init scales are the reference's.
 """
 from __future__ import annotations
 
 import math
+from dataclasses import dataclass, field
 from typing import Any, Dict, Optional, Tuple
 
 import torch
@@ -42,11 +65,197 @@ def resolve_device(device) -> torch.device:
 
 
 # ---------------------------------------------------------------------------
+# specs
+# ---------------------------------------------------------------------------
+def pspec(*entries) -> Tuple:
+    """A partition spec as a tuple, normalised as jax's ``PartitionSpec``:
+    an axis tuple of one name becomes that name."""
+    return tuple(e[0] if isinstance(e, tuple) and len(e) == 1 else e
+                 for e in entries)
+
+
+def spec_axes(entry) -> Tuple[str, ...]:
+    """The mesh axes of one spec entry, outermost first."""
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+# ---------------------------------------------------------------------------
+# axis environment
+# ---------------------------------------------------------------------------
+@dataclass(frozen=True)
+class AxisEnv:
+    """Logical -> physical mesh-axis mapping for one mesh. ``mesh`` is the
+    ``DeviceMesh`` the model runs on, or None for specs alone (and for one
+    device)."""
+    mesh_axes: Tuple[str, ...]           # e.g. ("pod", "data", "model")
+    axis_sizes: Dict[str, int] = field(default_factory=dict)
+    mesh: Any = field(default=None, compare=False, repr=False)
+
+    @property
+    def fsdp(self) -> str:
+        return "data"
+
+    @property
+    def tp(self) -> str:
+        return "model"
+
+    @property
+    def has_pod(self) -> bool:
+        return "pod" in self.mesh_axes
+
+    def batch_axes(self, global_batch: int) -> Optional[Tuple[str, ...]]:
+        """Largest prefix of ("pod","data") that evenly divides the batch."""
+        axes: Tuple[str, ...] = ("pod", "data") if self.has_pod else ("data",)
+        size = math.prod(self.axis_sizes[a] for a in axes)
+        if global_batch % size == 0:
+            return axes
+        if "data" in axes and global_batch % self.axis_sizes["data"] == 0:
+            return ("data",)
+        return None  # replicate (e.g. long_500k batch=1)
+
+    def batch_axes_joint(self, global_batch: int) -> Optional[Tuple[str, ...]]:
+        """Largest divisible prefix of ("pod","data","model"), for the
+        fsdp_only profile, where the model axis carries no tensor
+        parallelism and would otherwise replicate every activation."""
+        base = ("pod", "data", "model") if self.has_pod else ("data", "model")
+        for end in range(len(base), 0, -1):
+            axes = base[:end]
+            size = math.prod(self.axis_sizes[a] for a in axes)
+            if global_batch % size == 0:
+                return axes
+        return None
+
+    def size(self, axis: str) -> int:
+        return self.axis_sizes[axis]
+
+    @property
+    def n_devices(self) -> int:
+        return math.prod(self.axis_sizes.values())
+
+    @property
+    def sharded(self) -> bool:
+        """True when the model runs on a mesh of more than one device."""
+        return self.mesh is not None and self.n_devices > 1
+
+    @staticmethod
+    def from_mesh(mesh) -> "AxisEnv":
+        names = tuple(mesh.mesh_dim_names)
+        return AxisEnv(names, {a: int(s) for a, s in zip(names, mesh.shape)},
+                       mesh)
+
+
+def host_axis_env(model_parallel: int = 1) -> AxisEnv:
+    """Single-host env for smoke tests (1 device)."""
+    return AxisEnv(("data", "model"), {"data": 1, "model": model_parallel})
+
+
+# ---------------------------------------------------------------------------
+# sharding policy
+# ---------------------------------------------------------------------------
+@dataclass(frozen=True)
+class ShardingPolicy:
+    profile: str            # "tp" | "fsdp_only"
+    head_sharded: bool      # q-heads divisible by model axis
+    kv_sharded: bool        # kv-heads divisible by model axis
+    vocab_sharded: bool
+    ffn_sharded: bool
+    experts_sharded: bool
+    ssm_sharded: bool       # ssm heads divisible
+    seq_parallel_attn: bool # used when heads are not shardable
+    seq_residuals: bool = False  # Megatron SP: S-sharded layer boundaries
+
+    @property
+    def seq_sharded_acts(self) -> bool:
+        return self.seq_parallel_attn or self.seq_residuals
+
+
+def make_policy(cfg: ModelConfig, env: AxisEnv) -> ShardingPolicy:
+    tp = env.size(env.tp)
+    if cfg.name in ("mamba2-130m", "gpt2-124m") and tp > 1:
+        profile = "fsdp_only"
+    else:
+        profile = "tp"
+    if profile == "fsdp_only" or tp == 1:
+        return ShardingPolicy(profile, False, False, False, False, False,
+                              False, False, False)
+    head_ok = cfg.num_heads > 0 and cfg.num_heads % tp == 0
+    kv_ok = cfg.num_kv_heads > 0 and cfg.num_kv_heads % tp == 0
+    vocab_ok = cfg.vocab_size % tp == 0
+    ffn_ok = cfg.d_ff > 0 and cfg.d_ff % tp == 0
+    exp_ok = cfg.num_experts > 0 and cfg.num_experts % tp == 0
+    ssm_ok = cfg.ssm_state > 0 and cfg.ssm_heads % tp == 0
+    seq_par = cfg.num_heads > 0 and not head_ok
+    if seq_par:
+        # sequence-parallel archs keep activations S-sharded over "model";
+        # weights stay data-FSDP only so every product is token-local
+        kv_ok = vocab_ok = ffn_ok = False
+    return ShardingPolicy(profile, head_ok, kv_ok, vocab_ok, ffn_ok, exp_ok,
+                          ssm_ok, seq_par,
+                          seq_residuals=cfg.seq_shard_residuals and not seq_par)
+
+
+def role_axis(role: str, pol: ShardingPolicy, env: AxisEnv):
+    """Mesh axis (or None) for a logical dim role."""
+    if pol.profile == "fsdp_only":
+        return (env.fsdp, env.tp) if role == "d_fsdp" else None
+    table = {
+        "d_fsdp": env.fsdp,
+        "vocab": env.tp if pol.vocab_sharded else None,
+        "qout": env.tp if pol.head_sharded else None,
+        "kvout": env.tp if pol.kv_sharded else None,
+        "ffn": env.tp if pol.ffn_sharded else None,
+        "experts": env.tp if pol.experts_sharded else None,
+        "ssm_inner": env.tp if pol.ssm_sharded else None,
+        "none": None,
+    }
+    return table[role]
+
+
+def spec_of(roles: Tuple[str, ...], pol: ShardingPolicy, env: AxisEnv) -> Tuple:
+    return pspec(*[role_axis(r, pol, env) for r in roles])
+
+
+def placements(spec: Tuple, env: AxisEnv) -> Tuple:
+    """``DTensor`` placements of ``spec`` on ``env``'s mesh: each mesh axis a
+    tensor dim is split over is ``Shard(dim)``, every other axis
+    ``Replicate()``. A dim split over several axes is split in mesh order,
+    outermost first, as the reference's axis tuples are."""
+    from torch.distributed.tensor import Replicate, Shard
+    out = [Replicate()] * len(env.mesh_axes)
+    for dim, entry in enumerate(spec):
+        for axis in spec_axes(entry):
+            out[env.mesh_axes.index(axis)] = Shard(dim)
+    return tuple(out)
+
+
+def is_dtensor(x) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(x, DTensor)
+
+
+def local(x):
+    """A ``DTensor``'s local shard (autograd-transparent); any other value
+    as it is."""
+    return x.to_local() if is_dtensor(x) else x
+
+
+# ---------------------------------------------------------------------------
 # parameter construction
 # ---------------------------------------------------------------------------
 class ParamBuilder:
-    """Builds parallel (params, specs) nested dicts. ``specs`` holds each
-    leaf's dim-role tuple as metadata; nothing is sharded.
+    """Builds parallel (params, specs) nested dicts: ``specs`` holds each
+    leaf's partition spec under ``pol`` and ``env`` (default: one device,
+    ``host_axis_env``).
+
+    ``env`` with a mesh (``env.sharded``) makes each leaf a ``DTensor`` with
+    the spec's placements. On a real process group the full tensor is drawn
+    by the same generator call as on one device and then distributed, so
+    the values are the unsharded build's. On the dry run's fake world
+    (``launch.mesh.fake_world``) each leaf is drawn as this rank's local
+    shard only: the full tensor is never made (llama3-8b's 16 GB would be
+    drawn for a 63 MB shard).
 
     ``placement`` (leaf path -> memory kind, as ``core.offload.
     param_placement`` gives it from an offload plan) draws each leaf
@@ -57,20 +266,28 @@ class ParamBuilder:
     generator calls, so the result is bit for bit an unplaced build moved
     by ``place_tree``, and the device holds at most the resident leaves and
     one host leaf in flight. On the CPU both tiers are one memory and the
-    placement changes nothing."""
+    placement changes nothing. A placement on a mesh raises: serving on a
+    mesh is not ported (ROADMAP A29)."""
 
     def __init__(self, cfg: ModelConfig, generator: Optional[torch.Generator],
                  device: torch.device, *, abstract: bool = False,
                  placement: Optional[Dict[str, str]] = None,
-                 prefix: str = ""):
+                 prefix: str = "", pol: Optional[ShardingPolicy] = None,
+                 env: Optional[AxisEnv] = None):
         self.cfg = cfg
         self.generator = generator
         self.device = torch.device("meta") if abstract else device
         self.abstract = abstract
         self.placement = placement
         self.prefix = prefix
+        self.env = env if env is not None else host_axis_env()
+        self.pol = pol if pol is not None else make_policy(cfg, self.env)
         self.params: Dict[str, Any] = {}
         self.specs: Dict[str, Any] = {}
+        if placement is not None and self.env.sharded and not abstract:
+            raise NotImplementedError(
+                "an offload placement on a mesh is serving on a mesh, which "
+                "is not ported (ROADMAP A29)")
 
     def _on_host(self, name: str) -> bool:
         if self.placement is None:
@@ -79,37 +296,142 @@ class ParamBuilder:
         kind = self.placement[self.prefix + name]
         return self.device.type == "cuda" and kind == PINNED_HOST_KIND
 
+    def _draw(self, shape, dtype, init: str, scale: float):
+        arr = torch.empty(shape, dtype=dtype, device=self.device)
+        if init in ("zeros", "ones"):
+            return arr.fill_(0 if init == "zeros" else 1)
+        return arr.normal_(0.0, scale, generator=self.generator)
+
+    def _sharded(self, shape, dtype, init: str, scale: float, spec):
+        from torch.distributed.tensor import distribute_tensor
+        from torch.distributed.tensor._utils import (
+            compute_local_shape_and_global_offset)
+        from repro_torch.launch.mesh import is_fake_world
+        mesh, pl = self.env.mesh, placements(spec, self.env)
+        if not is_fake_world():
+            return distribute_tensor(self._draw(shape, dtype, init, scale),
+                                     mesh, pl)
+        local_shape, _ = compute_local_shape_and_global_offset(shape, mesh, pl)
+        return shard_local(self._draw(local_shape, dtype, init, scale), shape,
+                           pl, mesh)
+
     def add(self, name: str, shape: Tuple[int, ...], roles: Tuple[str, ...],
             *, scale: Optional[float] = None, init: str = "normal"):
         assert len(shape) == len(roles), (name, shape, roles)
         dtype = to_dtype(self.cfg.param_dtype)
+        spec = spec_of(roles, self.pol, self.env)
+        if scale is None:
+            fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
+            scale = 1.0 / math.sqrt(max(fan_in, 1))
         host = not self.abstract and self._on_host(name)
-        if host:
-            from repro_torch.core.offload import empty_host, to_host
         if self.abstract:
             arr = torch.empty(shape, dtype=dtype, device="meta")
-        elif init in ("zeros", "ones"):
-            arr = (empty_host(shape, dtype, self.device) if host else
-                   torch.empty(shape, dtype=dtype, device=self.device))
+        elif self.env.sharded:
+            arr = self._sharded(shape, dtype, init, scale, spec)
+        elif host and init in ("zeros", "ones"):
+            from repro_torch.core.offload import empty_host
+            arr = empty_host(shape, dtype, self.device)
             arr.fill_(0 if init == "zeros" else 1)
         else:
-            if scale is None:
-                fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
-                scale = 1.0 / math.sqrt(max(fan_in, 1))
-            arr = torch.empty(shape, dtype=dtype, device=self.device)
-            arr.normal_(0.0, scale, generator=self.generator)
+            arr = self._draw(shape, dtype, init, scale)
             if host:
+                from repro_torch.core.offload import to_host
                 arr = to_host(arr, self.device)
         self.params[name] = arr
-        self.specs[name] = tuple(roles)
+        self.specs[name] = spec
 
     def child(self, name: str) -> "ParamBuilder":
         sub = ParamBuilder(self.cfg, self.generator, self.device,
                            abstract=self.abstract, placement=self.placement,
-                           prefix=f"{self.prefix}{name}/")
+                           prefix=f"{self.prefix}{name}/", pol=self.pol,
+                           env=self.env)
         self.params[name] = sub.params
         self.specs[name] = sub.specs
         return sub
+
+
+# ---------------------------------------------------------------------------
+# running on a mesh: ZeRO-3 gathers and the tensor-parallel region
+#
+# The model's activations are local tensors, each rank's shard. A parameter
+# (a DTensor) is gathered just before its layer uses it; the helpers below
+# move activations between layouts with DTensor's collectives, whose
+# backward is autograd's, so every gradient lands in its parameter's
+# placements.
+# ---------------------------------------------------------------------------
+def gather_param(w, env: AxisEnv, pol: ShardingPolicy, *, partial_axes=(),
+                 dtype: Optional[torch.dtype] = None):
+    """The local tensor a layer computes with, from parameter ``w``: every
+    mesh axis ``w`` is sharded over is all-gathered, except the model axis
+    of the "tp" profile, whose shard stays (tensor parallelism). ``dtype``
+    casts before the gather, so the gather moves the compute dtype.
+
+    In the backward the local gradient is declared ``Partial`` over
+    ``partial_axes`` (the axes whose ranks each hold a part of the sum: the
+    batch axes, and the model axis for a weight inside the
+    tensor-parallel region that each model rank uses on its own heads) and
+    ``Replicate`` over the rest; DTensor then reduce-scatters it back to
+    ``w``'s placements (ZeRO-3). A plain tensor (one device) is returned as
+    it is, cast."""
+    if not is_dtensor(w):
+        return w if dtype is None else w.to(dtype)
+    from torch.distributed.tensor import Partial, Replicate
+    if dtype is not None:
+        w = w.to(dtype)
+    target, grad = [], []
+    for axis, p in zip(env.mesh_axes, w.placements):
+        keep = p.is_shard() and axis == env.tp and pol.profile == "tp"
+        target.append(p if keep else Replicate())
+        if keep:
+            grad.append(p)
+        elif axis in partial_axes and env.size(axis) > 1:
+            grad.append(Partial())
+        else:
+            grad.append(Replicate())
+    return w.redistribute(env.mesh, tuple(target)).to_local(
+        grad_placements=tuple(grad))
+
+
+def _with_axis(pl, env: AxisEnv, axis: str, placement):
+    return tuple(placement if a == axis else p
+                 for a, p in zip(env.mesh_axes, pl))
+
+
+def tp_enter(x, env: AxisEnv, act_pl):
+    """Entry of the tensor-parallel region (Megatron's f): the identity
+    forward; the gradient, a part per model rank, is all-reduced over the
+    model axis. ``act_pl``: the activation's placements."""
+    from torch.distributed.tensor import DTensor, Partial
+    return DTensor.from_local(x, env.mesh, act_pl, run_check=False).to_local(
+        grad_placements=_with_axis(act_pl, env, env.tp, Partial()))
+
+
+def tp_exit(x, env: AxisEnv, act_pl):
+    """Exit of the tensor-parallel region (Megatron's g): the model ranks'
+    partial sums all-reduced over the model axis; the identity backward."""
+    from torch.distributed.tensor import DTensor, Partial
+    part = DTensor.from_local(x, env.mesh,
+                              _with_axis(act_pl, env, env.tp, Partial()),
+                              run_check=False)
+    return part.redistribute(env.mesh, act_pl).to_local()
+
+
+def shard_local(x, shape, pl, mesh):
+    """The ``DTensor`` of global ``shape`` laid out by placements ``pl`` on
+    ``mesh`` whose local shard on this rank is ``x`` (no communication)."""
+    from torch.distributed.tensor import DTensor
+    return DTensor.from_local(x, mesh, pl, run_check=False,
+                              shape=torch.Size(shape),
+                              stride=torch.empty(shape, device="meta").stride())
+
+
+def reshard(x, env: AxisEnv, src_pl, dst_pl):
+    """Local tensor ``x`` laid out by ``src_pl`` -> the local tensor of the
+    same global tensor laid out by ``dst_pl`` (DTensor's collectives; a
+    split of a replicated dim is a local slice whose backward gathers)."""
+    from torch.distributed.tensor import DTensor
+    d = DTensor.from_local(x, env.mesh, src_pl, run_check=False)
+    return d.redistribute(env.mesh, dst_pl).to_local()
 
 
 # ---------------------------------------------------------------------------

@@ -28,7 +28,8 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import layers as nn
-from repro_torch.models.common import ParamBuilder, cdtype, to_dtype
+from repro_torch.models.common import (AxisEnv, ParamBuilder, ShardingPolicy,
+                                       cdtype, pspec, to_dtype)
 from repro_torch.models.transformer import (_embed_input, _layer_params,
                                             remat_wrap)
 
@@ -37,15 +38,17 @@ PyTree = Any
 
 def init_encdec(cfg: ModelConfig, generator: Optional[torch.Generator],
                 device: torch.device, *, abstract: bool = False,
-                placement: Optional[Dict[str, str]] = None
+                placement: Optional[Dict[str, str]] = None,
+                pol: Optional[ShardingPolicy] = None,
+                env: Optional[AxisEnv] = None
                 ) -> Tuple[PyTree, PyTree]:
-    """(params, roles): the token table and unembedding, ``enc_pos_embed``
+    """(params, specs): the token table and unembedding, ``enc_pos_embed``
     (encoder_seq, d_model), and the ``encoder`` (stacked over
     ``encoder_layers``, plus the unstacked ``enc_final`` norm) and
     ``decoder`` (stacked over ``num_layers``, with ``cross_*`` attention)
     children."""
     b = ParamBuilder(cfg, generator, device, abstract=abstract,
-                     placement=placement)
+                     placement=placement, pol=pol, env=env)
     nn.init_embeddings(b)
     b.add("enc_pos_embed", (cfg.encoder_seq, cfg.d_model), ("none", "d_fsdp"),
           scale=0.02)
@@ -160,3 +163,15 @@ def init_cache_encdec(cfg: ModelConfig, batch: int, max_seq: int,
                             cfg.head_dim), dtype=dtype, device=device)
     return {"k": zeros(max_seq), "v": zeros(max_seq),
             "cross_k": zeros(cfg.encoder_seq), "cross_v": zeros(cfg.encoder_seq)}
+
+
+def cache_specs_encdec(cfg: ModelConfig, batch: int, env: AxisEnv,
+                       pol: ShardingPolicy) -> PyTree:
+    """The reference's specs of ``init_cache_encdec``'s tree: self-attention
+    K/V with the sequence on the model axis, the cross K/V whole over it
+    (1500 frames are not divisible by it). Specs only: enc-dec execution on
+    a mesh is ROADMAP A28."""
+    baxes = env.batch_axes(batch)
+    kv = pspec(None, baxes, env.tp, None, None)
+    cross = pspec(None, baxes, None, None, None)
+    return {"k": kv, "v": kv, "cross_k": cross, "cross_v": cross}

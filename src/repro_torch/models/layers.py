@@ -131,7 +131,9 @@ def _act(cfg: ModelConfig, x):
     return F.gelu(x, approximate="tanh") if cfg.act == "gelu" else F.silu(x)
 
 
-def apply_mlp(cfg: ModelConfig, p, x):
+def apply_mlp(cfg: ModelConfig, p, x, *, out_bias: bool = True):
+    """``out_bias=False`` leaves ``b_out`` out, for a mesh's partial sums
+    (added once after their all-reduce)."""
     h = weight_matmul(x, p["w_in"])
     if cfg.use_bias:
         h = h + p["b_in"].to(x.device, x.dtype)
@@ -143,7 +145,7 @@ def apply_mlp(cfg: ModelConfig, p, x):
     else:
         h = _act(cfg, h)
     out = weight_matmul(h, p["w_out"])
-    if cfg.use_bias:
+    if cfg.use_bias and out_bias:
         out = out + p["b_out"].to(x.device, x.dtype)
     return out
 
@@ -201,7 +203,26 @@ def embed_tokens(cfg: ModelConfig, p, tokens,
     return x
 
 
-def unembed(cfg: ModelConfig, p, x):
+def unembed(cfg: ModelConfig, p, x, seq_shard=None):
+    """Final norm, then the (tied or own) head. ``seq_shard`` (on a mesh,
+    when the vocab dim cannot be model-sharded): a function that splits the
+    normed activations' TOKEN dim over the model axis, as the reference's
+    ``with_sharding_constraint`` there; the loss is per token, so this is
+    communication-free and caps the (B, S, V) fp32 buffer at 1 / model-axis
+    per device."""
     x = apply_norm(cfg, p, "final_norm", x)
+    if seq_shard is not None and x.shape[-2] > 1:
+        x = seq_shard(x)
     w = p["tok_embed"].T if cfg.tie_embeddings else p["lm_head"]
     return weight_matmul(x, w)
+
+
+def softmax_xent(logits, labels) -> torch.Tensor:
+    """Mean token cross-entropy, fp32 inside. The reference contracts the
+    logits with a one-hot of the labels, a form that stays local when the
+    vocabulary is sharded; on one device a gather of the label's logit is the
+    same value without materialising the (B, S, V) one-hot."""
+    lf = logits.float()
+    lse = torch.logsumexp(lf, dim=-1)
+    ll = lf.gather(-1, labels.long()[..., None])[..., 0]
+    return (lse - ll).mean()

@@ -13,6 +13,18 @@ over precomputed input embeddings with three M-RoPE position streams; its
 ``positions`` are the rotary angles' and ``pos`` the cache index, and after
 an image the first is smaller than the second. The encoder-decoder family is
 ``models/encdec.py``.
+
+One layer body and one forward / decode loop serve one device and one
+rank's shard of a mesh: they call the hooks of a ``OneDevice`` (the
+identity: weights as stored, activations and cache as they are) or of a
+``MeshRun``. On a mesh the dense family runs as one rank's shard: the
+reference's sharding specs (``act_sharding``, ``unembed_spec``,
+``cache_specs_decoder_only``) lay out the activations and the cache,
+``constrain`` redistributes the residual stream to them at the reference's
+sites, each layer gathers its weights (ZeRO-3) inside its remat region, and
+the attention heads, the MLP width and the vocabulary are split over the
+model axis (Megatron's tensor parallelism). The other families on a mesh
+raise, naming their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -26,7 +38,11 @@ from repro_torch.models import attention as attn
 from repro_torch.models import layers as nn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
-from repro_torch.models.common import ParamBuilder, cdtype, to_dtype
+from repro_torch.models.common import (AxisEnv, ParamBuilder, ShardingPolicy,
+                                       cdtype, gather_param, is_dtensor,
+                                       local, placements, pspec, reshard,
+                                       shard_local, spec_axes, to_dtype,
+                                       tp_enter, tp_exit)
 
 PyTree = Any
 
@@ -89,11 +105,13 @@ def remat_wrap(cfg: ModelConfig, fn):
 # ---------------------------------------------------------------------------
 def init_decoder_only(cfg: ModelConfig, generator: Optional[torch.Generator],
                       device: torch.device, *, abstract: bool = False,
-                      placement: Optional[Dict[str, str]] = None
+                      placement: Optional[Dict[str, str]] = None,
+                      pol: Optional[ShardingPolicy] = None,
+                      env: Optional[AxisEnv] = None
                       ) -> Tuple[PyTree, PyTree]:
     _require_decoder_only(cfg)
     b = ParamBuilder(cfg, generator, device, abstract=abstract,
-                     placement=placement)
+                     placement=placement, pol=pol, env=env)
     nn.init_embeddings(b)
     lb = b.child("layers")
     if cfg.family in _ATTN_STACK:
@@ -119,23 +137,36 @@ def init_decoder_only(cfg: ModelConfig, generator: Optional[torch.Generator],
 # ---------------------------------------------------------------------------
 # layer body (shared by prefill / decode)
 # ---------------------------------------------------------------------------
-def _attn_mlp_layer(cfg: ModelConfig, lp, x, positions, cache=None,
-                    cache_pos=None):
-    """Standard pre-norm block. Returns (x, new_kv, aux): aux is the MoE
+def _plus_bias(cfg: ModelConfig, lp, name: str, y):
+    return y + lp[name].to(y.device, y.dtype) if cfg.use_bias else y
+
+
+def _attn_mlp_layer(run, lp, x, positions, cache=None, cache_pos=None):
+    """Standard pre-norm block in ``run.cfg`` (a mesh's: the local heads,
+    KV heads and MLP width). Returns (x, new_kv, aux): aux is the MoE
     load-balancing loss of a forward (None for a dense layer or a decode
-    step, whose aux nothing reads)."""
-    h = nn.apply_norm(cfg, lp, "norm1", x)
+    step, whose aux nothing reads). ``run.enter`` / ``run.exit`` bound the
+    tensor-parallel region (the identity on one device); the output biases
+    are added after ``exit``, once, not on every model rank's partial
+    sum."""
+    cfg = run.cfg
+    h = run.enter(nn.apply_norm(cfg, lp, "norm1", x))
+    q = attn.q_proj(cfg, lp, h, positions)
+    k, v = attn.kv_proj(cfg, lp, h, positions)
     if cache is None:
-        a, new_kv = attn.self_attention(cfg, lp, h, positions)
+        a = attn.attention_core(cfg, q, k, v, causal=True,
+                                kv_group=run.kv_group,
+                                head_offset=run.head_offset)
+        new_kv = (k, v)
     else:
-        ck, cv = cache
-        a, ck, cv = attn.decode_self_attention(cfg, lp, h, ck, cv, cache_pos,
-                                               positions)
-        new_kv = (ck, cv)
-    x = x + a
-    h = nn.apply_norm(cfg, lp, "norm2", x)
+        a = run.decode_attend(q, k, v, *cache, cache_pos)
+        new_kv = cache
+    a = run.exit(attn.out_proj(cfg, lp, a, bias=False))
+    x = x + _plus_bias(cfg, lp, "bo", a)
+    h = run.enter(nn.apply_norm(cfg, lp, "norm2", x))
     if cfg.family != MOE:
-        return x + nn.apply_mlp(cfg, lp, h), new_kv, None
+        f = run.exit(nn.apply_mlp(cfg, lp, h, out_bias=False))
+        return x + _plus_bias(cfg, lp, "b_out", f), new_kv, None
     out, probs, top_e = moe_mod.apply_moe(cfg, lp, h)
     aux = moe_mod.balance_loss(cfg, probs, top_e) if cache is None else None
     return x + out, new_kv, aux
@@ -191,8 +222,8 @@ def _ssm_stack(cfg: ModelConfig, params, x, positions, *, caches=None,
                 x, c = ssm_layer(i)(x)
                 cs.append(c)
             # the shared block is the dense layer body on unstacked weights
-            x, new_kv, _ = _attn_mlp_layer(cfg, params["shared"], x,
-                                           positions, kv, cache_pos)
+            x, new_kv, _ = _attn_mlp_layer(OneDevice(cfg), params["shared"],
+                                           x, positions, kv, cache_pos)
             return x, cs, new_kv
         return remat_wrap(cfg, body)
 
@@ -248,36 +279,46 @@ def _embed_input(cfg: ModelConfig, params, batch):
 
 def forward_decoder_only(cfg: ModelConfig, params, batch, *,
                          return_cache: bool = False,
-                         last_token_only: bool = False):
+                         last_token_only: bool = False, run=None,
+                         with_loss: bool = False):
     """Full-sequence forward. Returns (logits, aux_loss, cache_or_None);
     aux_loss is the MoE load-balancing loss summed over the layers (zero for
     the other families); the dense and MoE cache is ``{"k", "v"}`` of shape
     (L, B, S, KV, hd), the SSM and hybrid caches as ``_stacked_cache`` gives
     them. Differentiable for every family: serving calls it under
     ``torch.no_grad()`` (``Model.forward``), training with autograd on
-    (``Model.loss_fn``)."""
+    (``Model.loss_fn``). ``run``: a ``MeshRun`` for one rank's shard of a
+    mesh (logits and cache then ``DTensor``s); one device by default. With
+    ``with_loss`` (labels in the batch) the mean token cross-entropy, a 0-d
+    tensor, stands in the logits' place."""
     _require_decoder_only(cfg)
-    x, positions = _embed_input(cfg, params, batch)
+    run = run if run is not None else OneDevice(cfg)
+    x, positions = run.embed(params, batch)
+    x = run.constrain(x)
     cache = None
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.family in _ATTN_STACK:
         lp_all = params["layers"]
         ks, vs, auxs = [], [], []
         for i in range(cfg.num_layers):
-            lp = _layer_params(lp_all, i)
-
-            def body(x, lp=lp):
-                return _attn_mlp_layer(cfg, lp, x, positions)
+            # the weights are taken inside the remat region: on a mesh each
+            # layer's gathered weights are dropped after it and gathered
+            # again in the backward (ZeRO-3)
+            def body(x, i=i):
+                return _attn_mlp_layer(run, run.layer_params(lp_all, i), x,
+                                       positions)
             x, (k, v), layer_aux = remat_wrap(cfg, body)(x)
+            x = run.constrain(x)
             if layer_aux is not None:
                 auxs.append(layer_aux)
             if return_cache:
+                k, v = run.cache_kv(k, v)
                 ks.append(k)
                 vs.append(v)
         if auxs:
             aux = torch.stack(auxs).sum()
         if return_cache:
-            cache = {"k": torch.stack(ks), "v": torch.stack(vs)}
+            cache = run.stack_cache(ks, vs)
     else:
         x, ssm_caches, kvs = _ssm_stack(cfg, params, x, positions,
                                         return_cache=return_cache)
@@ -285,32 +326,37 @@ def forward_decoder_only(cfg: ModelConfig, params, batch, *,
             cache = _stacked_cache(cfg, ssm_caches, kvs)
     if last_token_only:
         x = x[:, -1:, :]  # prefill: only the next-token logits are needed
-    logits = nn.unembed(cfg, params, x)
-    return logits, aux, cache
+    logits = run.unembed(params, x)
+    if with_loss:
+        return run.xent(logits, batch["labels"]), aux, None
+    return run.logits(logits), aux, cache
 
 
 # ---------------------------------------------------------------------------
 # decode (single token, loop over the layer-stacked cache)
 # ---------------------------------------------------------------------------
-def decode_decoder_only(cfg: ModelConfig, params, cache, batch):
+def decode_decoder_only(cfg: ModelConfig, params, cache, batch, *,
+                        run=None):
     """One-token decode. cache arrays are layer-stacked (L leading) and are
     updated **in place**; the same tree is returned as the new cache.
-    Returns (logits (B, V), cache)."""
+    Returns (logits (B, V), cache). ``run``: as ``forward_decoder_only``'s
+    (a mesh's cache holds ``DTensor``s, each rank updating its shard)."""
     _require_decoder_only(cfg)
-    x, positions = _embed_input(cfg, params, batch)
+    run = run if run is not None else OneDevice(cfg)
+    x, positions = run.embed(params, batch)
     pos = batch["pos"]
     if cfg.family in _ATTN_STACK:
         lp_all = params["layers"]
+        ck, cv = local(cache["k"]), local(cache["v"])
         for i in range(cfg.num_layers):
-            x, _, _ = _attn_mlp_layer(cfg, _layer_params(lp_all, i), x,
-                                      positions,
-                                      cache=(cache["k"][i], cache["v"][i]),
+            x, _, _ = _attn_mlp_layer(run, run.layer_params(lp_all, i), x,
+                                      positions, cache=(ck[i], cv[i]),
                                       cache_pos=pos)
     else:
         x, _, _ = _ssm_stack(cfg, params, x, positions, caches=cache,
                              cache_pos=pos)
-    logits = nn.unembed(cfg, params, x[:, 0:1, :])[:, 0, :]
-    return logits, cache
+    logits = run.unembed(params, x[:, 0:1, :])[:, 0, :]
+    return run.logits(logits), cache
 
 
 # ---------------------------------------------------------------------------
@@ -336,3 +382,389 @@ def init_cache_decoder_only(cfg: ModelConfig, batch: int, max_seq: int,
         cache["k"] = torch.zeros(shape, dtype=dtype, device=device)
         cache["v"] = torch.zeros(shape, dtype=dtype, device=device)
     return cache
+
+
+# ---------------------------------------------------------------------------
+# sharding specs (the reference's, as tuples)
+# ---------------------------------------------------------------------------
+def act_sharding(env: AxisEnv, pol: ShardingPolicy, batch: int):
+    if pol.profile == "fsdp_only":
+        return pspec(env.batch_axes_joint(batch), None)
+    baxes = env.batch_axes(batch)
+    seq_ax = env.tp if pol.seq_sharded_acts else None
+    return pspec(baxes, seq_ax)
+
+
+def unembed_spec(env: AxisEnv, pol: ShardingPolicy, batch: int):
+    """Sequence-sharded spec for the unembed input when the vocab dim cannot
+    be model-sharded (see ``layers.unembed``)."""
+    if env.size(env.tp) <= 1:
+        return None
+    if pol.profile == "fsdp_only":
+        baxes = env.batch_axes_joint(batch)
+        if baxes and env.tp not in baxes:
+            # model axis idle for this batch: spread the logits' token dim
+            return pspec(baxes, env.tp)
+        return None
+    if pol.profile == "tp" and not pol.vocab_sharded and not pol.seq_sharded_acts:
+        return pspec(env.batch_axes(batch), env.tp)
+    return None
+
+
+def moe_ep_spec(env: AxisEnv, pol: ShardingPolicy, batch: int):
+    """Dispatch-buffer spec (groups, E, C, d): experts on the model axis."""
+    if pol.experts_sharded:
+        return pspec(env.batch_axes(batch), env.tp, None, None)
+    return None
+
+
+def constrain(x, env: AxisEnv, pol: ShardingPolicy, batch: int):
+    """The residual stream ``x`` (a ``DTensor`` on a mesh) redistributed to
+    ``act_sharding``'s layout, padded to its rank: the reference's
+    ``with_sharding_constraint``. A plain tensor, or a mesh whose every axis
+    has size 1, is returned as it is."""
+    if all(s == 1 for s in env.axis_sizes.values()) or not is_dtensor(x):
+        return x
+    spec = act_sharding(env, pol, batch)
+    full = tuple(spec) + (None,) * (x.dim() - len(spec))
+    return x.redistribute(env.mesh, placements(full, env))
+
+
+def cache_specs_decoder_only(cfg: ModelConfig, batch: int, env: AxisEnv,
+                             pol: ShardingPolicy) -> PyTree:
+    """Specs matching ``init_cache_decoder_only``: the KV caches shard the
+    batch over the batch axes; the second sharding axis is the KV heads when
+    the model axis divides them (the per-token append stays shard-local),
+    else the sequence."""
+    baxes = env.batch_axes(batch)
+    if pol.kv_sharded:
+        kv_spec = pspec(None, baxes, None, env.tp, None)
+    else:
+        kv_spec = pspec(None, baxes, env.tp, None, None)
+    if cfg.family in _ATTN_STACK:
+        return {"k": kv_spec, "v": kv_spec}
+    ssm_axis = env.tp if pol.ssm_sharded else None
+    ssm_spec = ssm_mod.SSMCache(
+        conv=pspec(None, baxes, None, None),
+        state=pspec(None, baxes, ssm_axis, None, None))
+    if cfg.family == SSM:
+        return {"ssm": ssm_spec}
+    return {"ssm": ssm_spec, "k": kv_spec, "v": kv_spec}
+
+
+# ---------------------------------------------------------------------------
+# where a call runs: one device, or one rank's shard of a mesh
+# ---------------------------------------------------------------------------
+# ROADMAP items of the parts a mesh does not run yet
+DEFERRED = {
+    "seq_parallel": "A25 (sequence-parallel attention)",
+    MOE: "A26 (expert-parallel MoE dispatch)",
+    SSM: "A27 (SSM heads on the model axis)",
+    HYBRID: "A27 (SSM heads on the model axis)",
+    VLM: "A28 (enc-dec and VLM execution on a mesh)",
+    "encdec": "A28 (enc-dec and VLM execution on a mesh)",
+    "serving": "A29 (serving on a mesh)",
+}
+
+
+def deferred(cfg: ModelConfig, what: str):
+    return NotImplementedError(
+        f"{cfg.name} on a mesh needs a part that is not ported: ROADMAP "
+        f"{DEFERRED[what]}")
+
+
+def require_on_mesh(cfg: ModelConfig, pol: ShardingPolicy) -> None:
+    """Raises, naming the ROADMAP item, unless a mesh runs ``cfg`` under
+    ``pol``: the dense family, its heads split over the model axis or not at
+    all."""
+    if cfg.family != DENSE:
+        raise deferred(cfg, cfg.family)
+    if pol.seq_sharded_acts:
+        raise deferred(cfg, "seq_parallel")
+
+
+# the weights a layer uses inside its tensor-parallel region (between the
+# all-reduce-backward entry and the all-reduce exit): a replicated one there
+# (the KV projections when the model axis does not divide the KV heads,
+# q_norm / k_norm) has a gradient part on each model rank
+_TP_REGION = frozenset({"wq", "wk", "wv", "bq", "bk", "bv", "q_norm",
+                        "k_norm", "wo", "w_in", "w_gate", "w_out", "b_in",
+                        "b_gate"})
+
+
+class OneDevice:
+    """The hooks that ``_attn_mlp_layer`` and the forward / decode loops
+    call, for one device: the weights as stored, the activations and the
+    cache as they are, the head over the whole vocabulary. ``MeshRun``
+    gives the same hooks for one rank's shard of a mesh."""
+    kv_group: Optional[int] = None      # expand_kv's, for local query heads
+    head_offset: int = 0
+
+    def __init__(self, cfg: ModelConfig):
+        self.cfg = cfg      # the layer's config
+
+    def embed(self, params, batch):
+        return _embed_input(self.cfg, params, batch)
+
+    def constrain(self, x):
+        return x
+
+    def layer_params(self, lp_all, i: int):
+        return _layer_params(lp_all, i)
+
+    def enter(self, x):
+        return x
+
+    def exit(self, x):
+        return x
+
+    def decode_attend(self, q, k_new, v_new, cache_k, cache_v, cache_pos):
+        return attn.cache_attend(self.cfg, q, k_new, v_new, cache_k, cache_v,
+                                 cache_pos)
+
+    def cache_kv(self, k, v):
+        return k, v
+
+    def stack_cache(self, ks, vs):
+        return {"k": torch.stack(ks), "v": torch.stack(vs)}
+
+    def unembed(self, params, x):
+        return nn.unembed(self.cfg, params, x)
+
+    def logits(self, logits):
+        return logits
+
+    def xent(self, logits, labels):
+        return nn.softmax_xent(logits, labels)
+
+
+class MeshRun(OneDevice):
+    """The hooks for one sharded call of the dense family: the
+    activations' placements (``act_sharding``; a decode step takes its
+    cache's batch axes), the mesh axes that split its tokens, the
+    tensor-parallel region, and the local config (local heads, KV heads and
+    MLP width), so the layer code runs unchanged on one rank's shard.
+    ``params``, ``batch`` and the cache hold ``DTensor``s laid out by the
+    model's specs; the activations between the hooks are local tensors."""
+
+    def __init__(self, cfg: ModelConfig, env: AxisEnv, pol: ShardingPolicy,
+                 batch, *, decode: bool = False):
+        require_on_mesh(cfg, pol)
+        B, S = batch["tokens"].shape
+        self.cfg_global, self.env, self.pol, self.batch = cfg, env, pol, B
+        self.mesh, self.seq_len = env.mesh, S
+        self.act_spec = (pspec(env.batch_axes(B), None) if decode
+                         else act_sharding(env, pol, B))
+        self.act_pl = placements(tuple(self.act_spec) + (None,), env)
+        self.token_axes = tuple(a for e in self.act_spec for a in spec_axes(e))
+        self.tp = pol.profile == "tp" and env.size(env.tp) > 1
+        self.model_rank = self.mesh.get_local_rank(env.tp)
+        n = env.size(env.tp) if self.tp else 1
+        kv_local = cfg.num_kv_heads // n if pol.kv_sharded else cfg.num_kv_heads
+        super().__init__(cfg.with_(
+            num_heads=cfg.num_heads // n, num_kv_heads=kv_local,
+            d_ff=cfg.d_ff // n if pol.ffn_sharded else cfg.d_ff))
+        if self.tp and not pol.kv_sharded:
+            self.kv_group = cfg.num_heads // cfg.num_kv_heads
+            self.head_offset = self.model_rank * self.cfg.num_heads
+        # the cache splits the sequence over the model axis when that axis
+        # does not split the KV heads
+        self.seq_split = not pol.kv_sharded and env.size(env.tp) > 1
+        self.seq_axes = ()          # the logits' token split (``unembed``)
+        self._slot = None
+
+    # -- parameters --------------------------------------------------------
+    def layer_params(self, lp_all, i: int):
+        """Layer ``i``'s weights gathered (ZeRO-3), matrices cast to the
+        compute dtype before the gather."""
+        out = {}
+        for name, w in lp_all.items():
+            partial = self.token_axes + (
+                (self.env.tp,) if self.tp and name in _TP_REGION else ())
+            out[name] = gather_param(
+                w[i], self.env, self.pol, partial_axes=partial,
+                dtype=cdtype(self.cfg) if w.dim() >= 3 else None)
+        return out
+
+    def param(self, w, *, extra_partial=(), dtype=None):
+        return gather_param(w, self.env, self.pol,
+                            partial_axes=self.token_axes + tuple(extra_partial),
+                            dtype=dtype)
+
+    # -- layouts -----------------------------------------------------------
+    def enter(self, x):
+        return tp_enter(x, self.env, self.act_pl) if self.tp else x
+
+    def exit(self, x):
+        return tp_exit(x, self.env, self.act_pl) if self.tp else x
+
+    def constrain(self, x):
+        from torch.distributed.tensor import DTensor
+        d = DTensor.from_local(x, self.mesh, self.act_pl, run_check=False)
+        return constrain(d, self.env, self.pol, self.batch).to_local()
+
+    # -- embedding ---------------------------------------------------------
+    def embed(self, params, batch):
+        """The local tokens' embeddings (the tokens laid out as the
+        activations first) and their positions."""
+        cfg = self.cfg_global
+        tokens = batch["tokens"]
+        if is_dtensor(tokens):
+            tokens = tokens.redistribute(
+                self.mesh, placements(tuple(self.act_spec), self.env)).to_local()
+        positions = _positions(tokens, batch.get("pos", None))
+        if self.tp and self.pol.vocab_sharded:
+            table = self.param(params["tok_embed"])         # (V / n, D)
+            V = table.shape[0]
+            idx = tokens.long() - self.model_rank * V
+            inside = (idx >= 0) & (idx < V)
+            rows = table[idx.clamp(0, V - 1)] * inside[..., None]
+            x = self.exit(rows.to(cdtype(cfg)))
+            if cfg.learned_pos:
+                pe = self.param(params["pos_embed"])
+                x = x + nn.take_rows(pe, positions).to(x.dtype)
+            return x, positions
+        p = {"tok_embed": self.param(params["tok_embed"])}
+        if cfg.learned_pos:
+            p["pos_embed"] = self.param(params["pos_embed"])
+        return nn.embed_tokens(cfg, p, tokens,
+                               positions if cfg.learned_pos else None), positions
+
+    # -- the cache ---------------------------------------------------------
+    def decode_attend(self, q, k_new, v_new, cache_k, cache_v, cache_pos):
+        """With the cache's sequence split over the model axis: writes the
+        new K/V on the rank whose part holds ``cache_pos`` (a scalar) and
+        attends over this rank's part, the ranks' softmax stats combined
+        (``attention.decode_attention``'s ``model_group``). Where the query
+        heads are split over that axis too, the combine is over every head:
+        the queries are gathered over the model axis first and each rank
+        keeps its own heads' output. Otherwise every rank holds the whole
+        sequence of its batch rows and KV heads, as on one device."""
+        if not self.seq_split:
+            return super().decode_attend(q, k_new, v_new, cache_k, cache_v,
+                                         local(cache_pos))
+        if self._slot is None:
+            S_local = cache_k.shape[1]
+            pos = torch.as_tensor(local(cache_pos), device=q.device).long()
+            offset = self.model_rank * S_local
+            li = pos - offset
+            self._slot = (pos, offset, (li >= 0) & (li < S_local),
+                          li.clamp(0, S_local - 1).reshape(1))
+        pos, offset, inside, idx = self._slot
+        for c, new in ((cache_k, k_new), (cache_v, v_new)):
+            c.index_copy_(1, idx, torch.where(inside, new.to(c.dtype),
+                                              c.index_select(1, idx)))
+        group = self.mesh.get_group(self.env.tp)
+        if not self.tp:
+            return attn.decode_attention(q, cache_k, cache_v, kv_len=pos + 1,
+                                         k_offset=offset, model_group=group)
+        env, H = self.env, q.shape[2]
+        split = placements(pspec(self.act_spec[0], None, env.tp, None), env)
+        whole = placements(pspec(self.act_spec[0], None, None, None), env)
+        out = attn.decode_attention(reshard(q, env, split, whole), cache_k,
+                                    cache_v, kv_len=pos + 1, k_offset=offset,
+                                    model_group=group)
+        return out[:, :, self.head_offset:self.head_offset + H]
+
+    def cache_kv(self, k, v):
+        """A layer's K/V laid out as the cache (``cache_specs_decoder_only``
+        less its layer dim)."""
+        env = self.env
+        spec = cache_specs_decoder_only(self.cfg_global, self.batch, env,
+                                        self.pol)["k"][1:]
+        src = placements(pspec(self.act_spec[0], None,
+                               env.tp if (self.tp and self.pol.kv_sharded)
+                               else None, None), env)
+        dst = placements(spec, env)
+        return reshard(k, env, src, dst), reshard(v, env, src, dst)
+
+    def stack_cache(self, ks, vs):
+        cfg, env = self.cfg_global, self.env
+        spec = cache_specs_decoder_only(cfg, self.batch, env, self.pol)
+        full = (cfg.num_layers, self.batch, self.seq_len, cfg.num_kv_heads,
+                cfg.head_dim)
+        return {name: shard_local(torch.stack(parts), full,
+                                  placements(spec[name], env), env.mesh)
+                for name, parts in (("k", ks), ("v", vs))}
+
+    # -- head and loss -----------------------------------------------------
+    def unembed(self, params, x):
+        """Logits of the local tokens: the local vocabulary shard when the
+        vocab is model-sharded (the normed input enters the
+        tensor-parallel region), else the whole vocabulary of this model
+        rank's token slice when ``unembed_spec`` splits the tokens
+        (``seq_axes`` then names the axes of that split)."""
+        cfg, env = self.cfg_global, self.env
+        useq = unembed_spec(env, self.pol, self.batch)
+        self.seq_axes = () if useq is None else spec_axes(useq[1])
+        shard = None
+        if useq is not None:
+            dst = placements(tuple(useq) + (None,), env)
+            shard = lambda h: reshard(h, env, self.act_pl, dst)
+        if self.tp and self.pol.vocab_sharded:
+            shard = self.enter
+        head = "tok_embed" if cfg.tie_embeddings else "lm_head"
+        p = {"final_norm_scale": self.param(params["final_norm_scale"]),
+             head: self.param(params[head], extra_partial=self.seq_axes,
+                              dtype=cdtype(cfg))}
+        if cfg.norm == "layernorm":
+            p["final_norm_bias"] = self.param(params["final_norm_bias"])
+        return nn.unembed(cfg, p, x, seq_shard=shard)
+
+    def logits(self, logits):
+        """The local logits as a ``DTensor``: laid out by the batch axes
+        and, when the vocabulary is model-sharded, the model axis."""
+        env = self.env
+        vocab = env.tp if self.tp and self.pol.vocab_sharded else None
+        spec = pspec(self.act_spec[0], *([None] * (logits.dim() - 2)), vocab)
+        shape = ((self.batch,) + tuple(logits.shape[1:-1])
+                 + (self.cfg_global.vocab_size,))
+        return shard_local(logits, shape, placements(spec, env), env.mesh)
+
+    def xent(self, logits, labels) -> torch.Tensor:
+        """The global mean token cross-entropy from this rank's logits: the
+        vocab-sharded log-sum-exp and label logit summed over the model
+        axis, the local token sum divided by the global token count, summed
+        over the axes that split the tokens. A plain 0-d tensor, the same on
+        every rank."""
+        from torch.distributed import _functional_collectives as funcol
+        from torch.distributed.tensor import DTensor, Partial, Replicate
+        env, seq_axes = self.env, self.seq_axes
+        labels = local(labels)
+        if seq_axes:
+            useq = unembed_spec(env, self.pol, self.batch)
+            labels = reshard(labels, env, placements(self.act_spec, env),
+                             placements(useq, env))
+        lf = logits.float()
+        if self.tp and self.pol.vocab_sharded:
+            V = lf.shape[-1]
+            m = funcol.all_reduce(lf.detach().amax(dim=-1), "max",
+                                  self.mesh.get_group(env.tp))
+            s = torch.exp(lf - m[..., None]).sum(dim=-1)
+            lse = torch.log(self.exit(s)) + m
+            idx = labels.long() - self.model_rank * V
+            inside = (idx >= 0) & (idx < V)
+            ll = lf.gather(-1, idx.clamp(0, V - 1)[..., None])[..., 0]
+            ll = self.exit(ll * inside)
+        else:
+            lse = torch.logsumexp(lf, dim=-1)
+            ll = lf.gather(-1, labels.long()[..., None])[..., 0]
+        n_tokens = self.batch * self.seq_len
+        part = (lse - ll).sum() / n_tokens
+        split = set(self.token_axes) | set(seq_axes)
+        pl = tuple(Partial() if a in split and env.size(a) > 1 else Replicate()
+                   for a in env.mesh_axes)
+        return DTensor.from_local(part, self.mesh, pl,
+                                  run_check=False).full_tensor()
+
+
+def _positions(tokens, start):
+    S = tokens.shape[1]
+    ar = torch.arange(S, device=tokens.device)
+    if start is None:
+        return ar[None, :]
+    start = torch.as_tensor(local(start), device=tokens.device)
+    if start.dim() == 1:
+        raise NotImplementedError("per-row positions on a mesh are serving on "
+                                  "a mesh: ROADMAP " + DEFERRED["serving"])
+    return start + ar[None, :]

@@ -7,6 +7,11 @@ model and its two moments per step. Moments are fp32 whatever the parameter
 dtype; the arithmetic of one update is the reference's, in fp32. Scalars of
 the step (clip scale, learning rate) stay 0-d tensors on the parameters'
 device, so an update never waits for the card.
+
+On a mesh the parameters, gradients and moments are ``DTensor``s with the
+same placements (the moments shard with their parameters: ``state_specs``);
+the global norm sums each leaf over the mesh, and the update itself is
+element-wise on each rank's local shards.
 """
 from __future__ import annotations
 
@@ -16,7 +21,8 @@ from typing import Any, NamedTuple, Tuple
 
 import torch
 
-from repro_torch.models.common import tree_leaves, tree_unflatten
+from repro_torch.models.common import (is_dtensor, local, pspec, tree_leaves,
+                                       tree_unflatten)
 
 PyTree = Any
 
@@ -40,13 +46,24 @@ class AdamWState(NamedTuple):
     nu: PyTree
 
 
+def _zeros(p):
+    if is_dtensor(p):
+        return torch.zeros_like(p, dtype=torch.float32)
+    return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+
+
 def init(params: PyTree) -> AdamWState:
     leaves = list(tree_leaves(params))
-    zeros = lambda: tree_unflatten(params, [
-        torch.zeros(p.shape, dtype=torch.float32, device=p.device) for p in leaves])
+    zeros = lambda: tree_unflatten(params, [_zeros(p) for p in leaves])
     return AdamWState(step=torch.zeros((), dtype=torch.int32,
-                                       device=leaves[0].device),
+                                       device=local(leaves[0]).device),
                       mu=zeros(), nu=zeros())
+
+
+def state_specs(param_specs: PyTree) -> AdamWState:
+    """Partition specs mirroring ``init``'s structure: the moments shard
+    with their parameters, the step is replicated."""
+    return AdamWState(step=pspec(), mu=param_specs, nu=param_specs)
 
 
 def schedule(cfg: AdamWConfig, step) -> torch.Tensor:
@@ -60,8 +77,15 @@ def schedule(cfg: AdamWConfig, step) -> torch.Tensor:
     return cfg.lr * warm * (cfg.min_lr_ratio + (1 - cfg.min_lr_ratio) * cos)
 
 
+def _square_sum(x) -> torch.Tensor:
+    sq = x.float().square().sum()
+    return sq.full_tensor() if is_dtensor(sq) else sq
+
+
 def global_norm(tree: PyTree) -> torch.Tensor:
-    return torch.sqrt(sum(x.float().square().sum() for x in tree_leaves(tree)))
+    """The L2 norm over every leaf; a ``DTensor`` leaf is summed over the
+    whole mesh (a plain 0-d tensor results)."""
+    return torch.sqrt(sum(_square_sum(x) for x in tree_leaves(tree)))
 
 
 @torch.no_grad()
@@ -78,6 +102,12 @@ def update(cfg: AdamWConfig, grads: PyTree, state: AdamWState, params: PyTree
     b2c = 1 - cfg.beta2 ** step.float()
     for g, m, v, p in zip(tree_leaves(grads), tree_leaves(state.mu),
                           tree_leaves(state.nu), tree_leaves(params)):
+        if is_dtensor(p):
+            if not (g.placements == m.placements == v.placements == p.placements):
+                raise ValueError(f"a gradient or moment is not laid out as "
+                                 f"its parameter: {g.placements} "
+                                 f"{m.placements} {p.placements}")
+            g, m, v, p = g.to_local(), m.to_local(), v.to_local(), p.to_local()
         g = g.float() * scale
         m.mul_(cfg.beta1).add_((1 - cfg.beta1) * g)
         v.mul_(cfg.beta2).add_((1 - cfg.beta2) * g.square())

@@ -10,8 +10,10 @@ rounded half to even and clipped to [-127, 127].
 
 ``cross_pod_sync`` takes the place of the reference's ``shard_map`` over the
 mesh's ``"pod"`` axis: the pods are the ranks of a ``torch.distributed``
-process group. With no group, or a group of one rank, it returns its inputs,
-as the reference does on a mesh without a ``"pod"`` axis.
+process group, or of a ``DeviceMesh``'s ``"pod"`` group (each rank syncing
+its local shards of ``DTensor`` gradients). With no group, a group of one
+rank, or a mesh without a ``"pod"`` axis, it returns its inputs, as the
+reference does.
 """
 from __future__ import annotations
 
@@ -20,7 +22,8 @@ from typing import Any, Tuple
 import torch
 import torch.distributed as dist
 
-from repro_torch.models.common import tree_leaves, tree_unflatten
+from repro_torch.models.common import (is_dtensor, shard_local, tree_leaves,
+                                       tree_unflatten)
 
 PyTree = Any
 BLOCK = 256  # quantization block (last-dim groups)
@@ -65,13 +68,21 @@ def compress_residual(x: torch.Tensor, err: torch.Tensor):
 
 
 def init_error_feedback(grads_like: PyTree) -> PyTree:
-    """Zero fp32 error-feedback state in the structure of the gradients."""
+    """Zero fp32 error-feedback state in the structure of the gradients
+    (``DTensor``s laid out as theirs)."""
     return tree_unflatten(grads_like, [
+        torch.zeros_like(g, dtype=torch.float32) if is_dtensor(g) else
         torch.zeros(g.shape, dtype=torch.float32, device=g.device)
         for g in tree_leaves(grads_like)])
 
 
 def _sync_leaf(g, e, group, npods: int, compress: bool):
+    if is_dtensor(g):
+        out, new_e = _sync_leaf(g.to_local(), e.to_local(), group, npods,
+                                compress)
+        wrap = lambda t, like: shard_local(t, like.shape, like.placements,
+                                           like.device_mesh)
+        return wrap(out, g), wrap(new_e, e)
     if not compress:
         out = g.clone()
         dist.all_reduce(out, group=group)
@@ -88,7 +99,8 @@ def _sync_leaf(g, e, group, npods: int, compress: bool):
 
 def cross_pod_sync(grads: PyTree, err: PyTree, group=None, *,
                    compress: bool = True) -> Tuple[PyTree, PyTree]:
-    """Mean of ``grads`` over the ranks of ``group`` (the pods).
+    """Mean of ``grads`` over the ranks of ``group`` (the pods): a process
+    group, or a ``DeviceMesh`` whose ``"pod"`` group is taken.
 
     ``compress=True``: each rank quantizes its gradient plus its error
     feedback to int8, all ranks all-gather the int8 payload and the scales,
@@ -96,6 +108,10 @@ def cross_pod_sync(grads: PyTree, err: PyTree, group=None, *,
     all-reduce. Returns (the mean, the new error feedback). ``compress=False``:
     an all-reduce mean, ``err`` returned as it came. With no group, or one of
     one rank, both are returned as they came."""
+    if group is not None and hasattr(group, "mesh_dim_names"):
+        if "pod" not in (group.mesh_dim_names or ()):
+            return grads, err
+        group = group.get_group("pod")
     npods = 1 if group is None else dist.get_world_size(group)
     if npods <= 1:
         return grads, err

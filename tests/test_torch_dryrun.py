@@ -2,7 +2,8 @@
 reduced size: its records load through both packages' ``load_anchors`` and
 calibrate ``PerfModel.from_artifacts``; ``k`` parts count what the whole
 batch counts at once; a cell too big for its device budget is skipped with
-its bytes; ``--mesh multi`` exits non-zero.
+its bytes; ``--mesh multi`` and ``both`` write one device's shard of the
+reference's meshes (``tests/test_torch_mesh_dryrun.py`` holds them).
 
 The reference's ``repro.launch.dryrun`` is never imported here: its first
 lines set ``XLA_FLAGS`` for 512 host devices."""
@@ -141,11 +142,20 @@ def test_parts_chosen_by_the_estimate():
 
 
 def test_failure_is_an_error_record_and_mesh_multi_exits(tmp_path):
+    """A failing cell is an error record no anchor reads; ``--mesh multi``
+    and ``both`` (the reference's meshes, one device's shard under a fake
+    world) now write records and exit 0."""
     rec = dryrun.run_cell("gpt2-124m", "train_4k", str(tmp_path),
                           overrides={"microbatches": 3}, device="cpu",
                           reduced=True)
     assert "does not split" in rec["error"]
     assert os.path.exists(tmp_path / "gpt2-124m__train_4k.json")
     assert port_pm.load_anchors(str(tmp_path.parent), tmp_path.name) == {}
-    assert _run(tmp_path, "gpt2-124m", "train_4k", "--mesh", "multi") != 0
-    assert _run(tmp_path, "gpt2-124m", "train_4k", "--mesh", "both") != 0
+    out = tmp_path / "meshes"
+    assert _run(out, "gpt2-124m", "decode_32k", "--mesh", "multi") == 0
+    assert _run(out, "gpt2-124m", "decode_32k", "--mesh", "both") == 0
+    for mesh, n in (("multi", 512), ("pod", 256)):
+        with open(out / mesh / "gpt2-124m__decode_32k.json") as f:
+            rec = json.load(f)
+        assert rec["n_devices"] == rec["roofline"]["n_chips"] == n
+        assert ("gpt2-124m", "decode_32k") in port_pm.load_anchors(str(out), mesh)

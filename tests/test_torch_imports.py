@@ -29,7 +29,7 @@ def test_port_sources_exist():
             "autoscale.py", "loadgen.py", "planner.py", "metrics.py",
             "cluster.py", "step_analysis.py", "dryrun.py", "quickstart.py",
             "offload_serving.py", "multi_tenant_sharing.py", "cluster_sim.py",
-            "autoscale_demo.py"} <= names
+            "autoscale_demo.py", "mesh.py"} <= names
     assert all(p.exists() for p in _port_sources())
 
 
@@ -61,6 +61,29 @@ def test_import_port_leaves_jax_out():
         "       or n == 'repro' or n.startswith('repro.')]\n"
         "assert not bad, bad\n"
         "print('clean', len([n for n in sys.modules if n.startswith('repro_torch')]))\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, cwd=ROOT,
+                         env={"PYTHONPATH": str(ROOT / "src"), "PATH": ""})
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.startswith("clean")
+
+
+def test_mesh_module_imports_without_jax_and_builds_nothing():
+    """``repro_torch.launch.mesh`` imports without jax and, like the
+    reference's, touches no device state at import: no process group runs
+    and no mesh is built until a factory is called."""
+    code = (
+        "import sys\n"
+        "import torch.distributed as dist\n"
+        "import repro_torch.launch.mesh as m\n"
+        "assert not dist.is_initialized()\n"
+        "assert not m.is_fake_world()\n"
+        "assert not any(n == 'jax' or n.startswith('jax.') for n in sys.modules)\n"
+        "with m.fake_world(4):\n"
+        "    mesh = m.make_host_mesh(2, 2)\n"
+        "    assert m.is_fake_world() and tuple(mesh.shape) == (2, 2)\n"
+        "assert not dist.is_initialized()\n"
+        "print('clean')\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, cwd=ROOT,
                          env={"PYTHONPATH": str(ROOT / "src"), "PATH": ""})

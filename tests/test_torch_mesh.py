@@ -1,0 +1,326 @@
+"""The port's mesh and sharding layer (``repro_torch.launch.mesh``,
+``models.common``'s ``AxisEnv`` / ``ShardingPolicy`` / specs, the sharded
+step) against the reference's.
+
+* Spec trees: for every arch under the 16 x 16 and 2 x 16 x 16 axis
+  environments, the parameter, batch, cache and AdamW specs equal the
+  reference's ``PartitionSpec``s leaf by leaf (no mesh is needed).
+* Numerics over real collectives: spawned gloo ranks (a ``FileStore`` under
+  ``tmp_path``, each world with its own timeout) run the sharded step on the
+  reference's weights. The fp32 loss is held within 5e-3 of the reference's
+  single-device loss (the bound of the reference's own sharded test,
+  ``tests/test_sharding.py``) and within 1e-5 (relative) of the port's
+  unsharded loss; every gradient leaf, gathered whole, within 1e-5 of the
+  largest value of the unsharded gradients; one AdamW step keeps every
+  placement; the collectives are the ZeRO-3 rule's.
+"""
+import os
+import subprocess
+import sys
+import textwrap
+
+import jax
+import numpy as np
+import pytest
+import torch
+from jax.sharding import PartitionSpec as P
+
+from port_parity import model_pair, to_jax, to_torch
+from repro.configs import ALL_ARCHS, get_config as ref_get_config
+from repro.configs.shapes import SHAPES as REF_SHAPES, applicable
+from repro.models.common import AxisEnv as RefAxisEnv
+from repro.models.model_zoo import build_model as ref_build_model
+from repro.optim import adamw as ref_adamw
+from repro_torch.configs import get_config
+from repro_torch.configs.shapes import get_shape
+from repro_torch.models.common import AxisEnv, tree_items, tree_leaves
+from repro_torch.models.model_zoo import build_model
+from repro_torch.models.transformer import unembed_spec
+from repro_torch.optim import adamw
+from repro_torch.optim import compression as port_comp
+from repro_torch.train.train_step import _accumulate_grads
+
+ENVS = {"16x16": (("data", "model"), {"data": 16, "model": 16}),
+        "2x16x16": (("pod", "data", "model"), {"pod": 2, "data": 16, "model": 16})}
+WORLD_TIMEOUT_S = 150
+SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                   "src")
+
+
+# ------------------------------------------------------------ spec trees
+def _ref_specs(tree):
+    leaves = jax.tree_util.tree_leaves(tree, is_leaf=lambda x: isinstance(x, P))
+    return [tuple(x) for x in leaves]
+
+
+def _port_specs(tree):
+    """Spec leaves in the reference's flattening order (a spec is a tuple,
+    a leaf here; dicts and NamedTuples are nodes)."""
+    if isinstance(tree, tuple) and not hasattr(tree, "_fields"):
+        return [tree]
+    return [s for _, child in tree_items(tree) for s in _port_specs(child)]
+
+
+@pytest.mark.parametrize("env_name", sorted(ENVS))
+@pytest.mark.parametrize("arch", ALL_ARCHS)
+def test_spec_trees_equal_reference(arch, env_name):
+    axes, sizes = ENVS[env_name]
+    ref = ref_build_model(ref_get_config(arch), RefAxisEnv(axes, sizes))
+    port = build_model(get_config(arch), AxisEnv(axes, sizes))
+    assert port.pol.__dict__ == ref.pol.__dict__
+    _, rspecs = ref.init(None, abstract=True)
+    _, pspecs = port.init(abstract=True)
+    assert _port_specs(pspecs) == _ref_specs(rspecs)
+    assert _port_specs(adamw.state_specs(pspecs)) == _ref_specs(
+        ref_adamw.state_specs(rspecs))
+    for rshape in REF_SHAPES:
+        if not applicable(ref.cfg, rshape)[0]:
+            continue
+        shape = get_shape(rshape.name)
+        rb, pb = ref.batch_specs(rshape), port.batch_specs(shape)
+        assert sorted(rb) == sorted(pb)
+        for name in rb:
+            assert tuple(rb[name][0]) == tuple(pb[name][0]), name
+            assert tuple(rb[name][2]) == pb[name][2], (rshape.name, name)
+        assert _port_specs(port.cache_specs(shape.global_batch)) == _ref_specs(
+            ref.cache_specs(rshape.global_batch))
+
+
+# ---------------------------------------------- numerics over gloo ranks
+# name -> (arch, mesh shape, config overrides, global batch)
+CASES = {"llama3_2x2": ("llama3-8b", (2, 2), {"num_heads": 4, "num_kv_heads": 2}, 4),
+         "llama3_1x4": ("llama3-8b", (1, 4), {"num_heads": 4, "num_kv_heads": 2}, 4),
+         "gpt2_2x2": ("gpt2-124m", (2, 2), {}, 4),
+         "gpt2_2x2_b2": ("gpt2-124m", (2, 2), {}, 2)}
+
+# The ranks run in a script of their own (it imports the port alone, not
+# this module, jax or the reference): ``python worker.py <dir> <job>``
+# spawns 4 gloo ranks over a FileStore in <dir>.
+_WORKER = textwrap.dedent("""\
+    import os, sys
+    import torch
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+
+    def numerics(rank, out_dir, arch, mesh_shape, over, batch_size):
+        from repro_torch.configs import get_config
+        from repro_torch.configs.shapes import ShapeSuite
+        from repro_torch.core.step_analysis import count_step
+        from repro_torch.launch.mesh import make_host_mesh
+        from repro_torch.models.common import tree_leaves
+        from repro_torch.models.model_zoo import build_model, shard_tree
+        from repro_torch.optim import adamw
+        from repro_torch.train.train_step import (TrainStepConfig,
+                                                  _accumulate_grads,
+                                                  make_mesh_train_step)
+        payload = torch.load(os.path.join(out_dir, "payload.pt"))
+        cfg = get_config(arch).reduced().with_(remat="none", dtype="float32",
+                                               **over)
+        mesh = make_host_mesh(*mesh_shape)
+        model = build_model(cfg, mesh)
+        _, specs = model.init(abstract=True)
+        params = shard_tree(payload["params"], specs, model.env)
+        bspecs = {k: v[2] for k, v in model.batch_specs(
+            ShapeSuite("t", "train", 16, batch_size)).items()}
+        batch = shard_tree(payload["batch"], bspecs, model.env)
+        (loss, grads), cost = count_step(_accumulate_grads, model, params,
+                                         batch, 1)
+        with torch.no_grad():
+            _, fwd_cost = count_step(model.loss_fn, params, batch)
+        same_layout = all(
+            g.placements == p.placements
+            for g, p in zip(tree_leaves(grads), tree_leaves(params)))
+        full = [g.full_tensor() for g in tree_leaves(grads)]
+        step = make_mesh_train_step(model, mesh, TrainStepConfig(), bspecs)
+        opt = adamw.init(params)
+        before = [p.placements for p in tree_leaves(params)]
+        params, opt, metrics = step(params, opt, batch)
+        kept = (before == [p.placements for p in tree_leaves(params)]
+                == [m.placements for m in tree_leaves(opt.mu)]
+                == [v.placements for v in tree_leaves(opt.nu)])
+        if rank == 0:
+            torch.save({"loss": float(loss), "grads": full,
+                        "same_layout": same_layout, "kept": kept,
+                        "step_loss": float(metrics["loss"]),
+                        "counts": cost.collective_counts,
+                        "fwd_counts": fwd_cost.collective_counts},
+                       os.path.join(out_dir, "out.pt"))
+
+    def pods(rank, out_dir):
+        from repro_torch.launch.mesh import make_host_mesh
+        from repro_torch.optim import compression
+        payload = torch.load(os.path.join(out_dir, "payload.pt"))
+        mesh = make_host_mesh(1, 2, pod=2)
+        pod = mesh.get_local_rank("pod")
+        g, e = {"w": payload["grads"][pod]}, {"w": payload["errs"][pod]}
+        mean, err = compression.cross_pod_sync(g, e, mesh)
+        same, same_err = compression.cross_pod_sync(g, e, make_host_mesh(2, 2))
+        torch.save({"mean": mean, "err": err, "same": same,
+                    "same_err": same_err},
+                   os.path.join(out_dir, f"rank{rank}.pt"))
+
+    def serving(rank, out_dir, cases):
+        # each case on its own mesh: the prefill (logits and cache), then
+        # decode steps on a pool of max_seq holding the prefill cache
+        from torch.distributed.tensor import distribute_tensor
+        from repro_torch.configs import get_config
+        from repro_torch.configs.shapes import ShapeSuite
+        from repro_torch.launch.mesh import make_host_mesh
+        from repro_torch.models.common import placements
+        from repro_torch.models.model_zoo import build_model, shard_tree
+        payload = torch.load(os.path.join(out_dir, "payload.pt"))
+        res = {}
+        for name, (arch, mesh_shape, over) in cases.items():
+            p = payload[name]
+            cfg = get_config(arch).reduced().with_(remat="none",
+                                                   dtype="float32", **over)
+            mesh = make_host_mesh(*mesh_shape)
+            model = build_model(cfg, mesh)
+            env = model.env
+            lay = lambda x, sp: distribute_tensor(x, mesh, placements(sp, env))
+            _, specs = model.init(abstract=True)
+            params = shard_tree(p["params"], specs, env)
+            toks, P, S_MAX = p["tokens"], p["prompt"], p["max_seq"]
+            B = toks.shape[0]
+            pre = model.batch_specs(ShapeSuite("p", "prefill", P, B))
+            logits, _, cache = model.forward(
+                params, {"tokens": lay(toks[:, :P], pre["tokens"][2])},
+                return_cache=True, last_token_only=True)
+            got = {"prefill": logits.full_tensor(),
+                   "prefill_cache": {k: v.full_tensor()
+                                     for k, v in cache.items()}}
+            pool = {}
+            for k, v in got["prefill_cache"].items():
+                full = torch.zeros(v.shape[:2] + (S_MAX,) + v.shape[3:],
+                                   dtype=v.dtype)
+                full[:, :, :P] = v
+                pool[k] = full
+            pool = shard_tree(pool, model.cache_specs(B), env)
+            dec = model.batch_specs(ShapeSuite("d", "decode", S_MAX, B))
+            steps = []
+            for pos in range(P, toks.shape[1]):
+                out, new = model.decode(params, pool, {
+                    "tokens": lay(toks[:, pos:pos + 1], dec["tokens"][2]),
+                    "pos": lay(torch.tensor(pos, dtype=torch.int32),
+                               dec["pos"][2])})
+                assert new is pool
+                steps.append(out.full_tensor())
+            got["decode"] = steps
+            got["pool"] = {k: v.full_tensor() for k, v in pool.items()}
+            got["pool_placements"] = [str(x) for x in pool["k"].placements]
+            res[name] = got
+        if rank == 0:
+            torch.save(res, os.path.join(out_dir, "out.pt"))
+
+    def rank_main(rank, out_dir, job):
+        from repro_torch.launch.mesh import init_world
+        init_world(rank, 4, "file://" + os.path.join(out_dir, "store"),
+                   device_type="cpu", timeout_s=60)
+        try:
+            payload = torch.load(os.path.join(out_dir, "job.pt"))
+            if job == "numerics":
+                numerics(rank, out_dir, *payload)
+            elif job == "serving":
+                serving(rank, out_dir, payload)
+            else:
+                pods(rank, out_dir)
+        finally:
+            dist.destroy_process_group()
+
+    if __name__ == "__main__":
+        mp.spawn(rank_main, args=(sys.argv[1], sys.argv[2]), nprocs=4)
+    """)
+
+
+def _world(tmp_path, job, args=()):
+    """Runs ``job`` on 4 spawned gloo ranks, under the world's timeout."""
+    torch.save(args, tmp_path / "job.pt")
+    (tmp_path / "worker.py").write_text(_WORKER)
+    env = {**os.environ, "PYTHONPATH": SRC}
+    out = subprocess.run([sys.executable, str(tmp_path / "worker.py"),
+                          str(tmp_path), job], capture_output=True, text=True,
+                         env=env, timeout=WORLD_TIMEOUT_S)
+    assert out.returncode == 0, out.stderr[-3000:]
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_sharded_loss_and_grads_match_reference(case, tmp_path):
+    """llama3 (4 heads, 2 KV heads, as the reference's sharded test) on
+    (2, 2) and on (1, 4), where the model axis does not divide the KV heads
+    (they stay whole and each rank's query heads read theirs); gpt2 on
+    (2, 2), the fsdp_only profile: at batch 4 the model axis is a batch
+    axis; at batch 2 it is not, so the logits split their tokens over it
+    (``unembed_spec``), the labels follow, and the head's gradient is a
+    part per model rank."""
+    arch, mesh_shape, over, batch_size = CASES[case]
+    rm, rp, pm, pp = model_pair(arch, dtype="float32", **over)
+    if case == "gpt2_2x2_b2":
+        env = AxisEnv(("data", "model"), {"data": 2, "model": 2})
+        pol = build_model(pm.cfg, env).pol
+        assert pol.profile == "fsdp_only"
+        assert unembed_spec(env, pol, batch_size) == ("data", "model")
+    rng = np.random.default_rng(3)
+    toks = rng.integers(0, pm.cfg.vocab_size,
+                        size=(batch_size, 17)).astype(np.int32)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    ref_loss = float(rm.loss_fn(rp, {k: to_jax(v) for k, v in batch.items()}))
+    pbatch = {k: to_torch(v) for k, v in batch.items()}
+    want_loss, want = _accumulate_grads(pm, pp, pbatch, 1)
+    torch.save({"params": pp, "batch": pbatch}, tmp_path / "payload.pt")
+    _world(tmp_path, "numerics", (arch, mesh_shape, over, batch_size))
+    out = torch.load(tmp_path / "out.pt")
+    assert abs(out["loss"] - ref_loss) / abs(ref_loss) < 5e-3
+    assert abs(out["loss"] - float(want_loss)) <= 1e-5 * abs(float(want_loss))
+    assert out["step_loss"] == out["loss"]
+    want = list(tree_leaves(want))
+    top = max(float(g.abs().max()) for g in want)
+    for got, w in zip(out["grads"], want):
+        assert got.shape == w.shape
+        assert float((got - w).abs().max()) <= 1e-5 * top
+    assert out["same_layout"] and out["kept"]
+    L = pm.cfg.num_layers
+    fsdp = sum(1 for x in tree_leaves(pp["layers"]) if x.dim() == 3)
+    if arch == "llama3-8b" and mesh_shape == (2, 2):
+        # ZeRO-3: each layer's data-sharded matrices gathered once and their
+        # gradients reduce-scattered once (plus the table and the head); the
+        # forward's only all-reduces are the tensor-parallel exits (two a
+        # layer, one for the vocab-parallel embedding) and the loss's
+        # (log-sum-exp max and sum, label logit, the mean): no product of a
+        # data-sharded weight ever reduces a Partial
+        assert fsdp == 7
+        assert out["counts"]["all-gather"] == fsdp * L + 2
+        assert out["counts"]["reduce-scatter"] == fsdp * L + 2
+        assert out["fwd_counts"] == {"all-gather": fsdp * L + 2,
+                                     "all-reduce": 2 * L + 1 + 4}
+
+
+# ----------------------------------------------- cross_pod_sync on a mesh
+def _draw(shape, seed, scale=3.0):
+    rng = np.random.default_rng(seed)
+    return np.asarray(scale * rng.standard_normal(shape), np.float32)
+
+
+def test_cross_pod_sync_over_the_mesh_pod_axis(tmp_path):
+    """On (2, 1, 2) each rank gets the mean of its pod group's dequantized
+    compressions, as the two-rank group route gives it
+    (``test_torch_compression.py``), and keeps its own residual; a mesh
+    without a "pod" axis returns its inputs."""
+    grads = [torch.from_numpy(_draw((5, 300), 10 + pod)) for pod in range(2)]
+    errs = [torch.from_numpy(_draw((5, 300), 20 + pod, 0.03)) for pod in range(2)]
+    torch.save({"grads": grads, "errs": errs}, tmp_path / "payload.pt")
+    _world(tmp_path, "pods")
+    deq, resid = [], []
+    for pod in range(2):
+        g = torch.from_numpy(_draw((5, 300), 10 + pod))
+        e = torch.from_numpy(_draw((5, 300), 20 + pod, 0.03))
+        (q, s), ne = port_comp.compress_residual(g, e)
+        deq.append(port_comp.dequantize_int8(q, s, tuple(g.shape), g.numel()))
+        resid.append(ne)
+    for rank in range(4):
+        res = torch.load(tmp_path / f"rank{rank}.pt")
+        pod = rank // 2
+        assert torch.equal(res["mean"]["w"], (deq[0] + deq[1]) / 2)
+        assert torch.equal(res["err"]["w"], resid[pod])
+        assert torch.equal(res["same"]["w"], torch.from_numpy(_draw((5, 300), 10 + pod)))
+        assert torch.equal(res["same_err"]["w"],
+                           torch.from_numpy(_draw((5, 300), 20 + pod, 0.03)))

@@ -1,0 +1,138 @@
+"""The dry run on the reference's production meshes
+(``repro_torch.launch.dryrun --mesh pod|multi|both``): one device's shard of
+the step, run as rank 0 of a fake world of 256 or 512 ranks, at the reduced
+size on the CPU.
+
+* ``gpt2-124m train_4k --mesh multi`` (the cell of the reference's
+  ``tests/test_sharding.py``) exits 0 with a record both packages'
+  ``load_anchors`` read: ``n_devices`` 512, ``mesh`` "2x16x16", collective
+  bytes above 0.
+* A cell whose policy needs a part the mesh does not run yet is an error
+  record naming its ROADMAP item.
+* The port's per-device product FLOPs of a reduced llama3 train step on
+  (2, 2, 2) against the reference's ``analyze_hlo`` on the same 8-device
+  mesh, within the 2e-3 ``tests/test_torch_step_analysis.py`` holds one
+  device to.
+
+Every fake world runs in a subprocess, so no process group outlives its
+test; the reference's ``repro.launch.dryrun`` is never imported (its first
+lines set ``XLA_FLAGS`` for 512 host devices)."""
+import json
+import os
+import subprocess
+import sys
+import textwrap
+
+import pytest
+
+from repro.core import perfmodel as ref_pm
+from repro_torch.core import perfmodel as port_pm
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+ENV = {**os.environ, "PYTHONPATH": os.path.join(ROOT, "src"),
+       "JAX_PLATFORMS": "cpu"}
+
+
+def _dryrun(tmp_path, *args):
+    return subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--reduced",
+         "--device", "cpu", "--out", str(tmp_path), *args],
+        capture_output=True, text=True, cwd=ROOT, env=ENV, timeout=300)
+
+
+def test_gpt2_train_on_the_multi_pod_mesh(tmp_path):
+    out = _dryrun(tmp_path, "--arch", "gpt2-124m", "--shape", "train_4k",
+                  "--mesh", "multi", "--set", "grad_compression=true")
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "OK" in out.stdout
+    with open(tmp_path / "multi" / "gpt2-124m__train_4k.json") as f:
+        rec = json.load(f)
+    assert rec["n_devices"] == rec["roofline"]["n_chips"] == 512
+    assert rec["mesh"] == "2x16x16"
+    assert rec["roofline"]["collective_bytes_per_chip"] > 0
+    assert rec["collectives"]["bytes_by_op"]["all-gather"] > 0
+    assert "not run" in rec["note"] and "loss" not in rec
+    assert rec["grad_compression"].startswith("int8")
+    for pm in (ref_pm, port_pm):
+        anchors = pm.load_anchors(str(tmp_path), "multi")
+        assert anchors[("gpt2-124m", "train_4k")].n_chips == 512
+
+
+@pytest.mark.parametrize("arch,item", [("starcoder2-7b", "A25"),
+                                       ("granite-moe-1b-a400m", "A26"),
+                                       ("mamba2-130m", "A27"),
+                                       ("qwen2-vl-72b", "A28")])
+def test_deferred_policy_is_a_named_error_record(tmp_path, arch, item):
+    """starcoder2's 36 heads do not divide 16 (sequence-parallel); the MoE,
+    SSM and VLM families wait for their own items. Never a replicated run."""
+    out = _dryrun(tmp_path, "--arch", arch, "--shape", "train_4k",
+                  "--mesh", "pod")
+    assert out.returncode == 1
+    with open(tmp_path / "pod" / f"{arch}__train_4k.json") as f:
+        rec = json.load(f)
+    assert f"ROADMAP {item}" in rec["error"] and "roofline" not in rec
+    assert rec["mesh"] == "16x16"
+
+
+_CFG = ('get_config("llama3-8b").reduced().with_(num_heads=4, num_kv_heads=2, '
+        'dtype="float32", attn_impl="xla", remat="layer")')
+_REF = textwrap.dedent(f"""\
+    import os
+    os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=8"
+    import jax
+    from repro.configs import get_config
+    from repro.configs.shapes import ShapeSuite
+    from repro.core.hlo_analysis import analyze_hlo
+    from repro.launch.mesh import make_mesh_compat
+    from repro.models.model_zoo import build_model
+    mesh = make_mesh_compat((2, 2, 2), ("pod", "data", "model"))
+    m = build_model({_CFG}, mesh)
+    params, _ = m.abstract_params(mesh)
+    batch = m.input_specs(ShapeSuite("t", "train", 64, 4), mesh)
+    with mesh:
+        hlo = jax.jit(jax.value_and_grad(m.loss_fn)).lower(
+            params, batch).compile().as_text()
+    print("FLOPS", analyze_hlo(hlo).flops)
+    """)
+_PORT = textwrap.dedent(f"""\
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import ShapeSuite
+    from repro_torch.core.step_analysis import count_step
+    from repro_torch.launch.mesh import fake_world, make_host_mesh
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.train.train_step import _accumulate_grads
+    with fake_world(8):
+        m = build_model({_CFG}, make_host_mesh(2, 2, pod=2))
+        p, _ = m.init(torch.Generator().manual_seed(0))
+        b = m.synthetic_batch(ShapeSuite("t", "train", 64, 4),
+                              torch.Generator().manual_seed(1))
+        _, cost = count_step(_accumulate_grads, m, p, b, 1)
+    print("FLOPS", cost.flops, m.cfg.vocab_size)
+    """)
+
+
+def _flops(prog):
+    out = subprocess.run([sys.executable, "-c", prog], capture_output=True,
+                         text=True, cwd=ROOT, env=ENV, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    line = [ln for ln in out.stdout.splitlines() if ln.startswith("FLOPS")][-1]
+    return [float(x) for x in line.split()[1:]]
+
+
+def test_product_flops_per_device_match_reference_on_2x2x2():
+    """One device's product FLOPs of a reduced llama3 train step (4 heads, 2
+    KV heads, fp32, remat "layer") on (pod 2, data 2, model 2): the port's
+    count on a fake world of 8 against the reference's ``analyze_hlo`` of
+    its GSPMD module on 8 host devices. The plans differ in one product:
+    the reference takes the label logit by contracting the (B, S, V) logits
+    with a one-hot (2 x B_local x S x V_local FLOPs on a device, 16,384
+    here), the port gathers it. The port counts no more than the reference
+    and at most 2e-3 less, the bound ``test_torch_step_analysis.py`` holds
+    one device to; measured, the gap is exactly that product."""
+    (want,) = _flops(_REF)
+    got, vocab = _flops(_PORT)
+    one_hot = 2 * (4 // 4) * 64 * (vocab // 2)
+    assert got <= want
+    assert (want - got) / want <= 2e-3, (got, want)
+    assert want - got == one_hot, (got, want, one_hot)

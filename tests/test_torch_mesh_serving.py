@@ -1,0 +1,126 @@
+"""The mesh's serving paths (``Model.forward(return_cache=True,
+last_token_only=True)`` and ``Model.decode`` on a ``DeviceMesh``) against
+the unsharded port and the reference, on spawned gloo ranks.
+
+One world of 4 ranks runs every case, each on its own mesh: a prefill of
+``PROMPT`` tokens (its next-token logits and its cache), the cache pasted
+into a pool of ``MAX_SEQ`` positions laid out by ``Model.cache_specs``, then
+one decode step at each later position. Covered: the vocab-parallel head,
+the K/V resharded into the cache's layout, the in-place write on the rank
+whose part of a sequence-split cache holds ``pos``, the GQA read of whole KV
+heads by local query heads, and the decode's softmax stats combined over the
+model axis.
+
+* llama3 (4 heads, 2 KV heads) on (2, 2): heads and KV heads split over
+  "model", the cache split by KV heads.
+* llama3 on (1, 4): the KV heads stay whole, the cache splits its sequence
+  over "model": positions 4..7 live on model rank 1, 8..9 on rank 2.
+* gpt2 on (2, 2) (fsdp_only): the prefill's batch on ("data", "model"), the
+  decode's on "data" with the cache's sequence over "model".
+
+Every logit and cache entry is held within 1e-5 (relative to the largest)
+of the unsharded port's on the same weights and tokens, and the unsharded
+port within 1e-4 of the reference's (the fp32 bound of
+``test_torch_models.py::test_prefill_decode_matches_forward``).
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from port_parity import model_pair, rel_err, to_jax, to_np, to_torch
+from test_torch_mesh import _world
+
+LLAMA = {"num_heads": 4, "num_kv_heads": 2}
+# name -> (arch, mesh shape, config overrides)
+CASES = {"llama3_2x2": ("llama3-8b", (2, 2), LLAMA),
+         "llama3_1x4": ("llama3-8b", (1, 4), LLAMA),
+         "gpt2_2x2": ("gpt2-124m", (2, 2), {})}
+B, PROMPT, MAX_SEQ, STEPS = 4, 4, 16, 6
+# the pool's placements on (data, model): the batch over "data", and over
+# "model" the KV heads (dim 3) where that axis divides them, else the
+# sequence (dim 2)
+POOL_PLACEMENTS = {"llama3_2x2": ["S(1)", "S(3)"],
+                   "llama3_1x4": ["S(1)", "S(2)"],
+                   "gpt2_2x2": ["S(1)", "S(2)"]}
+
+
+def _tokens(vocab: int, seed: int) -> np.ndarray:
+    rng = np.random.default_rng(seed)
+    return rng.integers(0, vocab, size=(B, PROMPT + STEPS)).astype(np.int32)
+
+
+def _port_serving(pm, pp, toks):
+    """Prefill -> pool -> decode on one device; (prefill logits (B, V),
+    prefill cache, decode logits per step, final pool)."""
+    logits, _, cache = pm.forward(pp, {"tokens": to_torch(toks[:, :PROMPT])},
+                                  return_cache=True, last_token_only=True)
+    pool = pm.init_cache(B, MAX_SEQ, torch.float32)
+    for k in pool:
+        pool[k][:, :, :PROMPT] = cache[k]
+    steps = []
+    for pos in range(PROMPT, toks.shape[1]):
+        out, _ = pm.decode(pp, pool, {"tokens": to_torch(toks[:, pos:pos + 1]),
+                                      "pos": torch.tensor(pos)})
+        steps.append(out)
+    return logits[:, 0], cache, steps, pool
+
+
+def _ref_serving(rm, rp, toks):
+    """The reference's prefill logits and decode logits per step."""
+    logits, _, cache = rm.forward(rp, {"tokens": to_jax(toks[:, :PROMPT])},
+                                  return_cache=True)
+    pool = jax.tree_util.tree_map(
+        lambda d, s: d.at[:, :, :PROMPT].set(s.astype(d.dtype)),
+        rm.init_cache(B, MAX_SEQ, jnp.float32), cache)
+    steps = []
+    for pos in range(PROMPT, toks.shape[1]):
+        out, pool = rm.decode(rp, pool, {"tokens": to_jax(toks[:, pos:pos + 1]),
+                                         "pos": jnp.asarray(pos, jnp.int32)})
+        steps.append(out)
+    return logits[:, -1], steps
+
+
+@pytest.fixture(scope="module")
+def served(tmp_path_factory):
+    """Runs every case on one world of 4 gloo ranks; per case (mesh
+    results, unsharded port's, reference's)."""
+    tmp = tmp_path_factory.mktemp("mesh_serving")
+    payload, local = {}, {}
+    for name, (arch, _, over) in CASES.items():
+        rm, rp, pm, pp = model_pair(arch, seed=4, dtype="float32", **over)
+        toks = _tokens(pm.cfg.vocab_size, 5)
+        payload[name] = {"params": pp, "tokens": torch.from_numpy(toks),
+                         "prompt": PROMPT, "max_seq": MAX_SEQ}
+        local[name] = (_port_serving(pm, pp, toks), _ref_serving(rm, rp, toks))
+    torch.save(payload, tmp / "payload.pt")
+    _world(tmp, "serving", {n: c for n, c in CASES.items()})
+    got = torch.load(tmp / "out.pt")
+    return {n: (got[n],) + local[n] for n in CASES}
+
+
+def _close(got, want, bound=1e-5):
+    assert tuple(got.shape) == tuple(want.shape)
+    assert rel_err(to_np(got), to_np(want)) < bound
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_mesh_prefill_and_decode_match_unsharded(case, served):
+    mesh, (pre, cache, steps, pool), (ref_pre, ref_steps) = served[case]
+    _close(pre, to_torch(np.asarray(ref_pre)), 1e-4)
+    for got, want in zip(steps, ref_steps):
+        _close(got, to_torch(np.asarray(want)), 1e-4)
+    _close(mesh["prefill"][:, 0], pre)
+    for k in ("k", "v"):
+        _close(mesh["prefill_cache"][k], cache[k])
+        _close(mesh["pool"][k], pool[k])
+    assert len(mesh["decode"]) == STEPS
+    for got, want in zip(mesh["decode"], steps):
+        _close(got, want)
+    # the pool is laid out as the reference's cache specs say, and every
+    # decoded position was written (on (1, 4), by model ranks 1 and 2)
+    assert mesh["pool_placements"] == POOL_PLACEMENTS[case]
+    written = mesh["pool"]["k"][:, :, PROMPT:PROMPT + STEPS]
+    assert float(written.abs().amin(dim=(0, 1, 3, 4)).min()) > 0
+    assert float(mesh["pool"]["k"][:, :, PROMPT + STEPS:].abs().sum()) == 0

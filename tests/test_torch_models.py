@@ -438,20 +438,23 @@ def test_ragged_decode_matches_reference_and_scalar_decode():
 def test_unported_families_say_which_roadmap_item():
     """Every family of the reference is ported: the init of MoE (queue A
     item 10), encoder-decoder and VLM (item 11) gives the reference's tree,
-    paths and shapes, with the roles of the new leaves."""
+    paths and shapes, with the reference's partition specs of the new
+    leaves (one device: the d_fsdp dim on "data", nothing on "model")."""
     from repro_torch.core.offload import _flatten_with_paths as port_flat
     from repro.core.offload import _flatten_with_paths as ref_flat
-    for arch, leaf, role in (
+    for arch, leaf, spec in (
             ("granite-moe-1b-a400m", ("layers", "w_gate"),
-             ("none", "experts", "d_fsdp", "none")),
+             (None, None, "data", None)),
             ("whisper-large-v3", ("decoder", "cross_wk"),
-             ("none", "d_fsdp", "kvout")),
-            ("qwen2-vl-72b", ("layers", "wq"), ("none", "d_fsdp", "qout"))):
-        _, rp, pm, _ = model_pair(arch, perturb=False)
-        params, roles = pm.init(torch.Generator().manual_seed(0))
+             (None, "data", None)),
+            ("qwen2-vl-72b", ("layers", "wq"), (None, "data", None))):
+        rm, rp, pm, _ = model_pair(arch, perturb=False)
+        params, specs = pm.init(torch.Generator().manual_seed(0))
         assert [(p, tuple(a.shape)) for p, a in port_flat(params)] == \
             [(p, tuple(a.shape)) for p, a in ref_flat(rp)], arch
-        assert roles[leaf[0]][leaf[1]] == role, arch
+        _, rspecs = rm.init(None, abstract=True)
+        assert specs[leaf[0]][leaf[1]] == spec == tuple(
+            rspecs[leaf[0]][leaf[1]]), arch
 
 
 def test_init_names_shapes_and_scales_match_reference():
@@ -465,12 +468,13 @@ def test_init_names_shapes_and_scales_match_reference():
         rflat, pflat = ref_flat(rp), port_flat(params)
         assert [p for p, _ in rflat] == [p for p, _ in pflat]
         assert set(roles) == set(params) and set(roles["layers"]) == set(params["layers"])
+        # the partition specs on one device: d_fsdp on "data", none on "model"
         if "wq" in roles["layers"]:
-            assert roles["layers"]["wq"] == ("none", "d_fsdp", "qout")
+            assert roles["layers"]["wq"] == (None, "data", None)
         else:
-            assert roles["layers"]["in_zx"] == ("none", "d_fsdp", "ssm_inner")
+            assert roles["layers"]["in_zx"] == (None, "data", None)
         if "shared" in roles:
-            assert roles["shared"]["wq"] == ("d_fsdp", "qout")
+            assert roles["shared"]["wq"] == ("data", None)
         for (path, a), (_, b) in zip(rflat, pflat):
             assert tuple(a.shape) == tuple(b.shape), path
             assert str(a.dtype) == str(b.dtype).replace("torch.", ""), path
