@@ -193,16 +193,28 @@ JSON line per phase; any failure is a non-zero exit:
            fake process group never touches the other phases: llama3-8b
            train_4k and prefill_32k on 16x16, gpt2-124m train_4k on
            2x16x16 (fsdp_only, grad_compression over "pod") and decode_32k
-           on 16x16 (the cache split by sequence), each at full width and
-           depth as one device's shard through launch/dryrun.py (rank 0 of
-           a fake world: collectives counted, not run; values undefined);
-           the flash counts set to 0 just before each cell and read just
-           after, equal to the passes x the counted pass, all wgmma, at the
-           local shapes (B_part x local heads); per cell part and step ms,
-           per-device TFLOP, HBM GB and collective GB by op, and the FLOP
-           ratio to the reference's committed per-chip anchor, printed not
-           gated; then B1 / B3 / B4 at those local shapes against their
-           plain versions (mesh_local in the kernels line)
+           on 16x16 (the cache split by sequence), as rank 0; starcoder2-7b
+           train_4k and prefill_32k and whisper-large-v3 train_4k on 16x16
+           as rank 15, the last model rank (sequence-parallel attention:
+           the heads whole, the sequence split over "model", each layer's
+           K/V gathered and the rank's queries attending at their offset,
+           whisper's 1,500 encoder frames split 94 / 90); qwen2-vl-72b
+           prefill_32k as rank 0 (Megatron SP: 4 of 64 heads, the residual
+           stream split by sequence between tensor-parallel regions); each
+           at full width and depth as one device's shard through
+           launch/dryrun.py (a fake world: collectives counted, not run;
+           values undefined); the flash counts set to 0 just before each
+           cell and read just after, equal to the passes x the counted
+           pass, a pass launching each kernel once a (decoder) layer (the
+           forward twice under remat), all wgmma, at the local shapes (q's,
+           k's and the query offset: B_part x local heads, the rank's query
+           block); every record loaded by PerfModel.from_artifacts; per cell
+           part and step ms, per-device TFLOP, HBM GB and collective GB by
+           op, and the FLOP ratio to the reference's committed per-chip
+           anchor where there is one, printed not gated; then B1 / B3 / B4
+           at those local shapes against their plain versions, with SDPA
+           under the bottom-right causal mask as the library call for a
+           query block at its offset (mesh_local in the kernels line)
 
 Then a line {"kernels": [...]} with every kernel's figures, the card's name
 and power limit, and last {"ok": true, "device": {...}}.
@@ -348,12 +360,21 @@ def settled_mem_available(limit_s: float = 120.0) -> int:
         last = now
 
 
-# the mesh phase's cells: (arch, shape, mesh, overrides), each one device's
-# shard of the reference's dry-run cell; the kernels each must reach
-MESH_CELLS = (("llama3-8b", "train_4k", "pod", {}),
-              ("llama3-8b", "prefill_32k", "pod", {}),
-              ("gpt2-124m", "train_4k", "multi", {"grad_compression": True}),
-              ("gpt2-124m", "decode_32k", "pod", {}))
+# the mesh phase's cells: (arch, shape, mesh, overrides, rank, timed
+# parts), each one device's shard of the reference's dry-run cell as that
+# rank; the kernels each must reach. starcoder2's 36 and whisper's 20 heads
+# do not divide the model axis (sequence-parallel attention): rank 15, the
+# last model rank, attends the whole prefix, the heaviest rank. qwen2-vl's
+# 64 heads split 4 a rank with its residuals split by sequence (Megatron
+# SP); rank 0. Those four time one part (three took the phase to 176 s).
+MESH_CELLS = (("llama3-8b", "train_4k", "pod", {}, 0, 3),
+              ("llama3-8b", "prefill_32k", "pod", {}, 0, 3),
+              ("gpt2-124m", "train_4k", "multi", {"grad_compression": True}, 0, 3),
+              ("gpt2-124m", "decode_32k", "pod", {}, 0, 3),
+              ("starcoder2-7b", "train_4k", "pod", {}, 15, 1),
+              ("starcoder2-7b", "prefill_32k", "pod", {}, 15, 1),
+              ("qwen2-vl-72b", "prefill_32k", "pod", {}, 0, 1),
+              ("whisper-large-v3", "train_4k", "pod", {}, 15, 1))
 MESH_TRAIN_KERNELS = {"flash_attention_fwd_stats", "flash_attention_bwd_dkdv",
                       "flash_attention_bwd_dq"}
 # the reference's committed per-chip anchors (its "single" is the port's
@@ -366,8 +387,9 @@ def mesh_child(out_dir: str) -> None:
     ``launch/dryrun.py`` as rank 0 of a fake world (the fake process group
     lives and dies in this process, away from the other phases). The flash
     wrappers' launch counts are set to 0 just before each cell and read just
-    after; ``kernel_cost`` is watched to record the shapes each kernel was
-    launched at in the counted pass. Writes ``mesh.json``."""
+    after; ``kernel_cost`` is watched to record the shapes (q's, k's and the
+    query offset) each kernel was launched at in the counted pass. Writes
+    ``mesh.json``."""
     import torch
     from repro_torch.kernels import _build
     from repro_torch.kernels import flash_attention as fa
@@ -380,20 +402,21 @@ def mesh_child(out_dir: str) -> None:
     shapes = {}
     cost = fa.kernel_cost
 
-    def watched(name, q, k, causal):
-        shapes.setdefault(name, set()).add(tuple(q.shape))
-        return cost(name, q, k, causal)
+    def watched(name, q, k, causal, q_offset=0):
+        shapes.setdefault(name, set()).add(
+            (tuple(q.shape), tuple(k.shape), q_offset))
+        return cost(name, q, k, causal, q_offset)
     fa.kernel_cost = watched
     cells = []
-    for arch, shape, mesh, over in MESH_CELLS:
+    for arch, shape, mesh, over, rank, iters in MESH_CELLS:
         for w in wrappers.values():
             w.launches = 0
             w.launches_by_route = dict.fromkeys(w.launches_by_route, 0)
         shapes.clear()
         t0 = time.time()
         rec = dryrun.run_cell(arch, shape, os.path.join(out_dir, mesh),
-                              device="cuda", mesh=mesh,
-                              overrides=dict(over) or None)
+                              device="cuda", mesh=mesh, rank=rank,
+                              iters=iters, overrides=dict(over) or None)
         seconds = time.time() - t0
         cells.append({
             "arch": arch, "shape": shape, "mesh_kind": mesh, "record": rec,
@@ -555,42 +578,69 @@ def main() -> None:
         t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
         return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
-    def flash_case(BH, S, hd, dtype_name, causal):
+    def lower_right(Sq, Sk, q_offset):
+        """SDPA's mask for the same function: the causal mask aligned to
+        the bottom right (a query block at the end of its keys), or None
+        for the plain (top-left) causal mask."""
+        if not q_offset:
+            return None
+        if Sq + q_offset != Sk:
+            fail(f"no library mask for {Sq} queries at offset {q_offset} over "
+                 f"{Sk} keys")
+        from torch.nn.attention.bias import causal_lower_right
+        return causal_lower_right(Sq, Sk)
+
+    def flash_case(BH, S, hd, dtype_name, causal, Sk=None, q_offset=0):
+        """B1 at q (BH, S, hd) and k, v (BH, Sk, hd) (Sk = S by default),
+        causal at ``q_offset``."""
         dtype = getattr(torch, dtype_name)
-        g = torch.Generator(device=dev).manual_seed(SEED + S + hd)
-        q, k, v = (torch.randn(BH, S, hd, device=dev, generator=g).to(dtype)
-                   for _ in range(3))
-        got = fa.flash_attention_fwd(q, k, v, causal=causal)
-        want = fa.flash_attention_fwd_plain(q, k, v, causal=causal)
+        Sk = S if Sk is None else Sk
+        g = torch.Generator(device=dev).manual_seed(SEED + S + hd + q_offset)
+        q = torch.randn(BH, S, hd, device=dev, generator=g).to(dtype)
+        k, v = (torch.randn(BH, Sk, hd, device=dev, generator=g).to(dtype)
+                for _ in range(2))
+        call = lambda: fa.flash_attention_fwd(q, k, v, causal=causal,
+                                              q_offset=q_offset)
+        got = call()
+        want = fa.flash_attention_fwd_plain(q, k, v, causal=causal,
+                                            q_offset=q_offset)
         torch.cuda.synchronize()
+        shape = [BH, S, hd] if Sk == S else [BH, S, Sk, hd]
         if not torch.isfinite(got.float()).all():
-            fail(f"flash_attention_fwd gave non-finite values at {(BH, S, hd)}")
+            fail(f"flash_attention_fwd gave non-finite values at {shape}")
         abs_err = float((got.float() - want.float()).abs().max())
         rel = abs_err / (float(want.float().abs().max()) + 1e-9)
         if rel >= TOL[dtype_name]:
             fail(f"flash_attention_fwd disagrees with its plain version at "
-                 f"{(BH, S, hd)} {dtype_name} causal={causal}: rel {rel:.3e} "
-                 f">= {TOL[dtype_name]}")
+                 f"{shape} {dtype_name} causal={causal} q_offset={q_offset}: "
+                 f"rel {rel:.3e} >= {TOL[dtype_name]}")
         q4, k4, v4 = (t[None] for t in (q, k, v))
         sdpa = torch.nn.functional.scaled_dot_product_attention
-        pairs = S * (S + 1) // 2 if causal else S * S
-        flops = 4.0 * BH * pairs * hd
-        bound_ms, bound_by = bound(4.0 * BH * S * hd * q.element_size(), flops,
-                                   dtype_name)
-        ms = time_ms(lambda: fa.flash_attention_fwd(q, k, v, causal=causal))
-        return {
-            "shape": [BH, S, hd], "dtype": dtype_name, "causal": causal,
+        mask = lower_right(S, Sk, q_offset) if causal else None
+        library = (lambda: sdpa(q4, k4, v4, attn_mask=mask)) if mask is not None \
+            else (lambda: sdpa(q4, k4, v4, is_causal=causal))
+        flops = 4.0 * BH * fa.attended_pairs(S, Sk, causal, q_offset) * hd
+        bound_ms, bound_by = bound(2.0 * BH * (S + Sk) * hd * q.element_size(),
+                                   flops, dtype_name)
+        ms = time_ms(call)
+        row = {
+            "shape": shape, "dtype": dtype_name, "causal": causal,
             "route": fa.FWD_ROUTES[dtype],
             "max_abs_err": abs_err, "rel_err": rel, "tol": TOL[dtype_name],
             "ms": ms,
-            "cold_ms": time_ms(lambda: fa.flash_attention_fwd(
-                q, k, v, causal=causal), cold=True),
+            "cold_ms": time_ms(call, cold=True),
             "plain_ms": time_ms(lambda: fa.flash_attention_fwd_plain(
-                q, k, v, causal=causal), iters=5),
-            "library_ms": time_ms(lambda: sdpa(q4, k4, v4, is_causal=causal)),
+                q, k, v, causal=causal, q_offset=q_offset), iters=5),
+            "library_ms": time_ms(library),
             "bound_ms": bound_ms, "bound_by": bound_by,
             "tflops": flops / (ms * 1e-3) / 1e12,
         }
+        if q_offset:
+            lib = library()[0]
+            row.update(q_offset=q_offset, library="sdpa, causal_lower_right",
+                       library_rel_err=float((lib.float() - want.float()).abs().max())
+                       / (float(want.float().abs().max()) + 1e-9))
+        return row
 
     cases = [flash_case(32, 1024, 128, "bfloat16", True),   # the headline
              flash_case(32, 128, 128, "bfloat16", True),
@@ -621,33 +671,40 @@ def main() -> None:
                        flash_case(64, 1024, 128, "bfloat16", True)]
     cases += full_arch_cases
 
-    def flash_train_case(BH, S, hd, dtype_name, causal):
+    def flash_train_case(BH, S, hd, dtype_name, causal, Sk=None, q_offset=0):
         """The forward with lse and the two backward kernels against their
         plain versions; the backward kernels and their plain versions get the
-        same (plain) lse and delta, so each is held alone."""
+        same (plain) lse and delta, so each is held alone. q and dO (BH, S,
+        hd), k and v (BH, Sk, hd) (Sk = S by default), causal at
+        ``q_offset``."""
         dtype = getattr(torch, dtype_name)
-        g = torch.Generator(device=dev).manual_seed(SEED + 7 * S + hd)
-        q, k, v, do = (torch.randn(BH, S, hd, device=dev, generator=g).to(dtype)
-                       for _ in range(4))
+        Sk = S if Sk is None else Sk
+        g = torch.Generator(device=dev).manual_seed(SEED + 7 * S + hd + q_offset)
+        q, k, v, do = (torch.randn(BH, n, hd, device=dev, generator=g).to(dtype)
+                       for n in (S, Sk, Sk, S))
+        shape = [BH, S, hd] if Sk == S else [BH, S, Sk, hd]
+        off = {"q_offset": q_offset}
         scale = hd ** -0.5
         want_routes = {"flash_attention_fwd_stats": [fa.FWD_ROUTES[dtype]],
                        "flash_attention_bwd_dkdv": [fa.BWD_ROUTES[dtype]],
                        "flash_attention_bwd_dq": [fa.BWD_ROUTES[dtype]]}
         routes_before = {n: dict(routed[n].launches_by_route) for n in want_routes}
-        out, lse = fa.flash_attention_fwd_stats(q, k, v, causal=causal)
-        p_out, p_lse = fa.flash_attention_fwd_stats_plain(q, k, v, causal=causal)
+        out, lse = fa.flash_attention_fwd_stats(q, k, v, causal=causal, **off)
+        p_out, p_lse = fa.flash_attention_fwd_stats_plain(q, k, v, causal=causal,
+                                                          **off)
         delta = fa.bwd_delta(p_out, do)
         bwd_args = (q, k, v, do, p_lse, delta)
-        dk, dv = fa.flash_attention_bwd_dkdv(*bwd_args, causal=causal)
-        dq = fa.flash_attention_bwd_dq(*bwd_args, causal=causal)
+        dk, dv = fa.flash_attention_bwd_dkdv(*bwd_args, causal=causal, **off)
+        dq = fa.flash_attention_bwd_dq(*bwd_args, causal=causal, **off)
         launched_routes = {
             n: sorted(r for r, c in routed[n].launches_by_route.items()
                       if c != routes_before[n][r]) for n in want_routes}
         if launched_routes != want_routes:
-            fail(f"flash training kernels at {(BH, S, hd)} {dtype_name} took "
+            fail(f"flash training kernels at {shape} {dtype_name} took "
                  f"{launched_routes}, not {want_routes}")
-        p_dk, p_dv = fa.flash_attention_bwd_dkdv_plain(*bwd_args, causal=causal)
-        p_dq = fa.flash_attention_bwd_dq_plain(*bwd_args, causal=causal)
+        p_dk, p_dv = fa.flash_attention_bwd_dkdv_plain(*bwd_args, causal=causal,
+                                                       **off)
+        p_dq = fa.flash_attention_bwd_dq_plain(*bwd_args, causal=causal, **off)
         torch.cuda.synchronize()
         tol = TRAIN_TOL[dtype_name]
         errors = {}
@@ -657,29 +714,43 @@ def main() -> None:
                 ("dv", dv, p_dv, tol["grad"])):
             if not torch.isfinite(got.float()).all():
                 fail(f"{name} of the flash training kernels is not finite at "
-                     f"{(BH, S, hd)} {dtype_name}")
+                     f"{shape} {dtype_name}")
             abs_err = float((got.float() - want.float()).abs().max())
             rel = abs_err / (float(want.float().abs().max()) + 1e-9)
             if rel >= t:
                 fail(f"flash training kernels: {name} disagrees with its plain "
-                     f"version at {(BH, S, hd)} {dtype_name} causal={causal}: "
-                     f"rel {rel:.3e} >= {t}")
+                     f"version at {shape} {dtype_name} causal={causal} "
+                     f"q_offset={q_offset}: rel {rel:.3e} >= {t}")
             errors[name] = {"max_abs_err": abs_err, "rel_err": rel, "tol": t}
         # bounds: each input read once, each output written once; one
         # product is 2*BH*pairs*hd operations
-        pairs = S * (S + 1) // 2 if causal else S * S
+        pairs = fa.attended_pairs(S, Sk, causal, q_offset)
         prod = 2.0 * BH * pairs * hd
-        tile = BH * S * hd * q.element_size()
+        tile = BH * S * hd * q.element_size()          # q, dO, o, dq
+        ktile = BH * Sk * hd * q.element_size()        # k, v, dk, dv
         stats = BH * S * 4
-        fwd_b = bound(4 * tile + stats, 2 * prod, dtype_name)       # q k v -> o, lse
-        dkdv_b = bound(6 * tile + 2 * stats, 4 * prod, dtype_name)  # S, dV, dP, dK
-        dq_b = bound(5 * tile + 2 * stats, 3 * prod, dtype_name)    # S, dP, dQ
-        bwd_b = bound(8 * tile + stats, 5 * prod, dtype_name)       # the function
+        fwd_b = bound(2 * tile + 2 * ktile + stats, 2 * prod, dtype_name)  # q k v -> o, lse
+        dkdv_b = bound(2 * tile + 4 * ktile + 2 * stats, 4 * prod,
+                       dtype_name)                                  # S, dV, dP, dK
+        dq_b = bound(3 * tile + 2 * ktile + 2 * stats, 3 * prod,
+                     dtype_name)                                    # S, dP, dQ
+        bwd_b = bound(4 * tile + 4 * ktile + stats, 5 * prod,
+                      dtype_name)                                   # the function
         # the library: PyTorch's flash kernels for bf16, its memory-efficient
         # ones for fp32 (flash takes no fp32); the backward as its one aten op
         q4, k4, v4, do4 = (t[None] for t in (q, k, v, do))
         aten = torch.ops.aten
-        if dtype == torch.bfloat16:
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        ql, kl, vl = (t.detach().clone().requires_grad_() for t in (q4, k4, v4))
+        mask = lower_right(S, Sk, q_offset) if causal else None
+        if mask is not None:
+            # a block of queries at its offset: SDPA with the bottom-right
+            # causal mask, forward alone and the backward through autograd
+            lib_fwd = lambda: sdpa(q4, k4, v4, attn_mask=mask, scale=scale)
+            lib_out = sdpa(ql, kl, vl, attn_mask=mask, scale=scale)
+            lib_bwd = lambda: torch.autograd.grad(lib_out, (ql, kl, vl), do4,
+                                                  retain_graph=True)
+        elif dtype == torch.bfloat16:
             lib_fwd = lambda: aten._scaled_dot_product_flash_attention(
                 q4, k4, v4, 0.0, causal, False, scale=scale)
             o, l, cq, ck, mq, mk, seed, offset = lib_fwd()[:8]
@@ -693,36 +764,35 @@ def main() -> None:
             lib_bwd = lambda: aten._scaled_dot_product_efficient_attention_backward(
                 do4, q4, k4, v4, None, o, l, seed, offset, 0.0,
                 [True, True, True, False], causal, scale=scale)
-        ql, kl, vl = (t.detach().clone().requires_grad_() for t in (q4, k4, v4))
-        lib_out = torch.nn.functional.scaled_dot_product_attention(
-            ql, kl, vl, is_causal=causal, scale=scale)
+        if mask is None:
+            lib_out = sdpa(ql, kl, vl, is_causal=causal, scale=scale)
         row = {
-            "shape": [BH, S, hd], "dtype": dtype_name, "causal": causal,
+            "shape": shape, "dtype": dtype_name, "causal": causal,
             "errors": errors, "launched_routes": launched_routes,
             "fwd_stats_route": fa.FWD_ROUTES[dtype],
             "fwd_stats_ms": time_ms(lambda: fa.flash_attention_fwd_stats(
-                q, k, v, causal=causal)),
+                q, k, v, causal=causal, **off)),
             "fwd_stats_cold_ms": time_ms(lambda: fa.flash_attention_fwd_stats(
-                q, k, v, causal=causal), cold=True),
+                q, k, v, causal=causal, **off), cold=True),
             "fwd_stats_plain_ms": time_ms(lambda: fa.flash_attention_fwd_stats_plain(
-                q, k, v, causal=causal), iters=5),
+                q, k, v, causal=causal, **off), iters=5),
             "fwd_stats_library_ms": time_ms(lib_fwd),
             "fwd_stats_bound_ms": fwd_b[0], "fwd_stats_bound_by": fwd_b[1],
             "bwd_route": fa.BWD_ROUTES[dtype],
             "delta_ms": time_ms(lambda: fa.bwd_delta(p_out, do)),
             "dkdv_ms": time_ms(lambda: fa.flash_attention_bwd_dkdv(
-                *bwd_args, causal=causal)),
+                *bwd_args, causal=causal, **off)),
             "dkdv_cold_ms": time_ms(lambda: fa.flash_attention_bwd_dkdv(
-                *bwd_args, causal=causal), cold=True),
+                *bwd_args, causal=causal, **off), cold=True),
             "dkdv_plain_ms": time_ms(lambda: fa.flash_attention_bwd_dkdv_plain(
-                *bwd_args, causal=causal), iters=5),
+                *bwd_args, causal=causal, **off), iters=5),
             "dkdv_bound_ms": dkdv_b[0], "dkdv_bound_by": dkdv_b[1],
             "dq_ms": time_ms(lambda: fa.flash_attention_bwd_dq(
-                *bwd_args, causal=causal)),
+                *bwd_args, causal=causal, **off)),
             "dq_cold_ms": time_ms(lambda: fa.flash_attention_bwd_dq(
-                *bwd_args, causal=causal), cold=True),
+                *bwd_args, causal=causal, **off), cold=True),
             "dq_plain_ms": time_ms(lambda: fa.flash_attention_bwd_dq_plain(
-                *bwd_args, causal=causal), iters=5),
+                *bwd_args, causal=causal, **off), iters=5),
             "dq_bound_ms": dq_b[0], "dq_bound_by": dq_b[1],
             # the library's whole backward (dq, dk, dv in one call), and the
             # same through autograd, whose host work adds to the timed span
@@ -730,11 +800,17 @@ def main() -> None:
             # like for like with it: one call of the port's whole backward,
             # delta then dk/dv then dq
             "bwd_total_ms": time_ms(lambda: fa.flash_attention_bwd(
-                q, k, v, p_out, p_lse, do, causal=causal)),
+                q, k, v, p_out, p_lse, do, causal=causal, **off)),
             "bwd_library_autograd_ms": time_ms(lambda: torch.autograd.grad(
                 lib_out, (ql, kl, vl), do4, retain_graph=True)),
             "bwd_bound_ms": bwd_b[0], "bwd_bound_by": bwd_b[1],
         }
+        if mask is not None:
+            row.update(q_offset=q_offset, library="sdpa, causal_lower_right "
+                       "(the backward through autograd)",
+                       library_rel_err=float((lib_out[0].detach().float()
+                                              - p_out.float()).abs().max())
+                       / (float(p_out.float().abs().max()) + 1e-9))
         row["bwd_ms"] = row["dkdv_ms"] + row["dq_ms"]
         return row
 
@@ -3688,7 +3764,7 @@ def main() -> None:
     mesh_dir = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
     child = subprocess.run([sys.executable, os.path.abspath(__file__),
                             "--mesh-child", mesh_dir], capture_output=True,
-                           text=True, timeout=600)
+                           text=True, timeout=900)
     if child.returncode != 0:
         fail(f"mesh: the child process failed ({child.returncode}):\n"
              f"{child.stderr[-3000:]}")
@@ -3699,7 +3775,8 @@ def main() -> None:
     mesh_rows = []
     for cell in mesh_cells:
         rec, arch, shape_name = cell["record"], cell["arch"], cell["shape"]
-        tag = f"mesh {arch} {shape_name} on {cell['mesh_kind']}"
+        tag = (f"mesh {arch} {shape_name} on {cell['mesh_kind']} rank "
+               f"{rec.get('rank')}")
         if rec.get("error") or rec.get("skipped"):
             fail(f"{tag}: {rec.get('error') or rec.get('skipped')}\n"
                  f"{rec.get('trace', '')}")
@@ -3715,6 +3792,17 @@ def main() -> None:
         if launched != {n: c * passes for n, c in counted["count"].items()}:
             fail(f"{tag}: launched {launched}, not {passes} x the counted "
                  f"pass {counted['count']}")
+        # a pass launches each kernel once a (decoder) layer; a training
+        # pass runs each layer's forward twice under remat (the backward's
+        # recompute)
+        cfg = get_config(arch)
+        fwd_per_layer = 2 if kind == "train" and rec["remat"] != "none" else 1
+        per_layer = {n: fwd_per_layer if n.startswith("flash_attention_fwd")
+                     else 1 for n in want}
+        if counted["count"] != {n: cfg.num_layers * c
+                                for n, c in per_layer.items()}:
+            fail(f"{tag}: counted launches {counted['count']}, not "
+                 f"{cfg.num_layers} layers x {per_layer}")
         for n, routes in cell["launches_by_route"].items():
             if any(c for r, c in routes.items() if r != "wgmma"):
                 fail(f"{tag}: {n} routes {routes}, not all wgmma (bf16)")
@@ -3722,16 +3810,23 @@ def main() -> None:
             for r, c in routes.items():
                 mesh_routes[n][r] = mesh_routes[n].get(r, 0) + c
         # local heads: B_part x num_heads / the model axis' size (tp), or
-        # the whole heads (fsdp_only)
-        cfg = get_config(arch)
+        # the whole heads (fsdp_only, sequence-parallel); a
+        # sequence-parallel rank's queries are its 1/16 of the sequence at
+        # its offset, over the whole sequence's keys
         pol = rec["policy"]
         heads = cfg.num_heads // (16 if pol["head_sharded"] else 1)
         bh = rec["measured"]["part_sequences"] * heads
         S = get_shape(shape_name).seq_len
+        Sq = S // 16 if pol["seq_parallel_attn"] else S
+        q_off = rec["coords"]["model"] * Sq if pol["seq_parallel_attn"] else 0
+        at = [[bh, Sq, cfg.head_dim], [bh, S, cfg.head_dim], q_off]
         for n, shapes_seen in cell["kernel_shapes"].items():
-            if shapes_seen != [[bh, S, cfg.head_dim]]:
+            if shapes_seen != [at]:
                 fail(f"{tag}: {n} launched at {shapes_seen}, not the local "
-                     f"({bh}, {S}, {cfg.head_dim})")
+                     f"q, k and offset {at}")
+        anchors = PerfModel.from_artifacts(mesh_dir, cell["mesh_kind"]).anchors
+        if (arch, shape_name) not in anchors:
+            fail(f"{tag}: PerfModel.from_artifacts did not load the record")
         r, m = rec["roofline"], rec["measured"]
         numbers = [v for v in r.values() if isinstance(v, (int, float))]
         numbers += [v for v in m.values() if isinstance(v, (int, float))]
@@ -3746,7 +3841,10 @@ def main() -> None:
                 anchor = json.load(f)["roofline"]
         row = {
             "arch": arch, "shape": shape_name, "mesh": rec["mesh"],
-            "n_devices": rec["n_devices"], "profile": pol["profile"],
+            "n_devices": rec["n_devices"], "rank": rec["rank"],
+            "coords": rec["coords"], "profile": pol["profile"],
+            "seq_parallel_attn": pol["seq_parallel_attn"],
+            "seq_residuals": pol["seq_residuals"],
             "k": m["k"], "part_sequences": m["part_sequences"],
             "part_ms": [m["part_ms_median"], m["part_ms_min"], m["part_ms_max"]],
             "update_ms": m["update_ms"], "step_ms": m["step_ms"],
@@ -3778,12 +3876,25 @@ def main() -> None:
     # B1 / B3 / B4 at the local shapes the mesh gave them, against their
     # plain versions: llama3-8b's 2 of 32 heads a device (prefill rows 2,
     # training parts of 2 sequences), gpt2-124m's whole 12 heads of 8
-    # sequences
-    mesh_flash = [flash_case(4, 32768, 128, "bfloat16", True)]
+    # sequences; qwen2-vl's 4 of 64 heads over the whole 32,768 tokens
+    # (Megatron SP); the last sequence-parallel rank's query block at its
+    # offset over the whole sequence: starcoder2-7b's prefill (2 sequences x
+    # 36 heads, 2,048 queries at 30,720 of 32,768 keys), its training block
+    # (16 sequences x 36 heads, 256 queries at 3,840 of 4,096) and
+    # whisper-large-v3's decoder's (8 sequences x 20 heads, head dim 64)
+    mesh_flash = [flash_case(4, 32768, 128, "bfloat16", True),
+                  flash_case(8, 32768, 128, "bfloat16", True),
+                  dict(flash_case(72, 2048, 128, "bfloat16", True, Sk=32768,
+                                  q_offset=30720), arch="starcoder2-7b")]
     mesh_flash_train = [dict(flash_train_case(bh, 4096, hd, "bfloat16", True),
                              arch=arch)
                         for arch, bh, hd in (("llama3-8b", 4, 128),
                                              ("gpt2-124m", 96, 64))]
+    mesh_flash_train += [dict(flash_train_case(bh, 256, hd, "bfloat16", True,
+                                               Sk=4096, q_offset=3840),
+                              arch=arch)
+                         for arch, bh, hd in (("starcoder2-7b", 576, 128),
+                                              ("whisper-large-v3", 160, 64))]
     emit("mesh", card=card_line, cells=len(mesh_rows),
          seconds=time.time() - t_mesh, launches=mesh_launches,
          launches_by_route=mesh_routes,
@@ -3795,13 +3906,15 @@ def main() -> None:
              "flash_attention_fwd": [{k: c[k] for k in (
                  "shape", "dtype", "route", "max_abs_err", "rel_err", "tol",
                  "ms", "cold_ms", "plain_ms", "bound_ms", "bound_by",
-                 "library_ms")} for c in mesh_flash],
+                 "library_ms", "q_offset", "library", "library_rel_err")
+                 if k in c} for c in mesh_flash],
              "flash_attention_train": mesh_flash_train})
 
     # ------------------------------------------------------------- summary
     def train_summary(c, key, errs, lib):
         """One kernel's figures from a flash_train_case row."""
         return {
+            **{k: c[k] for k in ("q_offset", "library") if k in c},
             "shape": c["shape"], "dtype": c["dtype"],
             "route": c["fwd_stats_route" if key == "fwd_stats" else "bwd_route"],
             "max_abs_err": max(c["errors"][e]["max_abs_err"] for e in errs),
@@ -3841,8 +3954,8 @@ def main() -> None:
         "launches_by_route_mesh": mesh_routes["flash_attention_fwd"],
         "mesh_local": [{k: c[k] for k in (
             "shape", "dtype", "route", "max_abs_err", "rel_err", "tol", "ms",
-            "cold_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
-            for c in mesh_flash],
+            "cold_ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "q_offset", "library") if k in c} for c in mesh_flash],
         "dryrun_prefill_32k": {k: long_flash_case[k] for k in (
             "shape", "dtype", "route", "max_abs_err", "rel_err", "tol", "ms",
             "cold_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},

@@ -23,6 +23,11 @@
 // `needed`, reversed) and the dq block stops its kv loop there. Rows past Sq
 // and columns past Sk are masked here, so any S works. The heaviest blocks
 // are scheduled first: kv tile 0 for dk/dv, the last q tile for dq.
+// With a query offset (row i at position i + q_offset, as the forward's)
+// the diagonal moves right by q_offset: dk/dv's first q tile becomes
+// max(0, k0 - q_offset) / tile, dq's last kv tile the one holding
+// q0 + q_offset + tile - 1; kv tiles past the last query's position get no
+// q tile and write zeros.
 //
 // What bounds it. The seven products of the backward (2*BH*Sq*Sk*hd
 // operations each, half of it when causal; four in dkdv, three in dq) make
@@ -184,7 +189,7 @@ bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                 const float* __restrict__ v, const float* __restrict__ dout,
                 const float* __restrict__ lse, const float* __restrict__ delta,
                 float* __restrict__ dk, float* __restrict__ dv, int BH, int Sq,
-                int Sk, int causal, float scale) {
+                int Sk, int causal, int q_offset, float scale) {
   constexpr int PITCH = HD + 4;
   constexpr int OC = Cols<HD>::OC;
   extern __shared__ __align__(16) float smem[];
@@ -217,7 +222,7 @@ bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int c = 0; c < OC; ++c) dk_acc[i][c] = dv_acc[i][c] = 0.f;
 
   const int nq = (Sq + BQ - 1) / BQ;
-  for (int iq = causal ? k0 / BQ : 0; iq < nq; ++iq) {
+  for (int iq = causal ? max(0, k0 - q_offset) / BQ : 0; iq < nq; ++iq) {
     const int q0 = iq * BQ;
     const int q_valid = min(BQ, Sq - q0);
     __syncthreads();  // the previous tile is no longer read
@@ -238,7 +243,7 @@ bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
       for (int j = 0; j < 4; ++j) {
         const int kv = k0 + ty * 4 + i;
         const int qq = q0 + tx + TX * j;
-        const bool keep = kv < Sk && qq < Sq && (!causal || qq >= kv);
+        const bool keep = kv < Sk && qq < Sq && (!causal || qq + q_offset >= kv);
         s[i][j] = keep ? expf(s[i][j] - Ls[tx + TX * j]) : 0.f;
         Ps[(ty * 4 + i) * PP + tx + TX * j] = s[i][j];
       }
@@ -268,7 +273,7 @@ bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
               const float* __restrict__ v, const float* __restrict__ dout,
               const float* __restrict__ lse, const float* __restrict__ delta,
               float* __restrict__ dq, int BH, int Sq, int Sk, int causal,
-              float scale) {
+              int q_offset, float scale) {
   constexpr int PITCH = HD + 4;
   constexpr int OC = Cols<HD>::OC;
   extern __shared__ __align__(16) float smem[];
@@ -306,7 +311,7 @@ bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int c = 0; c < OC; ++c) dq_acc[i][c] = 0.f;
 
   int nkv = (Sk + BK - 1) / BK;
-  if (causal) nkv = min(nkv, (q0 + BQ - 1) / BK + 1);
+  if (causal) nkv = min(nkv, (q0 + q_offset + BQ - 1) / BK + 1);
   for (int t = 0; t < nkv; ++t) {
     const int k0 = t * BK;
     const int k_valid = min(BK, Sk - k0);
@@ -325,7 +330,7 @@ bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
       for (int j = 0; j < 4; ++j) {
         const int qq = q0 + ty * 4 + i;
         const int kv = k0 + tx + TX * j;
-        const bool keep = qq < Sq && kv < Sk && (!causal || qq >= kv);
+        const bool keep = qq < Sq && kv < Sk && (!causal || qq + q_offset >= kv);
         const float p = keep ? expf(s[i][j] - lse_r[i]) : 0.f;
         dSs[(ty * 4 + i) * PP + tx + TX * j] = p * (dp[i][j] - delta_r[i]);
       }
@@ -433,7 +438,8 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                             const float* __restrict__ delta,
                             __nv_bfloat16* __restrict__ dk,
                             __nv_bfloat16* __restrict__ dv, int BH, int Sq,
-                            int Sk, int causal, float scale_log2, float scale) {
+                            int Sk, int causal, int q_offset, float scale_log2,
+                            float scale) {
   using T = BwdTile<HD>;
   extern __shared__ unsigned char smem_raw[];
   __shared__ __align__(8) uint64_t kvbar, full[STAGES];
@@ -451,7 +457,7 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
   const int bh = static_cast<int>(blockIdx.x) % BH;
   const int k0 = kt * TILE;
   const int nq = (Sq + TILE - 1) / TILE;
-  const int iq0 = causal ? min(k0 / TILE, nq) : 0;     // the diagonal's q tile
+  const int iq0 = causal ? min(max(0, k0 - q_offset) / TILE, nq) : 0;  // the diagonal's q tile
   const int ntiles = nq - iq0;
   const float* lse_bh = lse + static_cast<size_t>(bh) * Sq;
   const float* delta_bh = delta + static_cast<size_t>(bh) * Sq;
@@ -520,7 +526,7 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
     hopper::wgmma_wait<1>();
     hopper::fence_regs(sacc);
     const bool masked = k0 + TILE > Sk || q0 + TILE > Sq ||
-                        (causal && q0 < k0 + TILE - 1);
+                        (causal && q0 + q_offset < k0 + TILE - 1);
 #pragma unroll
     for (int j = 0; j < TILE / 8; ++j) {
       const float2 l2 = *reinterpret_cast<const float2*>(&Ls[cur][8 * j + 2 * tq]);
@@ -528,7 +534,7 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
       for (int i = 0; i < 4; ++i) {
         const int kv = k0 + r + (i >> 1) * 8;
         const int qq = q0 + 8 * j + 2 * tq + (i & 1);
-        const bool keep = !masked || (kv < Sk && qq < Sq && (!causal || qq >= kv));
+        const bool keep = !masked || (kv < Sk && qq < Sq && (!causal || qq + q_offset >= kv));
         sacc[4 * j + i] =
             keep ? exp2_ftz(sacc[4 * j + i] * scale_log2 - ((i & 1) ? l2.y : l2.x)) : 0.f;
       }
@@ -589,7 +595,8 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                           const float* __restrict__ lse,
                           const float* __restrict__ delta,
                           __nv_bfloat16* __restrict__ dq, int BH, int Sq, int Sk,
-                          int causal, float scale_log2, float scale) {
+                          int causal, int q_offset, float scale_log2,
+                          float scale) {
   using T = BwdTile<HD>;
   extern __shared__ unsigned char smem_raw[];
   __shared__ __align__(8) uint64_t qbar, full[STAGES];
@@ -606,7 +613,7 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
   const int bh = static_cast<int>(blockIdx.x) % BH;
   const int q0 = qt * TILE;
   int nkv = (Sk + TILE - 1) / TILE;
-  if (causal) nkv = min(nkv, (q0 + TILE - 1) / TILE + 1);   // to the diagonal
+  if (causal) nkv = min(nkv, (q0 + q_offset + TILE - 1) / TILE + 1);   // to the diagonal
   auto load_kv_tile = [&](int t) {   // K and V tile t into stage t % STAGES
     const int s = t % STAGES;
     hopper::mbar_expect_tx(&full[s], 2 * T::BYTES);
@@ -667,14 +674,14 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
     hopper::wgmma_wait<1>();
     hopper::fence_regs(sacc);
     const bool masked = k0 + TILE > Sk || q0 + TILE > Sq ||
-                        (causal && k0 + TILE - 1 > q0);
+                        (causal && k0 + TILE - 1 > q0 + q_offset);
 #pragma unroll
     for (int j = 0; j < TILE / 8; ++j)
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const int qq = q0 + r + (i >> 1) * 8;
         const int kv = k0 + 8 * j + 2 * tq + (i & 1);
-        const bool keep = !masked || (qq < Sq && kv < Sk && (!causal || qq >= kv));
+        const bool keep = !masked || (qq < Sq && kv < Sk && (!causal || qq + q_offset >= kv));
         sacc[4 * j + i] =
             keep ? exp2_ftz(sacc[4 * j + i] * scale_log2 - lse_r[i >> 1]) : 0.f;
       }
@@ -727,7 +734,7 @@ cudaError_t launch_grid(Kern kern, size_t smem_bytes, int threads,
 struct Args {
   const void* q; const void* k; const void* v; const void* dout;
   const float* lse; const float* delta; void* o1; void* o2;
-  int BH, Sq, Sk, causal; float scale;
+  int BH, Sq, Sk, causal, q_offset; float scale;
 };
 
 // TMA maps of q, k, v, dout, (HD, S, BH) with boxes of (BOX, TILE, 1).
@@ -766,13 +773,13 @@ cudaError_t launch_wgmma(const Args& a, cudaStream_t stream) {
     if ((err = hopper::allow_smem(kern, T::SMEM, allowed)) != cudaSuccess) return err;
     kern<<<grid, dim3(WT), T::SMEM, stream>>>(
         m[0], m[1], m[2], m[3], a.lse, a.delta, o1, static_cast<__nv_bfloat16*>(a.o2),
-        a.BH, a.Sq, a.Sk, a.causal, a.scale * LOG2E, a.scale);
+        a.BH, a.Sq, a.Sk, a.causal, a.q_offset, a.scale * LOG2E, a.scale);
   } else {
     auto kern = flash_bwd_dq_wgmma_kernel<HD>;
     if ((err = hopper::allow_smem(kern, T::SMEM, allowed)) != cudaSuccess) return err;
     kern<<<grid, dim3(WT), T::SMEM, stream>>>(m[0], m[1], m[2], m[3], a.lse, a.delta,
                                                 o1, a.BH, a.Sq, a.Sk, a.causal,
-                                                a.scale * LOG2E, a.scale);
+                                                a.q_offset, a.scale * LOG2E, a.scale);
   }
   return cudaGetLastError();
 }
@@ -782,7 +789,7 @@ cudaError_t dkdv_hd(int dtype, Args a, cudaStream_t stream) {
   if (dtype == 1) return launch_wgmma<HD, true>(a, stream);
   const long long tiles = (a.Sk + BK - 1) / BK;
   void* args[] = {&a.q, &a.k, &a.v, &a.dout, &a.lse, &a.delta, &a.o1, &a.o2,
-                  &a.BH, &a.Sq, &a.Sk, &a.causal, &a.scale};
+                  &a.BH, &a.Sq, &a.Sk, &a.causal, &a.q_offset, &a.scale};
   constexpr size_t smem = (2 * BK * (HD + 4) + 2 * BQ * (HD + 4) + 2 * BK * PP +
                            2 * BQ) * sizeof(float);
   return launch_grid(bwd_dkdv_kernel<HD>, smem, NT, tiles, a.BH, stream, args);
@@ -793,7 +800,7 @@ cudaError_t dq_hd(int dtype, Args a, cudaStream_t stream) {
   if (dtype == 1) return launch_wgmma<HD, false>(a, stream);
   const long long tiles = (a.Sq + BQ - 1) / BQ;
   void* args[] = {&a.q, &a.k, &a.v, &a.dout, &a.lse, &a.delta, &a.o1,
-                  &a.BH, &a.Sq, &a.Sk, &a.causal, &a.scale};
+                  &a.BH, &a.Sq, &a.Sk, &a.causal, &a.q_offset, &a.scale};
   constexpr size_t smem = (2 * BQ * (HD + 4) + 2 * BK * (HD + 4) + BQ * PP) *
                           sizeof(float);
   return launch_grid(bwd_dq_kernel<HD>, smem, NT, tiles, a.BH, stream, args);
@@ -819,15 +826,17 @@ cudaError_t dispatch(int hd, int dtype, const Args& a, cudaStream_t stream) {
 
 // dtype: 0 = float32, 1 = bfloat16. q, dout (BH, Sq, hd), k, v (BH, Sk, hd)
 // contiguous in that type; lse, delta contiguous fp32 (BH, Sq); dk, dv
-// (BH, Sk, hd) and dq (BH, Sq, hd) are written in the input type.
-// Each returns the CUDA error code of its launch (0 = launched).
+// (BH, Sk, hd) and dq (BH, Sq, hd) are written in the input type. Causal
+// with q_offset >= 0: query row i sees keys 0 .. i + q_offset, as in the
+// forward. Each returns the CUDA error code of its launch (0 = launched).
 extern "C" int flash_attention_bwd_dkdv(const void* q, const void* k,
                                         const void* v, const void* dout,
                                         const float* lse, const float* delta,
                                         void* dk, void* dv, int BH, int Sq,
                                         int Sk, int hd, int dtype, int causal,
-                                        float scale, void* stream) {
-  const Args a{q, k, v, dout, lse, delta, dk, dv, BH, Sq, Sk, causal, scale};
+                                        int q_offset, float scale, void* stream) {
+  const Args a{q, k, v, dout, lse, delta, dk, dv, BH, Sq, Sk, causal, q_offset,
+               scale};
   return static_cast<int>(
       dispatch<true>(hd, dtype, a, static_cast<cudaStream_t>(stream)));
 }
@@ -836,9 +845,10 @@ extern "C" int flash_attention_bwd_dq(const void* q, const void* k,
                                       const void* v, const void* dout,
                                       const float* lse, const float* delta,
                                       void* dq, int BH, int Sq, int Sk, int hd,
-                                      int dtype, int causal, float scale,
-                                      void* stream) {
-  const Args a{q, k, v, dout, lse, delta, dq, nullptr, BH, Sq, Sk, causal, scale};
+                                      int dtype, int causal, int q_offset,
+                                      float scale, void* stream) {
+  const Args a{q, k, v, dout, lse, delta, dq, nullptr, BH, Sq, Sk, causal,
+               q_offset, scale};
   return static_cast<int>(
       dispatch<false>(hd, dtype, a, static_cast<cudaStream_t>(stream)));
 }

@@ -19,6 +19,12 @@
 // visited. The ragged edge (S not a multiple of the tile) is masked here:
 // rows past Sq are not stored, columns past Sk score NEG_INF.
 //
+// The causal mask takes a query offset: row i is at position i + q_offset
+// and sees keys 0 .. i + q_offset, so the diagonal, the last tile a block
+// visits and the masked tiles all move right by q_offset. A rank of a
+// sequence-parallel mesh passes its query block's first position over the
+// whole sequence's keys; q_offset = 0 is the plain causal mask.
+//
 // What bounds it. At the serving path's shapes (hd = 128, S up to 1024) the
 // function needs 4*BH*S*hd*itemsize bytes and about 2*BH*S^2*hd operations
 // when causal: bytes and operations bound it about equally in bf16, and
@@ -71,7 +77,7 @@ __global__ void __launch_bounds__(NT, 2)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ o,
                  float* __restrict__ lse, int BH, int Sq, int Sk, int causal,
-                 float scale) {
+                 int q_offset, float scale) {
   constexpr int PITCH = HD + 4;
   constexpr int VEC = (HD % 64 == 0) ? 4 : 1;  // output columns per load
   constexpr int NV = HD / (TX * VEC);          // such loads per thread
@@ -108,7 +114,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 
   int nkv = (Sk + BN - 1) / BN;
-  if (causal) nkv = min(nkv, (q0 + BM - 1) / BN + 1);
+  if (causal) nkv = min(nkv, (q0 + q_offset + BM - 1) / BN + 1);
 
   for (int t = 0; t < nkv; ++t) {
     const int k0 = t * BN;
@@ -154,7 +160,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < CPT; ++j) {
         const int col = k0 + tx + TX * j;
-        const bool keep = (col < Sk) && (!causal || row >= col);
+        const bool keep = (col < Sk) && (!causal || row + q_offset >= col);
         if (!keep) s[i][j] = NEG_INF;
         mx = fmaxf(mx, s[i][j]);
       }
@@ -242,8 +248,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 template <typename T, int HD>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   float* lse, int BH, int Sq, int Sk, int causal, float scale,
-                   cudaStream_t stream) {
+                   float* lse, int BH, int Sq, int Sk, int causal, int q_offset,
+                   float scale, cudaStream_t stream) {
   constexpr size_t smem_bytes =
       (BM * (HD + 4) + BN * (HD + 4) + BM * PP) * sizeof(float);
   auto kern = flash_fwd_kernel<T, HD>;
@@ -257,7 +263,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   kern<<<dim3(static_cast<unsigned>(blocks)), dim3(NT), smem_bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), lse, BH, Sq, Sk, causal,
-      scale);
+      q_offset, scale);
   return cudaGetLastError();
 }
 
@@ -303,7 +309,8 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                        const __grid_constant__ CUtensorMap kmap,
                        const __grid_constant__ CUtensorMap vmap,
                        __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
-                       int BH, int Sq, int Sk, int causal, float scale_log2) {
+                       int BH, int Sq, int Sk, int causal, int q_offset,
+                       float scale_log2) {
   using T = FwdTile<HD>;
   constexpr int SW = T::SW;
   extern __shared__ unsigned char smem_raw[];
@@ -322,7 +329,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
   const int nkv = (Sk + WKV - 1) / WKV;
   // KV tiles warpgroup g reads: a causal one stops at its rows' diagonal
   auto tiles_of = [&](int g) {
-    return causal ? min(nkv, (q0 + 64 * g + 63) / WKV + 1) : nkv;
+    return causal ? min(nkv, (q0 + q_offset + 64 * g + 63) / WKV + 1) : nkv;
   };
 
   if (threadIdx.x == 0) {
@@ -401,7 +408,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
 
     // scale (to log2 units), mask, online softmax; a row is one thread's 16
     // values and its quad's
-    const bool masked = k0 + WKV > Sk || (causal && k0 + WKV - 1 > q0 + 64 * g);
+    const bool masked = k0 + WKV > Sk || (causal && k0 + WKV - 1 > q0 + q_offset + 64 * g);
     float mx[2] = {NEG_INF, NEG_INF};
 #pragma unroll
     for (int j = 0; j < WKV / 8; ++j)
@@ -409,7 +416,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
       for (int i = 0; i < 4; ++i) {
         const int row = r + (i >> 1) * 8;
         const int col = k0 + j * 8 + 2 * tq + (i & 1);
-        const bool keep = !masked || ((col < Sk) && (!causal || row >= col));
+        const bool keep = !masked || ((col < Sk) && (!causal || row + q_offset >= col));
         const float v = keep ? sacc[4 * j + i] * scale_log2 : NEG_INF;
         sacc[4 * j + i] = v;
         mx[i >> 1] = fmaxf(mx[i >> 1], v);
@@ -483,7 +490,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
 template <int HD>
 cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* o,
                          float* lse, int BH, int Sq, int Sk, int causal,
-                         float scale, cudaStream_t stream) {
+                         int q_offset, float scale, cudaStream_t stream) {
   using T = FwdTile<HD>;
   const long long blocks =
       static_cast<long long>((Sq + WQ - 1) / WQ) * static_cast<long long>(BH);
@@ -506,7 +513,7 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* o,
     return err;
   kern<<<dim3(static_cast<unsigned>(blocks)), dim3(WT), T::SMEM, stream>>>(
       qmap, kmap, vmap, static_cast<__nv_bfloat16*>(o), lse, BH, Sq, Sk,
-      causal, scale * LOG2E);
+      causal, q_offset, scale * LOG2E);
   return cudaGetLastError();
 }
 
@@ -515,14 +522,15 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* o,
 template <typename T>
 cudaError_t dispatch_hd(int hd, const void* q, const void* k, const void* v,
                         void* o, float* lse, int BH, int Sq, int Sk, int causal,
-                        float scale, cudaStream_t stream) {
+                        int q_offset, float scale, cudaStream_t stream) {
 #define FLASH_CASE(HD_)                                                        \
   case HD_:                                                                    \
     if constexpr (sizeof(T) == 2)                                              \
-      return launch_wgmma<HD_>(q, k, v, o, lse, BH, Sq, Sk, causal, scale,   \
-                               stream);                                          \
+      return launch_wgmma<HD_>(q, k, v, o, lse, BH, Sq, Sk, causal, q_offset, \
+                               scale, stream);                                   \
     else                                                                       \
-      return launch<T, HD_>(q, k, v, o, lse, BH, Sq, Sk, causal, scale, stream);
+      return launch<T, HD_>(q, k, v, o, lse, BH, Sq, Sk, causal, q_offset,    \
+                            scale, stream);
   switch (hd) {
     FLASH_CASE(16)
     FLASH_CASE(32)
@@ -537,18 +545,22 @@ cudaError_t dispatch_hd(int hd, const void* q, const void* k, const void* v,
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. Tensors are contiguous (BH, S, hd); lse
-// is a contiguous fp32 (BH, Sq) output, or nullptr when not wanted.
-// Returns the CUDA error code of the launch (0 = launched).
+// is a contiguous fp32 (BH, Sq) output, or nullptr when not wanted. Causal
+// with q_offset >= 0: query row i is at position i + q_offset and sees keys
+// 0 .. i + q_offset (q_offset = Sk - Sq aligns the last query with the last
+// key). Returns the CUDA error code of the launch (0 = launched).
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
                                    void* o, float* lse, int BH, int Sq, int Sk,
-                                   int hd, int dtype, int causal, float scale,
-                                   void* stream) {
+                                   int hd, int dtype, int causal, int q_offset,
+                                   float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (dtype == 0) {
-    err = dispatch_hd<float>(hd, q, k, v, o, lse, BH, Sq, Sk, causal, scale, s);
+    err = dispatch_hd<float>(hd, q, k, v, o, lse, BH, Sq, Sk, causal, q_offset,
+                             scale, s);
   } else if (dtype == 1) {
-    err = dispatch_hd<__nv_bfloat16>(hd, q, k, v, o, lse, BH, Sq, Sk, causal, scale, s);
+    err = dispatch_hd<__nv_bfloat16>(hd, q, k, v, o, lse, BH, Sq, Sk, causal,
+                                     q_offset, scale, s);
   } else {
     err = cudaErrorInvalidValue;
   }

@@ -29,6 +29,12 @@ holds fp32 gradients to 1e-4.
 ``delta = sum_d dO * O`` stays plain torch ops (``bwd_delta``): the reference
 computes it outside any Pallas call.
 
+Every causal entry point takes ``q_offset`` (default 0, the plain causal
+mask): query row ``i`` is at position ``i + q_offset`` and sees keys
+``0..i + q_offset``. A rank of a sequence-parallel mesh attends its block of
+queries at its first position over the whole sequence's keys; the kernels
+move their diagonal, their last tile and their masked tiles by the offset.
+
 A tensor on the CPU takes the plain version beside each wrapper. A CUDA
 tensor launches the kernel or raises; nothing falls back. Each wrapper counts
 its launches in ``<wrapper>.launches``, and by kernel route in
@@ -65,11 +71,11 @@ def _kernel(name: str):
     if name not in _fns:
         lib_name, argtypes = {
             "flash_attention_fwd": ("flash_attention_fwd",
-                                    [_P] * 5 + [_I] * 6 + [_F, _P]),
+                                    [_P] * 5 + [_I] * 7 + [_F, _P]),
             "flash_attention_bwd_dkdv": ("flash_attention_bwd",
-                                         [_P] * 8 + [_I] * 6 + [_F, _P]),
+                                         [_P] * 8 + [_I] * 7 + [_F, _P]),
             "flash_attention_bwd_dq": ("flash_attention_bwd",
-                                       [_P] * 7 + [_I] * 6 + [_F, _P]),
+                                       [_P] * 7 + [_I] * 7 + [_F, _P]),
         }[name]
         lib = _build.load(lib_name)
         fn = getattr(lib, name)
@@ -147,22 +153,33 @@ def _scale(scale, hd) -> float:
     return float(scale) if scale is not None else 1.0 / math.sqrt(hd)
 
 
-def attended_pairs(Sq: int, Sk: int, causal: bool) -> int:
+def _offset(q_offset) -> int:
+    """The causal mask's query offset as the kernels take it: an int >= 0."""
+    q_offset = int(q_offset)
+    if q_offset < 0:
+        raise ValueError(f"q_offset must be >= 0, got {q_offset}")
+    return q_offset
+
+
+def attended_pairs(Sq: int, Sk: int, causal: bool, q_offset: int = 0) -> int:
     """(query, key) pairs a kernel attends: all ``Sq * Sk``, or under the
-    causal mask (row ``r`` sees keys ``0..r``) ``sum_r min(r + 1, Sk)``, about
-    half of ``Sq * Sk`` at ``Sq == Sk``."""
+    causal mask (row ``r`` at position ``r + q_offset`` sees keys
+    ``0..r + q_offset``) ``sum_r min(r + 1 + q_offset, Sk)``: about half of
+    ``Sq * Sk`` at ``Sq == Sk`` and no offset, and ``(q_offset + Sq / 2) Sq``
+    for a sequence-parallel rank's block of ``Sq`` queries at ``q_offset``
+    over the whole sequence's ``Sk`` keys."""
     if not causal:
         return Sq * Sk
-    m = min(Sq, Sk)
-    return m * (m + 1) // 2 + (Sq - m) * Sk
+    m = min(max(Sk - q_offset, 0), Sq)     # rows that see fewer than Sk keys
+    return m * (m + 1) // 2 + m * q_offset + (Sq - m) * Sk
 
 
-def kernel_cost(name: str, q, k, causal: bool):
+def kernel_cost(name: str, q, k, causal: bool, q_offset: int = 0):
     """(flops, bytes) of one launch of kernel ``name`` on q (BH, Sq, hd) and
-    k (BH, Sk, hd): the products over the attended pairs (``attended_pairs``;
-    a causal kernel skips the tiles above the diagonal, so it does about half
-    the full ``Sq x Sk`` work) and each input read once, each output written
-    once.
+    k (BH, Sk, hd): the products over the attended pairs (``attended_pairs``
+    at ``q_offset``; a causal kernel skips the tiles above the diagonal, so it
+    does about half the full ``Sq x Sk`` work at no offset) and each input
+    read once, each output written once.
 
     * ``flash_attention_fwd``: ``S = Q K^T`` and ``P V``, 4 hd a pair; reads
       q, k, v, writes out. ``flash_attention_fwd_stats`` also writes the fp32
@@ -179,7 +196,7 @@ def kernel_cost(name: str, q, k, causal: bool):
     the rows above the diagonal in each such block."""
     BH, Sq, hd = q.shape
     Sk = k.shape[1]
-    pairs = attended_pairs(Sq, Sk, causal)
+    pairs = attended_pairs(Sq, Sk, causal, q_offset)
     it = q.element_size()
     qb, kb, stats = BH * Sq * hd * it, BH * Sk * hd * it, BH * Sq * 4
     if name == "flash_attention_fwd":
@@ -198,21 +215,23 @@ def kernel_cost(name: str, q, k, causal: bool):
 # ---------------------------------------------------------------------------
 def flash_attention_fwd_stats_plain(q, k, v, *, causal: bool = True,
                                     scale: Optional[float] = None,
-                                    block_k: int = 128):
+                                    block_k: int = 128, q_offset: int = 0):
     """The forward in plain PyTorch: online softmax over KV blocks, fp32
     inside, the kernel's mask value, ``acc / max(l, 1e-30)`` and
     ``lse = m + log(max(l, 1e-30))``. q: (BH, Sq, hd); k, v: (BH, Sk, hd);
+    causal with ``q_offset``: row ``i`` sees keys ``0..i + q_offset``;
     returns (out (BH, Sq, hd) in q's dtype, lse (BH, Sq) fp32)."""
     _check(q, k, v)
     BH, Sq, hd = q.shape
     Sk = k.shape[1]
+    q_offset = _offset(q_offset)
     qf = q.float() * _scale(scale, hd)
-    rows = torch.arange(Sq, device=q.device)[:, None]
+    rows = q_offset + torch.arange(Sq, device=q.device)[:, None]
     m = torch.full((BH, Sq), NEG_INF, dtype=torch.float32, device=q.device)
     l = torch.zeros((BH, Sq), dtype=torch.float32, device=q.device)
     acc = torch.zeros((BH, Sq, hd), dtype=torch.float32, device=q.device)
     for k0 in range(0, Sk, block_k):
-        if causal and k0 > Sq - 1:
+        if causal and k0 > Sq - 1 + q_offset:
             break                      # every later block is above the diagonal
         kj = k[:, k0:k0 + block_k].float()
         vj = v[:, k0:k0 + block_k].float()
@@ -233,13 +252,14 @@ def flash_attention_fwd_stats_plain(q, k, v, *, causal: bool = True,
 
 def flash_attention_fwd_plain(q, k, v, *, causal: bool = True,
                               scale: Optional[float] = None,
-                              block_k: int = 128):
+                              block_k: int = 128, q_offset: int = 0):
     """``flash_attention_fwd_stats_plain`` without the statistics."""
     return flash_attention_fwd_stats_plain(q, k, v, causal=causal, scale=scale,
-                                           block_k=block_k)[0]
+                                           block_k=block_k,
+                                           q_offset=q_offset)[0]
 
 
-def _fwd_kernel(q, k, v, causal, scale, with_lse: bool, wrapper):
+def _fwd_kernel(q, k, v, causal, scale, q_offset, with_lse: bool, wrapper):
     BH, Sq, hd = q.shape
     _check_launch((("q", q), ("k", k), ("v", v)), hd, q.dtype)
     out = torch.empty_like(q)
@@ -250,39 +270,48 @@ def _fwd_kernel(q, k, v, causal, scale, with_lse: bool, wrapper):
                 k.data_ptr(), v.data_ptr(), out.data_ptr(),
                 lse.data_ptr() if with_lse else None,
                 BH, Sq, k.shape[1], hd, _DTYPE_CODE[q.dtype],
-                int(bool(causal)), _scale(scale, hd))
+                int(bool(causal)), q_offset, _scale(scale, hd))
         wrapper.launches += 1
         wrapper.launches_by_route[FWD_ROUTES[q.dtype]] += 1
         if _counter.active is not None:
             _counter.record_kernel(wrapper.__name__, FWD_ROUTES[q.dtype],
-                                   *kernel_cost(wrapper.__name__, q, k, causal))
+                                   *kernel_cost(wrapper.__name__, q, k, causal,
+                                                q_offset))
     return out, lse
 
 
 def flash_attention_fwd(q, k, v, *, causal: bool = True,
-                        scale: Optional[float] = None):
+                        scale: Optional[float] = None, q_offset: int = 0):
     """q: (BH, Sq, hd); k, v: (BH, Sk, hd), heads folded into the leading dim.
+    ``q_offset`` (causal only): the position of query row 0, so that row
+    ``i`` sees keys ``0..i + q_offset``.
 
     CUDA tensors launch the kernel on the current stream (no synchronise);
     CPU tensors take ``flash_attention_fwd_plain``. The kernel takes fp32 and
     bf16, contiguous, head dim in ``HEAD_DIMS``; anything else raises.
     """
     _check(q, k, v)
+    q_offset = _offset(q_offset)
     if _on_cpu(q):
-        return flash_attention_fwd_plain(q, k, v, causal=causal, scale=scale)
-    return _fwd_kernel(q, k, v, causal, scale, False, flash_attention_fwd)[0]
+        return flash_attention_fwd_plain(q, k, v, causal=causal, scale=scale,
+                                         q_offset=q_offset)
+    return _fwd_kernel(q, k, v, causal, scale, q_offset, False,
+                       flash_attention_fwd)[0]
 
 
 def flash_attention_fwd_stats(q, k, v, *, causal: bool = True,
-                              scale: Optional[float] = None):
+                              scale: Optional[float] = None,
+                              q_offset: int = 0):
     """The forward plus the row statistics the backward needs: returns
     (out (BH, Sq, hd), lse (BH, Sq) fp32). The same kernel as
     ``flash_attention_fwd`` with its ``lse`` output on; counted apart."""
     _check(q, k, v)
+    q_offset = _offset(q_offset)
     if _on_cpu(q):
         return flash_attention_fwd_stats_plain(q, k, v, causal=causal,
-                                               scale=scale)
-    return _fwd_kernel(q, k, v, causal, scale, True, flash_attention_fwd_stats)
+                                               scale=scale, q_offset=q_offset)
+    return _fwd_kernel(q, k, v, causal, scale, q_offset, True,
+                       flash_attention_fwd_stats)
 
 
 flash_attention_fwd.launches = 0
@@ -303,16 +332,17 @@ def bwd_delta(out, dout):
     return (dout.float() * out).sum(dim=-1)
 
 
-def _bwd_block(qs, k, v, do, lse, delta, k0, block_k, causal):
+def _bwd_block(qs, k, v, do, lse, delta, k0, block_k, causal, q_offset):
     """p and dS of kv block [k0, k0 + block_k) against q rows r0.., where r0
-    skips the rows wholly above the diagonal. Returns (r0, kj, p, ds)."""
+    skips the rows wholly above the diagonal (row ``i`` at position
+    ``i + q_offset``). Returns (r0, kj, p, ds)."""
     Sq = qs.shape[1]
     kj = k[:, k0:k0 + block_k].float()
     vj = v[:, k0:k0 + block_k].float()
-    r0 = min(k0, Sq) if causal else 0
+    r0 = min(max(k0 - q_offset, 0), Sq) if causal else 0
     s = torch.bmm(qs[:, r0:], kj.transpose(1, 2))
     if causal:
-        rows = r0 + torch.arange(Sq - r0, device=qs.device)[:, None]
+        rows = q_offset + r0 + torch.arange(Sq - r0, device=qs.device)[:, None]
         cols = k0 + torch.arange(kj.shape[1], device=qs.device)[None, :]
         s = torch.where((rows >= cols)[None], s, torch.full_like(s, NEG_INF))
     p = torch.exp(s - lse[:, r0:, None])
@@ -324,18 +354,20 @@ def _bwd_block(qs, k, v, do, lse, delta, k0, block_k, causal):
 def flash_attention_bwd_dkdv_plain(q, k, v, dout, lse, delta, *,
                                    causal: bool = True,
                                    scale: Optional[float] = None,
-                                   block_k: int = 128):
+                                   block_k: int = 128, q_offset: int = 0):
     """dk, dv in plain PyTorch, by kv blocks as ``_flash_bwd_kernel``:
     ``p = exp(q k^T * scale - lse)``, ``dV = p^T dO``,
     ``dK = (p * (dO v^T - delta))^T (q * scale)``; fp32 inside, outputs in
     k's and v's dtype."""
     _check_bwd(q, k, v, dout, lse, delta)
+    q_offset = _offset(q_offset)
     qs = q.float() * _scale(scale, q.shape[2])
     do = dout.float()
     dk = torch.zeros(k.shape, dtype=torch.float32, device=k.device)
     dv = torch.zeros(v.shape, dtype=torch.float32, device=v.device)
     for k0 in range(0, k.shape[1], block_k):
-        r0, _, p, ds = _bwd_block(qs, k, v, do, lse, delta, k0, block_k, causal)
+        r0, _, p, ds = _bwd_block(qs, k, v, do, lse, delta, k0, block_k, causal,
+                                  q_offset)
         dv[:, k0:k0 + block_k] = torch.bmm(p.transpose(1, 2), do[:, r0:])
         dk[:, k0:k0 + block_k] = torch.bmm(ds.transpose(1, 2), qs[:, r0:])
     return dk.to(k.dtype), dv.to(v.dtype)
@@ -344,18 +376,20 @@ def flash_attention_bwd_dkdv_plain(q, k, v, dout, lse, delta, *,
 def flash_attention_bwd_dq_plain(q, k, v, dout, lse, delta, *,
                                  causal: bool = True,
                                  scale: Optional[float] = None,
-                                 block_k: int = 128):
+                                 block_k: int = 128, q_offset: int = 0):
     """dq in plain PyTorch, as ``_flash_dq_kernel``: ``dQ = (sum over kv
     blocks of dS k) * scale``; fp32 inside, output in q's dtype."""
     _check_bwd(q, k, v, dout, lse, delta)
+    q_offset = _offset(q_offset)
     sc = _scale(scale, q.shape[2])
     qs = q.float() * sc
     do = dout.float()
     dq = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
     for k0 in range(0, k.shape[1], block_k):
-        if causal and k0 > q.shape[1] - 1:
+        if causal and k0 > q.shape[1] - 1 + q_offset:
             break                      # every later block is above the diagonal
-        r0, kj, _, ds = _bwd_block(qs, k, v, do, lse, delta, k0, block_k, causal)
+        r0, kj, _, ds = _bwd_block(qs, k, v, do, lse, delta, k0, block_k, causal,
+                                   q_offset)
         dq[:, r0:] += torch.bmm(ds, kj)
     return (dq * sc).to(q.dtype)
 
@@ -369,51 +403,56 @@ def _bwd_launch_args(q, k, v, dout, lse, delta, scale):
 
 def flash_attention_bwd_dkdv(q, k, v, dout, lse, delta, *,
                              causal: bool = True,
-                             scale: Optional[float] = None):
+                             scale: Optional[float] = None, q_offset: int = 0):
     """(dk, dv), each (BH, Sk, hd) in k's dtype, from the dk/dv kernel.
-    ``lse`` from ``flash_attention_fwd_stats``, ``delta`` from ``bwd_delta``.
-    CPU tensors take ``flash_attention_bwd_dkdv_plain``."""
+    ``lse`` from ``flash_attention_fwd_stats``, ``delta`` from ``bwd_delta``;
+    ``q_offset`` the forward's. CPU tensors take
+    ``flash_attention_bwd_dkdv_plain``."""
     _check_bwd(q, k, v, dout, lse, delta)
+    q_offset = _offset(q_offset)
     if _on_cpu(q):
         return flash_attention_bwd_dkdv_plain(q, k, v, dout, lse, delta,
-                                              causal=causal, scale=scale)
+                                              causal=causal, scale=scale,
+                                              q_offset=q_offset)
     BH, Sq, Sk, hd, code, sc = _bwd_launch_args(q, k, v, dout, lse, delta, scale)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     if BH:
         _launch("flash_attention_bwd_dkdv", q, q.data_ptr(),
                 k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
                 delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), BH, Sq, Sk,
-                hd, code, int(bool(causal)), sc)
+                hd, code, int(bool(causal)), q_offset, sc)
         flash_attention_bwd_dkdv.launches += 1
         flash_attention_bwd_dkdv.launches_by_route[BWD_ROUTES[q.dtype]] += 1
         if _counter.active is not None:
             _counter.record_kernel(
                 "flash_attention_bwd_dkdv", BWD_ROUTES[q.dtype],
-                *kernel_cost("flash_attention_bwd_dkdv", q, k, causal))
+                *kernel_cost("flash_attention_bwd_dkdv", q, k, causal, q_offset))
     return dk, dv
 
 
 def flash_attention_bwd_dq(q, k, v, dout, lse, delta, *, causal: bool = True,
-                           scale: Optional[float] = None):
+                           scale: Optional[float] = None, q_offset: int = 0):
     """dq, (BH, Sq, hd) in q's dtype, from the dq kernel. CPU tensors take
     ``flash_attention_bwd_dq_plain``."""
     _check_bwd(q, k, v, dout, lse, delta)
+    q_offset = _offset(q_offset)
     if _on_cpu(q):
         return flash_attention_bwd_dq_plain(q, k, v, dout, lse, delta,
-                                            causal=causal, scale=scale)
+                                            causal=causal, scale=scale,
+                                            q_offset=q_offset)
     BH, Sq, Sk, hd, code, sc = _bwd_launch_args(q, k, v, dout, lse, delta, scale)
     dq = torch.empty_like(q)
     if BH:
         _launch("flash_attention_bwd_dq", q, q.data_ptr(),
                 k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
                 delta.data_ptr(), dq.data_ptr(), BH, Sq, Sk, hd, code,
-                int(bool(causal)), sc)
+                int(bool(causal)), q_offset, sc)
         flash_attention_bwd_dq.launches += 1
         flash_attention_bwd_dq.launches_by_route[BWD_ROUTES[q.dtype]] += 1
         if _counter.active is not None:
             _counter.record_kernel(
                 "flash_attention_bwd_dq", BWD_ROUTES[q.dtype],
-                *kernel_cost("flash_attention_bwd_dq", q, k, causal))
+                *kernel_cost("flash_attention_bwd_dq", q, k, causal, q_offset))
     return dq
 
 
@@ -424,12 +463,13 @@ flash_attention_bwd_dq.launches_by_route = dict.fromkeys(BWD_ROUTES.values(), 0)
 
 
 def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool = True,
-                        scale: Optional[float] = None):
+                        scale: Optional[float] = None, q_offset: int = 0):
     """Flash backward: (dq, dk, dv), as the reference's two pallas_calls.
-    ``out`` and ``lse`` from ``flash_attention_fwd_stats``."""
+    ``out`` and ``lse`` from ``flash_attention_fwd_stats`` at the same
+    ``q_offset``."""
     delta = bwd_delta(out, dout)
     dk, dv = flash_attention_bwd_dkdv(q, k, v, dout, lse, delta, causal=causal,
-                                      scale=scale)
+                                      scale=scale, q_offset=q_offset)
     dq = flash_attention_bwd_dq(q, k, v, dout, lse, delta, causal=causal,
-                                scale=scale)
+                                scale=scale, q_offset=q_offset)
     return dq, dk, dv

@@ -7,12 +7,14 @@ from repro_torch.kernels import ssd_scan as _ssd
 from repro_torch.kernels import stream_matmul as _sm
 
 
-def flash_attention(q, k, v, *, causal: bool = True):
-    """q, k, v: (B, S, H, hd) — heads are folded/unfolded here."""
+def flash_attention(q, k, v, *, causal: bool = True, q_offset: int = 0):
+    """q: (B, Sq, H, hd), k, v: (B, Sk, H, hd) — heads are folded/unfolded
+    here. ``q_offset``: the causal mask's position of query row 0."""
     B, S, H, hd = q.shape
     fold = lambda t: t.permute(0, 2, 1, 3).reshape(
         B * H, t.shape[1], hd).contiguous()
-    out = _fa.flash_attention_fwd(fold(q), fold(k), fold(v), causal=causal)
+    out = _fa.flash_attention_fwd(fold(q), fold(k), fold(v), causal=causal,
+                                  q_offset=q_offset)
     return out.reshape(B, H, S, hd).permute(0, 2, 1, 3)
 
 

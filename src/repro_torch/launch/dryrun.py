@@ -48,21 +48,26 @@ sequence runs past a learned position table (gpt2-124m at ``train_4k``).
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch gpt2-124m \\
         --shape train_4k --reduced --device cpu --out /tmp/dryrun
 
-On a mesh (``measure_mesh_cell``) the cell runs as rank 0 of a fake process
-group of 256 or 512 ranks (``launch.mesh.fake_world``): the model is built on
-the mesh and holds rank 0's shards only, the training step splits the local
-batch by the reference's ``_auto_microbatches`` and counts one part, and
-each collective is counted by the bytes a device's would move but not run,
-so the loss is not checked. Records go to ``<out>/pod/`` and
-``<out>/multi/`` with ``mesh`` "16x16" / "2x16x16", ``n_devices`` and
-``roofline.n_chips`` the mesh's size, per-device FLOPs, bytes and collective
-bytes, and a ``note`` saying the collectives were counted, not run. A cell
-whose policy needs a part not yet ported on a mesh (sequence-parallel
-attention, expert parallelism, SSM heads, enc-dec and VLM) is an ``error``
-record naming its ROADMAP item.
+On a mesh (``measure_mesh_cell``) the cell runs as one rank (``--rank``,
+default 0) of a fake process group of 256 or 512 ranks
+(``launch.mesh.fake_world``): the model is built on the mesh and holds that
+rank's shards only, the training step splits the local batch by the
+reference's ``_auto_microbatches`` and counts one part, and each collective
+is counted by the bytes a device's would move but not run, so the loss is
+not checked. Records go to ``<out>/pod/`` and ``<out>/multi/`` with
+``mesh`` "16x16" / "2x16x16", ``n_devices`` and ``roofline.n_chips`` the
+mesh's size, ``rank`` and its mesh ``coords``, per-device FLOPs, bytes and
+collective bytes, and a ``note`` saying the collectives were counted, not
+run. The ranks of a mesh differ where the sequence is split over the model
+axis: a sequence-parallel rank attends keys up to its own tokens, so rank 0
+(model 0) is the cheapest and model rank 15 (``--rank 15``) the heaviest. A
+cell whose policy needs a part not yet ported on a mesh (expert
+parallelism, SSM heads) is an ``error`` record naming its ROADMAP item.
 
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch gpt2-124m \
         --shape train_4k --mesh multi --reduced --device cpu --out /tmp/dryrun
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --arch starcoder2-7b \
+        --shape train_4k --mesh pod --rank 15 --reduced --device cpu
 """
 from __future__ import annotations
 
@@ -290,6 +295,12 @@ def _local_bytes(tree) -> int:
                for x in tree_leaves(tree))
 
 
+def _local_rows(batch) -> int:
+    """Sequences of this rank's local batch (a VLM's has no tokens)."""
+    return local(batch["tokens"] if "tokens" in batch
+                 else batch["embeds"]).shape[0]
+
+
 def _first_part(batch, k: int):
     """The first of ``k`` microbatches of each rank's local batch."""
     if k == 1:
@@ -303,17 +314,18 @@ def measure_cell(arch: str, shape_name: str, *, device="cuda",
                  reduced: bool = False, remat: Optional[str] = None,
                  overrides: Optional[Dict] = None,
                  budget_bytes: Optional[int] = None,
-                 iters: int = ITERS, mesh: str = "single") -> Dict:
+                 iters: int = ITERS, mesh: str = "single",
+                 rank: int = 0) -> Dict:
     """Run, count and time one cell; returns its record. ``budget_bytes``:
     the device memory the resident state must fit (default: the card's
-    total; none on the CPU). ``iters``: the timed calls, fewer only to keep
+    total; none on the CPU). ``iters``: the timed calls, fewer to keep
     the CPU tests short. Weights and batch come from seed 0. ``mesh``:
-    ``"single"`` (one card) or a production mesh (``MESHES``), run as rank
-    0's shard under a fake world (``measure_mesh_cell``)."""
+    ``"single"`` (one card) or a production mesh (``MESHES``), run as
+    ``rank``'s shard under a fake world (``measure_mesh_cell``)."""
     if mesh != "single":
         return measure_mesh_cell(arch, shape_name, mesh, device=device,
                                  reduced=reduced, remat=remat,
-                                 overrides=overrides, iters=iters)
+                                 overrides=overrides, iters=iters, rank=rank)
     device = resolve_device(device)
     shape = get_shape(shape_name)
     overrides = dict(overrides or {})
@@ -390,12 +402,12 @@ def measure_mesh_cell(arch: str, shape_name: str, mesh_kind: str, *,
                       device="cuda", reduced: bool = False,
                       remat: Optional[str] = None,
                       overrides: Optional[Dict] = None,
-                      iters: int = ITERS) -> Dict:
+                      iters: int = ITERS, rank: int = 0) -> Dict:
     """One device's shard of a cell on a production mesh (``"pod"``: the
     reference's 16 x 16 ``single``; ``"multi"``: 2 x 16 x 16), run on this
-    device as rank 0 of a fake world of the mesh's size
+    device as ``rank`` of a fake world of the mesh's size
     (``launch.mesh.fake_world``): the model built on the mesh, parameters,
-    batch and cache drawn as rank 0's local shards, the step counted and
+    batch and cache drawn as that rank's local shards, the step counted and
     timed. Collectives are counted by the bytes each device's would move,
     not performed, so the values (the loss among them) are undefined. A
     training cell splits the local batch into the reference's
@@ -417,24 +429,29 @@ def measure_mesh_cell(arch: str, shape_name: str, mesh_kind: str, *,
     multi = mesh_kind == "multi"
     logging.getLogger("torch.distributed.tensor._redistribute").addFilter(
         _OnceAWorld())
-    with fake_world(math.prod(MESHES[mesh_kind])):
+    with fake_world(math.prod(MESHES[mesh_kind]), rank=rank):
         dmesh = make_production_mesh(multi_pod=multi, device_type=device.type)
         model = build_model(cfg, dmesh)
         tfm.require_on_mesh(cfg, model.pol)
         rec = {"arch": arch, "shape": shape_name,
                "mesh": "x".join(map(str, dmesh.shape)),
                "n_devices": dmesh.size(), "device": device.type,
+               "rank": rank,
+               "coords": {a: dmesh.get_local_rank(a)
+                          for a in dmesh.mesh_dim_names},
                "reduced": reduced, "seq_len": run_shape.seq_len,
                "global_batch": run_shape.global_batch,
                "attn_impl": cfg.attn_impl, "remat": cfg.remat,
                "param_dtype": cfg.param_dtype,
                "policy": dataclasses.asdict(model.pol),
-               "note": (f"rank 0's shard of the step on the "
+               "note": (f"rank {rank}'s shard of the step on the "
                         f"{'x'.join(map(str, dmesh.shape))} mesh, run on one "
                         f"device under a fake process group of "
                         f"{dmesh.size()} ranks: collectives were counted by "
                         f"the bytes each device's would move, not run, so "
-                        f"every value they feed is undefined")}
+                        f"every value they feed is undefined; the part timed "
+                        f"over {iters} call{'s' if iters != 1 else ''} after "
+                        f"{WARMUP} warm-up")}
         t0 = time.time()
         gen = torch.Generator(device=device).manual_seed(0)
         params, _ = model.init(gen)
@@ -443,7 +460,7 @@ def measure_mesh_cell(arch: str, shape_name: str, mesh_kind: str, *,
         if run_shape.kind == TRAIN:
             k = int(forced_k) if forced_k else _auto_microbatches(
                 model, run_shape, dmesh)
-            b_local = local(batch["tokens"]).shape[0]
+            b_local = _local_rows(batch)
             if b_local % k:
                 raise ValueError(f"local batch {b_local} does not split into "
                                  f"{k} parts")
@@ -477,7 +494,7 @@ def measure_mesh_cell(arch: str, shape_name: str, mesh_kind: str, *,
         rec["setup_s"] = round(time.time() - t0, 3)
         _measure(rec, model, run_shape, part_fn, update, k, device, iters,
                  n_chips=dmesh.size(),
-                 part_sequences=local(batch["tokens"]).shape[0] // k,
+                 part_sequences=_local_rows(batch) // k,
                  part_estimate_bytes=None)
     return rec
 
@@ -588,7 +605,8 @@ def run_cell(arch: str, shape_name: str, out_dir: str, *,
         mesh = kwargs.get("mesh", "single")
         rec = {"arch": arch, "shape": shape_name,
                "mesh": "x".join(map(str, MESHES[mesh])) if mesh in MESHES
-               else "1",
+               else "1", **({"rank": kwargs.get("rank", 0)} if mesh in MESHES
+                            else {}),
                "error": f"{type(e).__name__}: {e}",
                "trace": traceback.format_exc()[-2000:]}
     gc.collect()
@@ -647,6 +665,9 @@ def main(argv=None) -> None:
     ap.add_argument("--mesh", default="single", choices=sorted(MESH_KINDS),
                     help="single: one card; pod: 16x16 (the reference's "
                          "single); multi: 2x16x16; both: pod and multi")
+    ap.add_argument("--rank", type=int, default=0,
+                    help="on a mesh: the rank whose shard runs (rank r of a "
+                         "16x16 mesh is data r // 16, model r % 16)")
     ap.add_argument("--all", action="store_true",
                     help="sweep all assigned (arch x shape) cells")
     ap.add_argument("--include-paper-archs", action="store_true")
@@ -674,7 +695,7 @@ def main(argv=None) -> None:
             rec = run_cell(arch, shape, out_dir, remat=args.remat,
                            overrides=overrides or None, tag=args.tag,
                            device=args.device, reduced=args.reduced,
-                           mesh=mesh)
+                           mesh=mesh, rank=args.rank)
             print(summarize(rec), flush=True)
             failures += 1 if rec.get("error") else 0
     sys.exit(1 if failures else 0)

@@ -10,10 +10,11 @@ A mesh needs a default process group of exactly its size. ``make_host_mesh``
 and ``make_production_mesh`` use the one the caller started (gloo on the
 CPU, NCCL on the cards: ``init_world``). ``fake_world`` starts the other
 kind the dry run uses: N ranks in one process (PyTorch's ``"fake"``
-backend), this process being rank 0. Its collectives are dispatched with
-their true shapes but **not performed**: their outputs hold whatever memory
-they were given, so a step run there has rank 0's local work and undefined
-values. Nothing that checks numbers runs on it.
+backend), this process being one of them (rank 0 unless asked). Its
+collectives are dispatched with their true shapes but **not performed**:
+their outputs hold whatever memory they were given, so a step run there has
+that rank's local work and undefined values. Nothing that checks numbers
+runs on it.
 """
 from __future__ import annotations
 
@@ -86,20 +87,24 @@ def init_world(rank: int, world_size: int, init_method: str, *,
 
 
 @contextlib.contextmanager
-def fake_world(world_size: int):
+def fake_world(world_size: int, rank: int = 0):
     """A process group of ``world_size`` ranks in this one process, which is
-    rank 0, on PyTorch's ``"fake"`` backend: for the dry run only.
+    ``rank``, on PyTorch's ``"fake"`` backend: for the dry run only.
 
     Collectives are dispatched, so a counter sees each one at its shapes, but
     none is performed and their outputs are undefined. A step run here is
-    rank 0's shard of the step: its compute, its memory and its launches are
-    those of one device of the mesh; its values are not. The group is
-    destroyed on exit."""
+    that rank's shard of the step: its compute, its memory and its launches
+    are those of one device of the mesh (a mesh built on the group gives the
+    rank its coordinates: rank 15 of a 16 x 16 mesh is data 0, model 15, the
+    last of a sequence split); its values are not. The group is destroyed on
+    exit."""
     from torch.testing._internal.distributed.fake_pg import FakeStore
     if dist.is_initialized():
         raise RuntimeError("a process group is already running; the fake "
                            "world needs this process to itself")
-    dist.init_process_group("fake", store=FakeStore(), rank=0,
+    if not 0 <= rank < world_size:
+        raise ValueError(f"rank {rank} is not one of {world_size}")
+    dist.init_process_group("fake", store=FakeStore(), rank=rank,
                             world_size=world_size)
     try:
         yield

@@ -27,7 +27,7 @@ kernel route is for causal self-attention only.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Optional
 
 import torch
 
@@ -261,14 +261,16 @@ def _unfold(t, B: int, H: int):
 
 class _FlashCV(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q, k, v, causal: bool, scale: float):
+    def forward(ctx, q, k, v, causal: bool, scale: float, q_offset: int):
         B, H = q.shape[0], q.shape[2]
         qf, kf, vf = _fold(q), _fold(k), _fold(v)
         out, lse = fa_kernels.flash_attention_fwd_stats(qf, kf, vf,
                                                         causal=causal,
-                                                        scale=scale)
+                                                        scale=scale,
+                                                        q_offset=q_offset)
         ctx.save_for_backward(qf, kf, vf, out, lse)
         ctx.causal, ctx.scale, ctx.heads = causal, scale, (B, H)
+        ctx.q_offset = q_offset
         return _unfold(out, B, H).contiguous()
 
     @staticmethod
@@ -277,17 +279,21 @@ class _FlashCV(torch.autograd.Function):
         B, H = ctx.heads
         dq, dk, dv = fa_kernels.flash_attention_bwd(
             qf, kf, vf, out, lse, _fold(dout), causal=ctx.causal,
-            scale=ctx.scale)
-        return _unfold(dq, B, H), _unfold(dk, B, H), _unfold(dv, B, H), None, None
+            scale=ctx.scale, q_offset=ctx.q_offset)
+        return (_unfold(dq, B, H), _unfold(dk, B, H), _unfold(dv, B, H),
+                None, None, None)
 
 
-def flash_attention_cv(q, k, v, causal: bool, chunk: int, scale: float):
+def flash_attention_cv(q, k, v, causal: bool, chunk: int, scale: float,
+                       q_offset: int = 0):
     """q: (B,Sq,H,hd); k, v: (B,Sk,H,hd) (head-expanded). Differentiable
-    flash attention through the kernels. ``chunk`` is kept for the
-    reference's signature: it sizes the reference's scan and selects this
-    route in ``attention_core``; the kernels choose their own tiles."""
+    flash attention through the kernels; ``q_offset`` the causal mask's
+    position of query row 0 (a sequence-parallel rank's first token).
+    ``chunk`` is kept for the reference's signature: it sizes the
+    reference's scan and selects this route in ``attention_core``; the
+    kernels choose their own tiles."""
     del chunk
-    return _FlashCV.apply(q, k, v, causal, scale)
+    return _FlashCV.apply(q, k, v, causal, scale, q_offset)
 
 
 def attention_core(cfg: ModelConfig, q, k, v, *, causal: bool, q_offset=0,
@@ -295,23 +301,31 @@ def attention_core(cfg: ModelConfig, q, k, v, *, causal: bool, q_offset=0,
                    head_offset: int = 0):
     """Dispatch on ``cfg.attn_impl``; GQA heads are expanded for the flash
     paths and contracted in groups by ``decode_attention``. ``kv_group`` and
-    ``head_offset``: ``expand_kv``'s, for local heads on a mesh."""
+    ``head_offset``: ``expand_kv``'s, for local heads on a mesh.
+    ``q_offset``: the position of query row 0 under the causal mask; a
+    sequence-parallel rank attends its block of queries at its first
+    position over the whole sequence's keys (``Sk = S``), and both kernel
+    routes take the offset (the kernels never read a key past the last
+    query's position). The pallas route (forward kernel) takes a causal call
+    whose queries all lie within the keys, ``Sq + q_offset <= Sk``: the
+    reference's ``Sq == Sk`` at no offset."""
     if q.shape[1] == 1 and not causal:
         return decode_attention(q, k, v, kv_len=kv_len)
     k = expand_kv(k, q.shape[2], group=kv_group, head_offset=head_offset)
     v = expand_kv(v, q.shape[2], group=kv_group, head_offset=head_offset)
-    if cfg.attn_impl == "pallas" and causal and q.shape[1] == k.shape[1]:
+    if (cfg.attn_impl == "pallas" and causal
+            and q.shape[1] + q_offset <= k.shape[1]):
         if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                         or v.requires_grad):
             raise RuntimeError(
                 "attn_impl='pallas' is the forward kernel alone and has no "
                 "backward (the reference cannot differentiate it either); "
                 "train with attn_impl='xla_cv'")
-        return kops.flash_attention(q, k, v, causal=True)
+        return kops.flash_attention(q, k, v, causal=True, q_offset=q_offset)
     if (cfg.attn_impl == "xla_cv" and causal and kv_len is None
             and k.shape[1] % min(cfg.attn_chunk, k.shape[1]) == 0):
         return flash_attention_cv(q, k, v, True, cfg.attn_chunk,
-                                  cfg.head_dim ** -0.5)
+                                  cfg.head_dim ** -0.5, q_offset)
     return flash_attention(q, k, v, causal=causal, q_offset=q_offset,
                            kv_len=kv_len, chunk=cfg.attn_chunk)
 
@@ -319,30 +333,6 @@ def attention_core(cfg: ModelConfig, q, k, v, *, causal: bool, q_offset=0,
 # ---------------------------------------------------------------------------
 # full layer applications
 # ---------------------------------------------------------------------------
-def self_attention(cfg: ModelConfig, p, x, positions, *, causal: bool = True,
-                   prefix: str = "") -> Tuple[torch.Tensor, Tuple]:
-    """Prefill self-attention. Returns (out, (k, v)) for caching."""
-    q = q_proj(cfg, p, x, positions, prefix=prefix)
-    k, v = kv_proj(cfg, p, x, positions, prefix=prefix)
-    attn = attention_core(cfg, q, k, v, causal=causal)
-    return out_proj(cfg, p, attn, prefix=prefix), (k, v)
-
-
-def decode_self_attention(cfg: ModelConfig, p, x, cache_k, cache_v, cache_pos,
-                          positions, *, prefix: str = ""):
-    """Single-token decode: insert new KV at ``cache_pos``, attend over cache.
-
-    cache_k/v: (B, S_max, KV, hd). ``cache_pos`` is a scalar, or a (B,)
-    vector of per-row positions (ragged continuous batching). The cache is
-    updated **in place** (the reference returns new arrays); the same tensors
-    are returned as (out, cache_k, cache_v).
-    """
-    q = q_proj(cfg, p, x, positions, prefix=prefix)
-    k_new, v_new = kv_proj(cfg, p, x, positions, prefix=prefix)
-    attn = cache_attend(cfg, q, k_new, v_new, cache_k, cache_v, cache_pos)
-    return out_proj(cfg, p, attn, prefix=prefix), cache_k, cache_v
-
-
 def cache_attend(cfg: ModelConfig, q, k_new, v_new, cache_k, cache_v,
                  cache_pos):
     """Writes ``k_new`` / ``v_new`` into the cache **in place** at
@@ -363,9 +353,10 @@ def cache_attend(cfg: ModelConfig, q, k_new, v_new, cache_k, cache_v,
 
 
 def cross_attention(cfg: ModelConfig, p, x, enc_k, enc_v, *,
-                    prefix: str = "cross_"):
+                    prefix: str = "cross_", bias: bool = True):
     """Decoder cross-attention over precomputed encoder K/V (no mask, no
-    rope): (B, S, D) queries against (B, S_enc, KV, hd) keys and values."""
+    rope): (B, S, D) queries against (B, S_enc, KV, hd) keys and values.
+    ``bias``: as ``out_proj``'s."""
     q = q_proj(cfg, p, x, None, prefix=prefix, use_rope=False)
     attn = attention_core(cfg, q, enc_k, enc_v, causal=False)
-    return out_proj(cfg, p, attn, prefix=prefix)
+    return out_proj(cfg, p, attn, prefix=prefix, bias=bias)

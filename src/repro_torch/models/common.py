@@ -392,26 +392,64 @@ def gather_param(w, env: AxisEnv, pol: ShardingPolicy, *, partial_axes=(),
         grad_placements=tuple(grad))
 
 
-def _with_axis(pl, env: AxisEnv, axis: str, placement):
+def with_axis(pl, env: AxisEnv, axis: str, placement):
     return tuple(placement if a == axis else p
                  for a, p in zip(env.mesh_axes, pl))
 
 
-def tp_enter(x, env: AxisEnv, act_pl):
+def global_shape(x, env: AxisEnv, pl, seq_len: Optional[int] = None,
+                 seq_dim: int = 1) -> Tuple[int, ...]:
+    """The global shape of the tensor laid out by placements ``pl`` whose
+    local shard on this rank is ``x``: a dim split over mesh axes is the
+    local size times theirs (the batch splits evenly), except the sequence
+    dim ``seq_dim``, whose global length ``seq_len`` is given (a split of
+    1,500 encoder frames over 16 ranks leaves 94 on fifteen and 90 on the
+    last, as ``torch.chunk`` does)."""
+    shape = list(x.shape)
+    for axis, p in zip(env.mesh_axes, pl):
+        if p.is_shard():
+            if p.dim == seq_dim and seq_len is not None:
+                shape[seq_dim] = seq_len
+            else:
+                shape[p.dim] *= env.size(axis)
+    return tuple(shape)
+
+
+def dtensor_of(x, env: AxisEnv, pl, seq_len: Optional[int] = None):
+    from torch.distributed.tensor import DTensor
+    shape = global_shape(x, env, pl, seq_len)
+    return DTensor.from_local(x, env.mesh, pl, run_check=False,
+                              shape=torch.Size(shape),
+                              stride=torch.empty(shape, device="meta").stride())
+
+
+def tp_enter(x, env: AxisEnv, act_pl, seq_len: Optional[int] = None):
     """Entry of the tensor-parallel region (Megatron's f): the identity
     forward; the gradient, a part per model rank, is all-reduced over the
-    model axis. ``act_pl``: the activation's placements."""
-    from torch.distributed.tensor import DTensor, Partial
-    return DTensor.from_local(x, env.mesh, act_pl, run_check=False).to_local(
-        grad_placements=_with_axis(act_pl, env, env.tp, Partial()))
+    model axis. ``act_pl``: the activation's placements. Where they split
+    the sequence (dim 1, ``seq_len`` long) over the model axis, the entry is
+    Megatron's sequence-parallel one instead: an all-gather of the sequence
+    over the model axis, whose backward reduce-scatters the ranks' parts of
+    the gradient back to the split. The same gather brings a
+    sequence-parallel rank the whole sequence's keys and values."""
+    from torch.distributed.tensor import Partial, Replicate
+    d = dtensor_of(x, env, act_pl, seq_len)
+    whole = with_axis(act_pl, env, env.tp, Replicate())
+    if tuple(whole) != tuple(act_pl):
+        d = d.redistribute(env.mesh, whole)
+    return d.to_local(grad_placements=with_axis(act_pl, env, env.tp,
+                                                 Partial()))
 
 
 def tp_exit(x, env: AxisEnv, act_pl):
     """Exit of the tensor-parallel region (Megatron's g): the model ranks'
-    partial sums all-reduced over the model axis; the identity backward."""
+    partial sums all-reduced over the model axis; the identity backward.
+    Where ``act_pl`` splits the sequence over the model axis (Megatron's
+    sequence parallelism), a reduce-scatter to that split instead, whose
+    backward is the all-gather."""
     from torch.distributed.tensor import DTensor, Partial
     part = DTensor.from_local(x, env.mesh,
-                              _with_axis(act_pl, env, env.tp, Partial()),
+                              with_axis(act_pl, env, env.tp, Partial()),
                               run_check=False)
     return part.redistribute(env.mesh, act_pl).to_local()
 

@@ -204,14 +204,16 @@ def embed_tokens(cfg: ModelConfig, p, tokens,
 
 
 def unembed(cfg: ModelConfig, p, x, seq_shard=None):
-    """Final norm, then the (tied or own) head. ``seq_shard`` (on a mesh,
-    when the vocab dim cannot be model-sharded): a function that splits the
-    normed activations' TOKEN dim over the model axis, as the reference's
-    ``with_sharding_constraint`` there; the loss is per token, so this is
+    """Final norm, then the (tied or own) head. ``seq_shard`` (on a mesh):
+    a function that lays the normed activations out for the head, applied
+    whenever given: when the vocab dim cannot be model-sharded, a split of
+    their TOKEN dim over the model axis, as the reference's
+    ``with_sharding_constraint`` there (the loss is per token, so this is
     communication-free and caps the (B, S, V) fp32 buffer at 1 / model-axis
-    per device."""
+    per device); with the vocab model-sharded, the entry of the
+    tensor-parallel region."""
     x = apply_norm(cfg, p, "final_norm", x)
-    if seq_shard is not None and x.shape[-2] > 1:
+    if seq_shard is not None:
         x = seq_shard(x)
     w = p["tok_embed"].T if cfg.tie_embeddings else p["lm_head"]
     return weight_matmul(x, w)

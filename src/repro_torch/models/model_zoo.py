@@ -27,7 +27,7 @@ from repro_torch.models.common import (AxisEnv, ShardingPolicy,
                                        pspec, resolve_device, shard_local,
                                        tree_items,
                                        tree_leaves, tree_unflatten)
-from repro_torch.models.layers import softmax_xent
+from repro_torch.models.layers import softmax_xent  # noqa: F401
 
 PyTree = Any
 
@@ -81,23 +81,15 @@ class Model:
         ``MeshRun`` that lays out this batch."""
         if not self.sharded:
             return None
-        if self.cfg.family == ENCDEC:
-            raise tfm.deferred(self.cfg, "encdec")
         return tfm.MeshRun(self.cfg, self.env, self.pol, batch, decode=decode)
 
     def _forward(self, params, batch, *, return_cache: bool = False,
                  last_token_only: bool = False, with_loss: bool = False):
-        run = self._run(batch)
-        if self.cfg.family != ENCDEC:
-            return tfm.forward_decoder_only(
-                self.cfg, params, batch, return_cache=return_cache,
-                last_token_only=last_token_only, run=run, with_loss=with_loss)
-        logits, aux, cache = encdec_mod.forward_encdec(
-            self.cfg, params, batch, return_cache=return_cache,
-            last_token_only=last_token_only)
-        if with_loss:
-            return softmax_xent(logits, batch["labels"]), aux, None
-        return logits, aux, cache
+        forward = (encdec_mod.forward_encdec if self.cfg.family == ENCDEC
+                   else tfm.forward_decoder_only)
+        return forward(self.cfg, params, batch, return_cache=return_cache,
+                       last_token_only=last_token_only, run=self._run(batch),
+                       with_loss=with_loss)
 
     @torch.no_grad()
     def forward(self, params, batch, *, return_cache: bool = False,
@@ -122,11 +114,10 @@ class Model:
     @torch.no_grad()
     def decode(self, params, cache, batch):
         """Updates ``cache`` in place and returns it with the logits."""
-        run = self._run(batch, decode=True)
-        if self.cfg.family == ENCDEC:
-            return encdec_mod.decode_encdec(self.cfg, params, cache, batch)
-        return tfm.decode_decoder_only(self.cfg, params, cache, batch,
-                                       run=run)
+        decode = (encdec_mod.decode_encdec if self.cfg.family == ENCDEC
+                  else tfm.decode_decoder_only)
+        return decode(self.cfg, params, cache, batch,
+                      run=self._run(batch, decode=True))
 
     # ------------------------------------------------------------------
     def init_cache(self, batch: int, max_seq: int, dtype=torch.bfloat16,

@@ -17,29 +17,38 @@ an image the first is smaller than the second. The encoder-decoder family is
 One layer body and one forward / decode loop serve one device and one
 rank's shard of a mesh: they call the hooks of a ``OneDevice`` (the
 identity: weights as stored, activations and cache as they are) or of a
-``MeshRun``. On a mesh the dense family runs as one rank's shard: the
-reference's sharding specs (``act_sharding``, ``unembed_spec``,
-``cache_specs_decoder_only``) lay out the activations and the cache,
-``constrain`` redistributes the residual stream to them at the reference's
-sites, each layer gathers its weights (ZeRO-3) inside its remat region, and
-the attention heads, the MLP width and the vocabulary are split over the
-model axis (Megatron's tensor parallelism). The other families on a mesh
-raise, naming their ROADMAP item.
+``MeshRun``. On a mesh the dense and VLM families (and the enc-dec, through
+the same hooks) run as one rank's shard: the reference's sharding specs
+(``act_sharding``, ``unembed_spec``, ``cache_specs_decoder_only``) lay out
+the activations and the cache, ``constrain`` redistributes the residual
+stream to them at the reference's sites, each layer gathers its weights
+(ZeRO-3) inside its remat region, and the attention heads, the MLP width and
+the vocabulary are split over the model axis (Megatron's tensor
+parallelism). Where the model axis does not divide the heads the
+activations are split by sequence instead (sequence-parallel attention:
+each rank gathers the layer's K/V and attends its own query block at its
+offset), and where the config asks for it (qwen2-vl) the residual stream
+between tensor-parallel regions is split by sequence (Megatron's sequence
+parallelism). The MoE, SSM and hybrid families on a mesh raise, naming their
+ROADMAP item.
 """
 from __future__ import annotations
 
+import copy
 from typing import Any, Dict, Optional, Tuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.configs.base import DENSE, HYBRID, MOE, SSM, VLM, ModelConfig
+from repro_torch.configs.base import (DENSE, ENCDEC, HYBRID, MOE, SSM, VLM,
+                                      ModelConfig)
 from repro_torch.models import attention as attn
 from repro_torch.models import layers as nn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.common import (AxisEnv, ParamBuilder, ShardingPolicy,
-                                       cdtype, gather_param, is_dtensor,
+                                       dtensor_of, with_axis, cdtype,
+                                       gather_param, global_shape, is_dtensor,
                                        local, placements, pspec, reshard,
                                        shard_local, spec_axes, to_dtype,
                                        tp_enter, tp_exit)
@@ -141,32 +150,51 @@ def _plus_bias(cfg: ModelConfig, lp, name: str, y):
     return y + lp[name].to(y.device, y.dtype) if cfg.use_bias else y
 
 
-def _attn_mlp_layer(run, lp, x, positions, cache=None, cache_pos=None):
-    """Standard pre-norm block in ``run.cfg`` (a mesh's: the local heads,
-    KV heads and MLP width). Returns (x, new_kv, aux): aux is the MoE
-    load-balancing loss of a forward (None for a dense layer or a decode
-    step, whose aux nothing reads). ``run.enter`` / ``run.exit`` bound the
-    tensor-parallel region (the identity on one device); the output biases
-    are added after ``exit``, once, not on every model rank's partial
-    sum."""
+def attn_block(run, lp, x, positions, cache=None, cache_pos=None, *,
+               causal: bool = True, norm: str = "norm1"):
+    """The pre-norm self-attention block in ``run.cfg`` (a mesh's: the local
+    heads and KV heads): ``x + attention(norm(x))``, and the new K/V (the
+    cache itself in a decode step). ``run.enter`` / ``run.exit`` bound the
+    tensor-parallel region (the identity on one device); the output bias is
+    added after ``exit``, once, not on every model rank's partial sum.
+    ``run.attend`` is where a sequence-parallel rank gathers the keys and
+    values of the whole sequence."""
     cfg = run.cfg
-    h = run.enter(nn.apply_norm(cfg, lp, "norm1", x))
+    h = run.enter(nn.apply_norm(cfg, lp, norm, x))
     q = attn.q_proj(cfg, lp, h, positions)
     k, v = attn.kv_proj(cfg, lp, h, positions)
     if cache is None:
-        a = attn.attention_core(cfg, q, k, v, causal=True,
-                                kv_group=run.kv_group,
-                                head_offset=run.head_offset)
+        a = run.attend(q, k, v, causal=causal)
         new_kv = (k, v)
     else:
         a = run.decode_attend(q, k, v, *cache, cache_pos)
         new_kv = cache
     a = run.exit(attn.out_proj(cfg, lp, a, bias=False))
-    x = x + _plus_bias(cfg, lp, "bo", a)
-    h = run.enter(nn.apply_norm(cfg, lp, "norm2", x))
+    return x + _plus_bias(cfg, lp, "bo", a), new_kv
+
+
+def mlp_block(run, lp, x, norm: str = "norm2"):
+    """The pre-norm MLP block: ``x + mlp(norm(x))``, its output bias added
+    once after the tensor-parallel exit."""
+    cfg = run.cfg
+    h = run.enter(nn.apply_norm(cfg, lp, norm, x))
+    f = run.exit(nn.apply_mlp(cfg, lp, h, out_bias=False))
+    return x + _plus_bias(cfg, lp, "b_out", f)
+
+
+def _attn_mlp_layer(run, lp, x, positions, cache=None, cache_pos=None, *,
+                    causal: bool = True):
+    """Standard pre-norm block in ``run.cfg``: ``attn_block`` then the MLP
+    (``mlp_block``) or the MoE FFN. Returns (x, new_kv, aux): aux is the MoE
+    load-balancing loss of a forward (None for a dense layer or a decode
+    step, whose aux nothing reads). ``causal=False`` is the encoder's
+    bidirectional layer."""
+    cfg = run.cfg
+    x, new_kv = attn_block(run, lp, x, positions, cache, cache_pos,
+                           causal=causal)
     if cfg.family != MOE:
-        f = run.exit(nn.apply_mlp(cfg, lp, h, out_bias=False))
-        return x + _plus_bias(cfg, lp, "b_out", f), new_kv, None
+        return mlp_block(run, lp, x), new_kv, None
+    h = run.enter(nn.apply_norm(cfg, lp, "norm2", x))
     out, probs, top_e = moe_mod.apply_moe(cfg, lp, h)
     aux = moe_mod.balance_loss(cfg, probs, top_e) if cache is None else None
     return x + out, new_kv, aux
@@ -318,14 +346,14 @@ def forward_decoder_only(cfg: ModelConfig, params, batch, *,
         if auxs:
             aux = torch.stack(auxs).sum()
         if return_cache:
-            cache = run.stack_cache(ks, vs)
+            cache = run.stack_cache({"k": ks, "v": vs})
     else:
         x, ssm_caches, kvs = _ssm_stack(cfg, params, x, positions,
                                         return_cache=return_cache)
         if return_cache:
             cache = _stacked_cache(cfg, ssm_caches, kvs)
     if last_token_only:
-        x = x[:, -1:, :]  # prefill: only the next-token logits are needed
+        x = run.last_token(x)  # prefill: only the next-token logits are needed
     logits = run.unembed(params, x)
     if with_loss:
         return run.xent(logits, batch["labels"]), aux, None
@@ -457,13 +485,11 @@ def cache_specs_decoder_only(cfg: ModelConfig, batch: int, env: AxisEnv,
 # ---------------------------------------------------------------------------
 # ROADMAP items of the parts a mesh does not run yet
 DEFERRED = {
-    "seq_parallel": "A25 (sequence-parallel attention)",
     MOE: "A26 (expert-parallel MoE dispatch)",
     SSM: "A27 (SSM heads on the model axis)",
     HYBRID: "A27 (SSM heads on the model axis)",
-    VLM: "A28 (enc-dec and VLM execution on a mesh)",
-    "encdec": "A28 (enc-dec and VLM execution on a mesh)",
     "serving": "A29 (serving on a mesh)",
+    "encdec_tp": "A31 (enc-dec with its heads split over the model axis)",
 }
 
 
@@ -475,12 +501,17 @@ def deferred(cfg: ModelConfig, what: str):
 
 def require_on_mesh(cfg: ModelConfig, pol: ShardingPolicy) -> None:
     """Raises, naming the ROADMAP item, unless a mesh runs ``cfg`` under
-    ``pol``: the dense family, its heads split over the model axis or not at
-    all."""
-    if cfg.family != DENSE:
+    ``pol``: the dense and VLM families with their heads split over the
+    model axis (Megatron's tensor parallelism, with the residual stream
+    split by sequence where ``pol.seq_residuals``), with their activations
+    split by sequence instead (``pol.seq_parallel_attn``: the model axis
+    does not divide the heads), or with the model axis a batch axis
+    (fsdp_only); the encoder-decoder the same, except with its heads
+    split."""
+    if cfg.family in (MOE, SSM, HYBRID):
         raise deferred(cfg, cfg.family)
-    if pol.seq_sharded_acts:
-        raise deferred(cfg, "seq_parallel")
+    if cfg.family == ENCDEC and pol.head_sharded:
+        raise deferred(cfg, "encdec_tp")
 
 
 # the weights a layer uses inside its tensor-parallel region (between the
@@ -493,18 +524,27 @@ _TP_REGION = frozenset({"wq", "wk", "wv", "bq", "bk", "bv", "q_norm",
 
 
 class OneDevice:
-    """The hooks that ``_attn_mlp_layer`` and the forward / decode loops
-    call, for one device: the weights as stored, the activations and the
-    cache as they are, the head over the whole vocabulary. ``MeshRun``
-    gives the same hooks for one rank's shard of a mesh."""
+    """The hooks that the layer blocks and the forward / decode loops call,
+    for one device: the weights as stored, the activations and the cache as
+    they are, the head over the whole vocabulary. ``MeshRun`` gives the same
+    hooks for one rank's shard of a mesh."""
     kv_group: Optional[int] = None      # expand_kv's, for local query heads
     head_offset: int = 0
+    seq_offset: int = 0                 # position of the first local token
 
     def __init__(self, cfg: ModelConfig):
         self.cfg = cfg      # the layer's config
 
+    def encoder(self, ecfg: ModelConfig, seq_len: int):
+        """The hooks of an encoder over ``seq_len`` frames."""
+        return OneDevice(ecfg)
+
     def embed(self, params, batch):
         return _embed_input(self.cfg, params, batch)
+
+    def split(self, x):
+        """A whole-sequence input (B, S, ...) -> this rank's tokens."""
+        return x
 
     def constrain(self, x):
         return x
@@ -512,11 +552,24 @@ class OneDevice:
     def layer_params(self, lp_all, i: int):
         return _layer_params(lp_all, i)
 
+    def param(self, w, *, dtype=None):
+        return w if dtype is None else w.to(dtype)
+
     def enter(self, x):
         return x
 
     def exit(self, x):
         return x
+
+    def attend(self, q, k, v, *, causal: bool = True):
+        return attn.attention_core(self.cfg, q, k, v, causal=causal,
+                                   kv_group=self.kv_group,
+                                   head_offset=self.head_offset)
+
+    def cross_kv(self, k, v, seq_len: int):
+        """An encoder's K/V (``seq_len`` frames), whole for cross
+        attention."""
+        return k, v
 
     def decode_attend(self, q, k_new, v_new, cache_k, cache_v, cache_pos):
         return attn.cache_attend(self.cfg, q, k_new, v_new, cache_k, cache_v,
@@ -525,8 +578,12 @@ class OneDevice:
     def cache_kv(self, k, v):
         return k, v
 
-    def stack_cache(self, ks, vs):
-        return {"k": torch.stack(ks), "v": torch.stack(vs)}
+    def stack_cache(self, parts, specs_of=None):
+        """{name: per-layer tensors} -> {name: layer-stacked tensor}."""
+        return {name: torch.stack(ps) for name, ps in parts.items()}
+
+    def last_token(self, x):
+        return x[:, -1:, :]
 
     def unembed(self, params, x):
         return nn.unembed(self.cfg, params, x)
@@ -538,26 +595,48 @@ class OneDevice:
         return nn.softmax_xent(logits, labels)
 
 
+def _batch_dims(batch) -> Tuple[int, int]:
+    """(B, S) of a batch: its tokens' (the decoder's, for an enc-dec), or a
+    VLM's embeddings'."""
+    x = batch["tokens"] if "tokens" in batch else batch["embeds"]
+    return x.shape[0], x.shape[1]
+
+
 class MeshRun(OneDevice):
-    """The hooks for one sharded call of the dense family: the
-    activations' placements (``act_sharding``; a decode step takes its
-    cache's batch axes), the mesh axes that split its tokens, the
-    tensor-parallel region, and the local config (local heads, KV heads and
-    MLP width), so the layer code runs unchanged on one rank's shard.
-    ``params``, ``batch`` and the cache hold ``DTensor``s laid out by the
-    model's specs; the activations between the hooks are local tensors."""
+    """The hooks for one sharded call: the activations' placements
+    (``act_sharding``; a decode step takes its cache's batch axes), the
+    mesh axes that split its tokens, the tensor-parallel region, and the
+    local config (local heads, KV heads and MLP width), so the layer code
+    runs unchanged on one rank's shard. ``params``, ``batch`` and the cache
+    hold ``DTensor``s laid out by the model's specs; the activations between
+    the hooks are local tensors.
+
+    Where the policy splits the activations by sequence over the model axis
+    (``seq_sharded_acts``), this rank holds tokens ``[seq_offset,
+    seq_offset + S_local)`` of each of its sequences, at those positions.
+    Sequence-parallel attention (``seq_parallel_attn``: the heads stay
+    whole) gathers each layer's K/V over the model axis and attends the
+    local queries at ``q_offset = seq_offset``; nothing else communicates
+    over that axis but the loss. Megatron's sequence parallelism
+    (``seq_residuals``: the heads split) keeps the residual stream split:
+    ``enter`` all-gathers the sequence and ``exit`` reduce-scatters back to
+    the split, and between them attention runs over the whole sequence on
+    the local heads."""
 
     def __init__(self, cfg: ModelConfig, env: AxisEnv, pol: ShardingPolicy,
                  batch, *, decode: bool = False):
         require_on_mesh(cfg, pol)
-        B, S = batch["tokens"].shape
+        B, S = _batch_dims(batch)
         self.cfg_global, self.env, self.pol, self.batch = cfg, env, pol, B
         self.mesh, self.seq_len = env.mesh, S
         self.act_spec = (pspec(env.batch_axes(B), None) if decode
                          else act_sharding(env, pol, B))
         self.act_pl = placements(tuple(self.act_spec) + (None,), env)
         self.token_axes = tuple(a for e in self.act_spec for a in spec_axes(e))
-        self.tp = pol.profile == "tp" and env.size(env.tp) > 1
+        # the heads (and the MLP width) split over the model axis
+        self.tp = pol.head_sharded
+        # the residual stream split by sequence over the model axis
+        self.seq_acts = not decode and pol.seq_sharded_acts
         self.model_rank = self.mesh.get_local_rank(env.tp)
         n = env.size(env.tp) if self.tp else 1
         kv_local = cfg.num_kv_heads // n if pol.kv_sharded else cfg.num_kv_heads
@@ -570,8 +649,29 @@ class MeshRun(OneDevice):
         # the cache splits the sequence over the model axis when that axis
         # does not split the KV heads
         self.seq_split = not pol.kv_sharded and env.size(env.tp) > 1
-        self.seq_axes = ()          # the logits' token split (``unembed``)
+        self.seq_offset = self._first_position()
+        # the tokens' layout at the head: the activations', until the last
+        # token is taken or the unembedding re-lays them
+        self.head_spec = self.act_spec
         self._slot = None
+
+    def _first_position(self) -> int:
+        if not self.seq_acts:
+            return 0
+        from torch.distributed.tensor._utils import (
+            compute_local_shape_and_global_offset)
+        _, offset = compute_local_shape_and_global_offset(
+            (self.batch, self.seq_len), self.mesh,
+            placements(self.act_spec, self.env))
+        return int(offset[1])
+
+    def encoder(self, ecfg: ModelConfig, seq_len: int):
+        """The same layout over an encoder's ``seq_len`` frames (its own
+        split of the sequence) with its config."""
+        run = copy.copy(self)
+        run.cfg, run.seq_len = ecfg, seq_len
+        run.seq_offset = run._first_position()
+        return run
 
     # -- parameters --------------------------------------------------------
     def layer_params(self, lp_all, i: int):
@@ -586,34 +686,63 @@ class MeshRun(OneDevice):
                 dtype=cdtype(self.cfg) if w.dim() >= 3 else None)
         return out
 
-    def param(self, w, *, extra_partial=(), dtype=None):
+    def param(self, w, *, partial_axes=None, dtype=None):
+        """A weight gathered for use on the local tokens (its gradient a
+        part on every rank that splits them; ``partial_axes`` names other
+        axes)."""
         return gather_param(w, self.env, self.pol,
-                            partial_axes=self.token_axes + tuple(extra_partial),
+                            partial_axes=(self.token_axes if partial_axes is None
+                                          else partial_axes),
                             dtype=dtype)
 
     # -- layouts -----------------------------------------------------------
     def enter(self, x):
-        return tp_enter(x, self.env, self.act_pl) if self.tp else x
+        return tp_enter(x, self.env, self.act_pl, self.seq_len) if self.tp else x
 
     def exit(self, x):
         return tp_exit(x, self.env, self.act_pl) if self.tp else x
 
+    def split(self, x):
+        whole = placements(pspec(self.act_spec[0], None), self.env)
+        return reshard(x, self.env, whole, self.act_pl) if self.seq_acts else x
+
     def constrain(self, x):
-        from torch.distributed.tensor import DTensor
-        d = DTensor.from_local(x, self.mesh, self.act_pl, run_check=False)
+        d = dtensor_of(x, self.env, self.act_pl, self.seq_len)
         return constrain(d, self.env, self.pol, self.batch).to_local()
+
+    def _lay(self, x, spec):
+        """An input laid out by ``spec``: its local tensor."""
+        if not is_dtensor(x):
+            return x
+        return x.redistribute(self.mesh, placements(tuple(spec), self.env)
+                              ).to_local()
 
     # -- embedding ---------------------------------------------------------
     def embed(self, params, batch):
         """The local tokens' embeddings (the tokens laid out as the
-        activations first) and their positions."""
+        activations first) and their positions: ``seq_offset`` onwards
+        where the sequence is split. A VLM's embeddings are laid out the
+        same; its (3, B, S) M-RoPE positions are the local tokens' under
+        sequence-parallel attention, and whole under Megatron SP, where only
+        the tensor-parallel region (the whole sequence) reads them."""
         cfg = self.cfg_global
-        tokens = batch["tokens"]
-        if is_dtensor(tokens):
-            tokens = tokens.redistribute(
-                self.mesh, placements(tuple(self.act_spec), self.env)).to_local()
-        positions = _positions(tokens, batch.get("pos", None))
+        if cfg.family == VLM:
+            x = self._lay(batch["embeds"], tuple(self.act_spec) + (None,))
+            positions = self._lay(batch["positions"],
+                                  pspec(None, self.act_spec[0], None))
+            if self.seq_parallel:
+                positions = positions[:, :, self.seq_offset:
+                                      self.seq_offset + x.shape[1]]
+            return x.to(cdtype(cfg)), positions
+        tokens = self._lay(batch["tokens"], self.act_spec)
+        positions = _positions(tokens, batch.get("pos", None), self.seq_offset)
         if self.tp and self.pol.vocab_sharded:
+            # the vocab-parallel lookup: every rank looks up the tokens of
+            # its model group (the whole sequence under Megatron SP) in its
+            # vocabulary shard, and the exit sums the shards (reduce-
+            # scattering the sequence back to its split)
+            if self.seq_acts:
+                tokens = self._lay(batch["tokens"], pspec(self.act_spec[0], None))
             table = self.param(params["tok_embed"])         # (V / n, D)
             V = table.shape[0]
             idx = tokens.long() - self.model_rank * V
@@ -629,6 +758,31 @@ class MeshRun(OneDevice):
             p["pos_embed"] = self.param(params["pos_embed"])
         return nn.embed_tokens(cfg, p, tokens,
                                positions if cfg.learned_pos else None), positions
+
+    # -- attention ---------------------------------------------------------
+    @property
+    def seq_parallel(self) -> bool:
+        """Sequence-parallel attention: the sequence split, the heads whole."""
+        return self.seq_acts and not self.tp
+
+    def attend(self, q, k, v, *, causal: bool = True):
+        """Sequence-parallel: the whole sequence's K/V gathered over the
+        model axis (the backward reduce-scatters their gradients), and the
+        local queries attend them at ``q_offset = seq_offset`` when causal:
+        row ``i`` sees keys ``0..seq_offset + i``."""
+        if not self.seq_parallel:
+            return super().attend(q, k, v, causal=causal)
+        k, v = (tp_enter(t, self.env, self.act_pl, self.seq_len) for t in (k, v))
+        return attn.attention_core(self.cfg, q, k, v, causal=causal,
+                                   q_offset=self.seq_offset if causal else 0)
+
+    def cross_kv(self, k, v, seq_len: int):
+        """An encoder's K/V, split by its frames under sequence-parallel
+        attention, gathered whole over the model axis (``seq_len`` frames:
+        the gather pads an uneven split and trims it)."""
+        if not self.seq_parallel:
+            return k, v
+        return tuple(tp_enter(t, self.env, self.act_pl, seq_len) for t in (k, v))
 
     # -- the cache ---------------------------------------------------------
     def decode_attend(self, q, k_new, v_new, cache_k, cache_v, cache_pos):
@@ -668,99 +822,140 @@ class MeshRun(OneDevice):
 
     def cache_kv(self, k, v):
         """A layer's K/V laid out as the cache (``cache_specs_decoder_only``
-        less its layer dim)."""
+        less its layer dim). A sequence-parallel rank's own K/V are its part
+        of the cache's sequence split already."""
         env = self.env
         spec = cache_specs_decoder_only(self.cfg_global, self.batch, env,
                                         self.pol)["k"][1:]
-        src = placements(pspec(self.act_spec[0], None,
+        src = placements(pspec(self.act_spec[0],
+                               env.tp if self.seq_parallel else None,
                                env.tp if (self.tp and self.pol.kv_sharded)
                                else None, None), env)
         dst = placements(spec, env)
         return reshard(k, env, src, dst), reshard(v, env, src, dst)
 
-    def stack_cache(self, ks, vs):
+    def stack_cache(self, parts, specs_of=None):
+        """{name: per-layer local tensors} -> {name: layer-stacked
+        ``DTensor``} laid out by the spec tree ``specs_of(cfg, batch, env,
+        pol)`` gives (``cache_specs_decoder_only`` by default)."""
         cfg, env = self.cfg_global, self.env
-        spec = cache_specs_decoder_only(cfg, self.batch, env, self.pol)
-        full = (cfg.num_layers, self.batch, self.seq_len, cfg.num_kv_heads,
-                cfg.head_dim)
-        return {name: shard_local(torch.stack(parts), full,
-                                  placements(spec[name], env), env.mesh)
-                for name, parts in (("k", ks), ("v", vs))}
+        specs = (specs_of or cache_specs_decoder_only)(cfg, self.batch, env,
+                                                        self.pol)
+        out = {}
+        for name, ps in parts.items():
+            x, pl = torch.stack(ps), placements(specs[name], env)
+            out[name] = shard_local(
+                x, global_shape(x, env, pl, self.seq_len, seq_dim=2), pl,
+                env.mesh)
+        return out
 
     # -- head and loss -----------------------------------------------------
+    def last_token(self, x):
+        """The last token of each local sequence, whole over the model
+        axis: where the sequence is split, the rank that holds position
+        ``S - 1`` sends it to the others (a sum over the model axis of it
+        and zeros)."""
+        if not self.seq_acts:
+            return super().last_token(x)
+        from torch.distributed.tensor import DTensor, Partial
+        env = self.env
+        own = self.seq_offset <= self.seq_len - 1 < self.seq_offset + x.shape[1]
+        t = (x[:, -1:, :] if own
+             else x.new_zeros((x.shape[0], 1) + tuple(x.shape[2:])))
+        self.head_spec = pspec(self.act_spec[0], None)
+        whole = placements(tuple(self.head_spec) + (None,), env)
+        part = DTensor.from_local(t, self.mesh,
+                                  with_axis(whole, env, env.tp, Partial()),
+                                  run_check=False)
+        return part.redistribute(self.mesh, whole).to_local()
+
     def unembed(self, params, x):
         """Logits of the local tokens: the local vocabulary shard when the
         vocab is model-sharded (the normed input enters the
-        tensor-parallel region), else the whole vocabulary of this model
-        rank's token slice when ``unembed_spec`` splits the tokens
-        (``seq_axes`` then names the axes of that split)."""
+        tensor-parallel region, its sequence gathered under Megatron SP),
+        else the whole vocabulary of this rank's tokens: those of its model
+        rank's token slice when ``unembed_spec`` splits them, its own part
+        of the sequence under sequence-parallel attention. ``head_spec``
+        then holds the logits' token layout."""
         cfg, env = self.cfg_global, self.env
-        useq = unembed_spec(env, self.pol, self.batch)
-        self.seq_axes = () if useq is None else spec_axes(useq[1])
+        in_spec = self.head_spec
+        in_pl = placements(tuple(in_spec) + (None,), env)
         shard = None
-        if useq is not None:
-            dst = placements(tuple(useq) + (None,), env)
-            shard = lambda h: reshard(h, env, self.act_pl, dst)
         if self.tp and self.pol.vocab_sharded:
-            shard = self.enter
+            shard = lambda h: tp_enter(h, env, in_pl, self.seq_len)
+            self.head_spec = pspec(in_spec[0], None)
+        else:
+            useq = unembed_spec(env, self.pol, self.batch)
+            if useq is not None and x.shape[-2] > 1:
+                dst = placements(tuple(useq) + (None,), env)
+                shard = lambda h: reshard(h, env, in_pl, dst)
+                self.head_spec = useq
+        axes = lambda spec: tuple(a for e in spec for a in spec_axes(e))
         head = "tok_embed" if cfg.tie_embeddings else "lm_head"
-        p = {"final_norm_scale": self.param(params["final_norm_scale"]),
-             head: self.param(params[head], extra_partial=self.seq_axes,
+        p = {"final_norm_scale": self.param(params["final_norm_scale"],
+                                            partial_axes=axes(in_spec)),
+             head: self.param(params[head], partial_axes=axes(self.head_spec),
                               dtype=cdtype(cfg))}
         if cfg.norm == "layernorm":
-            p["final_norm_bias"] = self.param(params["final_norm_bias"])
+            p["final_norm_bias"] = self.param(params["final_norm_bias"],
+                                              partial_axes=axes(in_spec))
         return nn.unembed(cfg, p, x, seq_shard=shard)
 
     def logits(self, logits):
-        """The local logits as a ``DTensor``: laid out by the batch axes
-        and, when the vocabulary is model-sharded, the model axis."""
+        """The local logits as a ``DTensor``: laid out by ``head_spec`` and,
+        when the vocabulary is model-sharded, the model axis."""
         env = self.env
         vocab = env.tp if self.tp and self.pol.vocab_sharded else None
-        spec = pspec(self.act_spec[0], *([None] * (logits.dim() - 2)), vocab)
-        shape = ((self.batch,) + tuple(logits.shape[1:-1])
-                 + (self.cfg_global.vocab_size,))
-        return shard_local(logits, shape, placements(spec, env), env.mesh)
+        tokens = tuple(self.head_spec[1:]) if logits.dim() == 3 else ()
+        pl = placements(pspec(self.head_spec[0], *tokens, vocab), env)
+        shape = global_shape(logits, env, pl,
+                             self.seq_len if logits.dim() == 3 else None)
+        return shard_local(logits, shape, pl, env.mesh)
 
     def xent(self, logits, labels) -> torch.Tensor:
         """The global mean token cross-entropy from this rank's logits: the
+        labels laid out as the logits' tokens (``head_spec``), the
         vocab-sharded log-sum-exp and label logit summed over the model
         axis, the local token sum divided by the global token count, summed
         over the axes that split the tokens. A plain 0-d tensor, the same on
         every rank."""
         from torch.distributed import _functional_collectives as funcol
         from torch.distributed.tensor import DTensor, Partial, Replicate
-        env, seq_axes = self.env, self.seq_axes
+        env, head_spec = self.env, tuple(self.head_spec)
         labels = local(labels)
-        if seq_axes:
-            useq = unembed_spec(env, self.pol, self.batch)
+        head_pl = placements(head_spec, env)
+        if head_spec != tuple(self.act_spec):
             labels = reshard(labels, env, placements(self.act_spec, env),
-                             placements(useq, env))
+                             head_pl)
         lf = logits.float()
         if self.tp and self.pol.vocab_sharded:
             V = lf.shape[-1]
             m = funcol.all_reduce(lf.detach().amax(dim=-1), "max",
                                   self.mesh.get_group(env.tp))
             s = torch.exp(lf - m[..., None]).sum(dim=-1)
-            lse = torch.log(self.exit(s)) + m
+            lse = torch.log(tp_exit(s, env, head_pl)) + m
             idx = labels.long() - self.model_rank * V
             inside = (idx >= 0) & (idx < V)
             ll = lf.gather(-1, idx.clamp(0, V - 1)[..., None])[..., 0]
-            ll = self.exit(ll * inside)
+            ll = tp_exit(ll * inside, env, head_pl)
         else:
             lse = torch.logsumexp(lf, dim=-1)
             ll = lf.gather(-1, labels.long()[..., None])[..., 0]
         n_tokens = self.batch * self.seq_len
         part = (lse - ll).sum() / n_tokens
-        split = set(self.token_axes) | set(seq_axes)
+        split = {a for e in head_spec for a in spec_axes(e)}
         pl = tuple(Partial() if a in split and env.size(a) > 1 else Replicate()
                    for a in env.mesh_axes)
         return DTensor.from_local(part, self.mesh, pl,
                                   run_check=False).full_tensor()
 
 
-def _positions(tokens, start):
+def _positions(tokens, start, offset: int = 0):
+    """Positions of the local tokens: ``offset`` (the first local token's
+    position in its sequence) onwards, after ``start`` (a decode step's
+    cache length)."""
     S = tokens.shape[1]
-    ar = torch.arange(S, device=tokens.device)
+    ar = offset + torch.arange(S, device=tokens.device)
     if start is None:
         return ar[None, :]
     start = torch.as_tensor(local(start), device=tokens.device)

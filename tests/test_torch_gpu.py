@@ -374,6 +374,52 @@ def test_flash_bwd_kernels_match_plain_on_card(dtype):
     assert all(torch.equal(a, b) for a, b in zip(first, second))
 
 
+# (Sq, Sk, q_offset): a sequence-parallel rank's block at its offset over
+# the whole sequence (bottom-right: Sk = Sq + q_offset), offsets inside a
+# 64-row tile and past its edge, ragged lengths, queries past the last key
+OFFSET_SHAPES = [(256, 1024, 768), (256, 1024, 256), (128, 512, 100),
+                 (100, 300, 130), (70, 300, 129), (128, 128, 37), (1, 64, 63)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernels_with_query_offset_match_plain_on_card(dtype):
+    """The forward (with and without lse), dk/dv and dq kernels, causal with
+    ``q_offset``, against their plain versions at every head dim (forward
+    fp32 2e-5, lse 2e-5, gradients fp32 1e-4; bf16 2e-2), each launch on its
+    route."""
+    from repro_torch.kernels import flash_attention as fa
+    dev = _cuda()
+    tol = {torch.float32: 2e-5, torch.bfloat16: 2e-2}[dtype]
+    gtol = {torch.float32: 1e-4, torch.bfloat16: 2e-2}[dtype]
+    routes = (fa.FWD_ROUTES[dtype], fa.BWD_ROUTES[dtype])
+    for hd in fa.HEAD_DIMS:
+        for Sq, Sk, off in OFFSET_SHAPES:
+            q, k, v, do = _flash_inputs(dev, dtype, 4, Sq, Sk, hd, Sq + off + hd)
+            before = (fa.flash_attention_fwd.launches_by_route[routes[0]],
+                      fa.flash_attention_bwd_dq.launches_by_route[routes[1]])
+            out = fa.flash_attention_fwd(q, k, v, q_offset=off)
+            out_s, lse = fa.flash_attention_fwd_stats(q, k, v, q_offset=off)
+            want, want_lse = fa.flash_attention_fwd_stats_plain(q, k, v,
+                                                                q_offset=off)
+            delta = fa.bwd_delta(want, do)
+            args = (q, k, v, do, want_lse, delta)
+            dk, dv = fa.flash_attention_bwd_dkdv(*args, q_offset=off)
+            dq = fa.flash_attention_bwd_dq(*args, q_offset=off)
+            w_dk, w_dv = fa.flash_attention_bwd_dkdv_plain(*args, q_offset=off)
+            w_dq = fa.flash_attention_bwd_dq_plain(*args, q_offset=off)
+            torch.cuda.synchronize()
+            case = (dtype, hd, Sq, Sk, off)
+            assert (fa.flash_attention_fwd.launches_by_route[routes[0]],
+                    fa.flash_attention_bwd_dq.launches_by_route[routes[1]]
+                    ) == (before[0] + 1, before[1] + 1), case
+            assert _rel(out, want) < tol and _rel(out_s, want) < tol, case
+            assert _rel(lse, want_lse) < 2e-5, case
+            assert _close(dq, w_dq, gtol), ("dq",) + case
+            assert _close(dk, w_dk, gtol), ("dk",) + case
+            assert _close(dv, w_dv, gtol), ("dv",) + case
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_kernels_at_phi3_mini_head_dim_on_card(dtype):

@@ -179,3 +179,64 @@ def test_head_dim_96_is_a_kernel_head_dim():
     port_fa._check_launch((), 96, torch.bfloat16)
     with pytest.raises(ValueError, match="head dim"):
         port_fa._check_launch((), 80, torch.bfloat16)
+
+
+# (Sq, Sk, q_offset): a sequence-parallel rank's block of queries at its
+# offset over the whole sequence's keys (Sk = Sq x ranks, the last rank's
+# block bottom-right aligned), offsets past a 128-key block edge and inside
+# one, and queries that run past the last key
+OFFSETS = [(64, 256, 0), (64, 256, 192), (100, 300, 130), (70, 300, 129),
+           (128, 128, 37), (96, 512, 288)]
+
+
+@pytest.mark.parametrize("Sq,Sk,q_offset", OFFSETS)
+def test_flash_with_query_offset_matches_reference(Sq, Sk, q_offset):
+    """B1 (``flash_attention_fwd``), B3 (its ``lse`` form) and B4 (dk/dv,
+    dq), plain versions, causal with ``q_offset`` (row ``i`` sees keys
+    ``0..i + q_offset``) against the reference's ``flash_attention(...,
+    causal=True, q_offset=...)`` (its chunked scan) and ``jax.vjp`` through
+    it, fp32: 2e-5 forward, 1e-4 backward."""
+    import jax
+    from repro.models import attention as ref_attn
+    rng = np.random.default_rng(Sq + Sk + q_offset)
+    B, H, hd = 2, 2, 32
+    q, do = (rng.standard_normal((B, Sq, H, hd)).astype(np.float32)
+             for _ in range(2))
+    k, v = (rng.standard_normal((B, Sk, H, hd)).astype(np.float32)
+            for _ in range(2))
+    fwd = lambda q, k, v: ref_attn.flash_attention(
+        q, k, v, causal=True, q_offset=q_offset, chunk=64)
+    want, vjp = jax.vjp(fwd, *map(to_jax, (q, k, v)))
+    wdq, wdk, wdv = vjp(to_jax(do))
+    tq, tk, tv, tdo = (to_torch(_fold_np(t)) for t in (q, k, v, do))
+    out = port_fa.flash_attention_fwd(tq, tk, tv, q_offset=q_offset)
+    out_s, lse = port_fa.flash_attention_fwd_stats(tq, tk, tv,
+                                                   q_offset=q_offset)
+    dq, dk, dv = port_fa.flash_attention_bwd(tq, tk, tv, out_s, lse, tdo,
+                                             q_offset=q_offset)
+    unfold = lambda t, S: to_np(t).reshape(B, H, S, hd).transpose(0, 2, 1, 3)
+    assert torch.equal(out, out_s)
+    assert rel_err(unfold(out, Sq), to_np(want)) < 2e-5
+    for name, got, w, S in (("dq", dq, wdq, Sq), ("dk", dk, wdk, Sk),
+                            ("dv", dv, wdv, Sk)):
+        assert rel_err(unfold(got, S), to_np(w)) < 1e-4, name
+    # the layout the models call: (B, S, H, hd) through ops
+    got = port_ops.flash_attention(*map(to_torch, (q, k, v)),
+                                   q_offset=q_offset)
+    assert rel_err(to_np(got), to_np(want)) < 2e-5
+
+
+def test_zero_query_offset_is_the_plain_causal_mask():
+    """``q_offset=0`` gives the plain versions' causal results bit for bit,
+    and a negative offset raises."""
+    q, k, v = (to_torch(_fold_np(t)) for t in _qkv((2, 200, 2, 32), seed=5))
+    do = torch.randn_like(q)
+    out, lse = port_fa.flash_attention_fwd_stats(q, k, v)
+    out0, lse0 = port_fa.flash_attention_fwd_stats(q, k, v, q_offset=0)
+    assert torch.equal(out, out0) and torch.equal(lse, lse0)
+    for a, b in zip(port_fa.flash_attention_bwd(q, k, v, out, lse, do),
+                    port_fa.flash_attention_bwd(q, k, v, out, lse, do,
+                                                q_offset=0)):
+        assert torch.equal(a, b)
+    with pytest.raises(ValueError, match="q_offset"):
+        port_fa.flash_attention_fwd(q, k, v, q_offset=-1)

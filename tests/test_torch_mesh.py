@@ -87,11 +87,25 @@ def test_spec_trees_equal_reference(arch, env_name):
 
 
 # ---------------------------------------------- numerics over gloo ranks
+# starcoder2 with 3 heads and whisper with 3: no model axis of 2 or 4
+# divides them, so their activations split by sequence (sequence-parallel
+# attention); whisper's 30 encoder frames split 8, 8, 8, 6 over 4 ranks;
+# qwen2-vl's 4 heads split over 4, its residuals by sequence (Megatron SP)
+STARCODER2 = {"num_heads": 3, "num_kv_heads": 1}
+WHISPER = {"num_heads": 3, "num_kv_heads": 3, "encoder_seq": 30}
 # name -> (arch, mesh shape, config overrides, global batch)
 CASES = {"llama3_2x2": ("llama3-8b", (2, 2), {"num_heads": 4, "num_kv_heads": 2}, 4),
          "llama3_1x4": ("llama3-8b", (1, 4), {"num_heads": 4, "num_kv_heads": 2}, 4),
          "gpt2_2x2": ("gpt2-124m", (2, 2), {}, 4),
-         "gpt2_2x2_b2": ("gpt2-124m", (2, 2), {}, 2)}
+         "gpt2_2x2_b2": ("gpt2-124m", (2, 2), {}, 2),
+         "starcoder2_2x2": ("starcoder2-7b", (2, 2), STARCODER2, 4),
+         "starcoder2_1x4": ("starcoder2-7b", (1, 4), STARCODER2, 4),
+         "qwen2vl_1x4": ("qwen2-vl-72b", (1, 4), {}, 4),
+         "whisper_1x4": ("whisper-large-v3", (1, 4), WHISPER, 4)}
+SEQ = 16
+# the policy each case runs under: (seq_parallel_attn, seq_residuals)
+SEQ_SPLIT = {"starcoder2_2x2": (True, False), "starcoder2_1x4": (True, False),
+             "qwen2vl_1x4": (False, True), "whisper_1x4": (True, False)}
 
 # The ranks run in a script of their own (it imports the port alone, not
 # this module, jax or the reference): ``python worker.py <dir> <job>``
@@ -180,11 +194,19 @@ _WORKER = textwrap.dedent("""\
             lay = lambda x, sp: distribute_tensor(x, mesh, placements(sp, env))
             _, specs = model.init(abstract=True)
             params = shard_tree(p["params"], specs, env)
-            toks, P, S_MAX = p["tokens"], p["prompt"], p["max_seq"]
-            B = toks.shape[0]
+            # the inputs over every position (tokens, or a VLM's embeds and
+            # M-RoPE positions, whose sequence is dim 2): a window of them
+            inputs, P, S_MAX = p["inputs"], p["prompt"], p["max_seq"]
+            lead = inputs["tokens" if "tokens" in inputs else "embeds"]
+            B, n_pos = lead.shape[0], lead.shape[1]
+
+            def window(lo, hi, specs):
+                return {k: lay(v.narrow(2 if k == "positions" else 1, lo,
+                                        hi - lo), specs[k][2])
+                        for k, v in inputs.items()}
             pre = model.batch_specs(ShapeSuite("p", "prefill", P, B))
             logits, _, cache = model.forward(
-                params, {"tokens": lay(toks[:, :P], pre["tokens"][2])},
+                params, window(0, P, pre),
                 return_cache=True, last_token_only=True)
             got = {"prefill": logits.full_tensor(),
                    "prefill_cache": {k: v.full_tensor()
@@ -198,9 +220,9 @@ _WORKER = textwrap.dedent("""\
             pool = shard_tree(pool, model.cache_specs(B), env)
             dec = model.batch_specs(ShapeSuite("d", "decode", S_MAX, B))
             steps = []
-            for pos in range(P, toks.shape[1]):
+            for pos in range(P, n_pos):
                 out, new = model.decode(params, pool, {
-                    "tokens": lay(toks[:, pos:pos + 1], dec["tokens"][2]),
+                    **window(pos, pos + 1, dec),
                     "pos": lay(torch.tensor(pos, dtype=torch.int32),
                                dec["pos"][2])})
                 assert new is pool
@@ -243,6 +265,29 @@ def _world(tmp_path, job, args=()):
     assert out.returncode == 0, out.stderr[-3000:]
 
 
+def _train_batch(cfg, batch_size: int):
+    """A training batch of ``SEQ`` tokens a sequence: token ids for the
+    decoder-only archs, M-RoPE embeddings of 2 text tokens, a 2 x 3 image
+    and 8 text tokens for the VLM, ``encoder_seq`` frames for the enc-dec;
+    the labels the next tokens."""
+    rng = np.random.default_rng(3)
+    toks = rng.integers(0, cfg.vocab_size,
+                        size=(batch_size, SEQ + 1)).astype(np.int32)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    if cfg.family == "vlm":
+        from test_torch_vlm import vlm_positions
+        pos = vlm_positions(2, 2, 3, 8)
+        assert pos.shape[1] == SEQ
+        del batch["tokens"]
+        batch["embeds"] = (0.02 * rng.standard_normal(
+            (batch_size, SEQ, cfg.d_model))).astype(np.float32)
+        batch["positions"] = np.repeat(pos[:, None], batch_size, axis=1)
+    elif cfg.family == "encdec":
+        batch["frames"] = (0.02 * rng.standard_normal(
+            (batch_size, cfg.encoder_seq, cfg.d_model))).astype(np.float32)
+    return batch
+
+
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_sharded_loss_and_grads_match_reference(case, tmp_path):
     """llama3 (4 heads, 2 KV heads, as the reference's sharded test) on
@@ -251,18 +296,22 @@ def test_sharded_loss_and_grads_match_reference(case, tmp_path):
     (2, 2), the fsdp_only profile: at batch 4 the model axis is a batch
     axis; at batch 2 it is not, so the logits split their tokens over it
     (``unembed_spec``), the labels follow, and the head's gradient is a
-    part per model rank."""
+    part per model rank. starcoder2 (3 heads, 1 KV head) on (2, 2) and
+    (1, 4) and whisper (3 heads) on (1, 4): sequence-parallel attention,
+    each rank's K/V gathered and its queries attending at their offset,
+    whisper's encoder frames split unevenly; qwen2-vl on (1, 4): Megatron
+    SP, the residual stream split by sequence between tensor-parallel
+    regions entered by an all-gather and left by a reduce-scatter."""
     arch, mesh_shape, over, batch_size = CASES[case]
     rm, rp, pm, pp = model_pair(arch, dtype="float32", **over)
+    env = AxisEnv(("data", "model"), dict(zip(("data", "model"), mesh_shape)))
+    pol = build_model(pm.cfg, env).pol
     if case == "gpt2_2x2_b2":
-        env = AxisEnv(("data", "model"), {"data": 2, "model": 2})
-        pol = build_model(pm.cfg, env).pol
         assert pol.profile == "fsdp_only"
         assert unembed_spec(env, pol, batch_size) == ("data", "model")
-    rng = np.random.default_rng(3)
-    toks = rng.integers(0, pm.cfg.vocab_size,
-                        size=(batch_size, 17)).astype(np.int32)
-    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    assert (pol.seq_parallel_attn, pol.seq_residuals) == SEQ_SPLIT.get(
+        case, (False, False))
+    batch = _train_batch(pm.cfg, batch_size)
     ref_loss = float(rm.loss_fn(rp, {k: to_jax(v) for k, v in batch.items()}))
     pbatch = {k: to_torch(v) for k, v in batch.items()}
     want_loss, want = _accumulate_grads(pm, pp, pbatch, 1)
@@ -278,9 +327,9 @@ def test_sharded_loss_and_grads_match_reference(case, tmp_path):
         assert got.shape == w.shape
         assert float((got - w).abs().max()) <= 1e-5 * top
     assert out["same_layout"] and out["kept"]
-    L = pm.cfg.num_layers
-    fsdp = sum(1 for x in tree_leaves(pp["layers"]) if x.dim() == 3)
     if arch == "llama3-8b" and mesh_shape == (2, 2):
+        L = pm.cfg.num_layers
+        fsdp = sum(1 for x in tree_leaves(pp["layers"]) if x.dim() == 3)
         # ZeRO-3: each layer's data-sharded matrices gathered once and their
         # gradients reduce-scattered once (plus the table and the head); the
         # forward's only all-reduces are the tensor-parallel exits (two a

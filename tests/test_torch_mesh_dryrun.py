@@ -8,7 +8,12 @@ size on the CPU.
   ``load_anchors`` read: ``n_devices`` 512, ``mesh`` "2x16x16", collective
   bytes above 0.
 * A cell whose policy needs a part the mesh does not run yet is an error
-  record naming its ROADMAP item.
+  record naming its ROADMAP item; the cells of the items ported since
+  (sequence-parallel attention, A25; the VLM and enc-dec on a mesh, A28)
+  are measured records of the last model rank (``--rank 15``).
+* A sequence-parallel rank's attention grows with its offset: the counted
+  FLOPs of a reduced starcoder2 training step on (2, 2) differ between model
+  ranks 0 and 1 by what ``attended_pairs`` gives their query blocks.
 * The port's per-device product FLOPs of a reduced llama3 train step on
   (2, 2, 2) against the reference's ``analyze_hlo`` on the same 8-device
   mesh, within the 2e-3 ``tests/test_torch_step_analysis.py`` holds one
@@ -58,20 +63,88 @@ def test_gpt2_train_on_the_multi_pod_mesh(tmp_path):
         assert anchors[("gpt2-124m", "train_4k")].n_chips == 512
 
 
+# the ROADMAP items a mesh runs now
+PORTED = {"A25", "A28"}
+
+
 @pytest.mark.parametrize("arch,item", [("starcoder2-7b", "A25"),
                                        ("granite-moe-1b-a400m", "A26"),
                                        ("mamba2-130m", "A27"),
-                                       ("qwen2-vl-72b", "A28")])
+                                       ("qwen2-vl-72b", "A28"),
+                                       ("whisper-large-v3", "A28")])
 def test_deferred_policy_is_a_named_error_record(tmp_path, arch, item):
-    """starcoder2's 36 heads do not divide 16 (sequence-parallel); the MoE,
-    SSM and VLM families wait for their own items. Never a replicated run."""
+    """The cell of each arch whose policy needed a ROADMAP item on the pod
+    mesh, as the last model rank: the MoE (A26) and SSM (A27) families wait
+    for theirs, an error record naming it, never a replicated run.
+    starcoder2 (36 heads, reduced 4, on a model axis of 16: sequence-
+    parallel attention, A25), qwen2-vl (A28; reduced, its 4 heads are
+    sequence-parallel too) and whisper (A28) are measured records whose
+    policy says so, with the rank and its coordinates."""
     out = _dryrun(tmp_path, "--arch", arch, "--shape", "train_4k",
-                  "--mesh", "pod")
-    assert out.returncode == 1
+                  "--mesh", "pod", "--rank", "15")
     with open(tmp_path / "pod" / f"{arch}__train_4k.json") as f:
         rec = json.load(f)
-    assert f"ROADMAP {item}" in rec["error"] and "roofline" not in rec
-    assert rec["mesh"] == "16x16"
+    assert rec["mesh"] == "16x16" and rec["rank"] == 15
+    if item not in PORTED:
+        assert out.returncode == 1
+        assert f"ROADMAP {item}" in rec["error"] and "roofline" not in rec
+        return
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "error" not in rec and rec["roofline"]["n_chips"] == 256
+    assert rec["coords"] == {"data": 0, "model": 15}
+    assert rec["policy"]["seq_parallel_attn"]
+    assert rec["collectives"]["bytes_by_op"]["all-gather"] > 0
+    assert "rank 15's shard" in rec["note"]
+    for pm in (ref_pm, port_pm):
+        anchors = pm.load_anchors(str(tmp_path), "pod")
+        assert anchors[(arch, "train_4k")].n_chips == 256
+
+
+# one model rank's count of a reduced starcoder2 training step (3 heads, so
+# the sequence splits over "model") on a fake (2, 2) world at 512 tokens, two
+# sequences: each rank holds one sequence's 256 tokens
+_RANK = textwrap.dedent("""\
+    import sys
+    import torch
+    from repro_torch.configs.shapes import ShapeSuite
+    from repro_torch.core.step_analysis import count_step
+    from repro_torch.launch.dryrun import cell_config
+    from repro_torch.launch.mesh import fake_world, make_host_mesh
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.train.train_step import _accumulate_grads
+    shape = ShapeSuite("train_4k", "train", 512, 2)
+    cfg = cell_config("starcoder2-7b", shape, reduced=True,
+                      overrides={"num_heads": 3, "num_kv_heads": 1})
+    with fake_world(4, rank=int(sys.argv[1])):
+        m = build_model(cfg, make_host_mesh(2, 2))
+        assert m.pol.seq_parallel_attn
+        p, _ = m.init(torch.Generator().manual_seed(0))
+        b = m.synthetic_batch(shape, torch.Generator().manual_seed(1))
+        _, cost = count_step(_accumulate_grads, m, p, b, 1)
+    print("FLOPS", cost.flops, cfg.num_layers, cfg.num_heads, cfg.head_dim,
+          cfg.remat)
+    """)
+
+
+def test_sequence_parallel_ranks_count_their_attended_pairs():
+    """Model ranks 0 and 1 of a (2, 2) mesh hold tokens 0..255 and 256..511
+    of their sequence; rank 1's queries attend keys 0..256 + i, rank 0's
+    0..i. Every other product is the same on both, so the counted FLOPs
+    differ by the attention's alone: per layer and head, ``attended_pairs``'
+    difference times 4 hd for each forward (two: remat "layer" recomputes
+    it), 8 hd for dk/dv and 6 hd for dq. On the CPU the count is of the
+    plain versions, which multiply whole 128-key blocks; with both offsets
+    multiples of 128 their surplus over the attended pairs is the same on
+    both ranks, so the difference is exactly the kernels'."""
+    from repro_torch.kernels import flash_attention as fa
+    got = [_flops(_RANK.replace("int(sys.argv[1])", str(rank)))
+           for rank in (0, 1)]
+    (f0, L, H, hd, remat), (f1, *_) = got
+    assert remat == "layer"
+    pairs = [fa.attended_pairs(256, 512, True, off) for off in (0, 256)]
+    assert pairs[1] - pairs[0] == 256 * 256
+    per_pair = 4 * 2 + 8 + 6
+    assert f1 - f0 == L * 1 * H * hd * (pairs[1] - pairs[0]) * per_pair
 
 
 _CFG = ('get_config("llama3-8b").reduced().with_(num_heads=4, num_kv_heads=2, '
@@ -117,7 +190,7 @@ def _flops(prog):
                          text=True, cwd=ROOT, env=ENV, timeout=300)
     assert out.returncode == 0, out.stderr[-3000:]
     line = [ln for ln in out.stdout.splitlines() if ln.startswith("FLOPS")][-1]
-    return [float(x) for x in line.split()[1:]]
+    return [x if x.isalpha() else float(x) for x in line.split()[1:]]
 
 
 def test_product_flops_per_device_match_reference_on_2x2x2():

@@ -17,6 +17,14 @@ model axis.
   over "model": positions 4..7 live on model rank 1, 8..9 on rank 2.
 * gpt2 on (2, 2) (fsdp_only): the prefill's batch on ("data", "model"), the
   decode's on "data" with the cache's sequence over "model".
+* starcoder2 (3 heads, 1 KV head) on (2, 2) and (1, 4): sequence-parallel
+  attention; the prefill's tokens split over "model" (one a rank on (1, 4)),
+  each rank's K/V its part of the cache as they are, the next-token logits
+  taken from the rank that holds the last position.
+* qwen2-vl (4 heads, 2 KV heads) on (1, 4): Megatron SP; the prefill's
+  embeddings split by sequence between tensor-parallel regions, three
+  M-RoPE streams (a 1 x 2 image after the first token, so the rotary
+  positions fall below the cache index), the decode as llama3's on (1, 4).
 
 Every logit and cache entry is held within 1e-5 (relative to the largest)
 of the unsharded port's on the same weights and tokens, and the unsharded
@@ -30,53 +38,75 @@ import pytest
 import torch
 
 from port_parity import model_pair, rel_err, to_jax, to_np, to_torch
-from test_torch_mesh import _world
+from test_torch_mesh import STARCODER2, _world
+from test_torch_vlm import vlm_positions
 
 LLAMA = {"num_heads": 4, "num_kv_heads": 2}
 # name -> (arch, mesh shape, config overrides)
 CASES = {"llama3_2x2": ("llama3-8b", (2, 2), LLAMA),
          "llama3_1x4": ("llama3-8b", (1, 4), LLAMA),
-         "gpt2_2x2": ("gpt2-124m", (2, 2), {})}
+         "gpt2_2x2": ("gpt2-124m", (2, 2), {}),
+         "starcoder2_2x2": ("starcoder2-7b", (2, 2), STARCODER2),
+         "starcoder2_1x4": ("starcoder2-7b", (1, 4), STARCODER2),
+         "qwen2vl_1x4": ("qwen2-vl-72b", (1, 4), {})}
 B, PROMPT, MAX_SEQ, STEPS = 4, 4, 16, 6
 # the pool's placements on (data, model): the batch over "data", and over
 # "model" the KV heads (dim 3) where that axis divides them, else the
 # sequence (dim 2)
 POOL_PLACEMENTS = {"llama3_2x2": ["S(1)", "S(3)"],
                    "llama3_1x4": ["S(1)", "S(2)"],
-                   "gpt2_2x2": ["S(1)", "S(2)"]}
+                   "gpt2_2x2": ["S(1)", "S(2)"],
+                   "starcoder2_2x2": ["S(1)", "S(2)"],
+                   "starcoder2_1x4": ["S(1)", "S(2)"],
+                   "qwen2vl_1x4": ["S(1)", "S(2)"]}
 
 
-def _tokens(vocab: int, seed: int) -> np.ndarray:
+def _inputs(cfg, seed: int):
+    """Every position's inputs, (B, PROMPT + STEPS): token ids, or a VLM's
+    embeddings and its (3, B, PROMPT + STEPS) M-RoPE positions (a text
+    token, a 1 x 2 image, then text)."""
     rng = np.random.default_rng(seed)
-    return rng.integers(0, vocab, size=(B, PROMPT + STEPS)).astype(np.int32)
+    if cfg.family != "vlm":
+        return {"tokens": rng.integers(0, cfg.vocab_size, size=(
+            B, PROMPT + STEPS)).astype(np.int32)}
+    pos = vlm_positions(1, 1, 2, 1, STEPS)
+    return {"embeds": (0.02 * rng.standard_normal(
+                (B, PROMPT + STEPS, cfg.d_model))).astype(np.float32),
+            "positions": np.repeat(pos[:, None], B, axis=1)}
 
 
-def _port_serving(pm, pp, toks):
+def _window(inputs, lo: int, hi: int, to):
+    """Positions ``lo..hi`` of every input, converted by ``to``."""
+    return {k: to(v[:, :, lo:hi] if k == "positions" else v[:, lo:hi])
+            for k, v in inputs.items()}
+
+
+def _port_serving(pm, pp, inputs):
     """Prefill -> pool -> decode on one device; (prefill logits (B, V),
     prefill cache, decode logits per step, final pool)."""
-    logits, _, cache = pm.forward(pp, {"tokens": to_torch(toks[:, :PROMPT])},
+    logits, _, cache = pm.forward(pp, _window(inputs, 0, PROMPT, to_torch),
                                   return_cache=True, last_token_only=True)
     pool = pm.init_cache(B, MAX_SEQ, torch.float32)
     for k in pool:
         pool[k][:, :, :PROMPT] = cache[k]
     steps = []
-    for pos in range(PROMPT, toks.shape[1]):
-        out, _ = pm.decode(pp, pool, {"tokens": to_torch(toks[:, pos:pos + 1]),
+    for pos in range(PROMPT, PROMPT + STEPS):
+        out, _ = pm.decode(pp, pool, {**_window(inputs, pos, pos + 1, to_torch),
                                       "pos": torch.tensor(pos)})
         steps.append(out)
     return logits[:, 0], cache, steps, pool
 
 
-def _ref_serving(rm, rp, toks):
+def _ref_serving(rm, rp, inputs):
     """The reference's prefill logits and decode logits per step."""
-    logits, _, cache = rm.forward(rp, {"tokens": to_jax(toks[:, :PROMPT])},
+    logits, _, cache = rm.forward(rp, _window(inputs, 0, PROMPT, to_jax),
                                   return_cache=True)
     pool = jax.tree_util.tree_map(
         lambda d, s: d.at[:, :, :PROMPT].set(s.astype(d.dtype)),
         rm.init_cache(B, MAX_SEQ, jnp.float32), cache)
     steps = []
-    for pos in range(PROMPT, toks.shape[1]):
-        out, pool = rm.decode(rp, pool, {"tokens": to_jax(toks[:, pos:pos + 1]),
+    for pos in range(PROMPT, PROMPT + STEPS):
+        out, pool = rm.decode(rp, pool, {**_window(inputs, pos, pos + 1, to_jax),
                                          "pos": jnp.asarray(pos, jnp.int32)})
         steps.append(out)
     return logits[:, -1], steps
@@ -90,10 +120,12 @@ def served(tmp_path_factory):
     payload, local = {}, {}
     for name, (arch, _, over) in CASES.items():
         rm, rp, pm, pp = model_pair(arch, seed=4, dtype="float32", **over)
-        toks = _tokens(pm.cfg.vocab_size, 5)
-        payload[name] = {"params": pp, "tokens": torch.from_numpy(toks),
-                         "prompt": PROMPT, "max_seq": MAX_SEQ}
-        local[name] = (_port_serving(pm, pp, toks), _ref_serving(rm, rp, toks))
+        inputs = _inputs(pm.cfg, 5)
+        payload[name] = {"params": pp, "prompt": PROMPT, "max_seq": MAX_SEQ,
+                         "inputs": {k: torch.from_numpy(v)
+                                    for k, v in inputs.items()}}
+        local[name] = (_port_serving(pm, pp, inputs),
+                       _ref_serving(rm, rp, inputs))
     torch.save(payload, tmp / "payload.pt")
     _world(tmp, "serving", {n: c for n, c in CASES.items()})
     got = torch.load(tmp / "out.pt")

@@ -277,6 +277,24 @@ def test_flash_kernel_cost_causal_relation():
     assert fa.attended_pairs(300, 100, True) == 100 * 101 // 2 + 200 * 100
 
 
+@pytest.mark.parametrize("Sq,Sk,q_offset", [(256, 4096, 3840), (256, 4096, 0),
+                                             (100, 300, 130), (128, 128, 37),
+                                             (300, 100, 7), (5, 10, 20)])
+def test_attended_pairs_with_query_offset(Sq, Sk, q_offset):
+    """Row ``r`` at position ``r + q_offset`` attends ``min(r + 1 +
+    q_offset, Sk)`` keys; a sequence-parallel rank's block of ``Sq`` queries
+    at its offset over all ``Sk`` keys attends ``(q_offset + Sq / 2) Sq``
+    pairs (plus ``Sq / 2``) while its block lies inside the keys; the kernel
+    cost follows."""
+    want = sum(min(r + 1 + q_offset, Sk) for r in range(Sq))
+    assert fa.attended_pairs(Sq, Sk, True, q_offset) == want
+    if Sq + q_offset <= Sk:
+        assert want == (2 * q_offset + Sq + 1) * Sq // 2
+    q, k = _t(2, Sq, 16), _t(2, Sk, 16, seed=1)
+    flops, _ = fa.kernel_cost("flash_attention_bwd_dq", q, k, True, q_offset)
+    assert flops == 6 * 2 * 16 * want
+
+
 def test_ssd_kernel_cost_counts_the_chunk_triangle():
     x = _t(1, 130, 4, 16)
     B_ = _t(1, 130, 32, seed=1)
