@@ -200,21 +200,33 @@ JSON line per phase; any failure is a non-zero exit:
            K/V gathered and the rank's queries attending at their offset,
            whisper's 1,500 encoder frames split 94 / 90); qwen2-vl-72b
            prefill_32k as rank 0 (Megatron SP: 4 of 64 heads, the residual
-           stream split by sequence between tensor-parallel regions); each
-           at full width and depth as one device's shard through
+           stream split by sequence between tensor-parallel regions);
+           granite-moe-1b-a400m train_4k and phi3.5-moe-42b-a6.6b
+           prefill_32k and decode_32k as rank 0 (expert parallelism: 2 of 32
+           and 1 of 16 experts a rank, the routing global, grouped_matmul on
+           the local experts' capacity buffers, the exit summing the ranks);
+           each at full width and depth as one device's shard through
            launch/dryrun.py (a fake world: collectives counted, not run;
-           values undefined); the flash counts set to 0 just before each
-           cell and read just after, equal to the passes x the counted
-           pass, a pass launching each kernel once a (decoder) layer (the
-           forward twice under remat), all wgmma, at the local shapes (q's,
-           k's and the query offset: B_part x local heads, the rank's query
-           block); every record loaded by PerfModel.from_artifacts; per cell
-           part and step ms, per-device TFLOP, HBM GB and collective GB by
-           op, and the FLOP ratio to the reference's committed per-chip
-           anchor where there is one, printed not gated; then B1 / B3 / B4
-           at those local shapes against their plain versions, with SDPA
-           under the bottom-right causal mask as the library call for a
-           query block at its offset (mesh_local in the kernels line)
+           values undefined); the flash and grouped_matmul counts set to 0
+           just before each cell and read just after, equal to the passes x
+           the counted pass, a pass launching each flash kernel once a
+           (decoder) layer (the forward twice under remat) and
+           grouped_matmul once an expert product a layer (3 a layer, 12 a
+           training layer: two forwards, dx and dw), all wgmma, the flash
+           kernels at the local shapes (q's, k's and the query offset:
+           B_part x local heads, the rank's query block), every
+           grouped_matmul launch on a stack of the rank's E/16 experts, its
+           forwards at the local capacity rows (groups x C, or the decode's
+           rows with one shared x); every record loaded by
+           PerfModel.from_artifacts; per cell part and step ms, per-device
+           TFLOP, HBM GB and collective GB by op, and the FLOP ratio to the
+           reference's committed per-chip anchor where there is one,
+           printed not gated; then B1 / B3 / B4 at those local shapes
+           against their plain versions, with SDPA under the bottom-right
+           causal mask as the library call for a query block at its offset,
+           and grouped_matmul at the MoE cells' local shapes (forwards, and
+           dx / dw at the training rows) with torch.bmm as the library call
+           (mesh_local in the kernels line)
 
 Then a line {"kernels": [...]} with every kernel's figures, the card's name
 and power limit, and last {"ok": true, "device": {...}}.
@@ -366,7 +378,9 @@ def settled_mem_available(limit_s: float = 120.0) -> int:
 # do not divide the model axis (sequence-parallel attention): rank 15, the
 # last model rank, attends the whole prefix, the heaviest rank. qwen2-vl's
 # 64 heads split 4 a rank with its residuals split by sequence (Megatron
-# SP); rank 0. Those four time one part (three took the phase to 176 s).
+# SP); rank 0. granite-moe's 32 and phi3.5-moe's 16 experts split over the
+# model axis, 2 and 1 a rank (expert parallelism); rank 0. The cells after
+# PR 30's four time one part (three took the phase to 176 s).
 MESH_CELLS = (("llama3-8b", "train_4k", "pod", {}, 0, 3),
               ("llama3-8b", "prefill_32k", "pod", {}, 0, 3),
               ("gpt2-124m", "train_4k", "multi", {"grad_compression": True}, 0, 3),
@@ -374,7 +388,10 @@ MESH_CELLS = (("llama3-8b", "train_4k", "pod", {}, 0, 3),
               ("starcoder2-7b", "train_4k", "pod", {}, 15, 1),
               ("starcoder2-7b", "prefill_32k", "pod", {}, 15, 1),
               ("qwen2-vl-72b", "prefill_32k", "pod", {}, 0, 1),
-              ("whisper-large-v3", "train_4k", "pod", {}, 15, 1))
+              ("whisper-large-v3", "train_4k", "pod", {}, 15, 1),
+              ("granite-moe-1b-a400m", "train_4k", "pod", {}, 0, 1),
+              ("phi3.5-moe-42b-a6.6b", "prefill_32k", "pod", {}, 0, 1),
+              ("phi3.5-moe-42b-a6.6b", "decode_32k", "pod", {}, 0, 1))
 MESH_TRAIN_KERNELS = {"flash_attention_fwd_stats", "flash_attention_bwd_dkdv",
                       "flash_attention_bwd_dq"}
 # the reference's committed per-chip anchors (its "single" is the port's
@@ -384,29 +401,37 @@ ANCHOR_DIRS = {"pod": "single", "multi": "multi"}
 
 def mesh_child(out_dir: str) -> None:
     """The mesh phase's child process: each cell of ``MESH_CELLS`` through
-    ``launch/dryrun.py`` as rank 0 of a fake world (the fake process group
+    ``launch/dryrun.py`` as its rank of a fake world (the fake process group
     lives and dies in this process, away from the other phases). The flash
-    wrappers' launch counts are set to 0 just before each cell and read just
-    after; ``kernel_cost`` is watched to record the shapes (q's, k's and the
-    query offset) each kernel was launched at in the counted pass. Writes
-    ``mesh.json``."""
+    and grouped_matmul wrappers' launch counts are set to 0 just before each
+    cell and read just after; their ``kernel_cost`` is watched to record the
+    shapes each kernel was launched at in the counted pass (flash: q's, k's
+    and the query offset; grouped_matmul: x's, w's and whether x is one
+    buffer shared by the experts). Writes ``mesh.json``."""
     import torch
     from repro_torch.kernels import _build
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import grouped_matmul as gmm
     from repro_torch.launch import dryrun
     _build.build_all()
     wrappers = {"flash_attention_fwd": fa.flash_attention_fwd,
                 "flash_attention_fwd_stats": fa.flash_attention_fwd_stats,
                 "flash_attention_bwd_dkdv": fa.flash_attention_bwd_dkdv,
-                "flash_attention_bwd_dq": fa.flash_attention_bwd_dq}
+                "flash_attention_bwd_dq": fa.flash_attention_bwd_dq,
+                "grouped_matmul": gmm.grouped_matmul}
     shapes = {}
-    cost = fa.kernel_cost
+    cost, gmm_cost = fa.kernel_cost, gmm.kernel_cost
 
     def watched(name, q, k, causal, q_offset=0):
         shapes.setdefault(name, set()).add(
             (tuple(q.shape), tuple(k.shape), q_offset))
         return cost(name, q, k, causal, q_offset)
-    fa.kernel_cost = watched
+
+    def watched_gmm(x, w, on_host):
+        shapes.setdefault("grouped_matmul", set()).add(
+            (tuple(x.shape), tuple(w.shape), x.stride(0) == 0))
+        return gmm_cost(x, w, on_host)
+    fa.kernel_cost, gmm.kernel_cost = watched, watched_gmm
     cells = []
     for arch, shape, mesh, over, rank, iters in MESH_CELLS:
         for w in wrappers.values():
@@ -3773,6 +3798,27 @@ def main() -> None:
     mesh_launches = dict.fromkeys(routed, 0)
     mesh_routes = {n: {} for n in routed}
     mesh_rows = []
+    # grouped_matmul's forwards in the MoE cells: (E_local, M, K, N, x
+    # shared) -> the cells that launched it there; those of training cells
+    mesh_gmm_shapes, mesh_gmm_train = {}, set()
+
+    def moe_forwards(cfg, kind, rows, S, e_local):
+        """The expert products of one MoE layer as moe.apply_moe runs them
+        on ``rows`` local sequences: (E_local, M, K, N, x shared). Routed:
+        M = groups x capacity (a group a sequence, or each moe_group_size
+        slice of a longer one); the decode: every local row, x shared by
+        the experts in w_in / w_gate (expert stride 0; one expert has no
+        stride to share)."""
+        d, f = cfg.d_model, cfg.d_ff
+        if kind == "decode":
+            return {(e_local, rows, d, f, e_local > 1),
+                    (e_local, rows, f, d, False)}
+        gs = cfg.moe_group_size
+        groups, tokens = ((rows * (S // gs), gs) if S > gs and S % gs == 0
+                          else (rows, S))
+        M = groups * mmoe.capacity(cfg, tokens)
+        return {(e_local, M, d, f, False), (e_local, M, f, d, False)}
+
     for cell in mesh_cells:
         rec, arch, shape_name = cell["record"], cell["arch"], cell["shape"]
         tag = (f"mesh {arch} {shape_name} on {cell['mesh_kind']} rank "
@@ -3781,8 +3827,10 @@ def main() -> None:
             fail(f"{tag}: {rec.get('error') or rec.get('skipped')}\n"
                  f"{rec.get('trace', '')}")
         kind = get_shape(shape_name).kind
+        cfg = get_config(arch)
+        moe = cfg.family == "moe"
         want = {"train": MESH_TRAIN_KERNELS, "prefill": {"flash_attention_fwd"},
-                "decode": set()}[kind]
+                "decode": set()}[kind] | ({"grouped_matmul"} if moe else set())
         counted = rec["kernels"]["counted_pass"]
         if set(counted["count"]) != want or counted["count"] != counted["wrappers"]:
             fail(f"{tag}: counted launches {counted['count']} (the wrappers' "
@@ -3792,13 +3840,16 @@ def main() -> None:
         if launched != {n: c * passes for n, c in counted["count"].items()}:
             fail(f"{tag}: launched {launched}, not {passes} x the counted "
                  f"pass {counted['count']}")
-        # a pass launches each kernel once a (decoder) layer; a training
-        # pass runs each layer's forward twice under remat (the backward's
-        # recompute)
-        cfg = get_config(arch)
+        # a pass launches each flash kernel once a (decoder) layer, and
+        # grouped_matmul once an expert product a layer, dx and dw of each
+        # in a training pass; a training pass runs each layer's forward
+        # twice under remat (the backward's recompute)
         fwd_per_layer = 2 if kind == "train" and rec["remat"] != "none" else 1
         per_layer = {n: fwd_per_layer if n.startswith("flash_attention_fwd")
                      else 1 for n in want}
+        if moe:
+            per_layer["grouped_matmul"] = (3 if cfg.glu else 2) * (
+                fwd_per_layer + (2 if kind == "train" else 0))
         if counted["count"] != {n: cfg.num_layers * c
                                 for n, c in per_layer.items()}:
             fail(f"{tag}: counted launches {counted['count']}, not "
@@ -3821,9 +3872,30 @@ def main() -> None:
         q_off = rec["coords"]["model"] * Sq if pol["seq_parallel_attn"] else 0
         at = [[bh, Sq, cfg.head_dim], [bh, S, cfg.head_dim], q_off]
         for n, shapes_seen in cell["kernel_shapes"].items():
-            if shapes_seen != [at]:
+            if n != "grouped_matmul" and shapes_seen != [at]:
                 fail(f"{tag}: {n} launched at {shapes_seen}, not the local "
                      f"q, k and offset {at}")
+        if moe:
+            # every launch on a stack of the rank's E / 16 experts, the
+            # forwards at the local capacity rows the routing gives
+            e_local = cfg.num_experts // (16 if pol["experts_sharded"] else 1)
+            seen = cell["kernel_shapes"]["grouped_matmul"]
+            if rec.get("experts_local") != e_local or any(
+                    w[0] != e_local for _, w, _ in seen):
+                fail(f"{tag}: grouped_matmul launched on stacks of "
+                     f"{sorted({w[0] for _, w, _ in seen})} experts (record: "
+                     f"{rec.get('experts_local')}), not {e_local}")
+            fwds = moe_forwards(cfg, kind, rec["measured"]["part_sequences"],
+                                S, e_local)
+            launched_at = {(w[0], x[1], w[1], w[2], shared)
+                           for x, w, shared in seen}
+            if not fwds <= launched_at:
+                fail(f"{tag}: grouped_matmul's forwards {sorted(fwds)} not "
+                     f"among its launches {sorted(launched_at)}")
+            for c in fwds:
+                mesh_gmm_shapes.setdefault(c, []).append(f"{arch} {shape_name}")
+            if kind == "train":
+                mesh_gmm_train |= fwds
         anchors = PerfModel.from_artifacts(mesh_dir, cell["mesh_kind"]).anchors
         if (arch, shape_name) not in anchors:
             fail(f"{tag}: PerfModel.from_artifacts did not load the record")
@@ -3854,10 +3926,11 @@ def main() -> None:
             "collective_gb_by_op": {k: v / 1e9 for k, v in
                                     rec["collectives"]["bytes_by_op"].items()},
             "collective_count_by_op": rec["collectives"]["count_by_op"],
-            "flash_launches_by_route": {n: rs for n, rs in
-                                        cell["launches_by_route"].items()
-                                        if any(rs.values())},
-            "flash_local_shapes": cell["kernel_shapes"],
+            "kernel_launches_by_route": {n: rs for n, rs in
+                                         cell["launches_by_route"].items()
+                                         if any(rs.values())},
+            "kernel_local_shapes": cell["kernel_shapes"],
+            **({"experts_local": rec["experts_local"]} if moe else {}),
             "peak_device_bytes": m["peak_device_bytes"],
             "grad_compression": rec.get("grad_compression"),
             "reference_flops_per_chip": anchor and anchor["hlo_flops_per_chip"],
@@ -3870,7 +3943,7 @@ def main() -> None:
         emit("mesh_cell", **row)
         mesh_rows.append(row)
     for n in routed:
-        if n in MESH_TRAIN_KERNELS | {"flash_attention_fwd"} and not mesh_launches[n]:
+        if not mesh_launches[n]:
             fail(f"mesh: {n} was launched no time on the mesh path")
     shutil.rmtree(mesh_dir, ignore_errors=True)
     # B1 / B3 / B4 at the local shapes the mesh gave them, against their
@@ -3895,6 +3968,20 @@ def main() -> None:
                               arch=arch)
                          for arch, bh, hd in (("starcoder2-7b", 576, 128),
                                               ("whisper-large-v3", 160, 64))]
+    # B6 at the local shapes of the MoE cells (their forwards as the cells
+    # launched them: granite-moe's 2 of 32 experts at 8 groups x 1,280
+    # capacity rows, phi3.5-moe's 1 of 16 at 8 x 1,280 and at the decode's 8
+    # rows), and dx / dw at the training rows, against its plain version
+    # with torch.bmm as the library call
+    mesh_gmm = [dict(gmm_case(E, M, K, N, "bfloat16", "device", shared=shared),
+                     cells=mesh_gmm_shapes[(E, M, K, N, shared)])
+                for E, M, K, N, shared in sorted(mesh_gmm_shapes)]
+    if [c["route"] for c in mesh_gmm] != ["wgmma"] * len(mesh_gmm):
+        fail(f"grouped_matmul at the mesh's local shapes took "
+             f"{[c['route'] for c in mesh_gmm]}, not wgmma")
+    mesh_gmm_bwd = [gmm_bwd_case(which, E, M, K, N)
+                    for E, M, K, N, _ in sorted(mesh_gmm_train)
+                    for which in ("dx", "dw")]
     emit("mesh", card=card_line, cells=len(mesh_rows),
          seconds=time.time() - t_mesh, launches=mesh_launches,
          launches_by_route=mesh_routes,
@@ -3908,7 +3995,9 @@ def main() -> None:
                  "ms", "cold_ms", "plain_ms", "bound_ms", "bound_by",
                  "library_ms", "q_offset", "library", "library_rel_err")
                  if k in c} for c in mesh_flash],
-             "flash_attention_train": mesh_flash_train})
+             "flash_attention_train": mesh_flash_train,
+             "grouped_matmul": mesh_gmm,
+             "grouped_matmul_backward": mesh_gmm_bwd})
 
     # ------------------------------------------------------------- summary
     def train_summary(c, key, errs, lib):
@@ -4070,7 +4159,8 @@ def main() -> None:
         "launches_by_route_moe_runtime": mrt_routes["grouped_matmul"],
         "shape": gmm_head["shape"], "dtype": gmm_head["dtype"],
         "w": gmm_head["where"], "x_expert_stride": gmm_head["x_expert_stride"],
-        "max_abs_err": max(c["max_abs_err"] for c in gmm_cases),
+        "max_abs_err": max(c["max_abs_err"] for c in gmm_cases + mesh_gmm
+                           + mesh_gmm_bwd),
         "ms": gmm_head["ms"], "cold_ms": gmm_head["cold_ms"],
         "plain_ms": gmm_head["plain_ms"],
         "bound_ms": gmm_head["bound_ms"], "bound_by": gmm_head["bound_by"],
@@ -4098,6 +4188,13 @@ def main() -> None:
             "shape", "route", "max_abs_err", "rel_err", "tol", "ms", "cold_ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")} for c in path_gmm],
         "dryrun_train_4k_backward": path_gmm_bwd,
+        "launches_mesh": mesh_launches["grouped_matmul"],
+        "launches_by_route_mesh": mesh_routes["grouped_matmul"],
+        "mesh_local": [{k: c[k] for k in (
+            "shape", "x_expert_stride", "route", "max_abs_err", "rel_err",
+            "tol", "ms", "cold_ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "cells")} for c in mesh_gmm],
+        "mesh_local_backward": mesh_gmm_bwd,
     }]}), flush=True)
     print(card_line, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -337,7 +337,11 @@ cudaError_t allow_smem(Kernel kern, int bytes, int* allowed) {
 // elements; strides of dims 1.. in elements. The box's inner extent is
 // box[0] * 2 bytes and sets the swizzle (swizzle_bytes). Returns
 // cudaErrorInvalidValue when the driver refuses the map: a base not 16-byte
-// aligned, a stride not a multiple of 16 bytes.
+// aligned, a stride not a multiple of 16 bytes. The encoder is a driver call
+// and needs a context current on the calling thread, which a thread that has
+// made no runtime call yet lacks (PyTorch's autograd worker, when a backward
+// kernel is its first CUDA work): there the runtime is made to bind the
+// device's primary context (cudaFree(nullptr)) and the map encoded again.
 inline cudaError_t make_map(CUtensorMap* map, const void* base, int rank,
                             const uint64_t* dims, const uint64_t* strides,
                             const uint32_t* box) {
@@ -354,11 +358,19 @@ inline cudaError_t make_map(CUtensorMap* map, const void* base, int rank,
   const CUtensorMapSwizzle swz =
       sw == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
                 : (sw == 64 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_32B);
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
-                        static_cast<cuuint32_t>(rank), const_cast<void*>(base),
-                        gdim, gstride, gbox, estride, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        swz, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  auto encode = [&]() {
+    return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+              static_cast<cuuint32_t>(rank), const_cast<void*>(base), gdim,
+              gstride, gbox, estride, CU_TENSOR_MAP_INTERLEAVE_NONE, swz,
+              CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  };
+  CUresult r = encode();
+  if (r == CUDA_ERROR_INVALID_CONTEXT) {
+    const cudaError_t err = cudaFree(nullptr);
+    if (err != cudaSuccess) return err;
+    r = encode();
+  }
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 

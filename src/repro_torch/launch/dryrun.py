@@ -89,6 +89,7 @@ from typing import Callable, Dict, Optional
 import torch
 
 from repro_torch.configs import ALL_ARCHS, ASSIGNED_ARCHS, get_config, get_shape
+from repro_torch.configs.base import MOE
 from repro_torch.configs.shapes import (DECODE, PREFILL, SHAPES, TRAIN,
                                         ShapeSuite, applicable, reduced_shape)
 from repro_torch.core.hw import GiB
@@ -452,6 +453,13 @@ def measure_mesh_cell(arch: str, shape_name: str, mesh_kind: str, *,
                         f"every value they feed is undefined; the part timed "
                         f"over {iters} call{'s' if iters != 1 else ''} after "
                         f"{WARMUP} warm-up")}
+        if cfg.family == MOE:
+            # the experts this rank holds: E / model where that axis
+            # splits them (expert parallelism), else all of them
+            split = (model.env.size(model.env.tp)
+                     if model.pol.experts_sharded else 1)
+            rec["experts_sharded"] = model.pol.experts_sharded
+            rec["experts_local"] = cfg.num_experts // split
         t0 = time.time()
         gen = torch.Generator(device=device).manual_seed(0)
         params, _ = model.init(gen)

@@ -441,6 +441,19 @@ def tp_enter(x, env: AxisEnv, act_pl, seq_len: Optional[int] = None):
                                                  Partial()))
 
 
+def gather_whole(x, env: AxisEnv, act_pl, seq_len: Optional[int] = None):
+    """The sequence, split over the model axis by ``act_pl``, all-gathered
+    whole, as ``tp_enter``'s gather, for a computation that every model
+    rank then repeats on the whole sequence (the MoE routing): its gradient
+    is the same on every rank, so it is declared ``Replicate`` and the
+    backward takes this rank's slice of it instead of reduce-scattering the
+    ranks' sum."""
+    from torch.distributed.tensor import Replicate
+    d = dtensor_of(x, env, act_pl, seq_len)
+    whole = with_axis(act_pl, env, env.tp, Replicate())
+    return d.redistribute(env.mesh, whole).to_local(grad_placements=whole)
+
+
 def tp_exit(x, env: AxisEnv, act_pl):
     """Exit of the tensor-parallel region (Megatron's g): the model ranks'
     partial sums all-reduced over the model axis; the identity backward.

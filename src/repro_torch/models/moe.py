@@ -18,10 +18,18 @@ land expert-major with no copy of the activations. The decode path (S == 1)
 computes every expert densely, as the reference does, through the same
 kernel with one shared x (expert stride 0).
 
-One device holds every expert, so the reference's ``ep_spec`` /
-``moe_ep_spec`` and its ``with_sharding_constraint`` calls, which only steer
-GSPMD's sharding of the dispatch buffers, have nothing to do here and are
-left out.
+On a mesh whose model axis divides the experts (expert parallelism) a rank
+holds the stacks of experts ``[e0, e0 + E_local)`` and ``apply_moe`` is
+given that range. The routing stays global: every expert's slots are
+computed over whole routing groups, so the capacity and the drops are the
+unsharded step's. Only the local experts' slots are gathered into
+``(E_local, G*C, d)`` buffers, and the combine adds only their
+contributions, scattered into the tokens from the slots (its backward a
+gather); the caller's exit of the expert region sums the ranks' parts. The
+decode path computes only the local experts, weighed by their columns of
+the dense routing weights. This takes the place of the reference's
+``ep_spec``, whose ``with_sharding_constraint`` calls steer GSPMD to the
+same split of the dispatch buffers.
 """
 from __future__ import annotations
 
@@ -105,22 +113,33 @@ def _dispatch_group(cfg: ModelConfig, x_g, top_w_g, top_e_g, C: int):
     return x_pad[slot_token[0]], slot_token[0], keep_w[0], slot[0]
 
 
-def apply_moe(cfg: ModelConfig, p, x):
+def _same(t):
+    return t
+
+
+def apply_moe(cfg: ModelConfig, p, x, *, experts=None, enter=_same):
     """Capacity-dispatch MoE FFN. x: (B, S, d), one group per batch row;
     sequences longer than ``moe_group_size`` are split into routing
     sub-groups when they divide evenly; S == 1 takes the decode path.
     Returns (out (B, S, d), probs, top_e): the output and the routing it
     used, the router probabilities and top-k ids of every token, from which
-    ``balance_loss`` builds the aux loss without routing again."""
+    ``balance_loss`` builds the aux loss without routing again.
+
+    ``experts``: ``(e0, E_local)``, the experts whose stacks ``p`` holds (a
+    rank's share under expert parallelism), or None for all of them. Given
+    a range, ``out`` is the sum over those experts alone, and ``enter`` (the
+    expert region's entry on a mesh) is applied to the dispatch input and
+    the routing weights before they reach the experts; the routing itself
+    reads ``x`` as given."""
     B, S, d = x.shape
     if S == 1:
-        return _apply_moe_decode(cfg, p, x)
+        return _apply_moe_decode(cfg, p, x, experts, enter)
     gs = cfg.moe_group_size
     if S > gs and S % gs == 0:
         out, probs, top_e = _apply_moe_grouped(
-            cfg, p, x.reshape(B * (S // gs), gs, d))
+            cfg, p, x.reshape(B * (S // gs), gs, d), experts, enter)
         return out.reshape(B, S, d), probs, top_e
-    return _apply_moe_grouped(cfg, p, x)
+    return _apply_moe_grouped(cfg, p, x, experts, enter)
 
 
 def _expert_ffn(cfg: ModelConfig, p, x):
@@ -133,18 +152,18 @@ def _expert_ffn(cfg: ModelConfig, p, x):
     return weight_matmul(h, p["w_out"])                        # (E, M, d)
 
 
-def _apply_moe_grouped(cfg: ModelConfig, p, x):
+def _apply_moe_grouped(cfg: ModelConfig, p, x, experts=None, enter=_same):
     G, S, d = x.shape
     E = cfg.num_experts
     C = capacity(cfg, S)
     probs, top_w, top_e = _route(cfg, p, x)                    # (G, S, k)
     slot_token, keep_w, slot = _slots(cfg, top_w, top_e, C)
-    # gather expert-major: row (e, g*C + c) of the buffers is slot e*C + c of
-    # group g, i.e. the reference's (G, E, C, d) buffers viewed as (E, G*C, d)
-    x_pad = torch.cat([x, x.new_zeros((G, 1, d))], dim=1).reshape(G * (S + 1), d)
-    base = (torch.arange(G, device=x.device) * (S + 1))[:, None]
-    rows = (slot_token + base).reshape(G, E, C).transpose(0, 1).reshape(-1)
-    out_e = _expert_ffn(cfg, p, x_pad[rows].reshape(E, G * C, d))
+    if experts is not None:
+        out = _local_experts(cfg, p, enter(x), enter(keep_w), slot_token,
+                             slot, C, experts)
+        return out, probs, top_e
+    _, _, buffers = _gather_experts(x, slot_token, C, 0, E)
+    out_e = _expert_ffn(cfg, p, buffers)
     # combine: out[g, s] = sum_j keep_w[g, s, j] * out_e[slot[g, s, j]], a
     # dropped assignment reading the zero pad row at E*G*C
     e_of, c_of = slot // C, slot % C
@@ -155,15 +174,59 @@ def _apply_moe_grouped(cfg: ModelConfig, p, x):
     return (sel * keep_w.to(x.dtype)[..., None]).sum(2), probs, top_e
 
 
-def _apply_moe_decode(cfg: ModelConfig, p, x):
-    """Dense-all-experts decode path (every expert weight read once)."""
+def _gather_experts(x, slot_token, C: int, e0: int, n: int):
+    """The capacity buffers of experts ``[e0, e0 + n)``, gathered
+    expert-major: row (e, g*C + c) is slot (e0 + e)*C + c of group g, i.e.
+    the reference's (G, E, C, d) buffers viewed as (E, G*C, d). x: (G, S,
+    d); slot_token: (G, E*C), S for an empty slot. Returns (x_pad (G*(S+1),
+    d), the zero row S of each group the pad token; rows (n*G*C,), each
+    buffer row's row of x_pad; the buffers (n, G*C, d))."""
+    G, S, d = x.shape
+    x_pad = torch.cat([x, x.new_zeros((G, 1, d))], dim=1).reshape(G * (S + 1), d)
+    base = (torch.arange(G, device=x.device) * (S + 1))[:, None]
+    rows = (slot_token[:, e0 * C:(e0 + n) * C] + base).reshape(G, n, C)
+    rows = rows.transpose(0, 1).reshape(-1)
+    return x_pad, rows, x_pad[rows].reshape(n, G * C, d)
+
+
+def _local_experts(cfg: ModelConfig, p, x, keep_w, slot_token, slot, C: int,
+                   experts):
+    """The FFNs of experts ``[e0, e0 + n)`` on their slots of every group
+    and their part of the combine. x: (G, S, d); keep_w, slot: (G, S, k);
+    slot_token: (G, E*C). Each local slot's output, times the weight of the
+    assignment that filled it, is added into its token's row (an empty
+    slot reads and writes the pad row S, which is cut off), so the backward
+    of the combine is a gather, and no assignment to another rank's expert
+    touches a row."""
+    G, S, d = x.shape
+    e0, n = experts
+    E = cfg.num_experts
+    # each slot's weight: the kept assignments scattered to their slots (a
+    # dropped one, weight 0, to the pad slot E*C)
+    w_slot = keep_w.new_zeros((G, E * C + 1)).scatter(
+        1, slot.reshape(G, -1), keep_w.reshape(G, -1))[:, e0 * C:(e0 + n) * C]
+    x_pad, rows, buffers = _gather_experts(x, slot_token, C, e0, n)
+    out_e = _expert_ffn(cfg, p, buffers)
+    w_rows = w_slot.reshape(G, n, C).transpose(0, 1).reshape(-1, 1)
+    out = x_pad.new_zeros((G * (S + 1), d)).index_add(
+        0, rows, out_e.reshape(-1, d) * w_rows.to(x.dtype))
+    return out.reshape(G, S + 1, d)[:, :S]
+
+
+def _apply_moe_decode(cfg: ModelConfig, p, x, experts=None, enter=_same):
+    """Dense-all-experts decode path (every expert weight read once); with
+    ``experts`` the local ones alone, weighed by their columns."""
     B, S, d = x.shape
     E = cfg.num_experts
     probs, top_w, top_e = _route(cfg, p, x)                    # (B, S, k)
     # dense per-token expert weights: sum_j w_j * onehot(e_j)
     w_full = (top_w[..., None] * F.one_hot(top_e, E).float()).sum(-2)  # (B,S,E)
-    out_e = _expert_ffn(cfg, p, x.reshape(1, B * S, d).expand(E, B * S, d))
-    w_tok = w_full.reshape(B * S, E).t().to(x.dtype)[..., None]        # (E,BS,1)
+    n = E
+    if experts is not None:
+        e0, n = experts
+        x, w_full = enter(x), enter(w_full[..., e0:e0 + n])
+    out_e = _expert_ffn(cfg, p, x.reshape(1, B * S, d).expand(n, B * S, d))
+    w_tok = w_full.reshape(B * S, n).t().to(x.dtype)[..., None]        # (n,BS,1)
     return (out_e * w_tok).sum(0).reshape(B, S, d), probs, top_e
 
 
@@ -173,10 +236,17 @@ def load_balance_loss(cfg: ModelConfig, p, x) -> torch.Tensor:
     return balance_loss(cfg, probs, top_e)
 
 
-def balance_loss(cfg: ModelConfig, probs, top_e) -> torch.Tensor:
+def _token_mean(t):
+    return t.mean(0)
+
+
+def balance_loss(cfg: ModelConfig, probs, top_e, mean=_token_mean
+                 ) -> torch.Tensor:
     """``load_balance_loss`` from a routing already computed: the router
-    probabilities (..., E) and top-k ids (..., k) of the same tokens."""
-    frac = F.one_hot(top_e, cfg.num_experts).float().reshape(
-        -1, cfg.num_experts).mean(0)
-    mean_p = probs.reshape(-1, cfg.num_experts).mean(0)
+    probabilities (..., E) and top-k ids (..., k) of the same tokens.
+    ``mean`` takes rows (N, E) to their mean over the tokens (on a mesh,
+    over every rank's tokens)."""
+    frac = mean(F.one_hot(top_e, cfg.num_experts).float().reshape(
+        -1, cfg.num_experts))
+    mean_p = mean(probs.reshape(-1, cfg.num_experts))
     return cfg.num_experts * torch.sum(frac * mean_p)

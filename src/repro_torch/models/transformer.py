@@ -29,12 +29,17 @@ activations are split by sequence instead (sequence-parallel attention:
 each rank gathers the layer's K/V and attends its own query block at its
 offset), and where the config asks for it (qwen2-vl) the residual stream
 between tensor-parallel regions is split by sequence (Megatron's sequence
-parallelism). The MoE, SSM and hybrid families on a mesh raise, naming their
-ROADMAP item.
+parallelism). The MoE family splits its experts over the model axis where
+that axis divides them (expert parallelism): the routing runs on whole
+routing groups on every model rank, each rank runs its own experts' FFNs on
+their slots, and the exit of the expert region sums the ranks' parts (see
+``MeshRun``'s expert hooks). The SSM and hybrid families on a mesh raise,
+naming their ROADMAP item.
 """
 from __future__ import annotations
 
 import copy
+import math
 from typing import Any, Dict, Optional, Tuple
 
 import torch
@@ -48,7 +53,8 @@ from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.common import (AxisEnv, ParamBuilder, ShardingPolicy,
                                        dtensor_of, with_axis, cdtype,
-                                       gather_param, global_shape, is_dtensor,
+                                       gather_param, gather_whole,
+                                       global_shape, is_dtensor,
                                        local, placements, pspec, reshard,
                                        shard_local, spec_axes, to_dtype,
                                        tp_enter, tp_exit)
@@ -194,10 +200,14 @@ def _attn_mlp_layer(run, lp, x, positions, cache=None, cache_pos=None, *,
                            causal=causal)
     if cfg.family != MOE:
         return mlp_block(run, lp, x), new_kv, None
-    h = run.enter(nn.apply_norm(cfg, lp, "norm2", x))
-    out, probs, top_e = moe_mod.apply_moe(cfg, lp, h)
-    aux = moe_mod.balance_loss(cfg, probs, top_e) if cache is None else None
-    return x + out, new_kv, aux
+    # the routing reads whole routing groups outside the expert region;
+    # the dispatch input and the routing weights enter it, and its exit
+    # sums the ranks' experts (all the identity on one device)
+    h = run.moe_tokens(nn.apply_norm(cfg, lp, "norm2", x))
+    out, probs, top_e = moe_mod.apply_moe(cfg, lp, h, experts=run.experts,
+                                          enter=run.moe_enter)
+    aux = run.balance_loss(probs, top_e) if cache is None else None
+    return x + run.moe_exit(out), new_kv, aux
 
 
 def _layer_params(lp_all, i: int):
@@ -439,13 +449,6 @@ def unembed_spec(env: AxisEnv, pol: ShardingPolicy, batch: int):
     return None
 
 
-def moe_ep_spec(env: AxisEnv, pol: ShardingPolicy, batch: int):
-    """Dispatch-buffer spec (groups, E, C, d): experts on the model axis."""
-    if pol.experts_sharded:
-        return pspec(env.batch_axes(batch), env.tp, None, None)
-    return None
-
-
 def constrain(x, env: AxisEnv, pol: ShardingPolicy, batch: int):
     """The residual stream ``x`` (a ``DTensor`` on a mesh) redistributed to
     ``act_sharding``'s layout, padded to its rank: the reference's
@@ -485,7 +488,6 @@ def cache_specs_decoder_only(cfg: ModelConfig, batch: int, env: AxisEnv,
 # ---------------------------------------------------------------------------
 # ROADMAP items of the parts a mesh does not run yet
 DEFERRED = {
-    MOE: "A26 (expert-parallel MoE dispatch)",
     SSM: "A27 (SSM heads on the model axis)",
     HYBRID: "A27 (SSM heads on the model axis)",
     "serving": "A29 (serving on a mesh)",
@@ -501,14 +503,15 @@ def deferred(cfg: ModelConfig, what: str):
 
 def require_on_mesh(cfg: ModelConfig, pol: ShardingPolicy) -> None:
     """Raises, naming the ROADMAP item, unless a mesh runs ``cfg`` under
-    ``pol``: the dense and VLM families with their heads split over the
-    model axis (Megatron's tensor parallelism, with the residual stream
+    ``pol``: the dense, MoE and VLM families with their heads split over
+    the model axis (Megatron's tensor parallelism, with the residual stream
     split by sequence where ``pol.seq_residuals``), with their activations
     split by sequence instead (``pol.seq_parallel_attn``: the model axis
     does not divide the heads), or with the model axis a batch axis
-    (fsdp_only); the encoder-decoder the same, except with its heads
-    split."""
-    if cfg.family in (MOE, SSM, HYBRID):
+    (fsdp_only), the MoE's experts split over the model axis where
+    ``pol.experts_sharded``; the encoder-decoder the same, except with its
+    heads split."""
+    if cfg.family in (SSM, HYBRID):
         raise deferred(cfg, cfg.family)
     if cfg.family == ENCDEC and pol.head_sharded:
         raise deferred(cfg, "encdec_tp")
@@ -521,6 +524,9 @@ def require_on_mesh(cfg: ModelConfig, pol: ShardingPolicy) -> None:
 _TP_REGION = frozenset({"wq", "wk", "wv", "bq", "bk", "bv", "q_norm",
                         "k_norm", "wo", "w_in", "w_gate", "w_out", "b_in",
                         "b_gate"})
+# an MoE layer's router and expert stacks: used on whole routing groups,
+# the same on every model rank but for the experts each rank holds
+_MOE_PARAMS = frozenset({"router", "w_in", "w_gate", "w_out"})
 
 
 class OneDevice:
@@ -531,6 +537,7 @@ class OneDevice:
     kv_group: Optional[int] = None      # expand_kv's, for local query heads
     head_offset: int = 0
     seq_offset: int = 0                 # position of the first local token
+    experts = None                      # an MoE rank's (e0, E_local)
 
     def __init__(self, cfg: ModelConfig):
         self.cfg = cfg      # the layer's config
@@ -565,6 +572,19 @@ class OneDevice:
         return attn.attention_core(self.cfg, q, k, v, causal=causal,
                                    kv_group=self.kv_group,
                                    head_offset=self.head_offset)
+
+    def moe_tokens(self, h):
+        """The MoE block's input as whole routing groups."""
+        return h
+
+    def moe_enter(self, t):
+        return t
+
+    def moe_exit(self, out):
+        return out
+
+    def balance_loss(self, probs, top_e):
+        return moe_mod.balance_loss(self.cfg, probs, top_e)
 
     def cross_kv(self, k, v, seq_len: int):
         """An encoder's K/V (``seq_len`` frames), whole for cross
@@ -621,7 +641,19 @@ class MeshRun(OneDevice):
     (``seq_residuals``: the heads split) keeps the residual stream split:
     ``enter`` all-gathers the sequence and ``exit`` reduce-scatters back to
     the split, and between them attention runs over the whole sequence on
-    the local heads."""
+    the local heads.
+
+    An MoE layer routes whole routing groups on every model rank (gathered
+    over the model axis where the activations are split by sequence), so
+    the capacity and the drops are the unsharded step's. Where the model
+    axis divides the experts (``experts_sharded``) each rank holds experts
+    ``[e0, e0 + E_local)``: the dispatch input and the routing weights
+    enter the expert region (Megatron's f), the rank runs its experts on
+    their slots, and the exit sums the ranks' parts (an all-reduce, or a
+    reduce-scatter back to the sequence split). Otherwise every rank runs
+    every expert, and the exit only takes its own tokens. The router and
+    the stacks are never a part over the model axis: their gradient is the
+    same on every model rank, or the rank's own experts'."""
 
     def __init__(self, cfg: ModelConfig, env: AxisEnv, pol: ShardingPolicy,
                  batch, *, decode: bool = False):
@@ -654,6 +686,12 @@ class MeshRun(OneDevice):
         # token is taken or the unembedding re-lays them
         self.head_spec = self.act_spec
         self._slot = None
+        # MoE: the routing groups whole over the model axis, and the experts
+        # of this rank where that axis splits them
+        self.group_pl = placements(pspec(self.act_spec[0], None, None), env)
+        if pol.experts_sharded:
+            n_local = cfg.num_experts // env.size(env.tp)
+            self.experts = (self.model_rank * n_local, n_local)
 
     def _first_position(self) -> int:
         if not self.seq_acts:
@@ -678,9 +716,13 @@ class MeshRun(OneDevice):
         """Layer ``i``'s weights gathered (ZeRO-3), matrices cast to the
         compute dtype before the gather."""
         out = {}
+        moe = self.cfg.family == MOE
         for name, w in lp_all.items():
-            partial = self.token_axes + (
-                (self.env.tp,) if self.tp and name in _TP_REGION else ())
+            if moe and name in _MOE_PARAMS:
+                partial = spec_axes(self.act_spec[0])
+            else:
+                partial = self.token_axes + (
+                    (self.env.tp,) if self.tp and name in _TP_REGION else ())
             out[name] = gather_param(
                 w[i], self.env, self.pol, partial_axes=partial,
                 dtype=cdtype(self.cfg) if w.dim() >= 3 else None)
@@ -701,6 +743,52 @@ class MeshRun(OneDevice):
 
     def exit(self, x):
         return tp_exit(x, self.env, self.act_pl) if self.tp else x
+
+    # -- the expert region (MoE) ---------------------------------------------
+    def moe_tokens(self, h):
+        """Whole routing groups: where the sequence is split over the model
+        axis, gathered over it. Every model rank then routes the same
+        tokens, so the gradient that comes back is the same on each and
+        the backward takes this rank's slice of it (``gather_whole``)."""
+        if not self.seq_acts:
+            return h
+        return gather_whole(h, self.env, self.act_pl, self.seq_len)
+
+    def moe_enter(self, t):
+        """Entry of the expert region (Megatron's f on the whole groups):
+        the identity forward; each rank's gradient, a part from its own
+        experts, all-reduced over the model axis."""
+        return tp_enter(t, self.env, self.group_pl)
+
+    def moe_exit(self, out):
+        """The MoE output laid out as the activations: the ranks' experts
+        summed over the model axis (reduce-scattered to the sequence split
+        where there is one); with every expert on every rank, this rank's
+        tokens of the whole groups (the backward gathers the sequence)."""
+        if self.experts is not None:
+            return tp_exit(out, self.env, self.act_pl)
+        if self.seq_acts:
+            return reshard(out, self.env, self.group_pl, self.act_pl)
+        return out
+
+    def balance_loss(self, probs, top_e):
+        """The load-balancing loss of the global batch, the same on every
+        rank: the token means summed over the axes that split the routing
+        groups (the batch axes) before the product."""
+        from torch.distributed.tensor import DTensor, Partial, Replicate
+        env = self.env
+        axes = {a for a in spec_axes(self.act_spec[0]) if env.size(a) > 1}
+        if not axes:
+            return super().balance_loss(probs, top_e)
+        n = math.prod(env.size(a) for a in axes)
+        pl = tuple(Partial() if a in axes else Replicate()
+                   for a in env.mesh_axes)
+
+        def mean(t):
+            part = t.sum(0) / (t.shape[0] * n)
+            return DTensor.from_local(part, self.mesh, pl,
+                                      run_check=False).full_tensor()
+        return moe_mod.balance_loss(self.cfg, probs, top_e, mean=mean)
 
     def split(self, x):
         whole = placements(pspec(self.act_spec[0], None), self.env)

@@ -771,6 +771,53 @@ def test_grouped_matmul_streams_a_host_tier_stack(M, shared):
     assert _rel(got, gmm.grouped_matmul_plain(x, w)) < TOL[torch.bfloat16]
 
 
+# a rank's local experts under expert parallelism on the 16x16 mesh, at
+# capacity rows cut from the mesh cells' 10,240: granite-moe's 2 of 32
+# (w_in / w_gate, then w_out), phi3.5-moe's 1 of 16, and its decode's one
+# shared x
+GMM_LOCAL_CASES = [  # (E_local, M, K, N, x expert stride 0)
+    (2, 1280, 1024, 512, False),
+    (2, 1280, 512, 1024, False),
+    (1, 1280, 4096, 6400, False),
+    (1, 1280, 6400, 4096, False),
+    (1, 8, 4096, 6400, True),
+    (2, 4, 1024, 512, True),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("E,M,K,N,shared", GMM_LOCAL_CASES)
+def test_grouped_matmul_on_a_ranks_local_experts(E, M, K, N, shared):
+    """B6 on the stacks one rank holds under expert parallelism (E = 1 and
+    E = 2: the experts of model rank 1, a contiguous slice of a larger
+    stack, as a shard of it is), in bf16 on the wgmma route, against its
+    plain version: the forward, and for a routed x its backward through the
+    autograd Function (``dx`` on w's transposed view, ``dw`` on x's)."""
+    from repro_torch.kernels import grouped_matmul as gmm
+    dev = _cuda()
+    x, w_all = _gmm_inputs(dev, 2 * E, M, K, N, shared, torch.bfloat16,
+                           seed=E + M + K)
+    x, w = x[:E], w_all[E:]
+    before = (gmm.grouped_matmul.launches,
+              gmm.grouped_matmul.launches_by_route["wgmma"])
+    got = gmm.grouped_matmul(x, w)
+    torch.cuda.synchronize()
+    assert gmm.grouped_matmul.launches == before[0] + 1
+    assert gmm.grouped_matmul.launches_by_route["wgmma"] == before[1] + 1
+    assert tuple(got.shape) == (E, M, N) and torch.isfinite(got.float()).all()
+    assert _rel(got, gmm.grouped_matmul_plain(x, w)) < TOL[torch.bfloat16]
+    if shared:
+        return
+    xg, wg = x.detach().requires_grad_(), w.detach().requires_grad_()
+    xp, wp = x.detach().requires_grad_(), w.detach().requires_grad_()
+    dy = torch.randn(E, M, N, device=dev).to(torch.bfloat16)
+    gmm.grouped_matmul(xg, wg).backward(dy)
+    torch.einsum("emk,ekn->emn", xp.float(), wp.float()).backward(dy.float())
+    assert gmm.grouped_matmul.launches == before[0] + 4
+    assert _rel(xg.grad, xp.grad) < TOL[torch.bfloat16]
+    assert _rel(wg.grad, wp.grad) < TOL[torch.bfloat16]
+
+
 @pytest.mark.gpu
 def test_grouped_matmul_misaligned_base_takes_mma_sync():
     """An x whose base is not 16-byte aligned cannot be described by a TMA

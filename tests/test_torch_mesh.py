@@ -12,7 +12,10 @@ step) against the reference's.
   ``tests/test_sharding.py``) and within 1e-5 (relative) of the port's
   unsharded loss; every gradient leaf, gathered whole, within 1e-5 of the
   largest value of the unsharded gradients; one AdamW step keeps every
-  placement; the collectives are the ZeRO-3 rule's.
+  placement; the collectives are the ZeRO-3 rule's. The MoE cases (granite
+  reduced, 4 experts top-2) split the experts over "model" where it divides
+  them: every rank routes whole rows, runs its own experts and the exit
+  sums the ranks'; the router's gradient is held like every other leaf.
 """
 import os
 import subprocess
@@ -93,6 +96,15 @@ def test_spec_trees_equal_reference(arch, env_name):
 # qwen2-vl's 4 heads split over 4, its residuals by sequence (Megatron SP)
 STARCODER2 = {"num_heads": 3, "num_kv_heads": 1}
 WHISPER = {"num_heads": 3, "num_kv_heads": 3, "encoder_seq": 30}
+# granite-moe reduced (4 experts, top-2): on (2, 2) heads, KV heads and
+# experts split in two; on (1, 4) one head and one expert a rank with the KV
+# heads whole (phi3.5-moe's layout on 16x16); with 3 heads and 1 KV head on
+# (1, 4) the attention is sequence-parallel, so each rank gathers whole rows
+# to route them; with 3 experts the experts stay whole on every rank, on
+# (2, 2) while the heads split, on (1, 4) under sequence-parallel attention
+# (each rank keeps its own tokens of the whole rows' output)
+GRANITE_MOE = {"num_heads": 4, "num_kv_heads": 2, "num_experts": 4}
+GRANITE_MOE_SP = {"num_heads": 3, "num_kv_heads": 1, "num_experts": 4}
 # name -> (arch, mesh shape, config overrides, global batch)
 CASES = {"llama3_2x2": ("llama3-8b", (2, 2), {"num_heads": 4, "num_kv_heads": 2}, 4),
          "llama3_1x4": ("llama3-8b", (1, 4), {"num_heads": 4, "num_kv_heads": 2}, 4),
@@ -101,11 +113,23 @@ CASES = {"llama3_2x2": ("llama3-8b", (2, 2), {"num_heads": 4, "num_kv_heads": 2}
          "starcoder2_2x2": ("starcoder2-7b", (2, 2), STARCODER2, 4),
          "starcoder2_1x4": ("starcoder2-7b", (1, 4), STARCODER2, 4),
          "qwen2vl_1x4": ("qwen2-vl-72b", (1, 4), {}, 4),
-         "whisper_1x4": ("whisper-large-v3", (1, 4), WHISPER, 4)}
+         "whisper_1x4": ("whisper-large-v3", (1, 4), WHISPER, 4),
+         "granite_moe_2x2": ("granite-moe-1b-a400m", (2, 2), GRANITE_MOE, 4),
+         "granite_moe_1x4": ("granite-moe-1b-a400m", (1, 4), GRANITE_MOE, 4),
+         "granite_moe_1x4_sp": ("granite-moe-1b-a400m", (1, 4),
+                                GRANITE_MOE_SP, 4),
+         "granite_moe_2x2_e3": ("granite-moe-1b-a400m", (2, 2),
+                                {**GRANITE_MOE, "num_experts": 3}, 4),
+         "granite_moe_1x4_sp_e3": ("granite-moe-1b-a400m", (1, 4),
+                                   {**GRANITE_MOE_SP, "num_experts": 3}, 4)}
 SEQ = 16
 # the policy each case runs under: (seq_parallel_attn, seq_residuals)
 SEQ_SPLIT = {"starcoder2_2x2": (True, False), "starcoder2_1x4": (True, False),
-             "qwen2vl_1x4": (False, True), "whisper_1x4": (True, False)}
+             "qwen2vl_1x4": (False, True), "whisper_1x4": (True, False),
+             "granite_moe_1x4_sp": (True, False),
+             "granite_moe_1x4_sp_e3": (True, False)}
+# the MoE cases whose model axis divides the experts
+EXPERTS_SHARDED = {"granite_moe_2x2", "granite_moe_1x4", "granite_moe_1x4_sp"}
 
 # The ranks run in a script of their own (it imports the port alone, not
 # this module, jax or the reference): ``python worker.py <dir> <job>``
@@ -288,8 +312,26 @@ def _train_batch(cfg, batch_size: int):
     return batch
 
 
+def _dropped(pm, pp, batch, monkeypatch) -> int:
+    """The assignments the unsharded port's MoE layers drop at capacity in
+    one forward of ``batch``."""
+    from repro_torch.models import moe as moe_mod
+    slots, seen = moe_mod._slots, []
+
+    def watched(cfg, top_w, top_e, C):
+        out = slots(cfg, top_w, top_e, C)
+        seen.append(int((out[2] == cfg.num_experts * C).sum()))
+        return out
+    monkeypatch.setattr(moe_mod, "_slots", watched)
+    with torch.no_grad():
+        pm.loss_fn(pp, batch)
+    monkeypatch.setattr(moe_mod, "_slots", slots)
+    assert len(seen) == pm.cfg.num_layers
+    return sum(seen)
+
+
 @pytest.mark.parametrize("case", sorted(CASES))
-def test_sharded_loss_and_grads_match_reference(case, tmp_path):
+def test_sharded_loss_and_grads_match_reference(case, tmp_path, monkeypatch):
     """llama3 (4 heads, 2 KV heads, as the reference's sharded test) on
     (2, 2) and on (1, 4), where the model axis does not divide the KV heads
     (they stay whole and each rank's query heads read theirs); gpt2 on
@@ -301,11 +343,17 @@ def test_sharded_loss_and_grads_match_reference(case, tmp_path):
     each rank's K/V gathered and its queries attending at their offset,
     whisper's encoder frames split unevenly; qwen2-vl on (1, 4): Megatron
     SP, the residual stream split by sequence between tensor-parallel
-    regions entered by an all-gather and left by a reduce-scatter."""
+    regions entered by an all-gather and left by a reduce-scatter.
+    granite-moe: the experts split over "model" (``EXPERTS_SHARDED``) or
+    whole on every rank, the routing on whole rows (gathered under
+    sequence-parallel attention), assignments dropped at capacity (the
+    same on the mesh: its loss and gradients would part otherwise)."""
     arch, mesh_shape, over, batch_size = CASES[case]
     rm, rp, pm, pp = model_pair(arch, dtype="float32", **over)
     env = AxisEnv(("data", "model"), dict(zip(("data", "model"), mesh_shape)))
     pol = build_model(pm.cfg, env).pol
+    if pm.cfg.family == "moe":
+        assert pol.experts_sharded == (case in EXPERTS_SHARDED)
     if case == "gpt2_2x2_b2":
         assert pol.profile == "fsdp_only"
         assert unembed_spec(env, pol, batch_size) == ("data", "model")
@@ -314,6 +362,10 @@ def test_sharded_loss_and_grads_match_reference(case, tmp_path):
     batch = _train_batch(pm.cfg, batch_size)
     ref_loss = float(rm.loss_fn(rp, {k: to_jax(v) for k, v in batch.items()}))
     pbatch = {k: to_torch(v) for k, v in batch.items()}
+    if pm.cfg.family == "moe":
+        # reduced granite's capacity, 10 slots an expert for a row's 32
+        # assignments (13 with 3 experts), drops some in every case
+        assert _dropped(pm, pp, pbatch, monkeypatch) > 0
     want_loss, want = _accumulate_grads(pm, pp, pbatch, 1)
     torch.save({"params": pp, "batch": pbatch}, tmp_path / "payload.pt")
     _world(tmp_path, "numerics", (arch, mesh_shape, over, batch_size))

@@ -9,11 +9,15 @@ size on the CPU.
   bytes above 0.
 * A cell whose policy needs a part the mesh does not run yet is an error
   record naming its ROADMAP item; the cells of the items ported since
-  (sequence-parallel attention, A25; the VLM and enc-dec on a mesh, A28)
-  are measured records of the last model rank (``--rank 15``).
+  (sequence-parallel attention, A25; expert-parallel MoE, A26; the VLM and
+  enc-dec on a mesh, A28) are measured records of the last model rank
+  (``--rank 15``).
 * A sequence-parallel rank's attention grows with its offset: the counted
   FLOPs of a reduced starcoder2 training step on (2, 2) differ between model
   ranks 0 and 1 by what ``attended_pairs`` gives their query blocks.
+* Expert parallelism: model ranks 0 and 1 of a reduced granite-moe step on
+  (2, 2) each count the expert products of their 2 of 4 experts, half the
+  unsharded step's at the same local batch.
 * The port's per-device product FLOPs of a reduced llama3 train step on
   (2, 2, 2) against the reference's ``analyze_hlo`` on the same 8-device
   mesh, within the 2e-3 ``tests/test_torch_step_analysis.py`` holds one
@@ -64,7 +68,7 @@ def test_gpt2_train_on_the_multi_pod_mesh(tmp_path):
 
 
 # the ROADMAP items a mesh runs now
-PORTED = {"A25", "A28"}
+PORTED = {"A25", "A26", "A28"}
 
 
 @pytest.mark.parametrize("arch,item", [("starcoder2-7b", "A25"),
@@ -74,11 +78,12 @@ PORTED = {"A25", "A28"}
                                        ("whisper-large-v3", "A28")])
 def test_deferred_policy_is_a_named_error_record(tmp_path, arch, item):
     """The cell of each arch whose policy needed a ROADMAP item on the pod
-    mesh, as the last model rank: the MoE (A26) and SSM (A27) families wait
-    for theirs, an error record naming it, never a replicated run.
-    starcoder2 (36 heads, reduced 4, on a model axis of 16: sequence-
-    parallel attention, A25), qwen2-vl (A28; reduced, its 4 heads are
-    sequence-parallel too) and whisper (A28) are measured records whose
+    mesh, as the last model rank: the SSM family (A27) waits for its, an
+    error record naming it, never a replicated run. starcoder2 (36 heads,
+    reduced 4, on a model axis of 16: sequence-parallel attention, A25),
+    granite-moe (A26; reduced, 4 heads and 4 experts: sequence-parallel,
+    its experts whole on every rank), qwen2-vl (A28; reduced, its 4 heads
+    are sequence-parallel too) and whisper (A28) are measured records whose
     policy says so, with the rank and its coordinates."""
     out = _dryrun(tmp_path, "--arch", arch, "--shape", "train_4k",
                   "--mesh", "pod", "--rank", "15")
@@ -93,6 +98,9 @@ def test_deferred_policy_is_a_named_error_record(tmp_path, arch, item):
     assert "error" not in rec and rec["roofline"]["n_chips"] == 256
     assert rec["coords"] == {"data": 0, "model": 15}
     assert rec["policy"]["seq_parallel_attn"]
+    if item == "A26":
+        assert not rec["policy"]["experts_sharded"]
+        assert (rec["experts_sharded"], rec["experts_local"]) == (False, 4)
     assert rec["collectives"]["bytes_by_op"]["all-gather"] > 0
     assert "rank 15's shard" in rec["note"]
     for pm in (ref_pm, port_pm):
@@ -145,6 +153,55 @@ def test_sequence_parallel_ranks_count_their_attended_pairs():
     assert pairs[1] - pairs[0] == 256 * 256
     per_pair = 4 * 2 + 8 + 6
     assert f1 - f0 == L * 1 * H * hd * (pairs[1] - pairs[0]) * per_pair
+
+
+# the expert products counted in a reduced granite-moe training step (4
+# heads, 2 KV heads, 4 experts) at 256 tokens: on the CPU the plain
+# grouped_matmul (forward) and its einsum's backward; "-1" is the unsharded
+# step on one device at the local batch of a (2, 2) rank, two sequences
+_MOE_RANK = textwrap.dedent("""\
+    import sys
+    import torch
+    from repro_torch.configs.shapes import ShapeSuite
+    from repro_torch.core.step_analysis import count_step
+    from repro_torch.launch.dryrun import cell_config
+    from repro_torch.launch.mesh import fake_world, make_host_mesh
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.train.train_step import _accumulate_grads
+    rank = int(sys.argv[1])
+    shape = ShapeSuite("train_4k", "train", 256, 2 if rank < 0 else 4)
+    cfg = cell_config("granite-moe-1b-a400m", shape, reduced=True,
+                      overrides={"num_heads": 4, "num_kv_heads": 2})
+
+    def expert_flops(m):
+        p, _ = m.init(torch.Generator().manual_seed(0))
+        b = m.synthetic_batch(shape, torch.Generator().manual_seed(1))
+        _, cost = count_step(_accumulate_grads, m, p, b, 1)
+        return sum(s.value for s in cost.top_flops_sites
+                   if "gmm_ref" in s.op_name
+                   or s.op_name == "(backward) BmmBackward0")
+    if rank < 0:
+        flops = expert_flops(build_model(cfg, "cpu"))
+    else:
+        with fake_world(4, rank=rank):
+            m = build_model(cfg, make_host_mesh(2, 2))
+            assert m.pol.experts_sharded and not m.pol.seq_parallel_attn
+            flops = expert_flops(m)
+    print("FLOPS", flops, cfg.num_experts)
+    """)
+
+
+def test_expert_parallel_ranks_count_their_experts():
+    """Model ranks 0 and 1 of a reduced granite-moe step on (2, 2) hold
+    experts 0-1 and 2-3. The routing is global, so each runs its two
+    experts on the same capacity rows as the unsharded step: both count
+    the same expert-product FLOPs, E_local / E = 1/2 of the unsharded
+    step's at the same local batch (two sequences)."""
+    (f0, E), (f1, _), (whole, _) = [
+        _flops(_MOE_RANK.replace("int(sys.argv[1])", str(rank)))
+        for rank in (0, 1, -1)]
+    assert E == 4 and f0 > 0
+    assert f0 == f1 == whole * 2 / E
 
 
 _CFG = ('get_config("llama3-8b").reduced().with_(num_heads=4, num_kv_heads=2, '

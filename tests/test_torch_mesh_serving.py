@@ -25,6 +25,12 @@ model axis.
   embeddings split by sequence between tensor-parallel regions, three
   M-RoPE streams (a 1 x 2 image after the first token, so the rotary
   positions fall below the cache index), the decode as llama3's on (1, 4).
+* granite-moe (reduced, 4 experts top-2) on (2, 2) and (1, 4) with its
+  experts split over "model" (the decode's dense path on each rank's
+  experts, weighed by their columns, the ranks summed), with 3 heads on
+  (1, 4) (sequence-parallel prefill: each rank gathers the whole rows to
+  route them), and with 3 experts on (2, 2) (every rank runs every
+  expert).
 
 Every logit and cache entry is held within 1e-5 (relative to the largest)
 of the unsharded port's on the same weights and tokens, and the unsharded
@@ -38,7 +44,7 @@ import pytest
 import torch
 
 from port_parity import model_pair, rel_err, to_jax, to_np, to_torch
-from test_torch_mesh import STARCODER2, _world
+from test_torch_mesh import GRANITE_MOE, GRANITE_MOE_SP, STARCODER2, _world
 from test_torch_vlm import vlm_positions
 
 LLAMA = {"num_heads": 4, "num_kv_heads": 2}
@@ -48,7 +54,12 @@ CASES = {"llama3_2x2": ("llama3-8b", (2, 2), LLAMA),
          "gpt2_2x2": ("gpt2-124m", (2, 2), {}),
          "starcoder2_2x2": ("starcoder2-7b", (2, 2), STARCODER2),
          "starcoder2_1x4": ("starcoder2-7b", (1, 4), STARCODER2),
-         "qwen2vl_1x4": ("qwen2-vl-72b", (1, 4), {})}
+         "qwen2vl_1x4": ("qwen2-vl-72b", (1, 4), {}),
+         "granite_moe_2x2": ("granite-moe-1b-a400m", (2, 2), GRANITE_MOE),
+         "granite_moe_1x4": ("granite-moe-1b-a400m", (1, 4), GRANITE_MOE),
+         "granite_moe_1x4_sp": ("granite-moe-1b-a400m", (1, 4), GRANITE_MOE_SP),
+         "granite_moe_2x2_e3": ("granite-moe-1b-a400m", (2, 2),
+                                {**GRANITE_MOE, "num_experts": 3})}
 B, PROMPT, MAX_SEQ, STEPS = 4, 4, 16, 6
 # the pool's placements on (data, model): the batch over "data", and over
 # "model" the KV heads (dim 3) where that axis divides them, else the
@@ -58,7 +69,11 @@ POOL_PLACEMENTS = {"llama3_2x2": ["S(1)", "S(3)"],
                    "gpt2_2x2": ["S(1)", "S(2)"],
                    "starcoder2_2x2": ["S(1)", "S(2)"],
                    "starcoder2_1x4": ["S(1)", "S(2)"],
-                   "qwen2vl_1x4": ["S(1)", "S(2)"]}
+                   "qwen2vl_1x4": ["S(1)", "S(2)"],
+                   "granite_moe_2x2": ["S(1)", "S(3)"],
+                   "granite_moe_1x4": ["S(1)", "S(2)"],
+                   "granite_moe_1x4_sp": ["S(1)", "S(2)"],
+                   "granite_moe_2x2_e3": ["S(1)", "S(3)"]}
 
 
 def _inputs(cfg, seed: int):
