@@ -205,7 +205,11 @@ JSON line per phase; any failure is a non-zero exit:
            prefill_32k and decode_32k as rank 0 (expert parallelism: 2 of 32
            and 1 of 16 experts a rank, the routing global, grouped_matmul on
            the local experts' capacity buffers, the exit summing the ranks);
-           each at full width and depth as one device's shard through
+           mamba2-130m train_4k (fsdp_only: one sequence a device, all 24
+           SSM heads) and zamba2-1.2b train_4k and prefill_32k as rank 0
+           (4 of 64 SSM heads a rank, ssd_scan on the local heads, the
+           gated norm summed over the ranks; the shared block's 2 of 32
+           heads); each at full width and depth as one device's shard through
            launch/dryrun.py (a fake world: collectives counted, not run;
            values undefined); the flash and grouped_matmul counts set to 0
            just before each cell and read just after, equal to the passes x
@@ -217,16 +221,19 @@ JSON line per phase; any failure is a non-zero exit:
            B_part x local heads, the rank's query block), every
            grouped_matmul launch on a stack of the rank's E/16 experts, its
            forwards at the local capacity rows (groups x C, or the decode's
-           rows with one shared x); every record loaded by
-           PerfModel.from_artifacts; per cell part and step ms, per-device
+           rows with one shared x); ssd_scan once an SSM layer's forward
+           (a hybrid group's three times a training pass, a tail layer's
+           twice), every launch at the rank's rows and SSM heads; every
+           record loaded by PerfModel.from_artifacts; per cell part and step ms, per-device
            TFLOP, HBM GB and collective GB by op, and the FLOP ratio to the
            reference's committed per-chip anchor where there is one,
            printed not gated; then B1 / B3 / B4 at those local shapes
            against their plain versions, with SDPA under the bottom-right
            causal mask as the library call for a query block at its offset,
            and grouped_matmul at the MoE cells' local shapes (forwards, and
-           dx / dw at the training rows) with torch.bmm as the library call
-           (mesh_local in the kernels line)
+           dx / dw at the training rows) with torch.bmm as the library call,
+           and ssd_scan at the SSM cells' local shapes (mesh_local in the
+           kernels line)
 
 Then a line {"kernels": [...]} with every kernel's figures, the card's name
 and power limit, and last {"ok": true, "device": {...}}.
@@ -379,8 +386,11 @@ def settled_mem_available(limit_s: float = 120.0) -> int:
 # last model rank, attends the whole prefix, the heaviest rank. qwen2-vl's
 # 64 heads split 4 a rank with its residuals split by sequence (Megatron
 # SP); rank 0. granite-moe's 32 and phi3.5-moe's 16 experts split over the
-# model axis, 2 and 1 a rank (expert parallelism); rank 0. The cells after
-# PR 30's four time one part (three took the phase to 176 s).
+# model axis, 2 and 1 a rank (expert parallelism); rank 0. mamba2-130m is
+# fsdp_only (one of 256 sequences a device, all 24 SSM heads); zamba2-1.2b
+# splits its 64 SSM heads 4 a rank and its shared block's 32 heads 2 a
+# rank; rank 0. The cells after PR 30's four time one part (three took the
+# phase to 176 s).
 MESH_CELLS = (("llama3-8b", "train_4k", "pod", {}, 0, 3),
               ("llama3-8b", "prefill_32k", "pod", {}, 0, 3),
               ("gpt2-124m", "train_4k", "multi", {"grad_compression": True}, 0, 3),
@@ -391,7 +401,10 @@ MESH_CELLS = (("llama3-8b", "train_4k", "pod", {}, 0, 3),
               ("whisper-large-v3", "train_4k", "pod", {}, 15, 1),
               ("granite-moe-1b-a400m", "train_4k", "pod", {}, 0, 1),
               ("phi3.5-moe-42b-a6.6b", "prefill_32k", "pod", {}, 0, 1),
-              ("phi3.5-moe-42b-a6.6b", "decode_32k", "pod", {}, 0, 1))
+              ("phi3.5-moe-42b-a6.6b", "decode_32k", "pod", {}, 0, 1),
+              ("mamba2-130m", "train_4k", "pod", {}, 0, 1),
+              ("zamba2-1.2b", "train_4k", "pod", {}, 0, 1),
+              ("zamba2-1.2b", "prefill_32k", "pod", {}, 0, 1))
 MESH_TRAIN_KERNELS = {"flash_attention_fwd_stats", "flash_attention_bwd_dkdv",
                       "flash_attention_bwd_dq"}
 # the reference's committed per-chip anchors (its "single" is the port's
@@ -402,25 +415,28 @@ ANCHOR_DIRS = {"pod": "single", "multi": "multi"}
 def mesh_child(out_dir: str) -> None:
     """The mesh phase's child process: each cell of ``MESH_CELLS`` through
     ``launch/dryrun.py`` as its rank of a fake world (the fake process group
-    lives and dies in this process, away from the other phases). The flash
-    and grouped_matmul wrappers' launch counts are set to 0 just before each
-    cell and read just after; their ``kernel_cost`` is watched to record the
-    shapes each kernel was launched at in the counted pass (flash: q's, k's
-    and the query offset; grouped_matmul: x's, w's and whether x is one
-    buffer shared by the experts). Writes ``mesh.json``."""
+    lives and dies in this process, away from the other phases). The flash,
+    grouped_matmul and ssd_scan wrappers' launch counts are set to 0 just
+    before each cell and read just after; their ``kernel_cost`` is watched
+    to record the shapes each kernel was launched at in the counted pass
+    (flash: q's, k's and the query offset; grouped_matmul: x's, w's and
+    whether x is one buffer shared by the experts; ssd_scan: x's and B's).
+    Writes ``mesh.json``."""
     import torch
     from repro_torch.kernels import _build
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import grouped_matmul as gmm
+    from repro_torch.kernels import ssd_scan as ssd
     from repro_torch.launch import dryrun
     _build.build_all()
     wrappers = {"flash_attention_fwd": fa.flash_attention_fwd,
                 "flash_attention_fwd_stats": fa.flash_attention_fwd_stats,
                 "flash_attention_bwd_dkdv": fa.flash_attention_bwd_dkdv,
                 "flash_attention_bwd_dq": fa.flash_attention_bwd_dq,
-                "grouped_matmul": gmm.grouped_matmul}
+                "grouped_matmul": gmm.grouped_matmul,
+                "ssd_scan": ssd.ssd_scan}
     shapes = {}
-    cost, gmm_cost = fa.kernel_cost, gmm.kernel_cost
+    cost, gmm_cost, ssd_cost = fa.kernel_cost, gmm.kernel_cost, ssd.kernel_cost
 
     def watched(name, q, k, causal, q_offset=0):
         shapes.setdefault(name, set()).add(
@@ -431,11 +447,18 @@ def mesh_child(out_dir: str) -> None:
         shapes.setdefault("grouped_matmul", set()).add(
             (tuple(x.shape), tuple(w.shape), x.stride(0) == 0))
         return gmm_cost(x, w, on_host)
+    def watched_ssd(x, B_, with_init, with_state):
+        shapes.setdefault("ssd_scan", set()).add(
+            (tuple(x.shape), tuple(B_.shape)))
+        return ssd_cost(x, B_, with_init, with_state)
     fa.kernel_cost, gmm.kernel_cost = watched, watched_gmm
+    ssd.kernel_cost = watched_ssd
+    routed = {n: w for n, w in wrappers.items() if n != "ssd_scan"}
     cells = []
     for arch, shape, mesh, over, rank, iters in MESH_CELLS:
         for w in wrappers.values():
             w.launches = 0
+        for w in routed.values():
             w.launches_by_route = dict.fromkeys(w.launches_by_route, 0)
         shapes.clear()
         t0 = time.time()
@@ -448,7 +471,7 @@ def mesh_child(out_dir: str) -> None:
             "seconds": seconds,
             "launches": {n: w.launches for n, w in wrappers.items()},
             "launches_by_route": {n: dict(w.launches_by_route)
-                                  for n, w in wrappers.items()},
+                                  for n, w in routed.items()},
             "kernel_shapes": {n: sorted(v) for n, v in shapes.items()}})
         torch.cuda.empty_cache()
     with open(os.path.join(out_dir, "mesh.json"), "w") as f:
@@ -3795,12 +3818,15 @@ def main() -> None:
              f"{child.stderr[-3000:]}")
     with open(os.path.join(mesh_dir, "mesh.json")) as f:
         mesh_cells = json.load(f)
-    mesh_launches = dict.fromkeys(routed, 0)
+    mesh_launches = dict.fromkeys(list(routed) + ["ssd_scan"], 0)
     mesh_routes = {n: {} for n in routed}
     mesh_rows = []
     # grouped_matmul's forwards in the MoE cells: (E_local, M, K, N, x
     # shared) -> the cells that launched it there; those of training cells
     mesh_gmm_shapes, mesh_gmm_train = {}, set()
+    # ssd_scan's calls in the SSM cells: (B, S, nh_local, hp, N, initial
+    # state) -> the cells that launched it there
+    mesh_ssd_shapes = {}
 
     def moe_forwards(cfg, kind, rows, S, e_local):
         """The expert products of one MoE layer as moe.apply_moe runs them
@@ -3829,8 +3855,12 @@ def main() -> None:
         kind = get_shape(shape_name).kind
         cfg = get_config(arch)
         moe = cfg.family == "moe"
-        want = {"train": MESH_TRAIN_KERNELS, "prefill": {"flash_attention_fwd"},
-                "decode": set()}[kind] | ({"grouped_matmul"} if moe else set())
+        ssm = cfg.family in ("ssm", "hybrid")
+        attn = {"train": MESH_TRAIN_KERNELS, "prefill": {"flash_attention_fwd"},
+                "decode": set()}[kind]
+        want = ((set() if cfg.family == "ssm" else attn)
+                | ({"grouped_matmul"} if moe else set())
+                | ({"ssd_scan"} if ssm else set()))
         counted = rec["kernels"]["counted_pass"]
         if set(counted["count"]) != want or counted["count"] != counted["wrappers"]:
             fail(f"{tag}: counted launches {counted['count']} (the wrappers' "
@@ -3850,16 +3880,29 @@ def main() -> None:
         if moe:
             per_layer["grouped_matmul"] = (3 if cfg.glu else 2) * (
                 fwd_per_layer + (2 if kind == "train" else 0))
-        if counted["count"] != {n: cfg.num_layers * c
-                                for n, c in per_layer.items()}:
-            fail(f"{tag}: counted launches {counted['count']}, not "
-                 f"{cfg.num_layers} layers x {per_layer}")
+        per_pass = {n: cfg.num_layers * c for n, c in per_layer.items()}
+        if ssm:
+            # the SSD once a layer's forward: a training pass runs a tail
+            # layer's twice and a hybrid group's layers three times (the
+            # group's recompute as well); the flash kernels once a shared
+            # block's application (n_groups of them), its forward twice
+            g = cfg.attn_every if cfg.family == "hybrid" else cfg.num_layers
+            groups = cfg.num_layers // g if cfg.family == "hybrid" else 0
+            tail = cfg.num_layers - groups * g
+            per_pass = {n: groups * c for n, c in per_layer.items()}
+            per_pass["ssd_scan"] = (groups * g * (fwd_per_layer + 1)
+                                    + tail * fwd_per_layer
+                                    if fwd_per_layer == 2 else cfg.num_layers)
+        if counted["count"] != per_pass:
+            fail(f"{tag}: counted launches {counted['count']}, not the "
+                 f"{per_pass} that {cfg.num_layers} layers give")
         for n, routes in cell["launches_by_route"].items():
             if any(c for r, c in routes.items() if r != "wgmma"):
                 fail(f"{tag}: {n} routes {routes}, not all wgmma (bf16)")
-            mesh_launches[n] += cell["launches"][n]
             for r, c in routes.items():
                 mesh_routes[n][r] = mesh_routes[n].get(r, 0) + c
+        for n in mesh_launches:
+            mesh_launches[n] += cell["launches"][n]
         # local heads: B_part x num_heads / the model axis' size (tp), or
         # the whole heads (fsdp_only, sequence-parallel); a
         # sequence-parallel rank's queries are its 1/16 of the sequence at
@@ -3872,9 +3915,24 @@ def main() -> None:
         q_off = rec["coords"]["model"] * Sq if pol["seq_parallel_attn"] else 0
         at = [[bh, Sq, cfg.head_dim], [bh, S, cfg.head_dim], q_off]
         for n, shapes_seen in cell["kernel_shapes"].items():
-            if n != "grouped_matmul" and shapes_seen != [at]:
+            if n.startswith("flash") and shapes_seen != [at]:
                 fail(f"{tag}: {n} launched at {shapes_seen}, not the local "
                      f"q, k and offset {at}")
+        if ssm:
+            # every scan on the rank's rows and its nh / 16 SSM heads (all
+            # of them fsdp_only), B and C whole
+            nh_l = cfg.ssm_heads // (16 if pol["ssm_sharded"] else 1)
+            rows = rec["measured"]["part_sequences"]
+            at_ssd = [[rows, S, nh_l, cfg.ssm_head_dim],
+                      [rows, S, cfg.ssm_state]]
+            if (rec.get("ssm_heads_local") != nh_l
+                    or cell["kernel_shapes"].get("ssd_scan") != [at_ssd]):
+                fail(f"{tag}: ssd_scan launched at "
+                     f"{cell['kernel_shapes'].get('ssd_scan')} (record: "
+                     f"{rec.get('ssm_heads_local')} heads), not {at_ssd}")
+            mesh_ssd_shapes.setdefault(
+                (rows, S, nh_l, cfg.ssm_head_dim, cfg.ssm_state,
+                 kind == "prefill"), []).append(f"{arch} {shape_name}")
         if moe:
             # every launch on a stack of the rank's E / 16 experts, the
             # forwards at the local capacity rows the routing gives
@@ -3931,6 +3989,7 @@ def main() -> None:
                                          if any(rs.values())},
             "kernel_local_shapes": cell["kernel_shapes"],
             **({"experts_local": rec["experts_local"]} if moe else {}),
+            **({"ssm_heads_local": rec["ssm_heads_local"]} if ssm else {}),
             "peak_device_bytes": m["peak_device_bytes"],
             "grad_compression": rec.get("grad_compression"),
             "reference_flops_per_chip": anchor and anchor["hlo_flops_per_chip"],
@@ -3942,7 +4001,7 @@ def main() -> None:
             "count_s": rec["count_s"], "seconds": cell["seconds"]}
         emit("mesh_cell", **row)
         mesh_rows.append(row)
-    for n in routed:
+    for n in mesh_launches:
         if not mesh_launches[n]:
             fail(f"mesh: {n} was launched no time on the mesh path")
     shutil.rmtree(mesh_dir, ignore_errors=True)
@@ -3982,6 +4041,13 @@ def main() -> None:
     mesh_gmm_bwd = [gmm_bwd_case(which, E, M, K, N)
                     for E, M, K, N, _ in sorted(mesh_gmm_train)
                     for which in ("dx", "dw")]
+    # B5 at the local shapes of the SSM cells, against its plain version:
+    # mamba2-130m's one sequence a device at all 24 heads, zamba2-1.2b's 4
+    # of 64 heads at its training part's rows and at the prefill's 2 rows of
+    # 32,768 tokens (from the cache's initial state, as the prefill runs it)
+    mesh_ssd = [dict(ssd_case(B, S, nh, hp, N, "bfloat16", with_state=init),
+                     cells=mesh_ssd_shapes[(B, S, nh, hp, N, init)])
+                for B, S, nh, hp, N, init in sorted(mesh_ssd_shapes)]
     emit("mesh", card=card_line, cells=len(mesh_rows),
          seconds=time.time() - t_mesh, launches=mesh_launches,
          launches_by_route=mesh_routes,
@@ -3997,7 +4063,8 @@ def main() -> None:
                  if k in c} for c in mesh_flash],
              "flash_attention_train": mesh_flash_train,
              "grouped_matmul": mesh_gmm,
-             "grouped_matmul_backward": mesh_gmm_bwd})
+             "grouped_matmul_backward": mesh_gmm_bwd,
+             "ssd_scan": mesh_ssd})
 
     # ------------------------------------------------------------- summary
     def train_summary(c, key, errs, lib):
@@ -4134,7 +4201,7 @@ def main() -> None:
         "launches": ssm_launches["ssd_scan"],
         "shape": ssd_head["shape"], "N": ssd_head["N"],
         "dtype": ssd_head["dtype"],
-        "max_abs_err": max(c["max_abs_err"] for c in ssd_cases),
+        "max_abs_err": max(c["max_abs_err"] for c in ssd_cases + mesh_ssd),
         "ms": ssd_head["ms"], "cold_ms": ssd_head["cold_ms"],
         "plain_ms": ssd_head["plain_ms"],
         "bound_ms": ssd_head["bound_ms"], "bound_by": ssd_head["bound_by"],
@@ -4144,6 +4211,11 @@ def main() -> None:
         "launches_train_ssm": tssm_launches["ssd_scan"],
         "launches_train_hybrid": thyb_launches["ssd_scan"],
         "launches_dryrun": dry_launches["ssd_scan"],
+        "launches_mesh": mesh_launches["ssd_scan"],
+        "mesh_local": [{k: c[k] for k in (
+            "shape", "N", "init_state", "max_abs_err", "rel_err", "tol",
+            "state_rel_err", "ms", "cold_ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms", "cells")} for c in mesh_ssd],
         "dryrun_prefill_32k": {k: path_ssd[k] for k in (
             "shape", "N", "dtype", "max_abs_err", "rel_err", "tol",
             "state_rel_err", "ms", "cold_ms", "plain_ms", "bound_ms",

@@ -60,9 +60,12 @@ mesh's size, ``rank`` and its mesh ``coords``, per-device FLOPs, bytes and
 collective bytes, and a ``note`` saying the collectives were counted, not
 run. The ranks of a mesh differ where the sequence is split over the model
 axis: a sequence-parallel rank attends keys up to its own tokens, so rank 0
-(model 0) is the cheapest and model rank 15 (``--rank 15``) the heaviest. A
-cell whose policy needs a part not yet ported on a mesh (expert
-parallelism, SSM heads) is an ``error`` record naming its ROADMAP item.
+(model 0) is the cheapest and model rank 15 (``--rank 15``) the heaviest.
+An MoE record holds the experts its rank runs (``experts_sharded``,
+``experts_local``), an SSM or hybrid record its SSM heads
+(``ssm_sharded``, ``ssm_heads_local``). A cell whose policy needs a part not
+yet ported on a mesh (an SSM scan across a sequence split) is an ``error``
+record naming its ROADMAP item.
 
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch gpt2-124m \
         --shape train_4k --mesh multi --reduced --device cpu --out /tmp/dryrun
@@ -89,7 +92,7 @@ from typing import Callable, Dict, Optional
 import torch
 
 from repro_torch.configs import ALL_ARCHS, ASSIGNED_ARCHS, get_config, get_shape
-from repro_torch.configs.base import MOE
+from repro_torch.configs.base import HYBRID, MOE, SSM
 from repro_torch.configs.shapes import (DECODE, PREFILL, SHAPES, TRAIN,
                                         ShapeSuite, applicable, reduced_shape)
 from repro_torch.core.hw import GiB
@@ -460,6 +463,13 @@ def measure_mesh_cell(arch: str, shape_name: str, mesh_kind: str, *,
                      if model.pol.experts_sharded else 1)
             rec["experts_sharded"] = model.pol.experts_sharded
             rec["experts_local"] = cfg.num_experts // split
+        if cfg.family in (SSM, HYBRID):
+            # the SSM heads this rank's scan runs: nh / model where that
+            # axis splits them, else all of them
+            split = (model.env.size(model.env.tp)
+                     if model.pol.ssm_sharded else 1)
+            rec["ssm_sharded"] = model.pol.ssm_sharded
+            rec["ssm_heads_local"] = cfg.ssm_heads // split
         t0 = time.time()
         gen = torch.Generator(device=device).manual_seed(0)
         params, _ = model.init(gen)

@@ -360,11 +360,13 @@ class ParamBuilder:
 # placements.
 # ---------------------------------------------------------------------------
 def gather_param(w, env: AxisEnv, pol: ShardingPolicy, *, partial_axes=(),
-                 dtype: Optional[torch.dtype] = None):
+                 dtype: Optional[torch.dtype] = None, whole: bool = False):
     """The local tensor a layer computes with, from parameter ``w``: every
     mesh axis ``w`` is sharded over is all-gathered, except the model axis
-    of the "tp" profile, whose shard stays (tensor parallelism). ``dtype``
-    casts before the gather, so the gather moves the compute dtype.
+    of the "tp" profile, whose shard stays (tensor parallelism) unless
+    ``whole`` asks for the whole tensor (a rank that computes with columns
+    of other ranks' shards). ``dtype`` casts before the gather, so the
+    gather moves the compute dtype.
 
     In the backward the local gradient is declared ``Partial`` over
     ``partial_axes`` (the axes whose ranks each hold a part of the sum: the
@@ -380,7 +382,8 @@ def gather_param(w, env: AxisEnv, pol: ShardingPolicy, *, partial_axes=(),
         w = w.to(dtype)
     target, grad = [], []
     for axis, p in zip(env.mesh_axes, w.placements):
-        keep = p.is_shard() and axis == env.tp and pol.profile == "tp"
+        keep = (p.is_shard() and axis == env.tp and pol.profile == "tp"
+                and not whole)
         target.append(p if keep else Replicate())
         if keep:
             grad.append(p)
@@ -465,6 +468,21 @@ def tp_exit(x, env: AxisEnv, act_pl):
                               with_axis(act_pl, env, env.tp, Partial()),
                               run_check=False)
     return part.redistribute(env.mesh, act_pl).to_local()
+
+
+def model_sum(x, env: AxisEnv, act_pl):
+    """The sum over the model axis of every model rank's ``x`` (laid out by
+    placements ``act_pl`` over the other axes), on every model rank: the
+    all-reduce forward, and an all-reduce of the ranks' gradients backward,
+    since every rank's result feeds that rank's own part of the loss. A
+    statistic over a dim that the model axis splits (the SSM's gated norm
+    over ``d_inner``) takes it; ``tp_exit``'s backward is the identity
+    instead, for a sum the ranks then use as one."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+    part = with_axis(act_pl, env, env.tp, Partial())
+    d = DTensor.from_local(x, env.mesh, part, run_check=False)
+    return d.redistribute(env.mesh, with_axis(act_pl, env, env.tp, Replicate())
+                          ).to_local(grad_placements=part)
 
 
 def shard_local(x, shape, pl, mesh):

@@ -61,11 +61,13 @@ class SSMCache(NamedTuple):
 
 
 def init_ssm_cache(cfg: ModelConfig, batch: int, dtype, device=None,
-                   layers: Optional[int] = None) -> SSMCache:
+                   layers: Optional[int] = None,
+                   heads: Optional[int] = None) -> SSMCache:
     """Zero cache of one layer, or of ``layers`` stacked layers (leading
-    dim). The state is fp32 whatever ``dtype`` is."""
+    dim). The state is fp32 whatever ``dtype`` is; it holds ``heads`` heads
+    (a mesh rank's) where given, all of them by default."""
     di, N = cfg.d_inner, cfg.ssm_state
-    nh, hp = cfg.ssm_heads, cfg.ssm_head_dim
+    nh, hp = heads or cfg.ssm_heads, cfg.ssm_head_dim
     L = (layers,) if layers is not None else ()
     return SSMCache(
         conv=torch.zeros(L + (batch, cfg.conv_width - 1, di + 2 * N),
@@ -77,12 +79,22 @@ def init_ssm_cache(cfg: ModelConfig, batch: int, dtype, device=None,
 # ---------------------------------------------------------------------------
 # projections shared by prefill & decode
 # ---------------------------------------------------------------------------
-def _proj_in(cfg: ModelConfig, p, u):
-    """u: (B,S,D) -> z (B,S,di), xbc (B,S,di+2N) pre-conv, dt (B,S,nh)."""
+def _proj_in(cfg: ModelConfig, p, u, heads: Optional[Tuple[int, int]] = None):
+    """u: (B,S,D) -> z (B,S,di), xbc (B,S,di+2N) pre-conv, dt (B,S,nh).
+    ``heads`` (h0, n): only heads h0..h0+n-1, from their z, x and dt columns
+    of the whole ``in_zx`` and ``in_bcdt`` (di then n x hp)."""
     di, N = cfg.d_inner, cfg.ssm_state
-    zx = weight_matmul(u, p["in_zx"])
+    w_zx, w_bcdt = p["in_zx"], p["in_bcdt"]
+    if heads is not None:
+        h0, n = heads
+        lo, hi = h0 * cfg.ssm_head_dim, (h0 + n) * cfg.ssm_head_dim
+        w_zx = torch.cat([w_zx[:, lo:hi], w_zx[:, di + lo:di + hi]], dim=-1)
+        w_bcdt = torch.cat([w_bcdt[:, :2 * N],
+                            w_bcdt[:, 2 * N + h0:2 * N + h0 + n]], dim=-1)
+        di = hi - lo
+    zx = weight_matmul(u, w_zx)
     z, x = zx[..., :di], zx[..., di:]
-    bcdt = weight_matmul(u, p["in_bcdt"])
+    bcdt = weight_matmul(u, w_bcdt)
     bc, dt = bcdt[..., :2 * N], bcdt[..., 2 * N:]
     return z, torch.cat([x, bc], dim=-1), dt
 
@@ -234,25 +246,53 @@ def _ssd_prefill(cfg: ModelConfig, xh, dt, A, B_, C_, init_state):
 # ---------------------------------------------------------------------------
 # full layer
 # ---------------------------------------------------------------------------
-def apply_ssm(cfg: ModelConfig, p, u, cache: Optional[SSMCache] = None
-              ) -> Tuple[torch.Tensor, Optional[SSMCache]]:
+def _split_rms_norm(y, scale, eps: float, di: int, row_sum):
+    """``rms_norm_vec`` over a row whose ``d_inner`` columns are split over
+    ranks: y holds this rank's, ``row_sum`` sums the ranks' square sums."""
+    yf = y.float()
+    ms = row_sum(yf.square().sum(dim=-1, keepdim=True)) / di
+    return (yf * torch.rsqrt(ms + eps)
+            * scale.to(y.device, torch.float32)).to(y.dtype)
+
+
+def apply_ssm(cfg: ModelConfig, p, u, cache: Optional[SSMCache] = None, *,
+              heads: Optional[Tuple[int, int]] = None, row_sum=None,
+              gather=None) -> Tuple[torch.Tensor, Optional[SSMCache]]:
     """Mamba2 block. u: (B,S,D). With ``cache`` and S == 1 it is the decode
     path, which updates ``cache`` in place and returns it; with ``cache``
-    and S > 1 (prefill) a new cache is returned."""
-    di, N, nh, hp = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
+    and S > 1 (prefill) a new cache is returned.
+
+    ``heads`` (h0, n): a mesh rank's heads h0..h0+n-1 (all of them when
+    None). ``p`` then holds ``in_zx`` and ``in_bcdt`` whole and the per-head
+    leaves (``conv_x``, ``A_log``, ``dt_bias``, ``D_skip``, ``ssm_norm``,
+    ``out_proj``'s rows) as those heads' slices; the state is theirs, the
+    conv window stays whole (its x channels gathered by ``gather``), the
+    gated norm's square sums are summed over the ranks by ``row_sum``, and
+    the output is this rank's part of the out projection, which the caller
+    sums over the ranks."""
+    di, N, hp = cfg.d_inner, cfg.ssm_state, cfg.ssm_head_dim
+    h0, nh = heads if heads is not None else (0, cfg.ssm_heads)
+    split = nh != cfg.ssm_heads
+    dl = nh * hp                                # this call's x channels
     dev = u.device
-    z, xbc, dt = _proj_in(cfg, p, u)
+    z, xbc, dt = _proj_in(cfg, p, u, (h0, nh) if split else None)
     A = -torch.exp(p["A_log"].to(dev, torch.float32))
     # softplus in fp32 as the reference; torch's returns its input above 20
     # where jax's keeps log1p(exp(x)): they differ there by less than 1e-8
     dt = F.softplus(dt.float() + p["dt_bias"].to(dev, torch.float32))
 
     decode = cache is not None and u.shape[1] == 1
-    xbc_conv, new_conv = _causal_conv(cfg, p, xbc,
-                                      cache.conv if decode else None)
-    x = xbc_conv[..., :di]
-    B_ = xbc_conv[..., di:di + N]
-    C_ = xbc_conv[..., di + N:]
+    prefix = cache.conv if decode else None
+    if decode and split:
+        lo = h0 * hp
+        prefix = torch.cat([prefix[..., lo:lo + dl], prefix[..., di:]], dim=-1)
+    xbc_conv, new_conv = _causal_conv(cfg, p, xbc, prefix)
+    if split and cache is not None:
+        new_conv = torch.cat([gather(new_conv[..., :dl]), new_conv[..., dl:]],
+                             dim=-1)
+    x = xbc_conv[..., :dl]
+    B_ = xbc_conv[..., dl:dl + N]
+    C_ = xbc_conv[..., dl + N:]
     xh = x.reshape(x.shape[0], x.shape[1], nh, hp)
 
     if decode:
@@ -268,7 +308,10 @@ def apply_ssm(cfg: ModelConfig, p, u, cache: Optional[SSMCache] = None
         new_cache = SSMCache(conv=new_conv, state=state) if cache is not None else None
 
     D = p["D_skip"].to(dev, torch.float32)[None, None, :, None].to(y.dtype)
-    y = (y + xh * D).reshape(u.shape[0], u.shape[1], di)
-    y = rms_norm_vec(y * F.silu(z.float()).to(y.dtype), p["ssm_norm"],
-                     cfg.norm_eps)
+    y = (y + xh * D).reshape(u.shape[0], u.shape[1], dl)
+    y = y * F.silu(z.float()).to(y.dtype)
+    if split:
+        y = _split_rms_norm(y, p["ssm_norm"], cfg.norm_eps, di, row_sum)
+    else:
+        y = rms_norm_vec(y, p["ssm_norm"], cfg.norm_eps)
     return weight_matmul(y, p["out_proj"]), new_cache

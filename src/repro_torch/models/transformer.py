@@ -33,8 +33,10 @@ parallelism). The MoE family splits its experts over the model axis where
 that axis divides them (expert parallelism): the routing runs on whole
 routing groups on every model rank, each rank runs its own experts' FFNs on
 their slots, and the exit of the expert region sums the ranks' parts (see
-``MeshRun``'s expert hooks). The SSM and hybrid families on a mesh raise,
-naming their ROADMAP item.
+``MeshRun``'s expert hooks). The SSM and hybrid families split their SSM
+heads over the model axis where it divides them: each rank scans its own
+heads inside a tensor-parallel region (``MeshRun``'s SSM hooks), and the
+hybrid's shared block runs the dense layer body through the same hooks.
 """
 from __future__ import annotations
 
@@ -55,9 +57,9 @@ from repro_torch.models.common import (AxisEnv, ParamBuilder, ShardingPolicy,
                                        dtensor_of, with_axis, cdtype,
                                        gather_param, gather_whole,
                                        global_shape, is_dtensor,
-                                       local, placements, pspec, reshard,
-                                       shard_local, spec_axes, to_dtype,
-                                       tp_enter, tp_exit)
+                                       local, model_sum, placements, pspec,
+                                       reshard, shard_local, spec_axes,
+                                       to_dtype, tp_enter, tp_exit)
 
 PyTree = Any
 
@@ -214,16 +216,24 @@ def _layer_params(lp_all, i: int):
     return {name: w[i] for name, w in lp_all.items()}
 
 
-def _ssm_layer(cfg: ModelConfig, lp, x, cache=None):
-    h = nn.apply_norm(cfg, lp, "norm1", x)
-    y, new_cache = ssm_mod.apply_ssm(cfg, lp, h, cache)
-    return x + y, new_cache
+def _ssm_layer(run, lp, x, cache=None):
+    """The pre-norm Mamba2 block: ``x + ssm(norm(x))``. On a mesh whose
+    model axis splits the SSM heads, the normed input enters the
+    tensor-parallel region (``run.ssm_enter``), the block runs on the rank's
+    heads (``run.ssm_heads``) and the exit sums the ranks' out projections."""
+    cfg = run.cfg
+    h = run.ssm_enter(nn.apply_norm(cfg, lp, "norm1", x))
+    y, new_cache = ssm_mod.apply_ssm(cfg, lp, h, cache, heads=run.ssm_heads,
+                                     row_sum=run.model_sum,
+                                     gather=run.ssm_gather)
+    return x + run.ssm_exit(y), new_cache
 
 
-def _ssm_stack(cfg: ModelConfig, params, x, positions, *, caches=None,
+def _ssm_stack(run, params, x, positions, *, caches=None,
                cache_pos=None, return_cache: bool = False):
-    """The SSM / hybrid layer stack. Prefill (``caches`` None): returns
-    (x, per-layer SSMCaches, per-group (k, v)) with the caches only when
+    """The SSM / hybrid layer stack in ``run`` (one device, or one rank's
+    shard of a mesh). Prefill (``caches`` None): returns (x, per-layer
+    SSMCaches, per-group (k, v)) with the caches only when
     ``return_cache``. Decode: ``caches`` is the layer-stacked cache, each
     layer's slice is updated in place.
 
@@ -231,28 +241,33 @@ def _ssm_stack(cfg: ModelConfig, params, x, positions, *, caches=None,
     wrapped by ``remat_wrap``, and for the hybrid each whole group too (its
     ``attn_every`` SSM layers and the shared attention + MLP block, whose
     residuals would otherwise be kept once per application); the tail layers
-    are wrapped one by one. Without autograd the wrappers do nothing."""
+    are wrapped one by one. Each layer's weights, and the shared block's,
+    are taken inside the region that uses them, so a mesh gathers them
+    again in the recompute. Without autograd the wrappers do nothing."""
+    cfg = run.cfg
     lp_all = params["layers"]
     B = x.shape[0]
     g = cfg.attn_every if cfg.family == HYBRID else cfg.num_layers
     n_groups = cfg.num_layers // g if cfg.family == HYBRID else 0
+    if caches is not None:
+        conv, state = local(caches["ssm"].conv), local(caches["ssm"].state)
+    heads = run.ssm_heads[1] if run.ssm_heads is not None else None
 
     def ssm_layer(i):
-        lp = _layer_params(lp_all, i)
-
         def body(x):
             if caches is not None:
-                c = ssm_mod.SSMCache(caches["ssm"].conv[i],
-                                     caches["ssm"].state[i])
+                c = ssm_mod.SSMCache(conv[i], state[i])
             elif return_cache:
-                c = ssm_mod.init_ssm_cache(cfg, B, x.dtype, x.device)
+                c = ssm_mod.init_ssm_cache(cfg, B, x.dtype, x.device,
+                                           heads=heads)
             else:
                 c = None
-            return _ssm_layer(cfg, lp, x, c)
+            return _ssm_layer(run, run.layer_params(lp_all, i), x, c)
         return remat_wrap(cfg, body)
 
     def group(grp):
-        kv = None if caches is None else (caches["k"][grp], caches["v"][grp])
+        kv = (None if caches is None
+              else (local(caches["k"])[grp], local(caches["v"])[grp]))
 
         def body(x):
             cs = []
@@ -260,8 +275,9 @@ def _ssm_stack(cfg: ModelConfig, params, x, positions, *, caches=None,
                 x, c = ssm_layer(i)(x)
                 cs.append(c)
             # the shared block is the dense layer body on unstacked weights
-            x, new_kv, _ = _attn_mlp_layer(OneDevice(cfg), params["shared"],
-                                           x, positions, kv, cache_pos)
+            x, new_kv, _ = _attn_mlp_layer(
+                run, run.block_params(params["shared"]), x, positions, kv,
+                cache_pos)
             return x, cs, new_kv
         return remat_wrap(cfg, body)
 
@@ -358,10 +374,10 @@ def forward_decoder_only(cfg: ModelConfig, params, batch, *,
         if return_cache:
             cache = run.stack_cache({"k": ks, "v": vs})
     else:
-        x, ssm_caches, kvs = _ssm_stack(cfg, params, x, positions,
+        x, ssm_caches, kvs = _ssm_stack(run, params, x, positions,
                                         return_cache=return_cache)
         if return_cache:
-            cache = _stacked_cache(cfg, ssm_caches, kvs)
+            cache = run.ssm_cache(ssm_caches, kvs)
     if last_token_only:
         x = run.last_token(x)  # prefill: only the next-token logits are needed
     logits = run.unembed(params, x)
@@ -391,7 +407,7 @@ def decode_decoder_only(cfg: ModelConfig, params, cache, batch, *,
                                       positions, cache=(ck[i], cv[i]),
                                       cache_pos=pos)
     else:
-        x, _, _ = _ssm_stack(cfg, params, x, positions, caches=cache,
+        x, _, _ = _ssm_stack(run, params, x, positions, caches=cache,
                              cache_pos=pos)
     logits = run.unembed(params, x[:, 0:1, :])[:, 0, :]
     return run.logits(logits), cache
@@ -488,8 +504,7 @@ def cache_specs_decoder_only(cfg: ModelConfig, batch: int, env: AxisEnv,
 # ---------------------------------------------------------------------------
 # ROADMAP items of the parts a mesh does not run yet
 DEFERRED = {
-    SSM: "A27 (SSM heads on the model axis)",
-    HYBRID: "A27 (SSM heads on the model axis)",
+    "ssm_seq": "A32 (an SSM scan across a sequence split)",
     "serving": "A29 (serving on a mesh)",
     "encdec_tp": "A31 (enc-dec with its heads split over the model axis)",
 }
@@ -509,10 +524,13 @@ def require_on_mesh(cfg: ModelConfig, pol: ShardingPolicy) -> None:
     split by sequence instead (``pol.seq_parallel_attn``: the model axis
     does not divide the heads), or with the model axis a batch axis
     (fsdp_only), the MoE's experts split over the model axis where
-    ``pol.experts_sharded``; the encoder-decoder the same, except with its
-    heads split."""
-    if cfg.family in (SSM, HYBRID):
-        raise deferred(cfg, cfg.family)
+    ``pol.experts_sharded``; the SSM and hybrid families with their SSM
+    heads split over the model axis where ``pol.ssm_sharded`` (else whole on
+    every model rank), except with their activations split by sequence; the
+    encoder-decoder the same as the dense family, except with its heads
+    split."""
+    if cfg.family in (SSM, HYBRID) and pol.seq_sharded_acts:
+        raise deferred(cfg, "ssm_seq")
     if cfg.family == ENCDEC and pol.head_sharded:
         raise deferred(cfg, "encdec_tp")
 
@@ -527,6 +545,12 @@ _TP_REGION = frozenset({"wq", "wk", "wv", "bq", "bk", "bv", "q_norm",
 # an MoE layer's router and expert stacks: used on whole routing groups,
 # the same on every model rank but for the experts each rank holds
 _MOE_PARAMS = frozenset({"router", "w_in", "w_gate", "w_out"})
+# an SSM layer's weights inside its tensor-parallel region when the model
+# axis splits the SSM heads; in_zx is gathered whole there (``block_params``),
+# each rank taking its heads' z and x columns, which lie in other ranks'
+# shards
+_SSM_REGION = frozenset({"in_zx", "in_bcdt", "conv_x", "conv_bc", "A_log",
+                         "dt_bias", "D_skip", "ssm_norm", "out_proj"})
 
 
 class OneDevice:
@@ -538,6 +562,9 @@ class OneDevice:
     head_offset: int = 0
     seq_offset: int = 0                 # position of the first local token
     experts = None                      # an MoE rank's (e0, E_local)
+    ssm_heads = None                    # an SSM rank's (h0, nh_local)
+    ssm_gather = None
+    model_sum = None
 
     def __init__(self, cfg: ModelConfig):
         self.cfg = cfg      # the layer's config
@@ -559,6 +586,10 @@ class OneDevice:
     def layer_params(self, lp_all, i: int):
         return _layer_params(lp_all, i)
 
+    def block_params(self, lp):
+        """An unstacked block's weights (the hybrid's shared block)."""
+        return lp
+
     def param(self, w, *, dtype=None):
         return w if dtype is None else w.to(dtype)
 
@@ -566,6 +597,12 @@ class OneDevice:
         return x
 
     def exit(self, x):
+        return x
+
+    def ssm_enter(self, x):
+        return x
+
+    def ssm_exit(self, x):
         return x
 
     def attend(self, q, k, v, *, causal: bool = True):
@@ -601,6 +638,10 @@ class OneDevice:
     def stack_cache(self, parts, specs_of=None):
         """{name: per-layer tensors} -> {name: layer-stacked tensor}."""
         return {name: torch.stack(ps) for name, ps in parts.items()}
+
+    def ssm_cache(self, ssm_caches, kvs):
+        """The SSM / hybrid prefill's per-layer caches, layer-stacked."""
+        return _stacked_cache(self.cfg, ssm_caches, kvs)
 
     def last_token(self, x):
         return x[:, -1:, :]
@@ -692,6 +733,10 @@ class MeshRun(OneDevice):
         if pol.experts_sharded:
             n_local = cfg.num_experts // env.size(env.tp)
             self.experts = (self.model_rank * n_local, n_local)
+        # SSM: the heads of this rank where the model axis splits them
+        if pol.ssm_sharded:
+            n_local = cfg.ssm_heads // env.size(env.tp)
+            self.ssm_heads = (self.model_rank * n_local, n_local)
 
     def _first_position(self) -> int:
         if not self.seq_acts:
@@ -715,17 +760,27 @@ class MeshRun(OneDevice):
     def layer_params(self, lp_all, i: int):
         """Layer ``i``'s weights gathered (ZeRO-3), matrices cast to the
         compute dtype before the gather."""
+        return self.block_params(_layer_params(lp_all, i))
+
+    def block_params(self, lp):
+        """A block's weights gathered (ZeRO-3), matrices cast to the compute
+        dtype before the gather. A weight used inside a tensor-parallel
+        region has a gradient part on each model rank: the attention and MLP
+        weights where the heads split, the SSM's where its heads split."""
         out = {}
         moe = self.cfg.family == MOE
-        for name, w in lp_all.items():
+        ssm_tp = self.ssm_heads is not None
+        for name, w in lp.items():
             if moe and name in _MOE_PARAMS:
                 partial = spec_axes(self.act_spec[0])
             else:
-                partial = self.token_axes + (
-                    (self.env.tp,) if self.tp and name in _TP_REGION else ())
+                inside = ((self.tp and name in _TP_REGION)
+                          or (ssm_tp and name in _SSM_REGION))
+                partial = self.token_axes + ((self.env.tp,) if inside else ())
             out[name] = gather_param(
-                w[i], self.env, self.pol, partial_axes=partial,
-                dtype=cdtype(self.cfg) if w.dim() >= 3 else None)
+                w, self.env, self.pol, partial_axes=partial,
+                dtype=cdtype(self.cfg) if w.dim() >= 2 else None,
+                whole=ssm_tp and name == "in_zx")
         return out
 
     def param(self, w, *, partial_axes=None, dtype=None):
@@ -743,6 +798,29 @@ class MeshRun(OneDevice):
 
     def exit(self, x):
         return tp_exit(x, self.env, self.act_pl) if self.tp else x
+
+    # -- the SSM's heads over the model axis ---------------------------------
+    def ssm_enter(self, x):
+        """Entry of an SSM layer's tensor-parallel region (Megatron's f)
+        where the model axis splits its heads."""
+        return tp_enter(x, self.env, self.act_pl) if self.ssm_heads else x
+
+    def ssm_exit(self, x):
+        """The ranks' out projections (row-parallel) summed."""
+        return tp_exit(x, self.env, self.act_pl) if self.ssm_heads else x
+
+    def model_sum(self, x):
+        """The gated norm's square sums over the ranks' heads: an
+        all-reduce forward and backward (``common.model_sum``)."""
+        return model_sum(x, self.env, self.act_pl)
+
+    def ssm_gather(self, x):
+        """The conv window's x channels (this rank's heads' on the last
+        dim) gathered whole over the model axis: the cache keeps every
+        channel on every model rank."""
+        from torch.distributed.tensor import Shard
+        split = with_axis(self.act_pl, self.env, self.env.tp, Shard(2))
+        return reshard(x, self.env, split, self.act_pl)
 
     # -- the expert region (MoE) ---------------------------------------------
     def moe_tokens(self, h):
@@ -936,6 +1014,35 @@ class MeshRun(OneDevice):
                 x, global_shape(x, env, pl, self.seq_len, seq_dim=2), pl,
                 env.mesh)
         return out
+
+    def ssm_cache(self, ssm_caches, kvs):
+        """The SSM / hybrid prefill's per-layer caches -> the layer-stacked
+        cache as ``DTensor``s laid out by ``cache_specs_decoder_only``: the
+        conv windows (whole over the model axis) and the states (this rank's
+        heads where the model axis splits them) moved from the activations'
+        batch axes to the cache's (fsdp_only's batch spans the model axis,
+        the cache's does not), the hybrid's K/V as ``cache_kv`` lays them."""
+        env = self.env
+        specs = cache_specs_decoder_only(self.cfg_global, self.batch, env,
+                                         self.pol)
+        rows = self.act_spec[0]
+        heads = env.tp if self.ssm_heads else None
+        out = {}
+        for field, spec, src in (
+                ("conv", specs["ssm"].conv, pspec(None, rows, None, None)),
+                ("state", specs["ssm"].state,
+                 pspec(None, rows, heads, None, None))):
+            x = torch.stack([getattr(c, field) for c in ssm_caches])
+            dst = placements(spec, env)
+            x = reshard(x, env, placements(src, env), dst)
+            out[field] = shard_local(x, global_shape(x, env, dst), dst,
+                                     env.mesh)
+        cache = {"ssm": ssm_mod.SSMCache(**out)}
+        if kvs:
+            kvs = [self.cache_kv(k, v) for k, v in kvs]
+            cache.update(self.stack_cache({"k": [k for k, _ in kvs],
+                                           "v": [v for _, v in kvs]}))
+        return cache
 
     # -- head and loss -----------------------------------------------------
     def last_token(self, x):

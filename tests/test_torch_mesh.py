@@ -21,6 +21,7 @@ import os
 import subprocess
 import sys
 import textwrap
+import time
 
 import jax
 import numpy as np
@@ -105,6 +106,13 @@ WHISPER = {"num_heads": 3, "num_kv_heads": 3, "encoder_seq": 30}
 # (each rank keeps its own tokens of the whole rows' output)
 GRANITE_MOE = {"num_heads": 4, "num_kv_heads": 2, "num_experts": 4}
 GRANITE_MOE_SP = {"num_heads": 3, "num_kv_heads": 1, "num_experts": 4}
+# the SSM and hybrid families (reduced: d_inner 128, 8 SSM heads of 16):
+# mamba2 is fsdp_only, one sequence a rank; zamba2 (4 heads, 2 KV heads)
+# splits its SSM heads, heads and KV heads in two on (2, 2); on (1, 4) two
+# SSM heads and one head a rank, the KV heads whole; with SSM heads of 64
+# (two of them, which 4 does not divide) the SSM stays whole on every model
+# rank while the attention heads split
+ZAMBA2_SSM_WHOLE = {"ssm_head_dim": 64}
 # name -> (arch, mesh shape, config overrides, global batch)
 CASES = {"llama3_2x2": ("llama3-8b", (2, 2), {"num_heads": 4, "num_kv_heads": 2}, 4),
          "llama3_1x4": ("llama3-8b", (1, 4), {"num_heads": 4, "num_kv_heads": 2}, 4),
@@ -121,7 +129,12 @@ CASES = {"llama3_2x2": ("llama3-8b", (2, 2), {"num_heads": 4, "num_kv_heads": 2}
          "granite_moe_2x2_e3": ("granite-moe-1b-a400m", (2, 2),
                                 {**GRANITE_MOE, "num_experts": 3}, 4),
          "granite_moe_1x4_sp_e3": ("granite-moe-1b-a400m", (1, 4),
-                                   {**GRANITE_MOE_SP, "num_experts": 3}, 4)}
+                                   {**GRANITE_MOE_SP, "num_experts": 3}, 4),
+         "mamba2_2x2": ("mamba2-130m", (2, 2), {}, 4),
+         "mamba2_1x4": ("mamba2-130m", (1, 4), {}, 4),
+         "zamba2_2x2": ("zamba2-1.2b", (2, 2), {}, 4),
+         "zamba2_1x4": ("zamba2-1.2b", (1, 4), {}, 4),
+         "zamba2_1x4_ssm_whole": ("zamba2-1.2b", (1, 4), ZAMBA2_SSM_WHOLE, 4)}
 SEQ = 16
 # the policy each case runs under: (seq_parallel_attn, seq_residuals)
 SEQ_SPLIT = {"starcoder2_2x2": (True, False), "starcoder2_1x4": (True, False),
@@ -130,6 +143,8 @@ SEQ_SPLIT = {"starcoder2_2x2": (True, False), "starcoder2_1x4": (True, False),
              "granite_moe_1x4_sp_e3": (True, False)}
 # the MoE cases whose model axis divides the experts
 EXPERTS_SHARDED = {"granite_moe_2x2", "granite_moe_1x4", "granite_moe_1x4_sp"}
+# the SSM / hybrid cases whose model axis divides the SSM heads
+SSM_SHARDED = {"zamba2_2x2", "zamba2_1x4"}
 
 # The ranks run in a script of their own (it imports the port alone, not
 # this module, jax or the reference): ``python worker.py <dir> <job>``
@@ -204,10 +219,13 @@ _WORKER = textwrap.dedent("""\
         from repro_torch.configs import get_config
         from repro_torch.configs.shapes import ShapeSuite
         from repro_torch.launch.mesh import make_host_mesh
-        from repro_torch.models.common import placements
+        from repro_torch.models.common import (local, placements, tree_leaves,
+                                               tree_unflatten)
         from repro_torch.models.model_zoo import build_model, shard_tree
         payload = torch.load(os.path.join(out_dir, "payload.pt"))
-        res = {}
+        full = lambda t: tree_unflatten(t, [x.full_tensor()
+                                            for x in tree_leaves(t)])
+        res, windows = {}, {}
         for name, (arch, mesh_shape, over) in cases.items():
             p = payload[name]
             cfg = get_config(arch).reduced().with_(remat="none",
@@ -233,14 +251,17 @@ _WORKER = textwrap.dedent("""\
                 params, window(0, P, pre),
                 return_cache=True, last_token_only=True)
             got = {"prefill": logits.full_tensor(),
-                   "prefill_cache": {k: v.full_tensor()
-                                     for k, v in cache.items()}}
+                   "prefill_cache": full(cache)}
+            # K/V pasted at positions 0..P-1 of the pool, an SSM cache (its
+            # conv window and state) whole
             pool = {}
             for k, v in got["prefill_cache"].items():
-                full = torch.zeros(v.shape[:2] + (S_MAX,) + v.shape[3:],
-                                   dtype=v.dtype)
-                full[:, :, :P] = v
-                pool[k] = full
+                if k == "ssm":
+                    pool[k] = v
+                    continue
+                pool[k] = torch.zeros(v.shape[:2] + (S_MAX,) + v.shape[3:],
+                                      dtype=v.dtype)
+                pool[k][:, :, :P] = v
             pool = shard_tree(pool, model.cache_specs(B), env)
             dec = model.batch_specs(ShapeSuite("d", "decode", S_MAX, B))
             steps = []
@@ -252,11 +273,19 @@ _WORKER = textwrap.dedent("""\
                 assert new is pool
                 steps.append(out.full_tensor())
             got["decode"] = steps
-            got["pool"] = {k: v.full_tensor() for k, v in pool.items()}
-            got["pool_placements"] = [str(x) for x in pool["k"].placements]
+            got["pool"] = full(pool)
+            pl = lambda t: [str(x) for x in t.placements]
+            got["pool_placements"] = {
+                k: ({f: pl(getattr(v, f)) for f in v._fields} if k == "ssm"
+                    else pl(v)) for k, v in pool.items()}
             res[name] = got
+            if "ssm" in pool:
+                # this rank's conv windows: its batch rows, every channel
+                windows[name] = (mesh.get_local_rank("data"),
+                                 local(pool["ssm"].conv).clone())
         if rank == 0:
             torch.save(res, os.path.join(out_dir, "out.pt"))
+        torch.save(windows, os.path.join(out_dir, f"windows{rank}.pt"))
 
     def rank_main(rank, out_dir, job):
         from repro_torch.launch.mesh import init_world
@@ -278,15 +307,18 @@ _WORKER = textwrap.dedent("""\
     """)
 
 
-def _world(tmp_path, job, args=()):
-    """Runs ``job`` on 4 spawned gloo ranks, under the world's timeout."""
+def _world(tmp_path, job, args=()) -> float:
+    """Runs ``job`` on 4 spawned gloo ranks, under the world's timeout;
+    returns the world's seconds."""
     torch.save(args, tmp_path / "job.pt")
     (tmp_path / "worker.py").write_text(_WORKER)
     env = {**os.environ, "PYTHONPATH": SRC}
+    t0 = time.time()
     out = subprocess.run([sys.executable, str(tmp_path / "worker.py"),
                           str(tmp_path), job], capture_output=True, text=True,
                          env=env, timeout=WORLD_TIMEOUT_S)
     assert out.returncode == 0, out.stderr[-3000:]
+    return time.time() - t0
 
 
 def _train_batch(cfg, batch_size: int):
@@ -331,7 +363,8 @@ def _dropped(pm, pp, batch, monkeypatch) -> int:
 
 
 @pytest.mark.parametrize("case", sorted(CASES))
-def test_sharded_loss_and_grads_match_reference(case, tmp_path, monkeypatch):
+def test_sharded_loss_and_grads_match_reference(case, tmp_path, monkeypatch,
+                                                request):
     """llama3 (4 heads, 2 KV heads, as the reference's sharded test) on
     (2, 2) and on (1, 4), where the model axis does not divide the KV heads
     (they stay whole and each rank's query heads read theirs); gpt2 on
@@ -354,6 +387,9 @@ def test_sharded_loss_and_grads_match_reference(case, tmp_path, monkeypatch):
     pol = build_model(pm.cfg, env).pol
     if pm.cfg.family == "moe":
         assert pol.experts_sharded == (case in EXPERTS_SHARDED)
+    if pm.cfg.family in ("ssm", "hybrid"):
+        assert pol.ssm_sharded == (case in SSM_SHARDED)
+        assert pol.profile == ("fsdp_only" if pm.cfg.family == "ssm" else "tp")
     if case == "gpt2_2x2_b2":
         assert pol.profile == "fsdp_only"
         assert unembed_spec(env, pol, batch_size) == ("data", "model")
@@ -368,7 +404,9 @@ def test_sharded_loss_and_grads_match_reference(case, tmp_path, monkeypatch):
         assert _dropped(pm, pp, pbatch, monkeypatch) > 0
     want_loss, want = _accumulate_grads(pm, pp, pbatch, 1)
     torch.save({"params": pp, "batch": pbatch}, tmp_path / "payload.pt")
-    _world(tmp_path, "numerics", (arch, mesh_shape, over, batch_size))
+    # the world's seconds go to the junit report, beside its timeout
+    request.node.user_properties.append(("world_s", round(_world(
+        tmp_path, "numerics", (arch, mesh_shape, over, batch_size)), 1)))
     out = torch.load(tmp_path / "out.pt")
     assert abs(out["loss"] - ref_loss) / abs(ref_loss) < 5e-3
     assert abs(out["loss"] - float(want_loss)) <= 1e-5 * abs(float(want_loss))

@@ -68,25 +68,42 @@ def test_gpt2_train_on_the_multi_pod_mesh(tmp_path):
 
 
 # the ROADMAP items a mesh runs now
-PORTED = {"A25", "A26", "A28"}
+PORTED = {"A25", "A26", "A27", "A28"}
+# the cells' overrides: reduced zamba2's 4 heads do not divide the model
+# axis, so its activations would split by sequence (an SSM scan across that
+# split is A32); with 32 heads and KV heads and 64 SSM heads of 8 they
+# split as the full-size model's do, 2 and 4 a rank
+OVERRIDES = {("zamba2-1.2b", "A27"): ("d_model=256", "ssm_head_dim=8",
+                                     "num_heads=32", "num_kv_heads=32")}
+# an SSM record's (ssm_sharded, ssm_heads_local): mamba2 (fsdp_only) runs
+# all its 8 reduced heads, zamba2 4 of its 64
+SSM_LOCAL = {"mamba2-130m": (False, 8), "zamba2-1.2b": (True, 4)}
 
 
 @pytest.mark.parametrize("arch,item", [("starcoder2-7b", "A25"),
                                        ("granite-moe-1b-a400m", "A26"),
                                        ("mamba2-130m", "A27"),
+                                       ("zamba2-1.2b", "A27"),
+                                       ("zamba2-1.2b", "A32"),
                                        ("qwen2-vl-72b", "A28"),
                                        ("whisper-large-v3", "A28")])
 def test_deferred_policy_is_a_named_error_record(tmp_path, arch, item):
     """The cell of each arch whose policy needed a ROADMAP item on the pod
-    mesh, as the last model rank: the SSM family (A27) waits for its, an
-    error record naming it, never a replicated run. starcoder2 (36 heads,
-    reduced 4, on a model axis of 16: sequence-parallel attention, A25),
+    mesh, as the last model rank: a part not ported is an error record
+    naming its item, never a replicated run (reduced zamba2, whose 4 heads
+    split its activations by sequence: A32). starcoder2 (36 heads, reduced
+    4, on a model axis of 16: sequence-parallel attention, A25),
     granite-moe (A26; reduced, 4 heads and 4 experts: sequence-parallel,
     its experts whole on every rank), qwen2-vl (A28; reduced, its 4 heads
     are sequence-parallel too) and whisper (A28) are measured records whose
-    policy says so, with the rank and its coordinates."""
+    policy says so, with the rank and its coordinates. The SSM families
+    (A27) are measured records too: mamba2 fsdp_only with every SSM head on
+    the rank, zamba2 with its heads split as at full size (``OVERRIDES``),
+    4 SSM heads a rank (the scan's launches at those heads:
+    ``test_ssm_ranks_scan_their_heads``)."""
+    sets = [a for kv in OVERRIDES.get((arch, item), ()) for a in ("--set", kv)]
     out = _dryrun(tmp_path, "--arch", arch, "--shape", "train_4k",
-                  "--mesh", "pod", "--rank", "15")
+                  "--mesh", "pod", "--rank", "15", *sets)
     with open(tmp_path / "pod" / f"{arch}__train_4k.json") as f:
         rec = json.load(f)
     assert rec["mesh"] == "16x16" and rec["rank"] == 15
@@ -97,7 +114,14 @@ def test_deferred_policy_is_a_named_error_record(tmp_path, arch, item):
     assert out.returncode == 0, out.stderr[-3000:]
     assert "error" not in rec and rec["roofline"]["n_chips"] == 256
     assert rec["coords"] == {"data": 0, "model": 15}
-    assert rec["policy"]["seq_parallel_attn"]
+    if item == "A27":
+        assert rec["policy"]["profile"] == (
+            "fsdp_only" if arch == "mamba2-130m" else "tp")
+        assert not rec["policy"]["seq_parallel_attn"]
+        assert rec["policy"]["ssm_sharded"] == SSM_LOCAL[arch][0]
+        assert (rec["ssm_sharded"], rec["ssm_heads_local"]) == SSM_LOCAL[arch]
+    else:
+        assert rec["policy"]["seq_parallel_attn"]
     if item == "A26":
         assert not rec["policy"]["experts_sharded"]
         assert (rec["experts_sharded"], rec["experts_local"]) == (False, 4)
@@ -202,6 +226,68 @@ def test_expert_parallel_ranks_count_their_experts():
         for rank in (0, 1, -1)]
     assert E == 4 and f0 > 0
     assert f0 == f1 == whole * 2 / E
+
+
+# the prefill SSD's calls in a reduced training step (remat "layer") of
+# mamba2 (2 layers) or zamba2 (4 layers in 2 groups; 8 SSM heads, 4 heads,
+# 2 KV heads) on a fake (2, 2) world at 64 tokens, four sequences: the
+# scan's inputs as ``_ssd_prefill`` sees them (B5's route on the card)
+_SSM_RANK = textwrap.dedent("""\
+    import json
+    import torch
+    from repro_torch.configs.shapes import ShapeSuite
+    from repro_torch.core.step_analysis import count_step
+    from repro_torch.launch.dryrun import cell_config
+    from repro_torch.launch.mesh import fake_world, make_host_mesh
+    from repro_torch.models import ssm
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.train.train_step import _accumulate_grads
+    shape = ShapeSuite("train_4k", "train", 64, 4)
+    cfg = cell_config(ARCH, shape, reduced=True)
+    seen, prefill = [], ssm._ssd_prefill
+
+    def watched(cfg, xh, dt, A, B_, C_, init_state):
+        seen.append((tuple(xh.shape), tuple(A.shape), tuple(B_.shape)))
+        return prefill(cfg, xh, dt, A, B_, C_, init_state)
+    ssm._ssd_prefill = watched
+    with fake_world(4, rank=RANK):
+        m = build_model(cfg, make_host_mesh(2, 2))
+        p, _ = m.init(torch.Generator().manual_seed(0))
+        b = m.synthetic_batch(shape, torch.Generator().manual_seed(1))
+        count_step(_accumulate_grads, m, p, b, 1)
+    print("SEEN", json.dumps({"profile": m.pol.profile,
+                              "ssm_sharded": m.pol.ssm_sharded,
+                              "layers": cfg.num_layers, "heads": cfg.ssm_heads,
+                              "calls": seen}))
+    """)
+
+
+@pytest.mark.parametrize("arch,rank", [("mamba2-130m", 0), ("zamba2-1.2b", 0),
+                                       ("zamba2-1.2b", 1)])
+def test_ssm_ranks_scan_their_heads(arch, rank):
+    """The SSD scan of a reduced training step on a (2, 2) mesh runs as
+    often as on one device (each layer's forward and its remat recompute;
+    a hybrid group's layers once more for the group's recompute), and at
+    the rank's shapes: mamba2 (fsdp_only) one of the four sequences a rank
+    with all 8 SSM heads; zamba2 two sequences a data rank (the model axis
+    splits heads, not rows) with 4 of the 8 SSM heads on model ranks 0 and
+    1, its state's B and C whole (one state group shared by the heads)."""
+    prog = _SSM_RANK.replace("ARCH", repr(arch)).replace("RANK", str(rank))
+    out = subprocess.run([sys.executable, "-c", prog], capture_output=True,
+                         text=True, cwd=ROOT, env=ENV, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    got = json.loads([ln for ln in out.stdout.splitlines()
+                      if ln.startswith("SEEN")][-1][len("SEEN"):])
+    L, nh = got["layers"], got["heads"]
+    if arch == "mamba2-130m":
+        assert (got["profile"], got["ssm_sharded"]) == ("fsdp_only", False)
+        calls, B, nh_l = 2 * L, 1, nh
+    else:
+        assert (got["profile"], got["ssm_sharded"]) == ("tp", True)
+        calls, B, nh_l = 3 * L, 2, nh // 2
+    hp, N = 16, 16
+    # x (B, S, nh_l, hp), A (nh_l,), B_ (B, S, N), every call the same
+    assert got["calls"] == [[[B, 64, nh_l, hp], [nh_l], [B, 64, N]]] * calls
 
 
 _CFG = ('get_config("llama3-8b").reduced().with_(num_heads=4, num_kv_heads=2, '
