@@ -410,6 +410,175 @@ MESH_TRAIN_KERNELS = {"flash_attention_fwd_stats", "flash_attention_bwd_dkdv",
 # the reference's committed per-chip anchors (its "single" is the port's
 # "pod" mesh)
 ANCHOR_DIRS = {"pod": "single", "multi": "multi"}
+# the mesh phase's serving cells, after the dry-run cells: llama3-8b at full
+# width and depth served through SliceRuntime(mesh=...) as rank 0 of a fake
+# world, with 4 slots of 2,048 positions as the serve phase has them.
+# "spill": the budget one byte under what spilling the table and the KV pool
+# frees (the runtime phase's rule), so the plan also puts layers/w_gate in
+# the host tier and each rank streams its (32, 4096, 3584) shard of it
+# through stream_matmul; rank 0 of (1, 4) holds 8 of 32 heads and 2 of 8 KV
+# heads whole, the pool's sequence split over "model". "resident": every
+# leaf on the card; the 4 x 4 mesh of a 1s.16c slice splits the slots over
+# "data", one a rank. The planner spills the table and the pool before any
+# parameter, so no budget streams a weight while it splits a KV leaf.
+MESH_SERVE_CELLS = (("serve_1x4_spill", (1, 4), "spill"),
+                    ("serve_4x4", (4, 4), "resident"))
+MESH_SERVE_LENS, MESH_SERVE_NEW = (16, 100, 300, 1000), 8
+MESH_SERVE_SLOTS, MESH_SERVE_MAX_SEQ = 4, 2048
+
+
+def mesh_serve_cell(name: str, mesh_shape, rule: str) -> dict:
+    """One serving cell of the mesh phase (``MESH_SERVE_CELLS``): the
+    tenant added through ``SliceRuntime(mesh=...)`` under ``fake_world``,
+    the kernels' launch counts set to 0 just before ``run`` and read just
+    after, with the local shapes each kernel was launched at (the flash
+    kernel's q, stream_matmul's x and w), each tick and prefill timed
+    (synchronised), the bytes each tier holds and each link direction moved.
+    The values on a fake world are undefined: only counts, shapes, bytes
+    and times are read here."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.offload import memory_kind_of
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import grouped_matmul as gmm
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import ssd_scan as ssd
+    from repro_torch.kernels import stream_matmul as sm
+    from repro_torch.launch.mesh import fake_world, make_host_mesh
+    from repro_torch.models import layers as mlayers
+    from repro_torch.models.common import gather_param, tree_leaves
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.serving import Request, SliceRuntime, TenantSpec
+    cfg = get_config("llama3-8b").with_(attn_impl="pallas", remat="none",
+                                        param_dtype="bfloat16")
+    slots, max_seq = MESH_SERVE_SLOTS, MESH_SERVE_MAX_SEQ
+    budget = None
+    if rule == "spill":
+        meta = build_model(cfg, "cuda")
+        inv = meta.serving_inventory(meta.init(abstract=True)[0],
+                                     meta.cache_shapes(slots, max_seq))
+        budget = (sum(t.bytes for t in inv) - 1 - sum(
+            t.bytes for t in inv if t.group in ("embed", "kv_cache")))
+    wrappers = {"flash_attention_fwd": fa.flash_attention_fwd,
+                "flash_attention_fwd_stats": fa.flash_attention_fwd_stats,
+                "flash_attention_bwd_dkdv": fa.flash_attention_bwd_dkdv,
+                "flash_attention_bwd_dq": fa.flash_attention_bwd_dq,
+                "stream_matmul": sm.stream_matmul,
+                "ssd_scan": ssd.ssd_scan,
+                "grouped_matmul": gmm.grouped_matmul}
+    routed = ("flash_attention_fwd", "stream_matmul")
+    shapes = {"flash_attention_fwd": set(), "stream_matmul": set()}
+    flash, stream = kops.flash_attention, kops.stream_matmul
+
+    def watched_flash(q, k, v, **kw):
+        shapes["flash_attention_fwd"].add(tuple(q.shape))
+        return flash(q, k, v, **kw)
+
+    def watched_stream(x, w, **kw):
+        shapes["stream_matmul"].add((tuple(x.shape), tuple(w.shape)))
+        return stream(x, w, **kw)
+
+    t_cell = time.time()
+    with fake_world(mesh_shape[0] * mesh_shape[1]):
+        mesh = make_host_mesh(*mesh_shape, device_type="cuda")
+        torch.cuda.reset_peak_memory_stats()
+        rt = SliceRuntime(mesh=mesh)
+        t0 = time.time()
+        tenant = rt.add_tenant(TenantSpec(
+            "llm", cfg, profile="1s.16c", slots=slots, max_seq=max_seq,
+            hbm_budget=budget, seed=SEED))
+        torch.cuda.synchronize()
+        add_s = time.time() - t0
+        eng, plan = tenant.engine, tenant.plan
+        pool = eng.pool
+        tiers = {}
+        for leaf in tree_leaves(tenant.params):
+            x = leaf.to_local()
+            kind = memory_kind_of(x)
+            tiers[kind] = tiers.get(kind, 0) + x.numel() * x.element_size()
+        rng = np.random.default_rng(SEED)
+        reqs = [Request(i, rng.integers(0, cfg.vocab_size, size=n).astype(
+                    np.int32), MESH_SERVE_NEW)
+                for i, n in enumerate(MESH_SERVE_LENS)]
+        prefill_s, tick_s, tick_link = [], [], []
+        prefill, tick = eng.prefill, eng.tick
+
+        def timed_prefill(req):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            ok = prefill(req)
+            torch.cuda.synchronize()
+            prefill_s.append((len(req.prompt), time.perf_counter() - t))
+            return ok
+
+        def timed_tick():
+            n_pre, h2d, d2h = len(prefill_s), pool.h2d_bytes, pool.d2h_bytes
+            streamed = sm.stream_matmul.h2d_bytes
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            n = tick()
+            torch.cuda.synchronize()
+            tick_s.append(time.perf_counter() - t
+                          - sum(s for _, s in prefill_s[n_pre:]))
+            tick_link.append({"pool_h2d": pool.h2d_bytes - h2d,
+                              "pool_d2h": pool.d2h_bytes - d2h,
+                              "stream_matmul_h2d":
+                                  sm.stream_matmul.h2d_bytes - streamed})
+            return n
+
+        eng.prefill, eng.tick = timed_prefill, timed_tick
+        rt.submit("llm", reqs)
+        for w in wrappers.values():                # the main path starts here
+            w.launches = 0
+        for n in routed:
+            wrappers[n].launches_by_route = dict.fromkeys(
+                wrappers[n].launches_by_route, 0)
+        sm.stream_matmul.h2d_bytes = 0
+        mlayers.gather_rows.h2d_bytes = 0
+        gather_param.h2d_bytes = 0
+        kops.flash_attention, kops.stream_matmul = watched_flash, watched_stream
+        try:
+            t0 = time.time()
+            rt.run()
+            torch.cuda.synchronize()
+            run_s = time.time() - t0
+        finally:
+            kops.flash_attention, kops.stream_matmul = flash, stream
+        rec = {
+            "cell": name, "mesh": list(mesh_shape), "rank": 0,
+            "world": mesh_shape[0] * mesh_shape[1],
+            "card": torch.cuda.get_device_name(0),
+            "plan": {"hbm_budget": budget, "offloaded": list(plan.offloaded),
+                     "partial": [list(p) for p in plan.partial],
+                     "resident_bytes": plan.resident_bytes,
+                     "host_bytes": plan.host_bytes},
+            "param_bytes_by_tier": tiers,
+            "pool": {"device_bytes": pool.device_bytes,
+                     "host_bytes": pool.host_bytes,
+                     "local_device_bytes": pool.local_device_bytes,
+                     "local_host_bytes": pool.local_host_bytes,
+                     "split_leaves": pool.split_leaves,
+                     "kinds": sorted(pool.memory_kinds())},
+            "prefills": eng.stats.admitted, "ticks": eng.stats.ticks,
+            "outputs": {str(k): v for k, v in eng.outputs.items()},
+            "launches": {n: w.launches for n, w in wrappers.items()},
+            "launches_by_route": {n: dict(wrappers[n].launches_by_route)
+                                  for n in routed},
+            "kernel_shapes": {n: sorted(v) for n, v in shapes.items()},
+            "stream_matmul_h2d_bytes": sm.stream_matmul.h2d_bytes,
+            "embed_rows_h2d_bytes": mlayers.gather_rows.h2d_bytes,
+            "gather_param_h2d_bytes": gather_param.h2d_bytes,
+            "tick_link_bytes": tick_link,
+            "tick_ms": [1e3 * t for t in tick_s],
+            "prefill_ms": [[n, 1e3 * t] for n, t in prefill_s],
+            "add_tenant_s": add_s, "run_s": run_s,
+            "max_memory_allocated": torch.cuda.max_memory_allocated()}
+        del rt, tenant, eng, pool
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec["seconds"] = time.time() - t_cell
+    return rec
 
 
 def mesh_child(out_dir: str) -> None:
@@ -474,8 +643,10 @@ def mesh_child(out_dir: str) -> None:
                                   for n, w in routed.items()},
             "kernel_shapes": {n: sorted(v) for n, v in shapes.items()}})
         torch.cuda.empty_cache()
+    fa.kernel_cost, gmm.kernel_cost, ssd.kernel_cost = cost, gmm_cost, ssd_cost
+    serve = [mesh_serve_cell(*cell) for cell in MESH_SERVE_CELLS]
     with open(os.path.join(out_dir, "mesh.json"), "w") as f:
-        json.dump(cells, f)
+        json.dump({"cells": cells, "serve": serve}, f)
 
 
 def main() -> None:
@@ -3817,7 +3988,8 @@ def main() -> None:
         fail(f"mesh: the child process failed ({child.returncode}):\n"
              f"{child.stderr[-3000:]}")
     with open(os.path.join(mesh_dir, "mesh.json")) as f:
-        mesh_cells = json.load(f)
+        mesh_json = json.load(f)
+    mesh_cells, mesh_serve = mesh_json["cells"], mesh_json["serve"]
     mesh_launches = dict.fromkeys(list(routed) + ["ssd_scan"], 0)
     mesh_routes = {n: {} for n in routed}
     mesh_rows = []
@@ -4005,6 +4177,101 @@ def main() -> None:
         if not mesh_launches[n]:
             fail(f"mesh: {n} was launched no time on the mesh path")
     shutil.rmtree(mesh_dir, ignore_errors=True)
+    # the serving cells: llama3-8b through SliceRuntime(mesh=...) as rank 0
+    # of a fake world; the launches of each kernel held to their formulas
+    # (the flash forward once a layer of every prefill, stream_matmul once a
+    # layer of every pass where w_gate is streamed), at the rank's local
+    # shapes: 8 of 32 heads, w_gate's (4096, 3584) shard
+    serve_cfg = get_config("llama3-8b")
+    L, hd = serve_cfg.num_layers, serve_cfg.head_dim
+    serve_launches = dict.fromkeys(kernel_wrappers, 0)
+    serve_routes = {n: {} for n in ("flash_attention_fwd", "stream_matmul")}
+    serve_rows = []
+    for rec in mesh_serve:
+        tag = f"mesh {rec['cell']}"
+        model_ranks = rec["mesh"][1]
+        heads = serve_cfg.num_heads // model_ranks
+        pre, ticks = rec["prefills"], rec["ticks"]
+        if pre != len(MESH_SERVE_LENS) or ticks < MESH_SERVE_NEW:
+            fail(f"{tag}: {pre} prefills and {ticks} ticks")
+        outs = {int(k): v for k, v in rec["outputs"].items()}
+        if sorted(outs) != list(range(pre)) or any(
+                len(v) != MESH_SERVE_NEW or min(v) < 0
+                or max(v) >= serve_cfg.vocab_size for v in outs.values()):
+            fail(f"{tag}: outputs {outs}")
+        streamed = "params/layers/w_gate" in rec["plan"]["offloaded"]
+        if streamed != (rec["plan"]["hbm_budget"] is not None):
+            fail(f"{tag}: plan {rec['plan']}")
+        want = {"flash_attention_fwd": pre * L}
+        if streamed:
+            want["stream_matmul"] = (pre + ticks) * L
+        launched = {n: c for n, c in rec["launches"].items() if c}
+        if launched != want:
+            fail(f"{tag}: launched {launched}, expected {want} (prefills "
+                 f"{pre}, ticks {ticks}, {L} layers)")
+        routes = rec["launches_by_route"]
+        if routes["flash_attention_fwd"].get("wgmma") != want[
+                "flash_attention_fwd"]:
+            fail(f"{tag}: flash routes {routes['flash_attention_fwd']}")
+        if streamed and routes["stream_matmul"].get("ring") != want[
+                "stream_matmul"]:
+            fail(f"{tag}: stream_matmul routes {routes['stream_matmul']}")
+        q_at = sorted([1, n, heads, hd] for n in MESH_SERVE_LENS)
+        if rec["kernel_shapes"]["flash_attention_fwd"] != q_at:
+            fail(f"{tag}: flash launched at q "
+                 f"{rec['kernel_shapes']['flash_attention_fwd']}, not {q_at}")
+        w_local = [serve_cfg.d_model, serve_cfg.d_ff // model_ranks]
+        rows = MESH_SERVE_SLOTS // rec["mesh"][0]
+        x_at = sorted([[n, serve_cfg.d_model], w_local]
+                      for n in set(MESH_SERVE_LENS) | {rows})
+        if streamed and rec["kernel_shapes"]["stream_matmul"] != x_at:
+            fail(f"{tag}: stream_matmul launched at "
+                 f"{rec['kernel_shapes']['stream_matmul']}, not {x_at}")
+        shard_bytes = w_local[0] * w_local[1] * 2
+        if rec["stream_matmul_h2d_bytes"] != want.get("stream_matmul", 0) * \
+                shard_bytes:
+            fail(f"{tag}: stream_matmul streamed "
+                 f"{rec['stream_matmul_h2d_bytes']} bytes")
+        pool = rec["pool"]
+        n_ranks = rec["world"]
+        if (pool["local_device_bytes"] + pool["local_host_bytes"]) * n_ranks \
+                != pool["device_bytes"] + pool["host_bytes"]:
+            fail(f"{tag}: the rank's pool is not 1/{n_ranks} of it: {pool}")
+        for n, c in rec["launches"].items():
+            serve_launches[n] += c
+        for n, rs in routes.items():
+            for r, c in rs.items():
+                serve_routes[n][r] = serve_routes[n].get(r, 0) + c
+        link = rec["tick_link_bytes"]
+        row = {k: rec[k] for k in (
+            "cell", "mesh", "world", "plan", "param_bytes_by_tier", "pool",
+            "prefills", "ticks", "launches_by_route", "kernel_shapes",
+            "embed_rows_h2d_bytes", "gather_param_h2d_bytes",
+            "max_memory_allocated", "add_tenant_s", "run_s", "seconds")}
+        row.update(
+            launches={n: c for n, c in rec["launches"].items() if c},
+            h2d_bytes_per_tick=statistics.median(
+                t["pool_h2d"] + t["stream_matmul_h2d"] for t in link),
+            d2h_bytes_per_tick=statistics.median(t["pool_d2h"] for t in link),
+            tick_ms_median=statistics.median(rec["tick_ms"]),
+            tick_ms_range=[min(rec["tick_ms"]), max(rec["tick_ms"])],
+            prefill_ms=rec["prefill_ms"],
+            note="one rank's shard on a fake world (collectives dispatched, "
+                 "not run): a tick time of that rank's work, not a serving "
+                 "rate", card=card_line)
+        emit("mesh_serve", **row)
+        serve_rows.append(row)
+    if not serve_launches["stream_matmul"]:
+        fail("mesh: stream_matmul was launched no time on the serving cells")
+    # B1 and B2 at the serving cells' local shapes against their plain
+    # versions: the longest prompt's prefill at 8 of 32 heads, and w_gate's
+    # pinned (4096, 3584) shard at a tick's 4 rows and that prefill's rows
+    serve_flash = [flash_case(heads, max(MESH_SERVE_LENS), hd, "bfloat16",
+                              True)]
+    serve_stream = [stream_case(n, serve_cfg.d_model,
+                                serve_cfg.d_ff // 4, "bfloat16", "bfloat16",
+                                "pinned")
+                    for n in (MESH_SERVE_SLOTS, max(MESH_SERVE_LENS))]
     # B1 / B3 / B4 at the local shapes the mesh gave them, against their
     # plain versions: llama3-8b's 2 of 32 heads a device (prefill rows 2,
     # training parts of 2 sequences), gpt2-124m's whole 12 heads of 8
@@ -4049,6 +4316,8 @@ def main() -> None:
                      cells=mesh_ssd_shapes[(B, S, nh, hp, N, init)])
                 for B, S, nh, hp, N, init in sorted(mesh_ssd_shapes)]
     emit("mesh", card=card_line, cells=len(mesh_rows),
+         serve_cells=len(serve_rows), launches_serve=serve_launches,
+         launches_by_route_serve=serve_routes,
          seconds=time.time() - t_mesh, launches=mesh_launches,
          launches_by_route=mesh_routes,
          note="one device's shard under a fake world: collectives counted "
@@ -4064,7 +4333,9 @@ def main() -> None:
              "flash_attention_train": mesh_flash_train,
              "grouped_matmul": mesh_gmm,
              "grouped_matmul_backward": mesh_gmm_bwd,
-             "ssd_scan": mesh_ssd})
+             "ssd_scan": mesh_ssd,
+             "flash_attention_fwd_serve": serve_flash,
+             "stream_matmul_serve": serve_stream})
 
     # ------------------------------------------------------------- summary
     def train_summary(c, key, errs, lib):
@@ -4088,7 +4359,8 @@ def main() -> None:
         "launches": main_path_launches["flash_attention_fwd"],
         "launches_by_route": main_path_routes["flash_attention_fwd"],
         "shape": head["shape"], "dtype": head["dtype"],
-        "max_abs_err": max(c["max_abs_err"] for c in cases + mesh_flash),
+        "max_abs_err": max(c["max_abs_err"]
+                           for c in cases + mesh_flash + serve_flash),
         "ms": head["ms"], "cold_ms": head["cold_ms"], "plain_ms": head["plain_ms"],
         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
         "library_ms": head["library_ms"],
@@ -4108,6 +4380,12 @@ def main() -> None:
         "launches_by_route_moe_full": moe_full_routes["flash_attention_fwd"],
         "launches_mesh": mesh_launches["flash_attention_fwd"],
         "launches_by_route_mesh": mesh_routes["flash_attention_fwd"],
+        "launches_mesh_serve": serve_launches["flash_attention_fwd"],
+        "launches_by_route_mesh_serve": serve_routes["flash_attention_fwd"],
+        "mesh_serve_local": [{k: c[k] for k in (
+            "shape", "dtype", "route", "max_abs_err", "rel_err", "tol", "ms",
+            "cold_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+            for c in serve_flash],
         "mesh_local": [{k: c[k] for k in (
             "shape", "dtype", "route", "max_abs_err", "rel_err", "tol", "ms",
             "cold_ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
@@ -4134,7 +4412,8 @@ def main() -> None:
         "launches_by_route": rt_stream_routes,
         "shape": shead["shape"], "dtype": shead["x"], "w": shead["where"],
         "route_at_shape": shead["route"],
-        "max_abs_err": max(c["max_abs_err"] for c in stream_cases),
+        "max_abs_err": max(c["max_abs_err"]
+                           for c in stream_cases + serve_stream),
         "ms": shead["kernel_ms"], "cold_ms": shead["cold_ms"],
         "plain_ms": shead["plain_ms"],
         "bound_ms": shead["bound_ms"], "bound_by": shead["bound_by"],
@@ -4146,6 +4425,12 @@ def main() -> None:
         "link_memcpy_gb_per_s": link_bytes_per_s / 1e9,
         "link_memcpy_caching_allocator_gb_per_s": link_alloc_bytes_per_s / 1e9,
         "launches_dryrun": dry_launches["stream_matmul"],
+        "launches_mesh_serve": serve_launches["stream_matmul"],
+        "launches_by_route_mesh_serve": serve_routes["stream_matmul"],
+        "mesh_serve_local": [{k: c[k] for k in (
+            "shape", "route", "max_abs_err", "rel_err", "tol", "kernel_ms",
+            "cold_ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "link_share", "h2d_gb_per_s")} for c in serve_stream],
         "launches_vlm": vlm_launches["stream_matmul"],
         "launches_by_route_vlm": vlm_stream_routes,
         **{f"vlm_{name}": {k: case[k] for k in (
@@ -4180,6 +4465,7 @@ def main() -> None:
                             for c in path_flash],
         "launches_mesh": mesh_launches[name],
         "launches_by_route_mesh": mesh_routes[name],
+        "launches_mesh_serve": serve_launches[name],
         "mesh_local": [dict(train_summary(c, key, errs, lib), arch=c["arch"])
                        for c in mesh_flash_train],
     } for name, source, replaces, key, errs, lib in (
@@ -4212,6 +4498,7 @@ def main() -> None:
         "launches_train_hybrid": thyb_launches["ssd_scan"],
         "launches_dryrun": dry_launches["ssd_scan"],
         "launches_mesh": mesh_launches["ssd_scan"],
+        "launches_mesh_serve": serve_launches["ssd_scan"],
         "mesh_local": [{k: c[k] for k in (
             "shape", "N", "init_state", "max_abs_err", "rel_err", "tol",
             "state_rel_err", "ms", "cold_ms", "plain_ms", "bound_ms",
@@ -4262,6 +4549,7 @@ def main() -> None:
         "dryrun_train_4k_backward": path_gmm_bwd,
         "launches_mesh": mesh_launches["grouped_matmul"],
         "launches_by_route_mesh": mesh_routes["grouped_matmul"],
+        "launches_mesh_serve": serve_launches["grouped_matmul"],
         "mesh_local": [{k: c[k] for k in (
             "shape", "x_expert_stride", "route", "max_abs_err", "rel_err",
             "tol", "ms", "cold_ms", "plain_ms", "bound_ms", "bound_by",

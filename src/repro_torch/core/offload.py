@@ -27,7 +27,8 @@ import torch
 
 from repro_torch.core.hw import ChipSpec, HostSpec, V5E, V5E_HOST
 from repro_torch.core.slices import SliceProfile
-from repro_torch.models.common import rebuild, tree_items
+from repro_torch.models.common import (is_dtensor, rebuild, shard_local,
+                                       tree_items)
 
 PyTree = Any
 
@@ -480,7 +481,9 @@ def place_tree(value_tree: PyTree, plan: OffloadPlan, device, *,
     """Move each leaf whole to its planned tier: the CUDA device, or pinned
     host memory. Leaf paths are matched against the plan's names as they
     are, so wrap the tree the way the inventory was built
-    (``place_tree({"params": params}, plan, device)["params"]``)."""
+    (``place_tree({"params": params}, plan, device)["params"]``). A
+    ``DTensor`` leaf (one rank's shard of a mesh; the plan reads its global
+    bytes) moves its local shard and keeps its placements."""
     device = torch.device(device)
     kinds = kinds_with_offload(value_tree, plan, device,
                                partial_host_threshold=partial_host_threshold)
@@ -490,8 +493,12 @@ def place_tree(value_tree: PyTree, plan: OffloadPlan, device, *,
         items = tree_items(tree)
         if items is not None:
             return rebuild(tree, (walk(v, f"{path}{k}/") for k, v in items))
-        if kinds[path[:-1]] == host_kind and device.type == "cuda":
-            return to_host(tree, device)
-        return tree.to(device)
+        host = kinds[path[:-1]] == host_kind and device.type == "cuda"
+        x = tree.to_local() if is_dtensor(tree) else tree
+        x = to_host(x, device) if host else x.to(device)
+        if is_dtensor(tree):
+            return shard_local(x, tree.shape, tree.placements,
+                               tree.device_mesh)
+        return x
 
     return walk(value_tree, "")

@@ -106,8 +106,8 @@ def out_proj(cfg: ModelConfig, p, attn, *, prefix: str = "",
              bias: bool = True):
     """``bias=False`` leaves ``bo`` out: on a mesh each model rank's product
     is a partial sum, and the bias is added once after their all-reduce."""
-    B, S = attn.shape[:2]
-    out = weight_matmul(attn.reshape(B, S, -1), p[prefix + "wo"])
+    B, S, H, hd = attn.shape
+    out = weight_matmul(attn.reshape(B, S, H * hd), p[prefix + "wo"])
     if cfg.use_bias and bias:
         out = out + p[prefix + "bo"].to(attn.device, attn.dtype)
     return out

@@ -266,8 +266,11 @@ class ParamBuilder:
     generator calls, so the result is bit for bit an unplaced build moved
     by ``place_tree``, and the device holds at most the resident leaves and
     one host leaf in flight. On the CPU both tiers are one memory and the
-    placement changes nothing. A placement on a mesh raises: serving on a
-    mesh is not ported (ROADMAP A29)."""
+    placement changes nothing. On a mesh a host leaf is drawn as any other
+    (the full tensor distributed on a real group, the local shard alone on
+    the fake world) and this rank's stored shard is then copied to pinned
+    memory, a ``DTensor`` over that host-tier local tensor
+    (``shard_local``): the values stay the unplaced build's."""
 
     def __init__(self, cfg: ModelConfig, generator: Optional[torch.Generator],
                  device: torch.device, *, abstract: bool = False,
@@ -284,10 +287,6 @@ class ParamBuilder:
         self.pol = pol if pol is not None else make_policy(cfg, self.env)
         self.params: Dict[str, Any] = {}
         self.specs: Dict[str, Any] = {}
-        if placement is not None and self.env.sharded and not abstract:
-            raise NotImplementedError(
-                "an offload placement on a mesh is serving on a mesh, which "
-                "is not ported (ROADMAP A29)")
 
     def _on_host(self, name: str) -> bool:
         if self.placement is None:
@@ -302,18 +301,26 @@ class ParamBuilder:
             return arr.fill_(0 if init == "zeros" else 1)
         return arr.normal_(0.0, scale, generator=self.generator)
 
-    def _sharded(self, shape, dtype, init: str, scale: float, spec):
+    def _sharded(self, shape, dtype, init: str, scale: float, spec,
+                 host: bool):
         from torch.distributed.tensor import distribute_tensor
         from torch.distributed.tensor._utils import (
             compute_local_shape_and_global_offset)
         from repro_torch.launch.mesh import is_fake_world
         mesh, pl = self.env.mesh, placements(spec, self.env)
         if not is_fake_world():
-            return distribute_tensor(self._draw(shape, dtype, init, scale),
-                                     mesh, pl)
-        local_shape, _ = compute_local_shape_and_global_offset(shape, mesh, pl)
-        return shard_local(self._draw(local_shape, dtype, init, scale), shape,
-                           pl, mesh)
+            arr = distribute_tensor(self._draw(shape, dtype, init, scale),
+                                    mesh, pl)
+        else:
+            local_shape, _ = compute_local_shape_and_global_offset(shape, mesh,
+                                                                   pl)
+            arr = shard_local(self._draw(local_shape, dtype, init, scale),
+                              shape, pl, mesh)
+        if not host:
+            return arr
+        from repro_torch.core.offload import to_host
+        return shard_local(to_host(arr.to_local(), self.device), shape, pl,
+                           mesh)
 
     def add(self, name: str, shape: Tuple[int, ...], roles: Tuple[str, ...],
             *, scale: Optional[float] = None, init: str = "normal"):
@@ -327,7 +334,7 @@ class ParamBuilder:
         if self.abstract:
             arr = torch.empty(shape, dtype=dtype, device="meta")
         elif self.env.sharded:
-            arr = self._sharded(shape, dtype, init, scale, spec)
+            arr = self._sharded(shape, dtype, init, scale, spec, host)
         elif host and init in ("zeros", "ones"):
             from repro_torch.core.offload import empty_host
             arr = empty_host(shape, dtype, self.device)
@@ -374,12 +381,19 @@ def gather_param(w, env: AxisEnv, pol: ShardingPolicy, *, partial_axes=(),
     tensor-parallel region that each model rank uses on its own heads) and
     ``Replicate`` over the rest; DTensor then reduce-scatters it back to
     ``w``'s placements (ZeRO-3). A plain tensor (one device) is returned as
-    it is, cast."""
+    it is, cast.
+
+    A host-tier shard (``on_host``: pinned host memory beside a CUDA mesh)
+    is gathered on the device: a collective cannot read pinned memory, so
+    the shard is copied over first (``gather_param.h2d_bytes`` counts those
+    bytes), then cast and gathered there, as the reference's memory kind
+    belongs to the stored shard. Where nothing is gathered, the pinned local
+    shard is returned as it is, neither cast nor copied on the host, for
+    ``weight_matmul`` to stream (the "tp" profile with every other axis of
+    size 1)."""
     if not is_dtensor(w):
         return w if dtype is None else w.to(dtype)
     from torch.distributed.tensor import Partial, Replicate
-    if dtype is not None:
-        w = w.to(dtype)
     target, grad = [], []
     for axis, p in zip(env.mesh_axes, w.placements):
         keep = (p.is_shard() and axis == env.tp and pol.profile == "tp"
@@ -391,8 +405,40 @@ def gather_param(w, env: AxisEnv, pol: ShardingPolicy, *, partial_axes=(),
             grad.append(Partial())
         else:
             grad.append(Replicate())
+    if on_host(w):
+        if all(t == p or env.size(a) == 1
+               for a, t, p in zip(env.mesh_axes, target, w.placements)):
+            return w.to_local()
+        shard = w.to_local().to(env.mesh.device_type, non_blocking=True)
+        gather_param.h2d_bytes += shard.numel() * shard.element_size()
+        w = shard_local(shard, w.shape, w.placements, env.mesh)
+    if dtype is not None:
+        w = w.to(dtype)
     return w.redistribute(env.mesh, tuple(target)).to_local(
         grad_placements=tuple(grad))
+
+
+gather_param.h2d_bytes = 0
+
+
+def layer_of(w, i: int):
+    """Layer ``i`` of a layer-stacked parameter, ``w[i]``; of a host-tier
+    shard, the layer of its local shard, left where it is (the stacking dim
+    is never split)."""
+    if not on_host(w):
+        return w[i]
+    from torch.distributed.tensor import Shard
+    pl = tuple(Shard(p.dim - 1) if p.is_shard() else p for p in w.placements)
+    return shard_local(w.to_local()[i], w.shape[1:], pl, w.device_mesh)
+
+
+def on_host(w) -> bool:
+    """True for a ``DTensor`` whose local shard lies apart from its mesh's
+    device: a host-tier parameter or pool leaf of an offload plan, in
+    pinned host memory beside a CUDA mesh. (Read on the local tensor
+    itself: ``to_local`` would be an autograd node on every gather.)"""
+    return (is_dtensor(w)
+            and w._local_tensor.device.type != w.device_mesh.device_type)
 
 
 def with_axis(pl, env: AxisEnv, axis: str, placement):
@@ -487,11 +533,30 @@ def model_sum(x, env: AxisEnv, act_pl):
 
 def shard_local(x, shape, pl, mesh):
     """The ``DTensor`` of global ``shape`` laid out by placements ``pl`` on
-    ``mesh`` whose local shard on this rank is ``x`` (no communication)."""
+    ``mesh`` whose local shard on this rank is ``x`` (no communication). A
+    shard on another device than the mesh's (a host-tier shard in pinned
+    memory beside a CUDA mesh) stays where it is, where
+    ``DTensor.from_local`` would copy it to the mesh's device."""
     from torch.distributed.tensor import DTensor
-    return DTensor.from_local(x, mesh, pl, run_check=False,
-                              shape=torch.Size(shape),
-                              stride=torch.empty(shape, device="meta").stride())
+    meta = dict(run_check=False, shape=torch.Size(shape),
+                stride=torch.empty(shape, device="meta").stride())
+    if x.device.type in (mesh.device_type, "meta"):
+        return DTensor.from_local(x, mesh, pl, **meta)
+    like = DTensor.from_local(x.to("meta"), mesh, pl, **meta)
+    return DTensor(x, like._spec, requires_grad=False)
+
+
+def lay_local(x, spec, env: AxisEnv):
+    """The ``DTensor`` laid out by ``spec`` on ``env``'s mesh from ``x``,
+    the whole tensor, the same on every rank: each rank keeps its own slice
+    (no communication; an uneven split as ``torch.chunk`` cuts it)."""
+    from torch.distributed.tensor._utils import (
+        compute_local_shape_and_global_offset)
+    pl = placements(spec, env)
+    shape, offset = compute_local_shape_and_global_offset(x.shape, env.mesh,
+                                                          pl)
+    part = x[tuple(slice(o, o + n) for o, n in zip(offset, shape))]
+    return shard_local(part, x.shape, pl, env.mesh)
 
 
 def reshard(x, env: AxisEnv, src_pl, dst_pl):

@@ -56,7 +56,7 @@ from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.common import (AxisEnv, ParamBuilder, ShardingPolicy,
                                        dtensor_of, with_axis, cdtype,
                                        gather_param, gather_whole,
-                                       global_shape, is_dtensor,
+                                       global_shape, is_dtensor, layer_of,
                                        local, model_sum, placements, pspec,
                                        reshard, shard_local, spec_axes,
                                        to_dtype, tp_enter, tp_exit)
@@ -505,8 +505,10 @@ def cache_specs_decoder_only(cfg: ModelConfig, batch: int, env: AxisEnv,
 # ROADMAP items of the parts a mesh does not run yet
 DEFERRED = {
     "ssm_seq": "A32 (an SSM scan across a sequence split)",
-    "serving": "A29 (serving on a mesh)",
     "encdec_tp": "A31 (enc-dec with its heads split over the model axis)",
+    "encdec_serving": "A33 (an enc-dec tenant served on a mesh)",
+    "vlm_serving": "A34 (a VLM tenant served through TenantEngine, whose "
+                   "prefill and ticks feed text tokens)",
 }
 
 
@@ -760,7 +762,8 @@ class MeshRun(OneDevice):
     def layer_params(self, lp_all, i: int):
         """Layer ``i``'s weights gathered (ZeRO-3), matrices cast to the
         compute dtype before the gather."""
-        return self.block_params(_layer_params(lp_all, i))
+        return self.block_params({name: layer_of(w, i)
+                                  for name, w in lp_all.items()})
 
     def block_params(self, lp):
         """A block's weights gathered (ZeRO-3), matrices cast to the compute
@@ -883,6 +886,14 @@ class MeshRun(OneDevice):
         return x.redistribute(self.mesh, placements(tuple(spec), self.env)
                               ).to_local()
 
+    def _rows(self, pos):
+        """A decode step's cache positions: a scalar as it is; a per-row
+        (B,) vector (ragged continuous batching) as this rank's rows, those
+        of the activations' batch axes."""
+        if not torch.is_tensor(pos) or pos.dim() == 0:
+            return local(pos)
+        return self._lay(pos, pspec(self.act_spec[0]))
+
     # -- embedding ---------------------------------------------------------
     def embed(self, params, batch):
         """The local tokens' embeddings (the tokens laid out as the
@@ -901,7 +912,8 @@ class MeshRun(OneDevice):
                                       self.seq_offset + x.shape[1]]
             return x.to(cdtype(cfg)), positions
         tokens = self._lay(batch["tokens"], self.act_spec)
-        positions = _positions(tokens, batch.get("pos", None), self.seq_offset)
+        positions = _positions(tokens, self._rows(batch.get("pos", None)),
+                               self.seq_offset)
         if self.tp and self.pol.vocab_sharded:
             # the vocab-parallel lookup: every rank looks up the tokens of
             # its model group (the whole sequence under Megatron SP) in its
@@ -913,7 +925,8 @@ class MeshRun(OneDevice):
             V = table.shape[0]
             idx = tokens.long() - self.model_rank * V
             inside = (idx >= 0) & (idx < V)
-            rows = table[idx.clamp(0, V - 1)] * inside[..., None]
+            rows = (nn.gather_rows(table, idx.clamp(0, V - 1))
+                    * inside[..., None])
             x = self.exit(rows.to(cdtype(cfg)))
             if cfg.learned_pos:
                 pe = self.param(params["pos_embed"])
@@ -953,27 +966,31 @@ class MeshRun(OneDevice):
     # -- the cache ---------------------------------------------------------
     def decode_attend(self, q, k_new, v_new, cache_k, cache_v, cache_pos):
         """With the cache's sequence split over the model axis: writes the
-        new K/V on the rank whose part holds ``cache_pos`` (a scalar) and
-        attends over this rank's part, the ranks' softmax stats combined
-        (``attention.decode_attention``'s ``model_group``). Where the query
-        heads are split over that axis too, the combine is over every head:
-        the queries are gathered over the model axis first and each rank
-        keeps its own heads' output. Otherwise every rank holds the whole
-        sequence of its batch rows and KV heads, as on one device."""
+        new K/V on the rank whose part holds the row's position and attends
+        over this rank's part, the ranks' softmax stats combined
+        (``attention.decode_attention``'s ``model_group``). ``cache_pos`` is
+        a scalar, or one position a row (ragged continuous batching: each
+        row written on its own rank, each masked at its own length). Where
+        the query heads are split over that axis too, the combine is over
+        every head: the queries are gathered over the model axis first and
+        each rank keeps its own heads' output. Otherwise every rank holds
+        the whole sequence of its batch rows and KV heads, as on one
+        device."""
+        if self._slot is None:
+            self._slot = self._cache_slot(cache_pos, cache_k.shape[1],
+                                          q.device)
+        pos, offset, inside, idx = self._slot
         if not self.seq_split:
             return super().decode_attend(q, k_new, v_new, cache_k, cache_v,
-                                         local(cache_pos))
-        if self._slot is None:
-            S_local = cache_k.shape[1]
-            pos = torch.as_tensor(local(cache_pos), device=q.device).long()
-            offset = self.model_rank * S_local
-            li = pos - offset
-            self._slot = (pos, offset, (li >= 0) & (li < S_local),
-                          li.clamp(0, S_local - 1).reshape(1))
-        pos, offset, inside, idx = self._slot
+                                         pos)
         for c, new in ((cache_k, k_new), (cache_v, v_new)):
-            c.index_copy_(1, idx, torch.where(inside, new.to(c.dtype),
-                                              c.index_select(1, idx)))
+            if pos.dim() == 0:
+                c.index_copy_(1, idx, torch.where(inside, new.to(c.dtype),
+                                                  c.index_select(1, idx)))
+            else:
+                rows = torch.arange(c.shape[0], device=c.device)
+                c[rows, idx] = torch.where(inside[:, None, None],
+                                           new[:, 0].to(c.dtype), c[rows, idx])
         group = self.mesh.get_group(self.env.tp)
         if not self.tp:
             return attn.decode_attention(q, cache_k, cache_v, kv_len=pos + 1,
@@ -985,6 +1002,21 @@ class MeshRun(OneDevice):
                                     cache_v, kv_len=pos + 1, k_offset=offset,
                                     model_group=group)
         return out[:, :, self.head_offset:self.head_offset + H]
+
+    def _cache_slot(self, cache_pos, S_local: int, device):
+        """(pos, offset, inside, idx) of a decode step, computed once for
+        every layer: this rank's rows' positions; where the cache splits its
+        sequence, the rank's first position, whether each position lies in
+        its part, and the local index it is written at (clamped)."""
+        pos = self._rows(cache_pos)
+        if not self.seq_split:
+            return pos, None, None, None
+        pos = torch.as_tensor(pos, device=device).long()
+        offset = self.model_rank * S_local
+        li = pos - offset
+        idx = li.clamp(0, S_local - 1)
+        return (pos, offset, (li >= 0) & (li < S_local),
+                idx.reshape(1) if pos.dim() == 0 else idx)
 
     def cache_kv(self, k, v):
         """A layer's K/V laid out as the cache (``cache_specs_decoder_only``
@@ -1148,13 +1180,12 @@ class MeshRun(OneDevice):
 def _positions(tokens, start, offset: int = 0):
     """Positions of the local tokens: ``offset`` (the first local token's
     position in its sequence) onwards, after ``start`` (a decode step's
-    cache length)."""
+    cache length: a scalar, or this rank's rows' (B_local,) lengths)."""
     S = tokens.shape[1]
     ar = offset + torch.arange(S, device=tokens.device)
     if start is None:
         return ar[None, :]
-    start = torch.as_tensor(local(start), device=tokens.device)
-    if start.dim() == 1:
-        raise NotImplementedError("per-row positions on a mesh are serving on "
-                                  "a mesh: ROADMAP " + DEFERRED["serving"])
+    start = torch.as_tensor(start, device=tokens.device)
+    if start.dim() == 1:    # per-row positions (ragged decode): local rows
+        return start[:, None] + ar[None, :]
     return start + ar[None, :]

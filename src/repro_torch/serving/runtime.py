@@ -24,9 +24,16 @@ The paper's system put together end to end on the real engine:
    model of the modelled pod (``core/hw.py``), not a reading of the GPU.
 
 The slices are logical: every tenant computes on the runtime's one
-``device``. Parameters are placed by the plan when that device is CUDA; on
-the CPU both tiers are the same memory and placement changes nothing, as the
-reference skips it without a mesh.
+``device``, or on its one ``mesh`` (a ``DeviceMesh``), which serves every
+tenant as the reference's does: this process is then one rank of the mesh,
+each tenant's model is built on it (``build_model(cfg, mesh)``), and its
+parameters and KV pool are this rank's shards of them. The plan is cut from
+the tenant's global inventory against the slice's budget, as the
+reference's; a host-tier parameter keeps this rank's stored shard in pinned
+memory and the pool lays its leaves out by the model's cache specs.
+Parameters are placed by the plan when the device is CUDA; on the CPU both
+tiers are the same memory and placement changes nothing, as the reference
+skips it without a mesh.
 """
 from __future__ import annotations
 
@@ -90,13 +97,17 @@ class Tenant:
 
 
 class SliceRuntime:
-    def __init__(self, pod: PodSpec = V5E_POD, device="cuda",
+    def __init__(self, pod: PodSpec = V5E_POD, device="cuda", mesh=None,
                  partitioner: Optional[StaticPartitioner] = None,
                  perf: Optional[PerfModel] = None):
         self.pod = pod
+        # execution mesh of every tenant (this process one of its ranks), or
+        # None for one device
+        self.mesh = mesh
         # execution device of every tenant (default CUDA; raises without a
-        # card unless the caller asks for the CPU)
-        self.device = resolve_device(device)
+        # card unless the caller asks for the CPU); a mesh's own
+        self.device = resolve_device(device if mesh is None
+                                     else mesh.device_type)
         # an externally owned partitioner lets a cluster-level scheduler
         # share one pod grid between its own modeled jobs and this
         # runtime's live tenants
@@ -129,7 +140,8 @@ class SliceRuntime:
         slice even with everything offloadable spilled."""
         if spec.name in self.tenants:
             raise ValueError(f"duplicate tenant {spec.name!r}")
-        model = build_model(spec.cfg, self.device)
+        model = build_model(spec.cfg, self.device if self.mesh is None
+                            else self.mesh)
         # sizes only: the parameters are drawn once the plan names their tiers
         shapes, _ = model.init(abstract=True)
         footprint = (tree_bytes(shapes)
@@ -170,8 +182,8 @@ class SliceRuntime:
 
     def _plan_and_build(self, spec, profile, alloc, model, shapes,
                         footprint) -> Tenant:
-        """Plans on the abstract parameters ``shapes``, then draws each
-        parameter into the tier the plan names."""
+        """Plans on the abstract parameters ``shapes`` (global shapes on a
+        mesh), then draws each parameter into the tier the plan names."""
         plan = self._plan(spec, profile, model, shapes)
         gen = torch.Generator(device=self.device).manual_seed(spec.seed)
         params, _ = model.init(

@@ -13,6 +13,14 @@ multi-tenant runtime accounts for at the layer above.
 
 The engine computes on ``model.device``; the KV pool lives there too unless a
 plan or ``offload_kv`` moves part or all of it to (pinned) host memory.
+
+On a mesh (a model built on a ``DeviceMesh``) every rank runs the same
+engine over its shard of the parameters and of the pool: the requests, the
+slots and the tokens are the same on every rank, the prefill's prompt and a
+tick's tokens and per-row positions are laid out by the model's batch specs
+(each rank keeping its slice of them), and the next tokens are the argmax of
+the logits gathered whole (the head is vocab-parallel; a tick's logits are
+small). An enc-dec or VLM tenant raises on a mesh, naming its ROADMAP item.
 """
 from __future__ import annotations
 
@@ -23,7 +31,11 @@ from typing import Any, Deque, Dict, List, Optional
 import numpy as np
 import torch
 
+from repro_torch.configs.base import ENCDEC, VLM
+from repro_torch.configs.shapes import ShapeSuite
 from repro_torch.core.offload import OffloadPlan
+from repro_torch.models.common import is_dtensor, lay_local, pspec
+from repro_torch.models.transformer import deferred
 from repro_torch.serving.kv_pool import KVPool
 
 PyTree = Any
@@ -75,11 +87,23 @@ class TenantStats:
         }
 
 
+def require_servable(model) -> None:
+    """Raises, naming the ROADMAP item, for a tenant ``TenantEngine`` cannot
+    serve on a mesh: an enc-dec (its cross K/V pool and the reference's
+    decode of B positions a row need a design of their own) or a VLM (its
+    inputs are embeddings, the engine feeds text tokens)."""
+    if model.sharded and model.cfg.family == ENCDEC:
+        raise deferred(model.cfg, "encdec_serving")
+    if model.sharded and model.cfg.family == VLM:
+        raise deferred(model.cfg, "vlm_serving")
+
+
 class TenantEngine:
     def __init__(self, model, params: PyTree, *, slots: int, max_seq: int,
                  offload_kv: bool = False,
                  plan: Optional[OffloadPlan] = None,
                  max_queue: Optional[int] = None, name: str = "tenant"):
+        require_servable(model)
         self.name = name
         self.model = model
         self.params = params
@@ -136,8 +160,9 @@ class TenantEngine:
         if slot is None:
             return False
         req.slot = slot
-        batch = {"tokens": torch.as_tensor(
-            np.asarray(req.prompt, np.int64), device=self.device)[None, :]}
+        tokens = torch.as_tensor(np.asarray(req.prompt, np.int64),
+                                 device=self.device)[None, :]
+        batch = self._lay({"tokens": tokens}, "prefill")
         _, _, pc = self.model.forward(self.params, batch, return_cache=True)
         plen = len(req.prompt)
         self.pool.paste(slot, pc, plen)
@@ -166,6 +191,21 @@ class TenantEngine:
                 continue
             self.prefill(req)
 
+    def _lay(self, batch: Dict[str, torch.Tensor], kind: str):
+        """``batch`` (every row, the same on every rank) as the model takes
+        it: as it is on one device; on a mesh, ``DTensor``s laid out by the
+        model's batch specs for a ``kind`` step of this batch, each rank
+        keeping its slice (a prompt's tokens split by sequence where the
+        activations are; per-row positions over the tokens' batch axes)."""
+        if not self.model.sharded:
+            return batch
+        B, S = batch["tokens"].shape
+        specs = self.model.batch_specs(ShapeSuite(kind, kind, S, B))
+        spec = {"tokens": specs["tokens"][2]}
+        spec["pos"] = pspec(spec["tokens"][0])
+        return {k: lay_local(v, spec[k], self.model.env)
+                for k, v in batch.items()}
+
     # ------------------------------------------------------------------
     # decode path
     # ------------------------------------------------------------------
@@ -181,12 +221,15 @@ class TenantEngine:
             last = (req.generated[-1] if req.generated else int(req.prompt[-1]))
             tokens[slot, 0] = last
         # per-row cache positions: ragged continuous batching
-        batch = {"tokens": torch.as_tensor(tokens, device=self.device),
-                 "pos": torch.as_tensor(self.pool.positions.astype(np.int64),
-                                        device=self.device)}
+        batch = self._lay(
+            {"tokens": torch.as_tensor(tokens, device=self.device),
+             "pos": torch.as_tensor(self.pool.positions.astype(np.int64),
+                                    device=self.device)}, "decode")
         logits, new_cache = self.model.decode(
             self.params, self.pool.materialize(), batch)
         self.pool.update(new_cache)
+        if is_dtensor(logits):
+            logits = logits.full_tensor()
         emitted = 0
         next_tokens = torch.argmax(logits, dim=-1).cpu().numpy()
         for slot, req in list(self.live.items()):

@@ -287,6 +287,89 @@ _WORKER = textwrap.dedent("""\
             torch.save(res, os.path.join(out_dir, "out.pt"))
         torch.save(windows, os.path.join(out_dir, f"windows{rank}.pt"))
 
+    def runtime(rank, out_dir, cases):
+        # each case a SliceRuntime on its own mesh serving one tenant to the
+        # end; a case whose payload holds weights gets them (the
+        # reference's), distributed, in place of its own draw
+        import numpy as np
+        from repro_torch.configs import get_config
+        from repro_torch.core.offload import _flatten_with_paths, place_tree
+        from repro_torch.launch.mesh import make_host_mesh
+        from repro_torch.models import common, model_zoo
+        from repro_torch.serving import Request, SliceRuntime, TenantSpec
+        payload = torch.load(os.path.join(out_dir, "payload.pt"))
+        own_init, own_on_host = model_zoo.Model.init, common.on_host
+
+        def given(weights):
+            def init(self, generator=None, *, abstract=False, placement=None):
+                shapes, specs = own_init(self, abstract=True)
+                if abstract:
+                    return shapes, specs
+                return model_zoo.shard_tree(weights, specs, self.env), specs
+            return init
+
+        res, outputs = {}, {}
+        for name, (arch, mesh_shape, over, spec) in cases.items():
+            p = payload[name]
+            cfg = get_config(arch).reduced().with_(remat="none",
+                                                   dtype="float32", **over)
+            rt = SliceRuntime(mesh=make_host_mesh(*mesh_shape))
+            if "params" in p:
+                model_zoo.Model.init = given(p["params"])
+            try:
+                t = rt.add_tenant(TenantSpec(name, cfg, **spec))
+            finally:
+                model_zoo.Model.init = own_init
+            rt.submit(name, [Request(i, np.asarray(prompt, np.int32), n)
+                             for i, (prompt, n) in enumerate(p["requests"])])
+            # the parameters the plan puts in the host tier are taken for
+            # host-tier shards (on the CPU both tiers are one memory): those
+            # gathered over an axis go through the copy before the gather
+            host = {x.to_local().untyped_storage().data_ptr()
+                    for path, x in _flatten_with_paths({"params": t.params})
+                    if t.plan.is_offloaded(path)}
+            common.on_host = lambda w: (
+                common.is_dtensor(w)
+                and w.to_local().untyped_storage().data_ptr() in host)
+            common.gather_param.h2d_bytes = 0
+            try:
+                report = rt.run()["tenants"][name]
+            finally:
+                common.on_host = own_on_host
+            pool = t.engine.pool
+            cache = pool.materialize()
+            # place_tree moves each leaf's local shard, keeping placements
+            placed = place_tree({"params": t.params}, t.plan,
+                                "cpu")["params"]
+            kept = all(
+                a.placements == b.placements and a.shape == b.shape
+                and torch.equal(a.to_local(), b.to_local())
+                for a, b in zip(common.tree_leaves(placed),
+                                common.tree_leaves(t.params)))
+            res[name] = {
+                "place_tree_kept": kept,
+                "outputs": t.engine.outputs, "report": report,
+                "split": pool.split_leaves,
+                "bytes": (pool.device_bytes, pool.host_bytes),
+                "local_bytes": (pool.local_device_bytes,
+                                pool.local_host_bytes),
+                "host_params": len(host),
+                "gathered_host_bytes": common.gather_param.h2d_bytes,
+                "pool_placements": {k: [str(x) for x in cache[k].placements]
+                                    for k in ("k", "v") if k in cache}}
+            outputs[name] = t.engine.outputs
+        # tenants a mesh does not serve raise, naming their ROADMAP items
+        for arch in ("whisper-large-v3", "qwen2-vl-72b"):
+            rt = SliceRuntime(mesh=make_host_mesh(1, 4))
+            try:
+                rt.add_tenant(TenantSpec(arch, get_config(arch).reduced()))
+                res[arch] = None
+            except NotImplementedError as e:
+                res[arch] = str(e)
+        if rank == 0:
+            torch.save(res, os.path.join(out_dir, "out.pt"))
+        torch.save(outputs, os.path.join(out_dir, f"outputs{rank}.pt"))
+
     def rank_main(rank, out_dir, job):
         from repro_torch.launch.mesh import init_world
         init_world(rank, 4, "file://" + os.path.join(out_dir, "store"),
@@ -297,6 +380,8 @@ _WORKER = textwrap.dedent("""\
                 numerics(rank, out_dir, *payload)
             elif job == "serving":
                 serving(rank, out_dir, payload)
+            elif job == "runtime":
+                runtime(rank, out_dir, payload)
             else:
                 pods(rank, out_dir)
         finally:
