@@ -233,7 +233,14 @@ JSON line per phase; any failure is a non-zero exit:
            and grouped_matmul at the MoE cells' local shapes (forwards, and
            dx / dw at the training rows) with torch.bmm as the library call,
            and ssd_scan at the SSM cells' local shapes (mesh_local in the
-           kernels line)
+           kernels line). Then serving cells in the same child: llama3-8b
+           through SliceRuntime(mesh=...) (MESH_SERVE_CELLS), and
+           whisper-large-v3 prefilled, pooled and decoded as one rank's shard
+           (MESH_ENCDEC_CELLS: rank 0 of (1, 4), 5 of 20 heads, decoder/w_in
+           and the tied head's table streamed from pinned memory; rank 4 of
+           (1, 8), sequence-parallel); each cell's launches held to their
+           formulas at the local shapes, and B1 and B2 then held there
+           against their plain versions (mesh_serve_local)
 
 Then a line {"kernels": [...]} with every kernel's figures, the card's name
 and power limit, and last {"ok": true, "device": {...}}.
@@ -427,6 +434,74 @@ MESH_SERVE_LENS, MESH_SERVE_NEW = (16, 100, 300, 1000), 8
 MESH_SERVE_SLOTS, MESH_SERVE_MAX_SEQ = 4, 2048
 
 
+def spill_budget(cfg, slots: int, max_seq: int) -> int:
+    """The serving cells' "spill" budget: one byte under the global
+    inventory less the embedding tables and the KV pool, so the plan spills
+    those and then the next parameters."""
+    from repro_torch.models.model_zoo import build_model
+    meta = build_model(cfg, "cuda")
+    inv = meta.serving_inventory(meta.init(abstract=True)[0],
+                                 meta.cache_shapes(slots, max_seq))
+    return (sum(t.bytes for t in inv) - 1 - sum(
+        t.bytes for t in inv if t.group in ("embed", "kv_cache")))
+
+
+def serve_counters():
+    """The wrappers whose launches a serving cell counts, the two it counts
+    by route too, and a function that sets every count and streamed byte to
+    0 (just before the cell's main path)."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import grouped_matmul as gmm
+    from repro_torch.kernels import ssd_scan as ssd
+    from repro_torch.kernels import stream_matmul as sm
+    from repro_torch.models import layers as mlayers
+    from repro_torch.models.common import gather_param
+    wrappers = {"flash_attention_fwd": fa.flash_attention_fwd,
+                "flash_attention_fwd_stats": fa.flash_attention_fwd_stats,
+                "flash_attention_bwd_dkdv": fa.flash_attention_bwd_dkdv,
+                "flash_attention_bwd_dq": fa.flash_attention_bwd_dq,
+                "stream_matmul": sm.stream_matmul,
+                "ssd_scan": ssd.ssd_scan,
+                "grouped_matmul": gmm.grouped_matmul}
+    routed = ("flash_attention_fwd", "stream_matmul")
+
+    def reset():
+        for w in wrappers.values():
+            w.launches = 0
+        for n in routed:
+            wrappers[n].launches_by_route = dict.fromkeys(
+                wrappers[n].launches_by_route, 0)
+        sm.stream_matmul.h2d_bytes = 0
+        mlayers.gather_rows.h2d_bytes = 0
+        gather_param.h2d_bytes = 0
+    return wrappers, routed, reset
+
+
+def serve_record(plan, budget, params, pool) -> dict:
+    """A serving cell's plan, the rank's parameter bytes by tier and its
+    pool's global and local bytes by tier."""
+    from repro_torch.core.offload import memory_kind_of
+    from repro_torch.models.common import tree_leaves
+    tiers = {}
+    for leaf in tree_leaves(params):
+        x = leaf.to_local()
+        kind = memory_kind_of(x)
+        tiers[kind] = tiers.get(kind, 0) + x.numel() * x.element_size()
+    return {
+        "plan": None if plan is None else {
+            "hbm_budget": budget, "offloaded": list(plan.offloaded),
+            "partial": [list(p) for p in plan.partial],
+            "resident_bytes": plan.resident_bytes,
+            "host_bytes": plan.host_bytes},
+        "param_bytes_by_tier": tiers,
+        "pool": {"device_bytes": pool.device_bytes,
+                 "host_bytes": pool.host_bytes,
+                 "local_device_bytes": pool.local_device_bytes,
+                 "local_host_bytes": pool.local_host_bytes,
+                 "split_leaves": pool.split_leaves,
+                 "kinds": sorted(pool.memory_kinds())}}
+
+
 def mesh_serve_cell(name: str, mesh_shape, rule: str) -> dict:
     """One serving cell of the mesh phase (``MESH_SERVE_CELLS``): the
     tenant added through ``SliceRuntime(mesh=...)`` under ``fake_world``,
@@ -439,35 +514,17 @@ def mesh_serve_cell(name: str, mesh_shape, rule: str) -> dict:
     import numpy as np
     import torch
     from repro_torch.configs import get_config
-    from repro_torch.core.offload import memory_kind_of
-    from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import grouped_matmul as gmm
     from repro_torch.kernels import ops as kops
-    from repro_torch.kernels import ssd_scan as ssd
     from repro_torch.kernels import stream_matmul as sm
     from repro_torch.launch.mesh import fake_world, make_host_mesh
     from repro_torch.models import layers as mlayers
-    from repro_torch.models.common import gather_param, tree_leaves
-    from repro_torch.models.model_zoo import build_model
+    from repro_torch.models.common import gather_param
     from repro_torch.serving import Request, SliceRuntime, TenantSpec
     cfg = get_config("llama3-8b").with_(attn_impl="pallas", remat="none",
                                         param_dtype="bfloat16")
     slots, max_seq = MESH_SERVE_SLOTS, MESH_SERVE_MAX_SEQ
-    budget = None
-    if rule == "spill":
-        meta = build_model(cfg, "cuda")
-        inv = meta.serving_inventory(meta.init(abstract=True)[0],
-                                     meta.cache_shapes(slots, max_seq))
-        budget = (sum(t.bytes for t in inv) - 1 - sum(
-            t.bytes for t in inv if t.group in ("embed", "kv_cache")))
-    wrappers = {"flash_attention_fwd": fa.flash_attention_fwd,
-                "flash_attention_fwd_stats": fa.flash_attention_fwd_stats,
-                "flash_attention_bwd_dkdv": fa.flash_attention_bwd_dkdv,
-                "flash_attention_bwd_dq": fa.flash_attention_bwd_dq,
-                "stream_matmul": sm.stream_matmul,
-                "ssd_scan": ssd.ssd_scan,
-                "grouped_matmul": gmm.grouped_matmul}
-    routed = ("flash_attention_fwd", "stream_matmul")
+    budget = spill_budget(cfg, slots, max_seq) if rule == "spill" else None
+    wrappers, routed, reset_counts = serve_counters()
     shapes = {"flash_attention_fwd": set(), "stream_matmul": set()}
     flash, stream = kops.flash_attention, kops.stream_matmul
 
@@ -492,11 +549,6 @@ def mesh_serve_cell(name: str, mesh_shape, rule: str) -> dict:
         add_s = time.time() - t0
         eng, plan = tenant.engine, tenant.plan
         pool = eng.pool
-        tiers = {}
-        for leaf in tree_leaves(tenant.params):
-            x = leaf.to_local()
-            kind = memory_kind_of(x)
-            tiers[kind] = tiers.get(kind, 0) + x.numel() * x.element_size()
         rng = np.random.default_rng(SEED)
         reqs = [Request(i, rng.integers(0, cfg.vocab_size, size=n).astype(
                     np.int32), MESH_SERVE_NEW)
@@ -529,14 +581,7 @@ def mesh_serve_cell(name: str, mesh_shape, rule: str) -> dict:
 
         eng.prefill, eng.tick = timed_prefill, timed_tick
         rt.submit("llm", reqs)
-        for w in wrappers.values():                # the main path starts here
-            w.launches = 0
-        for n in routed:
-            wrappers[n].launches_by_route = dict.fromkeys(
-                wrappers[n].launches_by_route, 0)
-        sm.stream_matmul.h2d_bytes = 0
-        mlayers.gather_rows.h2d_bytes = 0
-        gather_param.h2d_bytes = 0
+        reset_counts()                             # the main path starts here
         kops.flash_attention, kops.stream_matmul = watched_flash, watched_stream
         try:
             t0 = time.time()
@@ -549,17 +594,7 @@ def mesh_serve_cell(name: str, mesh_shape, rule: str) -> dict:
             "cell": name, "mesh": list(mesh_shape), "rank": 0,
             "world": mesh_shape[0] * mesh_shape[1],
             "card": torch.cuda.get_device_name(0),
-            "plan": {"hbm_budget": budget, "offloaded": list(plan.offloaded),
-                     "partial": [list(p) for p in plan.partial],
-                     "resident_bytes": plan.resident_bytes,
-                     "host_bytes": plan.host_bytes},
-            "param_bytes_by_tier": tiers,
-            "pool": {"device_bytes": pool.device_bytes,
-                     "host_bytes": pool.host_bytes,
-                     "local_device_bytes": pool.local_device_bytes,
-                     "local_host_bytes": pool.local_host_bytes,
-                     "split_leaves": pool.split_leaves,
-                     "kinds": sorted(pool.memory_kinds())},
+            **serve_record(plan, budget, tenant.params, pool),
             "prefills": eng.stats.admitted, "ticks": eng.stats.ticks,
             "outputs": {str(k): v for k, v in eng.outputs.items()},
             "launches": {n: w.launches for n, w in wrappers.items()},
@@ -575,6 +610,179 @@ def mesh_serve_cell(name: str, mesh_shape, rule: str) -> dict:
             "add_tenant_s": add_s, "run_s": run_s,
             "max_memory_allocated": torch.cuda.max_memory_allocated()}
         del rt, tenant, eng, pool
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec["seconds"] = time.time() - t_cell
+    return rec
+
+
+# the mesh phase's enc-dec serving cells: whisper-large-v3 at full width and
+# depth (bf16, attn_impl "pallas") as one rank of a fake world, served as the
+# encdec phase serves it on one device (TenantEngine feeds text tokens, A34):
+# Model.forward(return_cache=True, last_token_only=True) -> a KVPool laid out
+# by cache_specs_encdec -> paste -> ticks of materialize / Model.decode with
+# one cache length a row / update. The encdec phase's 4 requests, 4 slots,
+# max_seq 448, 8 new tokens each (the prefill's and 7 ticks'). "spill":
+# rank 0 of (1, 4), 5 of 20 heads and 5 KV heads (Megatron), the self cache's
+# positions [0, 112); the budget one byte under what spilling the tables and
+# the pool frees, so decoder/w_in goes to the host tier too and the rank
+# streams its pinned (32, 1280, 1280) shard on B2's ring, and the tied head
+# its pinned token table. "resident": rank 4 of (1, 8) (8 does not divide 20
+# heads: sequence-parallel attention), frames [752, 940), the self cache's
+# positions [224, 280), every leaf on the card.
+MESH_ENCDEC_CELLS = (("serve_whisper_1x4_spill", (1, 4), 0, "spill"),
+                     ("serve_whisper_1x8", (1, 8), 4, "resident"))
+MESH_ENCDEC_LENS, MESH_ENCDEC_NEW = (4, 16, 64, 224), 8
+MESH_ENCDEC_SLOTS, MESH_ENCDEC_MAX_SEQ = 4, 448
+
+
+def mesh_encdec_cell(name: str, mesh_shape, rank: int, rule: str) -> dict:
+    """One enc-dec serving cell of the mesh phase (``MESH_ENCDEC_CELLS``)
+    under ``fake_world``: the parameters drawn into the tiers the plan names,
+    the kernels' launch counts set to 0 just before the first prefill and
+    read just after the last tick, with the local shapes each kernel
+    launched at (the flash kernel's q, k and query offset, stream_matmul's x
+    and w), each prefill and tick timed (synchronised), the bytes each tier
+    holds and each link direction moved. The values on a fake world are
+    undefined: only counts, shapes, bytes and times are read here."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import ShapeSuite
+    from repro_torch.core.offload import param_placement, plan_offload
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import stream_matmul as sm
+    from repro_torch.launch.mesh import fake_world, make_host_mesh
+    from repro_torch.models import layers as mlayers
+    from repro_torch.models.common import is_dtensor, lay_local, pspec
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.serving import KVPool
+    cfg = get_config("whisper-large-v3").with_(attn_impl="pallas",
+                                               remat="none",
+                                               param_dtype="bfloat16")
+    slots, max_seq = MESH_ENCDEC_SLOTS, MESH_ENCDEC_MAX_SEQ
+    dev = torch.device("cuda")
+    # the plan as SliceRuntime cuts it from the global inventory
+    budget = plan = None
+    if rule == "spill":
+        budget = spill_budget(cfg, slots, max_seq)
+        meta = build_model(cfg, "cuda")
+        plan = plan_offload(meta.serving_inventory(
+            meta.init(abstract=True)[0], meta.cache_shapes(slots, max_seq)),
+            budget)
+    wrappers, routed, reset_counts = serve_counters()
+    shapes = {"flash_attention_fwd": set(), "stream_matmul": set()}
+    flash, stream = kops.flash_attention, kops.stream_matmul
+
+    def watched_flash(q, k, v, **kw):
+        if q.shape[1]:          # an empty query block launches nothing
+            shapes["flash_attention_fwd"].add(
+                (tuple(q.shape), tuple(k.shape), int(kw.get("q_offset", 0))))
+        return flash(q, k, v, **kw)
+
+    def watched_stream(x, w, **kw):
+        shapes["stream_matmul"].add((tuple(x.shape), tuple(w.shape)))
+        return stream(x, w, **kw)
+
+    t_cell = time.time()
+    with fake_world(mesh_shape[0] * mesh_shape[1], rank):
+        mesh = make_host_mesh(*mesh_shape, device_type="cuda")
+        torch.cuda.reset_peak_memory_stats()
+        model = build_model(cfg, mesh)
+        env = model.env
+        t0 = time.time()
+        shapes_abs, _ = model.init(abstract=True)
+        params, _ = model.init(
+            torch.Generator(device=dev).manual_seed(SEED),
+            placement=(None if plan is None
+                       else param_placement(shapes_abs, plan, dev)))
+        pool = KVPool(model, slots, max_seq, plan=plan)
+        torch.cuda.synchronize()
+        init_s = time.time() - t0
+
+        def lay(batch, kind):
+            """Every row, the same on every rank -> this rank's slice, laid
+            out by the model's batch specs (a per-row pos over the tokens'
+            batch axes)."""
+            B, S = batch["tokens"].shape
+            specs = model.batch_specs(ShapeSuite(kind, kind, S, B))
+            spec = {k: specs[k][2] for k in batch if k in specs}
+            spec["pos"] = pspec(specs["tokens"][2][0])
+            return {k: lay_local(v, spec[k], env) for k, v in batch.items()}
+
+        g = torch.Generator(device=dev).manual_seed(SEED + 5)
+        rng = np.random.default_rng(SEED + 5)
+        prompts = [{
+            "frames": (0.02 * torch.randn(1, cfg.encoder_seq, cfg.d_model,
+                                          generator=g, device=dev)
+                       ).to(torch.bfloat16),
+            "tokens": torch.as_tensor(rng.integers(0, cfg.vocab_size,
+                                                   size=(1, n)), device=dev)}
+            for n in MESH_ENCDEC_LENS]
+        full = lambda t: t.full_tensor() if is_dtensor(t) else t
+        prefill_s, tick_s, tick_link, out, rows = [], [], [], {}, {}
+        reset_counts()                             # the main path starts here
+        kops.flash_attention, kops.stream_matmul = watched_flash, watched_stream
+        try:
+            for rid, batch in enumerate(prompts):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                logits, _, pc = model.forward(params, lay(batch, "prefill"),
+                                              return_cache=True,
+                                              last_token_only=True)
+                slot = pool.alloc_slot()
+                plen = batch["tokens"].shape[1]
+                pool.paste(slot, pc, plen)
+                out[rid] = [int(full(logits)[0, -1].argmax())]
+                rows[slot] = rid
+                torch.cuda.synchronize()
+                prefill_s.append((plen, time.perf_counter() - t))
+            for _ in range(MESH_ENCDEC_NEW - 1):
+                h2d, d2h = pool.h2d_bytes, pool.d2h_bytes
+                streamed = sm.stream_matmul.h2d_bytes
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                last = torch.tensor([[out[rows[s]][-1]] for s in range(slots)],
+                                    device=dev)
+                pos = torch.as_tensor(pool.positions.astype(np.int64),
+                                      device=dev)
+                logits, cache = model.decode(
+                    params, pool.materialize(),
+                    lay({"tokens": last, "pos": pos}, "decode"))
+                pool.update(cache)
+                nxt = full(logits).argmax(-1).tolist()
+                for s in range(slots):
+                    out[rows[s]].append(nxt[s])
+                pool.positions += 1
+                torch.cuda.synchronize()
+                tick_s.append(time.perf_counter() - t)
+                tick_link.append({
+                    "pool_h2d": pool.h2d_bytes - h2d,
+                    "pool_d2h": pool.d2h_bytes - d2h,
+                    "stream_matmul_h2d": sm.stream_matmul.h2d_bytes - streamed})
+        finally:
+            kops.flash_attention, kops.stream_matmul = flash, stream
+        rec = {
+            "cell": name, "arch": cfg.name, "mesh": list(mesh_shape),
+            "rank": rank, "world": mesh_shape[0] * mesh_shape[1],
+            "coords": {a: mesh.get_local_rank(a) for a in env.mesh_axes},
+            "card": torch.cuda.get_device_name(0),
+            "policy": dict(model.pol.__dict__),
+            **serve_record(plan, budget, params, pool),
+            "prefills": len(prefill_s), "ticks": len(tick_s),
+            "outputs": {str(k): v for k, v in out.items()},
+            "launches": {n: w.launches for n, w in wrappers.items()},
+            "launches_by_route": {n: dict(wrappers[n].launches_by_route)
+                                  for n in routed},
+            "kernel_shapes": {n: sorted(v) for n, v in shapes.items()},
+            "stream_matmul_h2d_bytes": sm.stream_matmul.h2d_bytes,
+            "embed_rows_h2d_bytes": mlayers.gather_rows.h2d_bytes,
+            "tick_link_bytes": tick_link,
+            "tick_ms": [1e3 * t for t in tick_s],
+            "prefill_ms": [[n, 1e3 * t] for n, t in prefill_s],
+            "init_s": init_s,
+            "max_memory_allocated": torch.cuda.max_memory_allocated()}
+        del model, params, pool, prompts
     gc.collect()
     torch.cuda.empty_cache()
     rec["seconds"] = time.time() - t_cell
@@ -645,8 +853,10 @@ def mesh_child(out_dir: str) -> None:
         torch.cuda.empty_cache()
     fa.kernel_cost, gmm.kernel_cost, ssd.kernel_cost = cost, gmm_cost, ssd_cost
     serve = [mesh_serve_cell(*cell) for cell in MESH_SERVE_CELLS]
+    serve_encdec = [mesh_encdec_cell(*cell) for cell in MESH_ENCDEC_CELLS]
     with open(os.path.join(out_dir, "mesh.json"), "w") as f:
-        json.dump({"cells": cells, "serve": serve}, f)
+        json.dump({"cells": cells, "serve": serve,
+                   "serve_encdec": serve_encdec}, f)
 
 
 def main() -> None:
@@ -834,8 +1044,13 @@ def main() -> None:
                  f"{shape} {dtype_name} causal={causal} q_offset={q_offset}: "
                  f"rel {rel:.3e} >= {TOL[dtype_name]}")
         q4, k4, v4 = (t[None] for t in (q, k, v))
+        if causal and q_offset and S + q_offset < Sk:
+            # a block of queries whose last position lies before the last
+            # key: the keys past it are masked, so the library attends the
+            # keys the block sees, the same function
+            k4, v4 = k4[:, :, :S + q_offset], v4[:, :, :S + q_offset]
         sdpa = torch.nn.functional.scaled_dot_product_attention
-        mask = lower_right(S, Sk, q_offset) if causal else None
+        mask = lower_right(S, k4.shape[2], q_offset) if causal else None
         library = (lambda: sdpa(q4, k4, v4, attn_mask=mask)) if mask is not None \
             else (lambda: sdpa(q4, k4, v4, is_causal=causal))
         flops = 4.0 * BH * fa.attended_pairs(S, Sk, causal, q_offset) * hd
@@ -4261,6 +4476,134 @@ def main() -> None:
                  "rate", card=card_line)
         emit("mesh_serve", **row)
         serve_rows.append(row)
+    # the enc-dec serving cells: whisper-large-v3 as one rank's shard; B1
+    # once a decoder layer of every prefill whose local query block is not
+    # empty (the heads split: every prefill at 5 of 20 heads; the sequence
+    # split over 8: rank 4's block of each prompt, none of the 4-token one),
+    # at the local q, k and query offset; B2, where decoder/w_in and the
+    # token table are in the host tier, once a decoder layer of every pass
+    # on the rank's pinned (1280, 1280) w_in shard and once a pass on the
+    # tied head's pinned table, all on the ring
+    wcfg_mesh = get_config("whisper-large-v3")
+    wL, whd, wheads = wcfg_mesh.num_layers, wcfg_mesh.head_dim, wcfg_mesh.num_heads
+    wd, wV = wcfg_mesh.d_model, wcfg_mesh.vocab_size
+    # the plan of serve_whisper_1x4_spill, as plan_offload gives it here on
+    # the CPU for the same inventory and budget
+    spill_plan = {"offloaded": {"params/pos_embed", "params/tok_embed",
+                                "params/enc_pos_embed", "kv/cross_k",
+                                "kv/cross_v", "kv/k", "kv/v",
+                                "params/decoder/w_in"},
+                  "resident_bytes": 2519214080, "host_bytes": 2000460800}
+    encdec_rows, encdec_largest = [], []
+    for rec in mesh_json["serve_encdec"]:
+        tag = f"mesh {rec['cell']}"
+        model_ranks, rank = rec["mesh"][1], rec["rank"]
+        pre, ticks = rec["prefills"], rec["ticks"]
+        if pre != len(MESH_ENCDEC_LENS) or ticks != MESH_ENCDEC_NEW - 1:
+            fail(f"{tag}: {pre} prefills and {ticks} ticks")
+        outs = {int(k): v for k, v in rec["outputs"].items()}
+        if sorted(outs) != list(range(pre)) or any(
+                len(v) != MESH_ENCDEC_NEW or min(v) < 0 or max(v) >= wV
+                for v in outs.values()):
+            fail(f"{tag}: outputs {outs}")
+        pol = rec["policy"]
+        split_heads = wheads % model_ranks == 0
+        if (pol["head_sharded"], pol["seq_parallel_attn"]) != (
+                split_heads, not split_heads):
+            fail(f"{tag}: policy {pol}")
+        plan = rec["plan"]
+        streamed = plan is not None
+        if streamed and (set(plan["offloaded"]) != spill_plan["offloaded"]
+                         or plan["partial"]
+                         or plan["resident_bytes"] != spill_plan["resident_bytes"]
+                         or plan["host_bytes"] != spill_plan["host_bytes"]):
+            fail(f"{tag}: plan {plan}, not {spill_plan}")
+        # the rank's query block of an n-token prompt: whole at its local
+        # heads under the head split; under the sequence split the block
+        # torch.chunk gives it, at its first position
+        blocks = []
+        for n in MESH_ENCDEC_LENS:
+            if split_heads:
+                blocks.append([[1, n, wheads // model_ranks, whd],
+                               [1, n, wheads // model_ranks, whd], 0])
+                continue
+            c = -(-n // model_ranks)
+            if rank * c < n:
+                blocks.append([[1, min(c, n - rank * c), wheads, whd],
+                               [1, n, wheads, whd], rank * c])
+        want = {"flash_attention_fwd": len(blocks) * wL}
+        table_rows = [1, MESH_ENCDEC_SLOTS]     # a prefill's last token, a tick
+        if streamed:
+            want["stream_matmul"] = (pre + ticks) * (wL + 1)
+        launched = {n: c for n, c in rec["launches"].items() if c}
+        if launched != want:
+            fail(f"{tag}: launched {launched}, expected {want} ({len(blocks)} "
+                 f"prefills with a local query block, {ticks} ticks, {wL} "
+                 f"layers{', the tied head' if streamed else ''})")
+        routes = rec["launches_by_route"]
+        if routes["flash_attention_fwd"].get("wgmma") != want[
+                "flash_attention_fwd"]:
+            fail(f"{tag}: flash routes {routes['flash_attention_fwd']}")
+        if streamed and routes["stream_matmul"].get("ring") != want[
+                "stream_matmul"]:
+            fail(f"{tag}: stream_matmul routes {routes['stream_matmul']}")
+        if rec["kernel_shapes"]["flash_attention_fwd"] != sorted(blocks):
+            fail(f"{tag}: flash launched at "
+                 f"{rec['kernel_shapes']['flash_attention_fwd']}, not {blocks}")
+        w_local = [wd, wcfg_mesh.d_ff // model_ranks]
+        x_at = sorted([[n, wd], w_local] for n in
+                      set(MESH_ENCDEC_LENS) | {MESH_ENCDEC_SLOTS})
+        x_at += sorted([[n, wd], [wd, wV]] for n in table_rows)
+        if streamed and rec["kernel_shapes"]["stream_matmul"] != sorted(x_at):
+            fail(f"{tag}: stream_matmul launched at "
+                 f"{rec['kernel_shapes']['stream_matmul']}, not {x_at}")
+        if rec["stream_matmul_h2d_bytes"] != (
+                (pre + ticks) * (wL * w_local[0] * w_local[1] + wd * wV) * 2
+                if streamed else 0):
+            fail(f"{tag}: stream_matmul streamed "
+                 f"{rec['stream_matmul_h2d_bytes']} bytes")
+        # the rank's pool: its part of the self K/V's sequence, the cross
+        # K/V whole on every model rank
+        pool = rec["pool"]
+        cross = 2 * wL * MESH_ENCDEC_SLOTS * wcfg_mesh.encoder_seq * \
+            wcfg_mesh.num_kv_heads * whd * 2
+        self_kv = pool["device_bytes"] + pool["host_bytes"] - cross
+        if pool["local_device_bytes"] + pool["local_host_bytes"] != \
+                self_kv // model_ranks + cross:
+            fail(f"{tag}: the rank's pool is not its part of the self K/V "
+                 f"and the whole cross K/V: {pool}")
+        if streamed != (pool["device_bytes"] == 0):
+            fail(f"{tag}: pool {pool} under plan {plan}")
+        for n, c in rec["launches"].items():
+            serve_launches[n] += c
+        for n, rs in routes.items():
+            for r, c in rs.items():
+                serve_routes[n][r] = serve_routes[n].get(r, 0) + c
+        encdec_largest.append(max(blocks, key=lambda b: b[0][1]))
+        link = rec["tick_link_bytes"]
+        row = {k: rec[k] for k in (
+            "cell", "arch", "mesh", "rank", "world", "coords", "plan",
+            "param_bytes_by_tier", "pool", "prefills", "ticks",
+            "launches_by_route", "kernel_shapes", "embed_rows_h2d_bytes",
+            "max_memory_allocated", "init_s", "seconds")}
+        row.update(
+            launches=launched,
+            launch_formula=(f"flash = {len(blocks)} prefills with a local "
+                            f"query block x {wL}"
+                            + (f"; stream_matmul = ({pre} prefills + {ticks} "
+                               f"ticks) x ({wL} w_in + 1 tied head)"
+                               if streamed else "")),
+            h2d_bytes_per_tick=statistics.median(
+                t["pool_h2d"] + t["stream_matmul_h2d"] for t in link),
+            d2h_bytes_per_tick=statistics.median(t["pool_d2h"] for t in link),
+            tick_ms_median=statistics.median(rec["tick_ms"]),
+            tick_ms_range=[min(rec["tick_ms"]), max(rec["tick_ms"])],
+            prefill_ms=rec["prefill_ms"],
+            note="one rank's shard on a fake world (collectives dispatched, "
+                 "not run): a tick time of that rank's work, not a serving "
+                 "rate", card=card_line)
+        emit("mesh_serve", **row)
+        encdec_rows.append(row)
     if not serve_launches["stream_matmul"]:
         fail("mesh: stream_matmul was launched no time on the serving cells")
     # B1 and B2 at the serving cells' local shapes against their plain
@@ -4272,6 +4615,20 @@ def main() -> None:
                                 serve_cfg.d_ff // 4, "bfloat16", "bfloat16",
                                 "pinned")
                     for n in (MESH_SERVE_SLOTS, max(MESH_SERVE_LENS))]
+    # B1 and B2 at the enc-dec cells' local shapes: each cell's largest
+    # query block (the heads split: 5 of 20 heads x 224 tokens; the sequence
+    # split: 28 queries at offset 112 over the 224 keys that the attention
+    # gathers, 20 heads), w_in's pinned (1280, 1280) shard at a tick's 4 rows
+    # and the longest prefill's 224, and the tied head's pinned table at a
+    # tick's rows
+    encdec_flash = [dict(flash_case(q[0] * q[2], q[1], q[3], "bfloat16", True,
+                                    Sk=k[1], q_offset=off), cell=row["cell"])
+                    for (q, k, off), row in zip(encdec_largest, encdec_rows)]
+    encdec_stream = [stream_case(n, wd, wcfg_mesh.d_ff // 4, "bfloat16",
+                                 "bfloat16", "pinned")
+                     for n in (MESH_ENCDEC_SLOTS, max(MESH_ENCDEC_LENS))]
+    encdec_stream.append(stream_case(MESH_ENCDEC_SLOTS, wd, wV, "bfloat16",
+                                     "bfloat16", "pinned", transposed=True))
     # B1 / B3 / B4 at the local shapes the mesh gave them, against their
     # plain versions: llama3-8b's 2 of 32 heads a device (prefill rows 2,
     # training parts of 2 sequences), gpt2-124m's whole 12 heads of 8
@@ -4316,7 +4673,8 @@ def main() -> None:
                      cells=mesh_ssd_shapes[(B, S, nh, hp, N, init)])
                 for B, S, nh, hp, N, init in sorted(mesh_ssd_shapes)]
     emit("mesh", card=card_line, cells=len(mesh_rows),
-         serve_cells=len(serve_rows), launches_serve=serve_launches,
+         serve_cells=len(serve_rows) + len(encdec_rows),
+         launches_serve=serve_launches,
          launches_by_route_serve=serve_routes,
          seconds=time.time() - t_mesh, launches=mesh_launches,
          launches_by_route=mesh_routes,
@@ -4335,7 +4693,9 @@ def main() -> None:
              "grouped_matmul_backward": mesh_gmm_bwd,
              "ssd_scan": mesh_ssd,
              "flash_attention_fwd_serve": serve_flash,
-             "stream_matmul_serve": serve_stream})
+             "stream_matmul_serve": serve_stream,
+             "flash_attention_fwd_serve_encdec": encdec_flash,
+             "stream_matmul_serve_encdec": encdec_stream})
 
     # ------------------------------------------------------------- summary
     def train_summary(c, key, errs, lib):
@@ -4359,8 +4719,8 @@ def main() -> None:
         "launches": main_path_launches["flash_attention_fwd"],
         "launches_by_route": main_path_routes["flash_attention_fwd"],
         "shape": head["shape"], "dtype": head["dtype"],
-        "max_abs_err": max(c["max_abs_err"]
-                           for c in cases + mesh_flash + serve_flash),
+        "max_abs_err": max(c["max_abs_err"] for c in cases + mesh_flash
+                           + serve_flash + encdec_flash),
         "ms": head["ms"], "cold_ms": head["cold_ms"], "plain_ms": head["plain_ms"],
         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
         "library_ms": head["library_ms"],
@@ -4382,10 +4742,14 @@ def main() -> None:
         "launches_by_route_mesh": mesh_routes["flash_attention_fwd"],
         "launches_mesh_serve": serve_launches["flash_attention_fwd"],
         "launches_by_route_mesh_serve": serve_routes["flash_attention_fwd"],
+        "launches_mesh_serve_by_cell": {
+            r["cell"]: r["launches"].get("flash_attention_fwd", 0)
+            for r in serve_rows + encdec_rows},
         "mesh_serve_local": [{k: c[k] for k in (
-            "shape", "dtype", "route", "max_abs_err", "rel_err", "tol", "ms",
-            "cold_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
-            for c in serve_flash],
+            "cell", "shape", "dtype", "route", "max_abs_err", "rel_err", "tol",
+            "ms", "cold_ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "q_offset", "library") if k in c}
+            for c in serve_flash + encdec_flash],
         "mesh_local": [{k: c[k] for k in (
             "shape", "dtype", "route", "max_abs_err", "rel_err", "tol", "ms",
             "cold_ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
@@ -4412,8 +4776,8 @@ def main() -> None:
         "launches_by_route": rt_stream_routes,
         "shape": shead["shape"], "dtype": shead["x"], "w": shead["where"],
         "route_at_shape": shead["route"],
-        "max_abs_err": max(c["max_abs_err"]
-                           for c in stream_cases + serve_stream),
+        "max_abs_err": max(c["max_abs_err"] for c in stream_cases
+                           + serve_stream + encdec_stream),
         "ms": shead["kernel_ms"], "cold_ms": shead["cold_ms"],
         "plain_ms": shead["plain_ms"],
         "bound_ms": shead["bound_ms"], "bound_by": shead["bound_by"],
@@ -4427,10 +4791,14 @@ def main() -> None:
         "launches_dryrun": dry_launches["stream_matmul"],
         "launches_mesh_serve": serve_launches["stream_matmul"],
         "launches_by_route_mesh_serve": serve_routes["stream_matmul"],
+        "launches_mesh_serve_by_cell": {
+            r["cell"]: r["launches"].get("stream_matmul", 0)
+            for r in serve_rows + encdec_rows},
         "mesh_serve_local": [{k: c[k] for k in (
-            "shape", "route", "max_abs_err", "rel_err", "tol", "kernel_ms",
-            "cold_ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-            "link_share", "h2d_gb_per_s")} for c in serve_stream],
+            "shape", "transposed", "route", "max_abs_err", "rel_err", "tol",
+            "kernel_ms", "cold_ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "link_share", "h2d_gb_per_s")}
+            for c in serve_stream + encdec_stream],
         "launches_vlm": vlm_launches["stream_matmul"],
         "launches_by_route_vlm": vlm_stream_routes,
         **{f"vlm_{name}": {k: case[k] for k in (

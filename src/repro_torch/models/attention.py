@@ -308,11 +308,23 @@ def attention_core(cfg: ModelConfig, q, k, v, *, causal: bool, q_offset=0,
     routes take the offset (the kernels never read a key past the last
     query's position). The pallas route (forward kernel) takes a causal call
     whose queries all lie within the keys, ``Sq + q_offset <= Sk``: the
-    reference's ``Sq == Sk`` at no offset."""
+    reference's ``Sq == Sk`` at no offset. A single query that is not
+    causal (a decode step's cross attention) contracts the GQA groups in
+    ``decode_attention``, after ``expand_kv`` where ``kv_group`` maps local
+    query heads into whole KV heads."""
     if q.shape[1] == 1 and not causal:
+        if kv_group is not None:
+            k = expand_kv(k, q.shape[2], group=kv_group, head_offset=head_offset)
+            v = expand_kv(v, q.shape[2], group=kv_group, head_offset=head_offset)
         return decode_attention(q, k, v, kv_len=kv_len)
     k = expand_kv(k, q.shape[2], group=kv_group, head_offset=head_offset)
     v = expand_kv(v, q.shape[2], group=kv_group, head_offset=head_offset)
+    if not q.shape[1]:
+        # no queries (a sequence-parallel rank's block of a prompt shorter
+        # than the model axis): nothing to launch, the eager route's empty
+        # products keep the keys and values in the graph
+        return flash_attention(q, k, v, causal=causal, q_offset=q_offset,
+                               kv_len=kv_len, chunk=cfg.attn_chunk)
     if (cfg.attn_impl == "pallas" and causal
             and q.shape[1] + q_offset <= k.shape[1]):
         if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
@@ -353,10 +365,13 @@ def cache_attend(cfg: ModelConfig, q, k_new, v_new, cache_k, cache_v,
 
 
 def cross_attention(cfg: ModelConfig, p, x, enc_k, enc_v, *,
-                    prefix: str = "cross_", bias: bool = True):
+                    prefix: str = "cross_", bias: bool = True,
+                    kv_group: Optional[int] = None, head_offset: int = 0):
     """Decoder cross-attention over precomputed encoder K/V (no mask, no
     rope): (B, S, D) queries against (B, S_enc, KV, hd) keys and values.
-    ``bias``: as ``out_proj``'s."""
+    ``bias``: as ``out_proj``'s; ``kv_group`` / ``head_offset``:
+    ``expand_kv``'s, for local query heads over whole KV heads."""
     q = q_proj(cfg, p, x, None, prefix=prefix, use_rope=False)
-    attn = attention_core(cfg, q, enc_k, enc_v, causal=False)
+    attn = attention_core(cfg, q, enc_k, enc_v, causal=False,
+                          kv_group=kv_group, head_offset=head_offset)
     return out_proj(cfg, p, attn, prefix=prefix, bias=bias)

@@ -20,11 +20,26 @@ self-attention cache in place and returns the cross leaves unchanged; its
 The encoder's layers are ``transformer``'s attention + MLP block
 (bidirectional), the decoder's its attention and MLP blocks around a cross
 attention block, and both call the hooks of ``transformer.OneDevice`` or, on
-a mesh, ``MeshRun``: whisper's 20 heads do not divide a model axis of 16, so
-there the frames and the decoder's tokens are split by sequence over it
-(sequence-parallel attention: the encoder gathers each layer's K/V, the
-decoder its self-attention K/V and its cross K/V from the local frames).
-The cache is laid out by ``cache_specs_encdec``.
+a mesh, ``MeshRun``, in both layouts the reference's policy gives:
+
+* where the model axis does not divide the heads (whisper's 20 on 16 or 8),
+  the frames and the decoder's tokens are split by sequence over it
+  (sequence-parallel attention: the encoder gathers each layer's K/V, the
+  decoder its self-attention K/V and its cross K/V from the local frames);
+* where it does (2, 4, 5, 10, 20), the heads and the MLP width are split
+  over it (Megatron): the frames are whole on every model rank, and each
+  layer's cross K/V are projected from the encoder's output inside the
+  tensor-parallel region (entered once, its backward summing the ranks'
+  parts), each rank's KV heads where the axis splits them, else all of
+  them, read by the local query heads through ``kv_group``.
+
+The cache is laid out by ``cache_specs_encdec`` in both: the self K/V split
+by sequence over the model axis whatever the heads do, the cross K/V whole
+over it (gathered over the heads where they were split). A decode step
+writes the new token's K/V (gathered over the heads where they are split)
+on the rank whose part of the sequence holds its position, and the cross
+attention reads this rank's KV heads out of the whole cross cache
+(``MeshRun.own_kv_heads``).
 """
 from __future__ import annotations
 
@@ -115,11 +130,14 @@ def dec_layer(run, lp, x, positions, enc_k, enc_v, cache=None,
     """Self-attention (prefill, or decode against ``cache`` = (k, v) written
     in place at ``cache_pos``), cross-attention over the encoder's whole
     K/V, MLP; three pre-norms, in ``run.cfg`` with ``run``'s hooks.
-    Returns (x, (k, v))."""
+    Returns (x, (k, v)). ``enc_k`` / ``enc_v``: the KV heads this rank's
+    query heads read (``run.kv_group`` maps them where they are all)."""
     cfg = run.cfg
     x, kv = attn_block(run, lp, x, positions, cache, cache_pos)
     h = run.enter(nn.apply_norm(cfg, lp, "norm2", x))
-    a = run.exit(attn.cross_attention(cfg, lp, h, enc_k, enc_v, bias=False))
+    a = run.exit(attn.cross_attention(cfg, lp, h, enc_k, enc_v, bias=False,
+                                      kv_group=run.kv_group,
+                                      head_offset=run.head_offset))
     x = x + _plus_bias(cfg, lp, "cross_bo", a)
     return mlp_block(run, lp, x, "norm3"), kv
 
@@ -134,10 +152,15 @@ def forward_encdec(cfg: ModelConfig, params, batch, *,
     ``transformer.forward_decoder_only``'s: under sequence-parallel
     attention the encoder's frames and the decoder's tokens are split by
     sequence over the model axis, each layer's cross K/V are projected from
-    the local frames and gathered whole."""
+    the local frames and gathered whole; with the heads split, the frames
+    are whole and each layer's cross K/V are projected in the
+    tensor-parallel region, in ``run.cfg`` (this rank's KV heads)."""
     run = run if run is not None else OneDevice(cfg)
     enc_out = encode(cfg, params, batch["frames"], run=run)
     enc_len = local(batch["frames"]).shape[1]
+    # every decoder layer's cross projections read the encoder's output
+    # inside the tensor-parallel region (the identity off a head split)
+    enc_in = run.enter(enc_out)
     x, positions = run.embed(params, {"tokens": batch["tokens"]})
     x = run.constrain(x)
     dp = params["decoder"]
@@ -145,7 +168,7 @@ def forward_encdec(cfg: ModelConfig, params, batch, *,
     for i in range(cfg.num_layers):
         def body(x, i=i):
             lp = run.layer_params(dp, i)
-            ek, ev = attn.kv_proj(cfg, lp, enc_out, None, prefix="cross_",
+            ek, ev = attn.kv_proj(run.cfg, lp, enc_in, None, prefix="cross_",
                                   use_rope=False)
             ek, ev = run.cross_kv(ek, ev, enc_len)
             x, (k, v) = dec_layer(run, lp, x, positions, ek, ev)
@@ -154,11 +177,12 @@ def forward_encdec(cfg: ModelConfig, params, batch, *,
         x = run.constrain(x)
         if return_cache:
             k, v = run.cache_kv(k, v)
+            ek, ev = run.cross_cache(ek, ev)
             for name, t in zip(caches, (k, v, ek, ev)):
                 caches[name].append(t)
     cache = None
     if return_cache:
-        cache = run.stack_cache(caches, cache_specs_encdec)
+        cache = run.stack_cache(caches)
     if last_token_only:
         x = run.last_token(x)
     logits = run.unembed(params, x)
@@ -172,15 +196,18 @@ def decode_encdec(cfg: ModelConfig, params, cache, batch, *, run=None):
     """One-token decode against the cached self K/V (updated **in place**)
     and cross K/V (read only). Returns (logits (B, V), cache). ``run``: as
     ``forward_encdec``'s (a mesh's cache holds ``DTensor``s, the self K/V
-    split by sequence over the model axis, the cross K/V whole)."""
+    split by sequence over the model axis, the cross K/V whole, of which
+    each rank reads its query heads' KV heads). ``pos``: a scalar, or one
+    cache length a row (this rank's rows of it on a mesh)."""
     run = run if run is not None else OneDevice(cfg)
     x, positions = run.embed(params, batch)
     dp = params["decoder"]
     ck, cv = local(cache["k"]), local(cache["v"])
     xk, xv = local(cache["cross_k"]), local(cache["cross_v"])
     for i in range(cfg.num_layers):
-        x, _ = dec_layer(run, run.layer_params(dp, i), x, positions, xk[i],
-                          xv[i], cache=(ck[i], cv[i]), cache_pos=batch["pos"])
+        x, _ = dec_layer(run, run.layer_params(dp, i), x, positions,
+                         run.own_kv_heads(xk[i]), run.own_kv_heads(xv[i]),
+                         cache=(ck[i], cv[i]), cache_pos=batch["pos"])
     logits = run.unembed(params, x[:, 0:1, :])[:, 0, :]
     return run.logits(logits), cache
 
@@ -199,8 +226,8 @@ def init_cache_encdec(cfg: ModelConfig, batch: int, max_seq: int,
 def cache_specs_encdec(cfg: ModelConfig, batch: int, env: AxisEnv,
                        pol: ShardingPolicy) -> PyTree:
     """The reference's specs of ``init_cache_encdec``'s tree: self-attention
-    K/V with the sequence on the model axis, the cross K/V whole over it
-    (1500 frames are not divisible by it)."""
+    K/V with the sequence on the model axis whatever the heads do, the cross
+    K/V whole over it (1500 frames are not divisible by it)."""
     baxes = env.batch_axes(batch)
     kv = pspec(None, baxes, env.tp, None, None)
     cross = pspec(None, baxes, None, None, None)

@@ -505,10 +505,9 @@ def cache_specs_decoder_only(cfg: ModelConfig, batch: int, env: AxisEnv,
 # ROADMAP items of the parts a mesh does not run yet
 DEFERRED = {
     "ssm_seq": "A32 (an SSM scan across a sequence split)",
-    "encdec_tp": "A31 (enc-dec with its heads split over the model axis)",
-    "encdec_serving": "A33 (an enc-dec tenant served on a mesh)",
-    "vlm_serving": "A34 (a VLM tenant served through TenantEngine, whose "
-                   "prefill and ticks feed text tokens)",
+    "not_text": "A34 (a tenant whose inputs are not text tokens, served "
+                "through TenantEngine, whose prefill and ticks feed text "
+                "tokens)",
 }
 
 
@@ -520,30 +519,29 @@ def deferred(cfg: ModelConfig, what: str):
 
 def require_on_mesh(cfg: ModelConfig, pol: ShardingPolicy) -> None:
     """Raises, naming the ROADMAP item, unless a mesh runs ``cfg`` under
-    ``pol``: the dense, MoE and VLM families with their heads split over
-    the model axis (Megatron's tensor parallelism, with the residual stream
-    split by sequence where ``pol.seq_residuals``), with their activations
-    split by sequence instead (``pol.seq_parallel_attn``: the model axis
-    does not divide the heads), or with the model axis a batch axis
-    (fsdp_only), the MoE's experts split over the model axis where
+    ``pol``: the dense, MoE, VLM and enc-dec families with their heads split
+    over the model axis (Megatron's tensor parallelism, with the residual
+    stream split by sequence where ``pol.seq_residuals``), with their
+    activations split by sequence instead (``pol.seq_parallel_attn``: the
+    model axis does not divide the heads), or with the model axis a batch
+    axis (fsdp_only), the MoE's experts split over the model axis where
     ``pol.experts_sharded``; the SSM and hybrid families with their SSM
     heads split over the model axis where ``pol.ssm_sharded`` (else whole on
-    every model rank), except with their activations split by sequence; the
-    encoder-decoder the same as the dense family, except with its heads
-    split."""
+    every model rank), except with their activations split by sequence."""
     if cfg.family in (SSM, HYBRID) and pol.seq_sharded_acts:
         raise deferred(cfg, "ssm_seq")
-    if cfg.family == ENCDEC and pol.head_sharded:
-        raise deferred(cfg, "encdec_tp")
 
 
 # the weights a layer uses inside its tensor-parallel region (between the
 # all-reduce-backward entry and the all-reduce exit): a replicated one there
 # (the KV projections when the model axis does not divide the KV heads,
-# q_norm / k_norm) has a gradient part on each model rank
+# q_norm / k_norm) has a gradient part on each model rank; an enc-dec's cross
+# attention is inside a region too, its K/V projected from the encoder's
+# output once it entered it
 _TP_REGION = frozenset({"wq", "wk", "wv", "bq", "bk", "bv", "q_norm",
                         "k_norm", "wo", "w_in", "w_gate", "w_out", "b_in",
-                        "b_gate"})
+                        "b_gate", "cross_wq", "cross_wk", "cross_wv",
+                        "cross_bq", "cross_bk", "cross_bv", "cross_wo"})
 # an MoE layer's router and expert stacks: used on whole routing groups,
 # the same on every model rank but for the experts each rank holds
 _MOE_PARAMS = frozenset({"router", "w_in", "w_gate", "w_out"})
@@ -630,6 +628,16 @@ class OneDevice:
         attention."""
         return k, v
 
+    def cross_cache(self, k, v):
+        """A layer's cross K/V laid out as the cache: every KV head."""
+        return k, v
+
+    def own_kv_heads(self, t):
+        """The cross cache's K or V (every KV head) -> the KV heads that
+        this rank's query heads read (all of them where ``kv_group`` maps
+        the local heads into them)."""
+        return t
+
     def decode_attend(self, q, k_new, v_new, cache_k, cache_v, cache_pos):
         return attn.cache_attend(self.cfg, q, k_new, v_new, cache_k, cache_v,
                                  cache_pos)
@@ -637,7 +645,7 @@ class OneDevice:
     def cache_kv(self, k, v):
         return k, v
 
-    def stack_cache(self, parts, specs_of=None):
+    def stack_cache(self, parts):
         """{name: per-layer tensors} -> {name: layer-stacked tensor}."""
         return {name: torch.stack(ps) for name, ps in parts.items()}
 
@@ -721,9 +729,12 @@ class MeshRun(OneDevice):
         if self.tp and not pol.kv_sharded:
             self.kv_group = cfg.num_heads // cfg.num_kv_heads
             self.head_offset = self.model_rank * self.cfg.num_heads
-        # the cache splits the sequence over the model axis when that axis
-        # does not split the KV heads
-        self.seq_split = not pol.kv_sharded and env.size(env.tp) > 1
+        # the cache splits the sequence over the model axis where its specs
+        # say so: a decoder-only family's when that axis does not split the
+        # KV heads, an enc-dec's whatever the heads do
+        kv_spec = self.cache_specs().get("k")
+        self.seq_split = (kv_spec is not None and env.size(env.tp) > 1
+                          and env.tp in spec_axes(kv_spec[2]))
         self.seq_offset = self._first_position()
         # the tokens' layout at the head: the activations', until the last
         # token is taken or the unembedding re-lays them
@@ -752,11 +763,22 @@ class MeshRun(OneDevice):
 
     def encoder(self, ecfg: ModelConfig, seq_len: int):
         """The same layout over an encoder's ``seq_len`` frames (its own
-        split of the sequence) with its config."""
+        split of the sequence) with its config: its layers, this rank's
+        heads and MLP width."""
         run = copy.copy(self)
-        run.cfg, run.seq_len = ecfg, seq_len
+        run.cfg = self.cfg.with_(num_layers=ecfg.num_layers)
+        run.seq_len = seq_len
         run.seq_offset = run._first_position()
         return run
+
+    def cache_specs(self):
+        """The reference's spec tree of this model's cache: the enc-dec's
+        (``encdec.cache_specs_encdec``) or ``cache_specs_decoder_only``."""
+        args = (self.cfg_global, self.batch, self.env, self.pol)
+        if self.cfg_global.family == ENCDEC:
+            from repro_torch.models.encdec import cache_specs_encdec
+            return cache_specs_encdec(*args)
+        return cache_specs_decoder_only(*args)
 
     # -- parameters --------------------------------------------------------
     def layer_params(self, lp_all, i: int):
@@ -963,6 +985,36 @@ class MeshRun(OneDevice):
             return k, v
         return tuple(tp_enter(t, self.env, self.act_pl, seq_len) for t in (k, v))
 
+    @property
+    def kv_split(self) -> bool:
+        """The model axis splits the KV heads (each rank projects its own)."""
+        return self.tp and self.pol.kv_sharded
+
+    def cross_cache(self, k, v):
+        """A layer's cross K/V laid out as the cache, whole over the model
+        axis (``cache_specs_encdec``: 1,500 frames are not split): where
+        that axis splits the KV heads, each rank's gathered over it."""
+        if not self.kv_split:
+            return k, v
+        return self._heads_whole(k), self._heads_whole(v)
+
+    def own_kv_heads(self, t):
+        """The cross cache's K or V, every KV head on every model rank ->
+        this rank's KV heads where the model axis splits them (its query
+        heads read those alone), else all of them (``kv_group`` maps the
+        local heads into them)."""
+        if not self.kv_split:
+            return t
+        n = self.cfg.num_kv_heads
+        return t[:, :, self.model_rank * n:(self.model_rank + 1) * n]
+
+    def _heads_whole(self, t):
+        """(B, S, heads, hd), its heads split over the model axis and its
+        rows laid out as the activations' -> every head."""
+        env, rows = self.env, self.act_spec[0]
+        return reshard(t, env, placements(pspec(rows, None, env.tp, None), env),
+                       placements(pspec(rows, None, None, None), env))
+
     # -- the cache ---------------------------------------------------------
     def decode_attend(self, q, k_new, v_new, cache_k, cache_v, cache_pos):
         """With the cache's sequence split over the model axis: writes the
@@ -973,9 +1025,11 @@ class MeshRun(OneDevice):
         row written on its own rank, each masked at its own length). Where
         the query heads are split over that axis too, the combine is over
         every head: the queries are gathered over the model axis first and
-        each rank keeps its own heads' output. Otherwise every rank holds
-        the whole sequence of its batch rows and KV heads, as on one
-        device."""
+        each rank keeps its own heads' output; where the KV heads are split
+        as well (an enc-dec's cache splits the sequence whatever the heads
+        do), the new token's K/V are gathered over it before the write, as
+        the cache row holds every KV head. Otherwise every rank holds the
+        whole sequence of its batch rows and KV heads, as on one device."""
         if self._slot is None:
             self._slot = self._cache_slot(cache_pos, cache_k.shape[1],
                                           q.device)
@@ -983,6 +1037,8 @@ class MeshRun(OneDevice):
         if not self.seq_split:
             return super().decode_attend(q, k_new, v_new, cache_k, cache_v,
                                          pos)
+        if self.kv_split:
+            k_new, v_new = self._heads_whole(k_new), self._heads_whole(v_new)
         for c, new in ((cache_k, k_new), (cache_v, v_new)):
             if pos.dim() == 0:
                 c.index_copy_(1, idx, torch.where(inside, new.to(c.dtype),
@@ -995,13 +1051,11 @@ class MeshRun(OneDevice):
         if not self.tp:
             return attn.decode_attention(q, cache_k, cache_v, kv_len=pos + 1,
                                          k_offset=offset, model_group=group)
-        env, H = self.env, q.shape[2]
-        split = placements(pspec(self.act_spec[0], None, env.tp, None), env)
-        whole = placements(pspec(self.act_spec[0], None, None, None), env)
-        out = attn.decode_attention(reshard(q, env, split, whole), cache_k,
-                                    cache_v, kv_len=pos + 1, k_offset=offset,
+        H = q.shape[2]
+        out = attn.decode_attention(self._heads_whole(q), cache_k, cache_v,
+                                    kv_len=pos + 1, k_offset=offset,
                                     model_group=group)
-        return out[:, :, self.head_offset:self.head_offset + H]
+        return out[:, :, self.model_rank * H:(self.model_rank + 1) * H]
 
     def _cache_slot(self, cache_pos, S_local: int, device):
         """(pos, offset, inside, idx) of a decode step, computed once for
@@ -1019,26 +1073,27 @@ class MeshRun(OneDevice):
                 idx.reshape(1) if pos.dim() == 0 else idx)
 
     def cache_kv(self, k, v):
-        """A layer's K/V laid out as the cache (``cache_specs_decoder_only``
-        less its layer dim). A sequence-parallel rank's own K/V are its part
-        of the cache's sequence split already."""
+        """A layer's K/V laid out as the cache (``cache_specs`` less its
+        layer dim). A sequence-parallel rank's own K/V are its part of the
+        cache's sequence split already; where the KV heads are split and the
+        cache splits the sequence (the enc-dec's), they are gathered whole
+        first and each rank keeps its part of the sequence."""
         env = self.env
-        spec = cache_specs_decoder_only(self.cfg_global, self.batch, env,
-                                        self.pol)["k"][1:]
+        dst = placements(self.cache_specs()["k"][1:], env)
+        heads = env.tp if self.kv_split else None
+        if heads and self.seq_split:
+            k, v = self._heads_whole(k), self._heads_whole(v)
+            heads = None
         src = placements(pspec(self.act_spec[0],
-                               env.tp if self.seq_parallel else None,
-                               env.tp if (self.tp and self.pol.kv_sharded)
-                               else None, None), env)
-        dst = placements(spec, env)
+                               env.tp if self.seq_parallel else None, heads,
+                               None), env)
         return reshard(k, env, src, dst), reshard(v, env, src, dst)
 
-    def stack_cache(self, parts, specs_of=None):
+    def stack_cache(self, parts):
         """{name: per-layer local tensors} -> {name: layer-stacked
-        ``DTensor``} laid out by the spec tree ``specs_of(cfg, batch, env,
-        pol)`` gives (``cache_specs_decoder_only`` by default)."""
-        cfg, env = self.cfg_global, self.env
-        specs = (specs_of or cache_specs_decoder_only)(cfg, self.batch, env,
-                                                        self.pol)
+        ``DTensor``} laid out by ``cache_specs``."""
+        env = self.env
+        specs = self.cache_specs()
         out = {}
         for name, ps in parts.items():
             x, pl = torch.stack(ps), placements(specs[name], env)
@@ -1055,8 +1110,7 @@ class MeshRun(OneDevice):
         batch axes to the cache's (fsdp_only's batch spans the model axis,
         the cache's does not), the hybrid's K/V as ``cache_kv`` lays them."""
         env = self.env
-        specs = cache_specs_decoder_only(self.cfg_global, self.batch, env,
-                                         self.pol)
+        specs = self.cache_specs()
         rows = self.act_spec[0]
         heads = env.tp if self.ssm_heads else None
         out = {}

@@ -45,7 +45,11 @@ report the global sizes the reference reports (a JAX array's size is
 global); ``local_device_bytes`` / ``local_host_bytes`` this rank's.
 ``paste`` gathers a prefill's prefix whole over the sequence (one request's
 tokens), and each rank writes the part of it that falls in its part of the
-pool, on the rank whose batch shard holds the slot.
+pool, on the rank whose batch shard holds the slot. An enc-dec's cross K/V
+are whole over the model axis (``cache_specs_encdec``): every model rank
+holds them whole, placed by their majority tier, and a paste writes one
+request's ``(L, 1, encoder_seq, KV, hd)`` whole into the slot, whatever its
+``plen``.
 """
 from __future__ import annotations
 

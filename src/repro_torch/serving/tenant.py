@@ -20,7 +20,9 @@ slots and the tokens are the same on every rank, the prefill's prompt and a
 tick's tokens and per-row positions are laid out by the model's batch specs
 (each rank keeping its slice of them), and the next tokens are the argmax of
 the logits gathered whole (the head is vocab-parallel; a tick's logits are
-small). An enc-dec or VLM tenant raises on a mesh, naming its ROADMAP item.
+small). An enc-dec or VLM tenant raises on a mesh, naming its ROADMAP item
+(A34: its inputs are frames or embeddings, the engine feeds text tokens);
+``Model.forward`` / ``decode`` and a ``KVPool`` serve both on a mesh.
 """
 from __future__ import annotations
 
@@ -89,13 +91,11 @@ class TenantStats:
 
 def require_servable(model) -> None:
     """Raises, naming the ROADMAP item, for a tenant ``TenantEngine`` cannot
-    serve on a mesh: an enc-dec (its cross K/V pool and the reference's
-    decode of B positions a row need a design of their own) or a VLM (its
-    inputs are embeddings, the engine feeds text tokens)."""
-    if model.sharded and model.cfg.family == ENCDEC:
-        raise deferred(model.cfg, "encdec_serving")
-    if model.sharded and model.cfg.family == VLM:
-        raise deferred(model.cfg, "vlm_serving")
+    serve on a mesh: one whose inputs are not text tokens (an enc-dec's
+    frames, a VLM's embeddings), while the engine's prefill and ticks feed
+    text tokens."""
+    if model.sharded and model.cfg.family in (ENCDEC, VLM):
+        raise deferred(model.cfg, "not_text")
 
 
 class TenantEngine:

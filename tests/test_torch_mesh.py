@@ -314,6 +314,20 @@ _WORKER = textwrap.dedent("""\
             cfg = get_config(arch).reduced().with_(remat="none",
                                                    dtype="float32", **over)
             rt = SliceRuntime(mesh=make_host_mesh(*mesh_shape))
+            if p.get("pool_only"):
+                # a tenant TenantEngine does not serve on a mesh: its pool
+                # alone, placed by the runtime's plan
+                from repro_torch.core.slices import get_profile
+                from repro_torch.serving import KVPool
+                model = model_zoo.build_model(cfg, rt.mesh)
+                spec_ = TenantSpec(name, cfg, **spec)
+                plan = rt._plan(spec_, get_profile(spec_.profile), model,
+                                model.init(abstract=True)[0])
+                pool = KVPool(model, spec_.slots, spec_.max_seq, plan=plan)
+                res[name] = {"split": pool.split_leaves,
+                             "bytes": (pool.device_bytes, pool.host_bytes),
+                             "plan_offloaded": plan.offloaded}
+                continue
             if "params" in p:
                 model_zoo.Model.init = given(p["params"])
             try:
@@ -392,11 +406,11 @@ _WORKER = textwrap.dedent("""\
     """)
 
 
-def _world(tmp_path, job, args=()) -> float:
-    """Runs ``job`` on 4 spawned gloo ranks, under the world's timeout;
-    returns the world's seconds."""
+def _world(tmp_path, job, args=(), worker=_WORKER) -> float:
+    """Runs ``job`` of ``worker`` (this module's by default) on 4 spawned
+    gloo ranks, under the world's timeout; returns the world's seconds."""
     torch.save(args, tmp_path / "job.pt")
-    (tmp_path / "worker.py").write_text(_WORKER)
+    (tmp_path / "worker.py").write_text(worker)
     env = {**os.environ, "PYTHONPATH": SRC}
     t0 = time.time()
     out = subprocess.run([sys.executable, str(tmp_path / "worker.py"),

@@ -25,6 +25,12 @@ serving 3 requests of 5, 8 and 11 prompt tokens with 6 new tokens each.
   the sequence whole (2, 2), rounded to one tier where it splits it (1, 4),
   as the reference's ``_spec_allows_seq_split`` rules.
 
+``whisper_1x4_spill`` (reduced whisper with 4 KV heads on (1, 4), the
+budget one byte under what spilling its three tables and its pool frees)
+is a pool alone: ``TenantEngine`` feeds text tokens and raises for an
+enc-dec on a mesh (A34), so the worker places a ``KVPool`` by the
+runtime's plan for it.
+
 The planner spills the table and the KV pool before any parameter (their
 host traffic per byte is lower), so no budget puts a parameter in the host
 tier while it splits a KV leaf: the spill and the split are separate cases.
@@ -35,8 +41,8 @@ split rounded on (1, 4)). In one subprocess with 4 host devices, the
 reference's ``SliceRuntime(mesh=...)`` (inside ``with mesh:``) serves
 ``llama3_1x4`` and ``zamba2_1x4`` on its own weights, which the port's mesh
 runtime is then given (``*_ref``); the tokens are equal. The reference's
-``KVPool`` on the mesh places the four spill and split cases' pools as the
-port's does (split leaves, device and host bytes).
+``KVPool`` on the mesh places the four spill and split cases' pools and
+whisper's as the port's does (split leaves, device and host bytes).
 """
 import dataclasses
 import json
@@ -83,11 +89,15 @@ CASES = {"llama3_1x4": ("llama3-8b", (1, 4), {}, None),
          "llama3_1x4_spill": ("llama3-8b", (1, 4), {}, "spill"),
          "llama3_2x2_split": ("llama3-8b", (2, 2), {}, "split"),
          "llama3_1x4_split": ("llama3-8b", (1, 4), {}, "split")}
+# the cases whose pool alone is placed (budget "tables": the embedding
+# tables, the whole pool and the next parameters to the host tier)
+POOL_CASES = {"whisper_1x4_spill": ("whisper-large-v3", (1, 4),
+                                    {"num_kv_heads": 4}, "tables")}
 # the cases the reference's mesh runtime serves on its own weights
 REF_TOKENS = ("llama3_1x4", "zamba2_1x4")
 # the cases whose pool the reference's KVPool places on the mesh
 REF_POOLS = ("llama3_2x2_spill", "llama3_1x4_spill", "llama3_2x2_split",
-             "llama3_1x4_split")
+             "llama3_1x4_split", "whisper_1x4_spill")
 # the cases whose pool splits the KV heads over "model" (dim 3); every other
 # case's splits the sequence (dim 2); the slots over "data" (dim 1)
 KV_HEADS_SPLIT = ("llama3_2x2", "llama3_2x2_spill", "llama3_2x2_split")
@@ -115,7 +125,10 @@ def _spec(name, cfg, budget):
                                   model.cache_shapes(SLOTS, MAX_SEQ))
     size = {t.name: t.bytes for t in inv}
     free = sum(size.values()) - size["params/tok_embed"]
-    if budget == "spill":
+    if budget == "tables":
+        hbm = sum(size.values()) - 1 - sum(
+            t.bytes for t in inv if t.group in ("embed", "kv_cache"))
+    elif budget == "spill":
         hbm = free - size["kv/k"] - size["kv/v"] - 1
     else:
         hbm = free - size["kv/k"] // 2
@@ -167,11 +180,13 @@ def served(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("mesh_runtime")
     requests = [(p.tolist(), n) for p, n in _requests()]
     cases, payload, local, job = {}, {}, {}, {}
-    for name, (arch, mesh_shape, over, budget) in CASES.items():
+    for name, (arch, mesh_shape, over, budget) in {**CASES,
+                                                   **POOL_CASES}.items():
         cfg = _cfg(arch, over)
         spec = _spec(name, cfg, budget)
         cases[name] = (arch, mesh_shape, over, spec)
-        payload[name] = {"requests": requests}
+        payload[name] = {"requests": requests,
+                         "pool_only": name in POOL_CASES}
         if name in REF_TOKENS + REF_POOLS:
             job[name] = {"cfg": dataclasses.asdict(cfg), "mesh": mesh_shape,
                          "spec": spec, "serve": name in REF_TOKENS,
@@ -201,7 +216,7 @@ def served(tmp_path_factory):
         got["ranks"] = [torch.load(tmp / f"outputs{r}.pt") for r in range(4)]
         got["world_s"] = round(seconds, 1)
         for name, (arch, _, over, spec) in cases.items():
-            if not name.endswith("_ref"):
+            if name in CASES:
                 local[name] = _one_device(name, _cfg(arch, over), spec)
         t0 = time.time()
         _, err = ref.communicate(timeout=WORLD_TIMEOUT_S)
@@ -294,14 +309,22 @@ def test_mesh_pool_equals_reference_pool(case, served):
     got, _, reference = served
     assert got[case]["split"] == reference[case]["split"]
     assert list(got[case]["bytes"]) == reference[case]["bytes"]
+    if case in POOL_CASES:
+        # whisper's pool whole in the host tier, and decoder/w_in with it
+        assert got[case]["bytes"][0] == 0
+        assert {"kv/k", "kv/v", "kv/cross_k", "kv/cross_v",
+                "params/decoder/w_in"} <= set(got[case]["plan_offloaded"])
 
 
 def test_unserved_families_raise_naming_their_items(served):
+    """``TenantEngine`` feeds text tokens: an enc-dec (frames) or VLM
+    (embeddings) tenant raises on a mesh naming A34; the enc-dec's own
+    items (its heads split, served on a mesh) are ported."""
     got, _, _ = served
-    assert "A33" in got["whisper-large-v3"]
+    assert "A34" in got["whisper-large-v3"]
     assert "A34" in got["qwen2-vl-72b"]
-    assert "serving" not in DEFERRED
-    assert "A33" in DEFERRED["encdec_serving"]
+    assert sorted(DEFERRED) == ["not_text", "ssm_seq"]
+    assert "A34" in DEFERRED["not_text"]
 
 
 @pytest.mark.parametrize("sizes", [(1, 4), (2, 2), (4, 1), (1, 1)])
